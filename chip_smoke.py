@@ -1,0 +1,432 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path end to end and fails loudly if any phase fails:
+
+1. builds every CUDA kernel of the path from ``src/repro_torch/csrc``
+   (one nvcc per source, all started together);
+2. holds each kernel against its plain PyTorch version on the card at the
+   shapes the main path gives it (tolerances stated below), and checks that
+   repeated vmul_reduce launches are bit-identical;
+3. runs the paper's workload, ``sum(a * b)``, through ``Overlay(3, 3).jit``
+   on the static placements with 0-3 pass-through tiles and on dynamic
+   placement — outputs bit-identical across placements — plus the LARGE
+   ``vmul_reduce`` bitstream, and times each;
+4. serves phi3-mini-3.8b at full width (random bf16 weights from a seed,
+   32 layers) through ``Overlay(3, 3)`` and with ``overlay=None``: identical
+   greedy token streams, and one rmsnorm launch per norm call;
+5. checks the model's outputs: finite full-width logits, and a small
+   float32 model on the card (kernels) against the same model on the CPU
+   (plain versions);
+6. prints the kernels line (time, bound, plain and library times, launches),
+   the card's name and power limit, and last the result line.
+
+Launch counts come from the wrappers' counters, set to 0 just before each
+driven path (the paper workload, the overlay-served run) and read just
+after; launches made to compare or time a kernel are not counted.  Exits
+non-zero without a result line when CUDA is unavailable or the port's
+sources are missing.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+    sys.exit("chip_smoke.py: src/repro_torch not found beside this script")
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke.py: CUDA is not available")
+
+from repro_torch.configs import PAPER_VECTOR_LEN, get_config  # noqa: E402
+from repro_torch.core import Overlay, PlacementPolicy  # noqa: E402
+from repro_torch.kernels import native, ops  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
+from repro_torch.kernels import vmul_reduce as vr_mod  # noqa: E402
+from repro_torch.models import model as mdl  # noqa: E402
+from repro_torch.models import params as pm  # noqa: E402
+from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
+
+DEV = torch.device("cuda")
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
+F32_FLOPS_PER_S = 67e12          # H100 SXM float32 peak outside the tensor cores
+BATCH, PROMPT, MAX_NEW, MAX_LEN, REQUESTS = 2, 16, 8, 128, 4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of one call (CUDA events around ``iters`` calls)."""
+    for _ in range(warmup):
+        fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def reset_counters() -> None:
+    for c in ops.LAUNCH_COUNTERS:
+        c.reset()
+
+
+def counts() -> dict[str, int]:
+    return {c.name: c.count for c in ops.LAUNCH_COUNTERS}
+
+
+# ---------------------------------------------------------------------------
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    paths = native.build()
+    log(f"[build] {sorted(paths)} in {time.perf_counter() - t0:.1f}s "
+        f"(nvcc -gencode arch=compute_90a,code=sm_90a)")
+    for name, path in paths.items():
+        regs = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
+                if "registers" in ln]
+        log(f"[build] {name}: " + " | ".join(sorted(set(regs))))
+
+
+def phase_kernel_checks(gen: torch.Generator) -> dict[str, float]:
+    """Each kernel against its plain version at the main path's shapes.
+
+    Tolerances: vmul_reduce accumulates in f32 in another order than
+    torch.sum, so |kernel - plain| <= 1e-5 * sum(|a*b|) (+ one bf16 rounding
+    of the result, 2**-8 * |plain|, for bf16); rmsnorm computes the same
+    f32 expression per element with another reduction order and rsqrtf, so
+    |kernel - plain| <= 1e-5 * (1 + |plain|) in f32 and one bf16 ulp
+    (2**-7 * |plain|) in bf16."""
+    errs = {"vmul_reduce": 0.0, "rmsnorm": 0.0}
+    for n in (PAPER_VECTOR_LEN, 1000003, 1 << 26):
+        for dt in (torch.float32, torch.bfloat16):
+            a = torch.randn(n, generator=gen, device=DEV).to(dt)
+            b = torch.randn(n, generator=gen, device=DEV).to(dt)
+            k1 = vr_mod.vmul_reduce_cuda(a, b)
+            k2 = vr_mod.vmul_reduce_cuda(a, b)
+            p = vr_mod.plain(a, b)
+            abs_sum = (a.float() * b.float()).abs().sum().item()
+            err = abs(k1.float().item() - p.float().item())
+            tol = 1e-5 * abs_sum + (2 ** -8 * abs(p.float().item())
+                                    if dt == torch.bfloat16 else 0.0)
+            check(torch.equal(k1, k2), f"vmul_reduce n={n} {dt}: repeated launches differ")
+            check(err <= tol, f"vmul_reduce n={n} {dt}: err {err} > tol {tol}")
+            errs["vmul_reduce"] = max(errs["vmul_reduce"], err)
+            log(f"[kernels] vmul_reduce n={n} {str(dt)[6:]}: kernel {k1.float().item():.6f} "
+                f"plain {p.float().item():.6f} err {err:.3g} tol {tol:.3g} bit-identical repeat")
+            del a, b
+    for rows in (PROMPT, BATCH * PROMPT, BATCH):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(rows, 3072, generator=gen, device=DEV).to(dt)
+            w = 1.0 + 0.1 * torch.randn(3072, generator=gen, device=DEV)
+            y = rn_mod.rmsnorm_cuda(x, w)
+            p = rn_mod.plain(x, w)
+            diff = (y.float() - p.float()).abs()
+            rel = 2 ** -7 if dt == torch.bfloat16 else 1e-5
+            check(bool((diff <= rel * (1 + p.float().abs())).all()),
+                  f"rmsnorm ({rows}, 3072) {dt}: max err {diff.max().item()}")
+            errs["rmsnorm"] = max(errs["rmsnorm"], diff.max().item())
+            log(f"[kernels] rmsnorm ({rows}, 3072) {str(dt)[6:]} x, f32 w: "
+                f"max err {diff.max().item():.3g}")
+    torch.cuda.synchronize()
+    return errs
+
+
+class Counted:
+    """Counts calls of a serving step (prefill or decode) and keeps each
+    call's host time.  The steps are host-bound (the card idles while Python
+    issues the aten ops), so the time to issue a call is close to its time
+    to run; the tick's one device-to-host copy ends each decode call."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.seconds = fn, 0, []
+
+    def __call__(self, *args):
+        self.calls += 1
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+    def split_ms(self) -> str:
+        """First call (trace and assembly, for an overlay) and the median of
+        the rest, in ms."""
+        return (f"first {self.seconds[0] * 1e3:.1f} ms, then median "
+                f"{float(np.median(self.seconds[1:])) * 1e3:.1f} ms")
+
+
+def phase_overlay_paper(gen: torch.Generator) -> dict:
+    """The paper's VMUL&Reduce through Overlay.jit on every placement."""
+    def dot(a, b):
+        return torch.sum(a * b)
+
+    def large(a, b):
+        return ops.vmul_reduce(a, b)
+
+    n = PAPER_VECTOR_LEN
+    a = torch.randn(n, generator=gen, device=DEV)
+    b = torch.randn(n, generator=gen, device=DEV)
+    # trace node ids: inputs 0, 1; VMUL (mul) 2; Reduce (sum) 3.  The grid's
+    # LARGE tiles are (0,0), (1,1), (2,2): Reduce is pinned at (0,0) and VMUL
+    # moved progressively further away (fig. 2 of the paper).
+    scenarios = [("static_0pass", (0, 1)), ("static_1pass", (0, 2)),
+                 ("static_2pass", (1, 2)), ("static_3pass", (2, 2))]
+    static_ov = Overlay(3, 3, policy=PlacementPolicy.STATIC)
+    dyn_ov = Overlay(3, 3)
+    fns = {name: static_ov.jit(dot, name="vmul_reduce", fixed={2: vmul, 3: (0, 0)})
+           for name, vmul in scenarios}
+    fns["dynamic"] = dyn_ov.jit(dot, name="vmul_reduce")
+    fns["large_vmul_reduce"] = dyn_ov.jit(large, name="vmul_reduce_large")
+
+    reset_counters()                           # the driven path starts here
+    outs = {name: f(a, b) for name, f in fns.items()}
+    before = (dyn_ov.stats.traces, dyn_ov.stats.downloads)
+    outs["large_again"] = fns["large_vmul_reduce"](a, b)   # a resident hit
+    torch.cuda.synchronize()
+    launches = counts()
+    check((dyn_ov.stats.traces, dyn_ov.stats.downloads) == before,
+          "second LARGE call traced or downloaded again")
+
+    base = outs["dynamic"]
+    for name in ("static_0pass", "static_1pass", "static_2pass", "static_3pass"):
+        check(torch.equal(outs[name], base), f"{name} differs from dynamic placement")
+    check(torch.equal(outs["large_vmul_reduce"], outs["large_again"]),
+          "LARGE vmul_reduce not bit-identical across calls")
+    check(abs(outs["large_vmul_reduce"].item() - base.item())
+          <= 1e-5 * (a * b).abs().sum().item(), "LARGE vmul_reduce disagrees with sum(a*b)")
+    check(launches["vmul_reduce"] >= 2, f"vmul_reduce launched {launches} on the overlay path")
+    hops = {name: f.accelerator(a, b).placement.total_passthrough for name, f in fns.items()}
+    large_graph = fns["large_vmul_reduce"].lower(a, b).graph
+    check([nd.name for nd in large_graph.op_nodes()] == ["kernels/vmul_reduce"],
+          "the LARGE call did not lower to one kernels/vmul_reduce node")
+    log(f"[overlay] bit-identical across static 0-3 pass-through and dynamic "
+        f"placement; LARGE vmul_reduce = one {large_graph.op_nodes()[0].op.tile_class.value} "
+        f"node; launches {launches}")
+
+    times = {}
+    for size in (n, 1 << 24):
+        a2 = torch.randn(size, generator=gen, device=DEV)
+        b2 = torch.randn(size, generator=gen, device=DEV)
+        iters = 200 if size == n else 50
+        row = {name: time_ms(lambda f=f: f(a2, b2), iters) for name, f in fns.items()}
+        row["custom_torch_sum"] = time_ms(lambda: dot(a2, b2), iters)
+        times[size] = row
+        log(f"[overlay] n={size} ms per call: " + ", ".join(
+            f"{k}={v:.4f}" + (f"(pass={hops[k]})" if k in hops and k.startswith("static") else "")
+            for k, v in row.items()))
+    return {"launches": launches, "times": times}
+
+
+def serve(params, cfg, overlay) -> tuple[list, dict, float, dict, ServeEngine]:
+    rng = np.random.default_rng(SEED)
+    engine = ServeEngine(params, cfg, batch=BATCH, max_len=MAX_LEN, overlay=overlay,
+                         device=DEV)
+    engine._prefill, engine._decode = Counted(engine._prefill), Counted(engine._decode)
+    for rid in range(REQUESTS):
+        prompt = rng.integers(0, cfg.vocab_size, size=(PROMPT,)).tolist()
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
+    torch.cuda.synchronize()
+    reset_counters()                           # the driven path starts here
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts()
+    calls = {"prefill": engine._prefill.calls, "decode": engine._decode.calls}
+    streams = [r.out for r in sorted(done, key=lambda r: r.rid)]
+    return streams, launches, dt, calls, engine
+
+
+def phase_serve(gen: torch.Generator) -> dict:
+    cfg = get_config("phi3-mini-3.8b")
+    t0 = time.perf_counter()
+    params = pm.init(cfg, gen, DEV)
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {pm.count(params) / 1e9:.3f} B params "
+        f"(d_model {cfg.d_model}, {cfg.num_layers} layers, bf16) initialized in "
+        f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    ov = Overlay(3, 3)
+    s_ov, l_ov, dt_ov, calls, eng_ov = serve(params, cfg, ov)
+    s_pl, l_pl, dt_pl, calls_pl, eng_pl = serve(params, cfg, None)
+    tokens = sum(len(s) for s in s_ov)
+    check(s_ov == s_pl, f"overlay and plain token streams differ:\n{s_ov}\n{s_pl}")
+    check(all(len(s) == 1 + MAX_NEW and all(0 <= t < cfg.vocab_size for t in s)
+              for s in s_ov), "unexpected token stream shape/range")
+    norms = 2 * cfg.num_layers + 1
+    want = norms * (calls["prefill"] + calls["decode"])
+    check(l_ov["rmsnorm"] == want,
+          f"rmsnorm launches {l_ov['rmsnorm']} != {norms} x {calls} = {want}")
+    check(l_pl["rmsnorm"] == norms * (calls_pl["prefill"] + calls_pl["decode"]),
+          f"plain engine rmsnorm launches {l_pl['rmsnorm']}")
+    desc = ov.describe()
+    log(f"[serve] overlay: {tokens} tokens in {dt_ov:.2f}s ({tokens / dt_ov:.1f} tok/s), "
+        f"calls {calls}, launches {l_ov}; traces {desc['traces']} "
+        f"({desc['trace_seconds']:.1f}s), downloads {desc['downloads']}, "
+        f"cache {desc['cache']['hits']} hits / {desc['cache']['misses']} misses")
+    log(f"[serve] plain:   {tokens} tokens in {dt_pl:.2f}s ({tokens / dt_pl:.1f} tok/s), "
+        f"launches {l_pl}; streams identical: {s_ov == s_pl}")
+    for step in ("prefill", "decode"):
+        jitted = getattr(eng_ov, f"_{step}").fn
+        (entry,) = jitted._entries.values()
+        graph = entry.lowered.graph
+        log(f"[serve] {step} host time per call: overlay {getattr(eng_ov, f'_{step}').split_ms()}"
+            f" (trace {entry.trace_seconds:.2f} s, assemble {entry.assemble_seconds:.2f} s); "
+            f"plain {getattr(eng_pl, f'_{step}').split_ms()}; graph {len(graph.op_nodes())} "
+            f"op nodes ({len(entry.lowered.unmapped)} residue), "
+            f"{entry.acc.placement.total_passthrough} pass-through hops")
+    log(f"[serve] streams: {s_ov}")
+    log(f"[serve] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prompt = torch.tensor([list(range(1, PROMPT + 1))], dtype=torch.int32, device=DEV)
+    logits, _ = mdl.prefill(params, cfg, prompt, mdl.init_cache(cfg, 1, MAX_LEN, DEV))
+    check(tuple(logits.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          "full-width prefill logits not finite / wrong shape")
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": l_ov, "calls": calls, "tok_s_overlay": tokens / dt_ov,
+            "tok_s_plain": tokens / dt_pl}
+
+
+def phase_small_reference() -> None:
+    """A small float32 phi3 (d_model 128, 2 layers) on the card (CUDA
+    kernels) against the same model on the CPU (plain versions).
+    Tolerance 1e-2 * (1 + |logit|): f32 everywhere except the bf16 KV
+    cache.  A cached key or value an f32 ulp apart on the two devices can
+    round to neighbouring bf16 values, 2**-8 (0.4%) apart, and that moves
+    the logits by a few 1e-3."""
+    from repro_torch.configs import smoke_config
+    cfg = smoke_config("phi3-mini-3.8b").scaled(d_model=128, head_dim=32,
+                                                dtype="float32")
+    cpu = _to(pm.init(cfg, torch.Generator().manual_seed(SEED), "cpu"), "cpu",
+              torch.float32)
+    cuda = _to(cpu, DEV)
+    toks = torch.tensor([[5, 17, 42, 99, 7, 3]], dtype=torch.int32)
+    lc, cc = mdl.prefill(cpu, cfg, toks, mdl.init_cache(cfg, 1, 16, "cpu"))
+    lg, cg = mdl.prefill(cuda, cfg, toks.to(DEV), mdl.init_cache(cfg, 1, 16, DEV))
+    dc, _ = mdl.decode_step(cpu, cfg, toks[:, :1], cc)
+    dg, _ = mdl.decode_step(cuda, cfg, toks[:, :1].to(DEV), cg)
+    for name, want, got in (("prefill", lc, lg), ("decode", dc, dg)):
+        got = got.cpu()
+        check(bool((got - want).abs().le(1e-2 * (1 + want.abs())).all()),
+              f"small model {name}: card vs CPU max err {(got - want).abs().max().item()}")
+        log(f"[reference] small f32 phi3 {name} logits: card (kernels) vs CPU "
+            f"(plain) max err {(got - want).abs().max().item():.3g}")
+
+
+def _to(tree, dev, dtype=None):
+    if torch.is_tensor(tree):
+        return tree.to(device=dev, dtype=dtype)
+    if isinstance(tree, list):
+        return [_to(t, dev, dtype) for t in tree]
+    return {k: _to(v, dev, dtype) for k, v in tree.items()}
+
+
+def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[dict]:
+    """Time each kernel at the main path's shape beside its bound, its plain
+    version and one library call computing the same function."""
+    import torch.nn.functional as F
+    out = []
+    n = PAPER_VECTOR_LEN
+    a = torch.randn(n, generator=gen, device=DEV)
+    b = torch.randn(n, generator=gen, device=DEV)
+    bytes_ = 2 * n * 4 + 4
+    out.append({
+        "name": "vmul_reduce", "route": "cuda",
+        "source": "src/repro_torch/csrc/vmul_reduce.cu",
+        "replaces": "src/repro/kernels/vmul_reduce.py:63",
+        "launches": launches["vmul_reduce"],
+        "max_abs_err": errs["vmul_reduce"],
+        "ms": time_ms(lambda: vr_mod.vmul_reduce_cuda(a, b), 500),
+        "plain_ms": time_ms(lambda: vr_mod.plain(a, b), 500),
+        "bound_ms": max(bytes_ / HBM_BYTES_PER_S, 2 * n / F32_FLOPS_PER_S) * 1e3,
+        "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >= 2 * n / F32_FLOPS_PER_S
+        else "operations",
+        "library_ms": time_ms(lambda: torch.dot(a, b), 500),
+        "shape": f"a, b: ({n},) float32"})
+    rows, d = BATCH, 3072                       # the decode step's norms
+    x = torch.randn(rows, d, generator=gen, device=DEV).bfloat16()
+    w = torch.ones(d, device=DEV)
+    bytes_ = 2 * rows * d * 2 + d * 4
+    flops = 4 * rows * d
+    out.append({
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:44",
+        "launches": launches["rmsnorm"],
+        "max_abs_err": errs["rmsnorm"],
+        "ms": time_ms(lambda: rn_mod.rmsnorm_cuda(x, w), 500),
+        "plain_ms": time_ms(lambda: rn_mod.plain(x, w), 500),
+        "bound_ms": max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
+        "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+        else "operations",
+        "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6), 500),
+        "shape": f"x: ({rows}, {d}) bfloat16, w: ({d},) float32"})
+    # the same kernels at the sizes that show their bandwidth
+    for size in (1 << 26,):
+        a = torch.randn(size, generator=gen, device=DEV)
+        b = torch.randn(size, generator=gen, device=DEV)
+        ms = time_ms(lambda: vr_mod.vmul_reduce_cuda(a, b), 20)
+        bound = 2 * size * 4 / HBM_BYTES_PER_S * 1e3
+        log(f"[timing] vmul_reduce n={size} f32: {ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound / ms:.0%} of the byte bound), plain "
+            f"{time_ms(lambda: vr_mod.plain(a, b), 20):.4f} ms, torch.dot "
+            f"{time_ms(lambda: torch.dot(a, b), 20):.4f} ms")
+        del a, b
+    for rows in (PROMPT, BATCH * PROMPT, 8192):
+        x = torch.randn(rows, d, generator=gen, device=DEV).bfloat16()
+        ms = time_ms(lambda: rn_mod.rmsnorm_cuda(x, w), 100)
+        bound = (2 * rows * d * 2 + d * 4) / HBM_BYTES_PER_S * 1e3
+        log(f"[timing] rmsnorm ({rows}, {d}) bf16: {ms:.4f} ms, bound {bound:.4f} ms, "
+            f"plain {time_ms(lambda: rn_mod.plain(x, w), 100):.4f} ms, F.rms_norm "
+            f"{time_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6), 100):.4f} ms")
+    return out
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()}")
+    phase_build()
+    errs = phase_kernel_checks(gen)
+    paper = phase_overlay_paper(gen)
+    served = phase_serve(gen)
+    phase_small_reference()
+    launches = {"vmul_reduce": paper["launches"]["vmul_reduce"],
+                "rmsnorm": served["launches"]["rmsnorm"]}
+    kernels = phase_kernel_line(gen, errs, launches)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

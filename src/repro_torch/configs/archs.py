@@ -1,0 +1,56 @@
+"""Registration of the architectures the port serves, the paper's own
+VMUL&Reduce workload constants, and the smoke-test reduction helper.
+
+A copy of ``repro/configs/archs.py`` restricted to what this slice serves:
+only phi3-mini-3.8b is registered.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs import phi3_mini_3_8b  # noqa: F401  (registers)
+from repro_torch.configs.base import ArchConfig, get_config
+
+# ---------------------------------------------------------------------------
+# The paper's own workload (vmul+reduce) as a "config" for the benchmarks
+# ---------------------------------------------------------------------------
+PAPER_DATA_BYTES = 16 * 1024          # §III: "data size was set to 16 KBytes"
+PAPER_VECTOR_LEN = PAPER_DATA_BYTES // 4   # f32 elements per input vector
+
+
+# ---------------------------------------------------------------------------
+# Reduced configs for CPU smoke tests — same family, tiny dims
+# ---------------------------------------------------------------------------
+def _shrink_blocks(blocks, max_rep=2):
+    return tuple((unit, min(rep, max_rep)) for unit, rep in blocks)
+
+
+def smoke_config(name: str) -> ArchConfig:
+    """A tiny same-family config: every layer kind of the original appears."""
+    cfg = get_config(name)
+    heads = min(cfg.num_heads, 4)
+    kv = min(cfg.num_kv_heads, heads)
+    d_model = 64
+    over = dict(
+        d_model=d_model,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=16,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab_size=256,
+        blocks=_shrink_blocks(cfg.blocks),
+        encoder_blocks=_shrink_blocks(cfg.encoder_blocks),
+        embed_scale=min(cfg.embed_scale, 8.0),
+    )
+    if cfg.query_pre_attn_scalar is not None:
+        over["query_pre_attn_scalar"] = d_model / heads
+    if cfg.num_experts:
+        over.update(num_experts=4, experts_per_token=2, moe_d_ff=32,
+                    capacity_factor=4.0)
+    if cfg.kv_lora_rank:
+        over.update(q_lora_rank=32, kv_lora_rank=16,
+                    qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16)
+    if cfg.ssm_state:
+        over.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
+    if cfg.frontend_dim:
+        over["frontend_dim"] = 32
+    return cfg.scaled(**over)

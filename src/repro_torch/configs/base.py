@@ -1,0 +1,121 @@
+"""Architecture configuration schema + registry (a copy of
+``repro/configs/base.py``; the port imports nothing of ``repro``).
+
+Every assigned architecture is one ``ArchConfig`` in ``configs/<id>.py``.
+Heterogeneous layer stacks are expressed as ``blocks``: a list of
+``(unit, repeat)`` pairs, where ``unit`` is a tuple of layer kinds repeated
+``repeat`` times (e.g. gemma-2's local:global alternation is
+``(("local", "global"), 23)``).  The reference scans each unit; the port
+loops over the layers in Python.  Only ``dense`` layers are served by this
+slice of the port; the schema keeps every field so configs copy verbatim.
+
+Layer kinds:
+  dense        — full attention + dense MLP
+  local        — sliding-window attention + dense MLP (gemma2)
+  global       — full attention + dense MLP (gemma2 pairing)
+  moe          — full attention + MoE FFN
+  mla_moe      — MLA attention + MoE FFN (deepseek-v3)
+  mla_dense    — MLA attention + dense MLP (deepseek-v3 first layers)
+  mamba        — Mamba-2 SSD block (attention-free)
+  shared_attn  — full attention whose weights are SHARED across occurrences
+                 (zamba2; the paper's "one bitstream, many tiles" reuse case)
+  enc / dec    — encoder (bidirectional) / decoder (causal + cross-attn)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+_REGISTRY: dict[str, Callable[[], "ArchConfig"]] = {}
+
+
+def register(name: str):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def get_config(name: str) -> "ArchConfig":
+    try:
+        return _REGISTRY[name]()
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}") from None
+
+
+def list_archs() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                       # dense | moe | ssm | hybrid | audio | vlm
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    blocks: tuple[tuple[tuple[str, ...], int], ...]
+    head_dim: int = 0                 # 0 -> d_model // num_heads
+    # --- attention options ---
+    rope_theta: float = 10_000.0
+    sliding_window: int | None = None          # for "local" layers
+    attn_softcap: float | None = None          # gemma2
+    final_softcap: float | None = None         # gemma2
+    query_pre_attn_scalar: float | None = None # gemma2 scaling
+    # --- MLA (deepseek-v3) ---
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    num_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_scoring: str = "softmax"            # softmax | sigmoid (deepseek)
+    # --- SSM (mamba2) ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 64
+    # --- enc-dec ---
+    encoder_blocks: tuple[tuple[tuple[str, ...], int], ...] = ()
+    # --- misc ---
+    act: str = "silu"                          # silu | gelu
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    embed_scale: float = 1.0                   # gemma: sqrt(d); minicpm: 12
+    residual_scale: float = 1.0                # minicpm depth scaling
+    post_norms: bool = False                   # gemma2 post-sublayer norms
+    mtp_depth: int = 0                         # deepseek multi-token prediction
+    frontend: str | None = None                # "audio" | "vision" stub
+    frontend_dim: int = 0                      # stub embedding feature size
+    dtype: str = "bfloat16"
+    # training-step options (hillclimb knobs — overridable per run)
+    remat: str = "full"                        # full | none | dots
+    scan_layers: bool = True
+
+    # ------------------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def num_layers(self) -> int:
+        return sum(len(u) * r for u, r in self.blocks) + \
+            sum(len(u) * r for u, r in self.encoder_blocks)
+
+    @property
+    def is_encdec(self) -> bool:
+        return bool(self.encoder_blocks)
+
+    def scaled(self, **overrides) -> "ArchConfig":
+        """Reduced config of the same family for CPU smoke tests."""
+        return dataclasses.replace(self, **overrides)
+

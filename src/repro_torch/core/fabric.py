@@ -1,0 +1,247 @@
+"""Fabric residency — per-tile occupancy across *all* assembled accelerators.
+
+The paper's runtime downloads multiple pre-synthesized operator bitstreams
+into the PR regions of ONE fabric: accelerators co-reside, and when a new
+accelerator cannot find free regions the runtime evicts an old one and
+reuses its tiles (§II–III).  :class:`Fabric` is that bookkeeping layer — the
+single source of truth for which tile belongs to which resident:
+
+* :meth:`admit` claims a placement's tiles for a resident (overlap = bug,
+  raised as :class:`FabricError`; the placer must have packed into free
+  tiles via ``placement.place(..., occupied=fabric.occupied())``),
+* :meth:`release` frees a resident's tiles (PR-region release),
+* :meth:`touch` / :meth:`reclaim_victim` implement the recency order the
+  overlay reclaims in,
+* :meth:`fragmentation` lifts the paper's internal-fragmentation metric
+  (§II: LARGE regions squatted by SMALL operators) to the whole fabric.
+
+``Fabric`` holds *no executables* — bitstreams live in the
+:class:`~repro_torch.core.cache.BitstreamCache`; a resident records which
+cache keys it owns so tile release and bitstream eviction travel through
+one path (``Overlay.evict``).
+
+Port of ``repro/core/fabric.py``: framework-free and nearly verbatim.
+Relocation, the specialization tier and the persisted measurement ledger
+wait for later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+from repro_torch.core.graph import Graph
+from repro_torch.core.isa import Program
+from repro_torch.core.patterns import TileClass
+from repro_torch.core.placement import Coord, Placement, TileGrid
+from repro_torch.serving.metrics import Histogram
+
+
+class FabricError(RuntimeError):
+    """Residency invariant violation (e.g. admitting onto occupied tiles)."""
+
+
+@dataclasses.dataclass
+class ResidentAccelerator:
+    """One accelerator currently downloaded into the fabric's PR regions."""
+
+    rid: str                       # unique residency key (name + fingerprint + sig)
+    name: str                      # graph name (evict-by-name groups on this)
+    graph: Graph
+    placement: Placement
+    program: Program               # controller program
+    tiles: frozenset[Coord]        # PR regions held
+    occupants: dict[Coord, tuple[TileClass, ...]]  # per-tile operator classes
+    generation: int                # bumped on every (re-)admission
+    last_used: int                 # fabric tick of last assembly/dispatch
+    tile_budget: int | None = None # footprint cap this resident was placed under
+    fixed: "dict[int, Coord] | None" = None  # pinned tiles
+    cache_keys: tuple[str, ...] = ()   # kernel-artifact cache entries owned
+    downloads: int = 1             # times this accelerator was placed+downloaded
+    download_cost: float = 0.0     # measured download (kernel build) seconds
+    acc: Any = None                # built AssembledAccelerator (hit fast path)
+    # the host-side hop vector, built ONCE at admission.  `live` flips False
+    # on release so lock-free dispatch records invalidate with ONE read.
+    routes: Any = None
+    live: bool = True
+    # dispatch observability: per-resident end-to-end call latency (us) and
+    # the total hop count of the route program
+    dispatch_hist: Any = None
+    route_cost: int = 0
+
+
+def _occupants_of(graph: Graph, placement: Placement) -> dict[Coord, tuple[TileClass, ...]]:
+    nodes = {n.node_id: n for n in graph.toposorted()}
+    out: dict[Coord, list[TileClass]] = {}
+    for nid, coord in placement.assignment.items():
+        node = nodes[nid]
+        cls = node.op.tile_class if node.op is not None else TileClass.SMALL
+        out.setdefault(coord, []).append(cls)
+    return {c: tuple(v) for c, v in out.items()}
+
+
+class Fabric:
+    """Occupancy ledger for one tile grid shared by many accelerators."""
+
+    def __init__(self, grid: TileGrid) -> None:
+        self.grid = grid
+        self._residents: dict[str, ResidentAccelerator] = {}
+        self._tick = 0
+        self._generation = 0
+        self._download_counts: dict[str, int] = {}   # per-rid, survives evict
+        self._download_costs: dict[str, float] = {}  # rid -> measured build s
+
+    def reset(self, grid: TileGrid | None = None) -> list[ResidentAccelerator]:
+        """Flush every resident (optionally swapping the grid) while keeping
+        the tick/generation counters monotonic — a stale pre-flush
+        ``(rid, generation)`` handle must never validate against a
+        post-flush re-admission.  Returns the flushed residents."""
+        flushed = self.release_all()
+        if grid is not None:
+            self.grid = grid
+        return flushed
+
+    # -- queries --------------------------------------------------------------
+    @property
+    def residents(self) -> dict[str, ResidentAccelerator]:
+        return dict(self._residents)
+
+    def __len__(self) -> int:
+        return len(self._residents)
+
+    def get(self, rid: str) -> ResidentAccelerator | None:
+        return self._residents.get(rid)
+
+    def is_current(self, rid: str | None, generation: int) -> bool:
+        """Whether (rid, generation) still names a live residency."""
+        if rid is None:
+            return False
+        res = self._residents.get(rid)
+        return res is not None and res.generation == generation
+
+    def occupied(self) -> set[Coord]:
+        out: set[Coord] = set()
+        for res in self._residents.values():
+            out |= res.tiles
+        return out
+
+    @property
+    def utilization(self) -> float:
+        return len(self.occupied()) / self.grid.num_tiles
+
+    def reclaim_victim(self) -> ResidentAccelerator | None:
+        """The resident to reclaim under placement pressure: the least
+        recently used, or None on an empty fabric.  (The reference's
+        cost-aware scoring serves its asynchronous mode, a later slice.)"""
+        if not self._residents:
+            return None
+        return min(self._residents.values(), key=lambda r: r.last_used)
+
+    def lru_order(self) -> list[ResidentAccelerator]:
+        """Residents least-recently-used first."""
+        return sorted(self._residents.values(), key=lambda r: r.last_used)
+
+    # -- mutation -------------------------------------------------------------
+    def touch(self, rid: str) -> None:
+        res = self._residents.get(rid)
+        if res is not None:
+            self.touch_resident(res)
+
+    def touch_resident(self, res: ResidentAccelerator) -> None:
+        """Recency bump without the rid lookup (dispatch fast path)."""
+        self._tick += 1
+        res.last_used = self._tick
+
+    def admit(self, rid: str, name: str, graph: Graph, placement: Placement,
+              program: Program, *, tile_budget: int | None = None,
+              fixed: "dict[int, Coord] | None" = None) -> ResidentAccelerator:
+        """Claim ``placement``'s tiles for a new resident accelerator."""
+        if rid in self._residents:
+            raise FabricError(f"resident {rid!r} already admitted")
+        tiles = frozenset(placement.assignment.values())
+        clash = tiles & self.occupied()
+        if clash:
+            holders = {c: r.name for r in self._residents.values()
+                       for c in r.tiles if c in clash}
+            raise FabricError(
+                f"placement for {name!r} overlaps occupied tiles {holders} — "
+                f"place() must be given fabric.occupied()")
+        self._tick += 1
+        self._generation += 1
+        self._download_counts[rid] = self._download_counts.get(rid, 0) + 1
+        res = ResidentAccelerator(
+            rid=rid, name=name, graph=graph, placement=placement,
+            program=program, tiles=tiles,
+            occupants=_occupants_of(graph, placement),
+            generation=self._generation, last_used=self._tick,
+            tile_budget=tile_budget, fixed=fixed,
+            downloads=self._download_counts[rid],
+            download_cost=self._download_costs.get(rid, 0.0),
+            dispatch_hist=Histogram())
+        self._residents[rid] = res
+        return res
+
+    def record_download_cost(self, rid: str, seconds: float) -> None:
+        """Feed one measured download time into the per-rid cost model (EWMA,
+        kept across evictions) — what a future reclaim would pay again."""
+        prev = self._download_costs.get(rid)
+        cost = seconds if prev is None else 0.5 * prev + 0.5 * seconds
+        self._download_costs[rid] = cost
+        res = self._residents.get(rid)
+        if res is not None:
+            res.download_cost = cost
+
+    def release(self, rid: str) -> ResidentAccelerator | None:
+        """Free one resident's PR regions; returns it (for bitstream cleanup)."""
+        res = self._residents.pop(rid, None)
+        if res is not None:
+            res.live = False          # dispatch records invalidate instantly
+        return res
+
+    def release_all(self) -> list[ResidentAccelerator]:
+        out = list(self._residents.values())
+        for res in out:
+            res.live = False
+        self._residents.clear()
+        return out
+
+    def add_cache_key(self, rid: str, key: str) -> None:
+        res = self._residents.get(rid)
+        if res is not None and key not in res.cache_keys:
+            res.cache_keys = res.cache_keys + (key,)
+
+    # -- metrics --------------------------------------------------------------
+    def fragmentation(self) -> float:
+        """Fraction of occupied LARGE tiles holding only SMALL operators,
+        across every co-resident accelerator (paper §II, fabric-wide)."""
+        large = set(self.grid.large_coords())
+        if not large:
+            return 0.0
+        occupied_large = [classes for res in self._residents.values()
+                          for coord, classes in res.occupants.items()
+                          if coord in large]
+        if not occupied_large:
+            return 0.0
+        wasted = sum(1 for classes in occupied_large
+                     if all(c is TileClass.SMALL for c in classes))
+        return wasted / len(occupied_large)
+
+    def describe(self) -> dict[str, Any]:
+        occ = self.occupied()
+        return {
+            "tiles": self.grid.num_tiles,
+            "tiles_used": len(occ),
+            "tiles_free": self.grid.num_tiles - len(occ),
+            "utilization": round(self.utilization, 4),
+            "fragmentation": round(self.fragmentation(), 4),
+            "residents": {
+                res.rid: {"name": res.name,
+                          "tiles": sorted(res.tiles),
+                          "downloads": res.downloads,
+                          "download_cost": round(res.download_cost, 6),
+                          "last_used": res.last_used,
+                          "route_cost": res.route_cost,
+                          "dispatch_latency": res.dispatch_hist.summary()}
+                for res in self.lru_order()
+            },
+        }

@@ -1,0 +1,276 @@
+"""Runtime interpreter — executes controller programs and assembles accelerators.
+
+Two execution modes, mirroring the paper's runtime:
+
+1. **Eager ISA interpretation** (:func:`run_program`) — instruction-by-
+   instruction execution with a register file, stack, and hop accounting.
+   This is the debugging/verification mode (and an oracle the assembled
+   accelerator is tested against).
+
+2. **JIT assembly** (:func:`assemble`) — the interpreter walks the graph
+   once and *builds* the accelerator: a :class:`Kernel` holding the graph as
+   a flat, slot-indexed step list.  Interconnect becomes physical data
+   movement: every pass-through tile an edge crosses is one full copy pass
+   over the data (``h - 1`` copies for an ``h``-hop edge, as the
+   reference's ``_dyn_barrier_hops`` at ``repro/core/interpreter.py:206-221``).
+   PyTorch runs eagerly and fuses nothing, so nothing elides those copies;
+   a copy is exact, so outputs are bit-identical across placements.
+
+Relocatable bitstreams: the kernel is *placement-invariant* — it takes the
+per-edge hop counts as a runtime ``routes`` vector (:func:`route_vector`),
+so ONE kernel serves every placement of a graph.  Moving a resident to new
+tiles re-emits only the routes vector (and the controller route program).
+
+Port of the local mode and generic tier of ``repro/core/interpreter.py``;
+the sharded mode (``assemble_sharded``) and the route-constant specialized
+tier (``specialize_kernel``) wait for later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.graph import Graph
+from repro_torch.core.isa import Opcode, Program, compile_graph
+from repro_torch.core.placement import Placement
+
+
+# --------------------------------------------------------------------------
+# Mode 1: eager ISA interpretation
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class MachineState:
+    regs: dict[int, Any]
+    stack: list[Any]
+    hops: int = 0
+    bypasses: int = 0
+    executed: int = 0
+
+
+_ROUTE_OPS = {
+    Opcode.ROUTE_N_OUT, Opcode.ROUTE_E_OUT, Opcode.ROUTE_S_OUT, Opcode.ROUTE_W_OUT,
+    Opcode.ROUTE_N_IN, Opcode.ROUTE_E_IN, Opcode.ROUTE_S_IN, Opcode.ROUTE_W_IN,
+}
+_BYPASS_OPS = {
+    Opcode.BYPASS_NS, Opcode.BYPASS_SN, Opcode.BYPASS_EW, Opcode.BYPASS_WE,
+    Opcode.BYPASS_NE, Opcode.BYPASS_NW, Opcode.BYPASS_SE, Opcode.BYPASS_SW,
+}
+
+
+def run_program(program: Program, graph: Graph, inputs: tuple, *,
+                return_state: bool = False):
+    """Execute a compiled program eagerly, one instruction at a time."""
+    if len(inputs) != len(graph.input_ids):
+        raise TypeError(f"expected {len(graph.input_ids)} inputs, got {len(inputs)}")
+    st = MachineState(regs={}, stack=[])
+    in_iter = iter(zip(graph.input_ids, inputs))
+    nodes = {n.node_id: n for n in graph.toposorted()}
+    outputs: list[Any] = []
+
+    for ins in program.instructions:
+        op = ins.opcode
+        if op is Opcode.LD_STREAM:
+            nid, val = next(in_iter)
+            if nid != ins.dst:
+                raise RuntimeError("input order mismatch")
+            st.regs[nid] = val
+        elif op is Opcode.LD_CONST:
+            st.regs[ins.dst] = nodes[ins.dst].payload
+        elif op in _ROUTE_OPS:
+            st.hops += 1
+        elif op in _BYPASS_OPS:
+            st.bypasses += 1
+        elif op in (Opcode.VEXEC, Opcode.VEXEC_ACC):
+            node = nodes[ins.dst]
+            st.regs[ins.dst] = node.op.fn(*(st.regs[s] for s in ins.srcs))
+            st.executed += 1
+        elif op is Opcode.SELECT:
+            p, t, e = (st.regs[s] for s in ins.srcs)
+            st.regs[ins.dst] = torch.where(p, t, e)
+            st.executed += 1
+        elif op is Opcode.ST_STREAM:
+            outputs.append(st.regs[ins.srcs[0]])
+        elif op is Opcode.PUSH:
+            st.stack.append(st.regs[ins.srcs[0]])
+        elif op is Opcode.POP:
+            st.regs[ins.dst] = st.stack.pop()
+        elif op is Opcode.MOV:
+            st.regs[ins.dst] = st.regs[ins.srcs[0]]
+        # LD_TILE / SET_REG / SPEC_* / BARRIER / FENCE / LD_INSTR: operands
+        # already sit in the register file; the rest are placement-time only
+
+    result = tuple(outputs)
+    result = result[0] if len(result) == 1 else result
+    return (result, st) if return_state else result
+
+
+# --------------------------------------------------------------------------
+# Mode 2: JIT assembly
+# --------------------------------------------------------------------------
+def edge_order(graph: Graph) -> list[tuple[int, int]]:
+    """Canonical (src, dst) order of every dataflow edge — the index space
+    of the ``routes`` vector.  Depends only on the graph, never on a
+    placement."""
+    return graph.edges()
+
+
+def route_hops(graph: Graph, placement: Placement) -> tuple[int, ...]:
+    """Manhattan hop count per edge, in :func:`edge_order` order."""
+    hops = placement.edge_hops
+    return tuple(int(hops.get(e, 0)) for e in edge_order(graph))
+
+
+def route_vector(graph: Graph, placement: Placement) -> torch.Tensor:
+    """The per-placement route program's data half: an int32 vector of hop
+    counts, one per edge.  This — not the kernel — is all that changes when
+    a resident moves.  It lives on the host: the kernel walk reads it once
+    per call to decide how many copy passes each edge makes."""
+    return torch.tensor(route_hops(graph, placement), dtype=torch.int32)
+
+
+def _copy_pass(t: torch.Tensor) -> torch.Tensor:
+    """One copy of ``t`` into fresh memory with the SAME layout: identical
+    sizes and strides, and the storage offset kept modulo 256 bytes, so the
+    address alignment matches as far as the allocator aligns (512 bytes for
+    CUDA memory).  The copy covers the span of memory ``t`` views, so
+    strided, sliced and broadcast views come out as the same views.  A
+    layout change could steer a later kernel (a cuBLAS algorithm, a
+    vectorized path) to another summation order, and the overlay promises
+    bit-identical results across placements and against plain execution."""
+    if t.numel() == 0:
+        return t.clone()
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    pad = t.storage_offset() % max(1, 256 // t.element_size())
+    raw = torch.empty(pad + span, dtype=t.dtype, device=t.device)
+    raw[pad:].copy_(t.as_strided((span,), (1,), t.storage_offset()))
+    return raw.as_strided(t.shape, t.stride(), pad)
+
+
+def copy_passes(v: Any, passes: int) -> Any:
+    """``passes`` full copy passes over ``v`` — one per pass-through tile.
+    An FPGA pass-through tile registers and forwards the stream: one pass
+    over the data with no compute.  Tuples (multi-result residue) cross the
+    tile as a bundle; scalars carry no data."""
+    if isinstance(v, torch.Tensor):
+        for _ in range(passes):
+            v = _copy_pass(v)
+        return v
+    if isinstance(v, tuple):
+        return tuple(copy_passes(x, passes) for x in v)
+    return v
+
+
+@dataclasses.dataclass(frozen=True)
+class _Step:
+    node_id: int
+    fn: Callable[..., Any] | None        # None: select
+    srcs: tuple[tuple[int, int], ...]    # (source slot, edge index)
+
+
+class Kernel:
+    """The placement-invariant compute body: ``kernel(routes, *inputs)``.
+
+    Built once per graph (this is what a bitstream *download* produces in
+    the port, and what the cache holds): the graph flattened into a step
+    list over value slots, each step naming its operator and, per input,
+    the source slot and the edge whose hop count the runtime ``routes``
+    vector supplies.  One kernel is valid for *every* placement of the
+    graph — relocation swaps the routes vector, the kernel stays."""
+
+    def __init__(self, graph: Graph) -> None:
+        order = edge_order(graph)
+        # an op reading one value twice (x * x) has the edge twice; both
+        # entries carry the same hop count, so either index serves
+        eidx = {e: i for i, e in enumerate(order)}
+        self.name = graph.name
+        self.num_edges = len(order)
+        self.num_slots = len(graph.nodes)
+        self.input_ids = tuple(graph.input_ids)
+        self.output_ids = tuple(graph.output_ids)
+        self.consts = tuple((n.node_id, n.payload) for n in graph.nodes
+                            if n.kind == "const")
+        self.steps = tuple(
+            _Step(n.node_id, n.op.fn if n.kind == "op" else None,
+                  tuple((s, eidx[(s, n.node_id)]) for s in n.inputs))
+            for n in graph.toposorted() if n.kind in ("op", "select"))
+
+    def __call__(self, routes: torch.Tensor, *inputs):
+        hops = routes.tolist()
+        if len(hops) != self.num_edges or len(inputs) != len(self.input_ids):
+            raise TypeError(
+                f"kernel {self.name!r} takes {self.num_edges} routes and "
+                f"{len(self.input_ids)} inputs, got {len(hops)} and {len(inputs)}")
+        vals: list[Any] = [None] * self.num_slots
+        for nid, x in zip(self.input_ids, inputs):
+            vals[nid] = x
+        for nid, payload in self.consts:
+            vals[nid] = payload
+        for step in self.steps:
+            args = []
+            for src, e in step.srcs:
+                v = vals[src]
+                if hops[e] >= 2:
+                    v = copy_passes(v, hops[e] - 1)
+                args.append(v)
+            if step.fn is not None:
+                vals[step.node_id] = step.fn(*args)
+            else:
+                p, t, f = args
+                vals[step.node_id] = torch.where(p, t, f)
+        outs = tuple(vals[i] for i in self.output_ids)
+        return outs[0] if len(outs) == 1 else outs
+
+
+def build_kernel(graph: Graph) -> Kernel:
+    """The placement-invariant compute body of ``graph`` (a download)."""
+    graph.validate()
+    return Kernel(graph)
+
+
+def bind_routes(kernel: Callable[..., Any], routes: Any) -> Callable[..., Any]:
+    """Close a placement-invariant kernel over one placement's routes."""
+    return partial(kernel, routes)
+
+
+@dataclasses.dataclass
+class AssembledAccelerator:
+    """The product of JIT assembly: a callable plus its provenance."""
+
+    name: str
+    fn: Callable[..., Any]          # kernel with this placement's routes bound
+    program: Program
+    placement: Placement
+    total_hops: int
+    instruction_mix: dict[str, int]
+    # residency handle (set by Overlay.assemble): which Fabric resident this
+    # accelerator belongs to, and at which admission generation.  A stale
+    # generation means its PR regions were reclaimed — callers re-assemble.
+    resident_id: str | None = None
+    generation: int = -1
+    kernel: Kernel | None = None
+    routes: Any = None
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+
+def assemble(graph: Graph, placement: Placement, *,
+             program: Program | None = None, routes: Any = None,
+             kernel: Kernel | None = None) -> AssembledAccelerator:
+    """JIT-assemble the accelerator for single-device execution.
+
+    The returned accelerator carries the placement-invariant ``kernel`` and
+    this placement's ``routes`` separately; ``fn`` is the bound pair."""
+    graph.validate()
+    program = program or compile_graph(graph, placement)
+    kernel = kernel or build_kernel(graph)
+    if routes is None:
+        routes = route_vector(graph, placement)
+    return AssembledAccelerator(
+        name=graph.name, fn=bind_routes(kernel, routes), program=program,
+        placement=placement, total_hops=placement.total_hops,
+        instruction_mix=program.mix(), kernel=kernel, routes=routes)

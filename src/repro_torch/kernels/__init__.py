@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for Hopper — the LARGE-tile operator bitstreams.
+
+Kernel inventory (one module per kernel, each with its plain version in
+``ref.py`` and its custom-op wrapper in ``ops.py``):
+
+  vmul_reduce — the paper's own evaluation pattern (Σ A⃗·B⃗), csrc/vmul_reduce.cu
+  rmsnorm     — fused RMSNorm, one block per row, csrc/rmsnorm.cu
+
+The reference's flash_attention and ssd_scan kernels are not ported yet
+(ROADMAP queue 2).  Importing :mod:`repro_torch.kernels.ops` registers the
+kernels with the overlay's trace frontend.
+"""

@@ -1,0 +1,164 @@
+"""Parameter specification, initialization, and weights carried over from
+the JAX package.
+
+A model is described by a *spec tree*: nested dicts (and a list of layers)
+whose leaves are :class:`ParamSpec` (shape + init + dtype).  Matrices are
+bf16 and norm scales f32, as in ``repro/models/params.py:32,52``.  The
+reference stacks each block's layers for ``lax.scan``; the port keeps one
+dict per layer in ``spec["layers"]`` and loops over them.
+
+* :func:`init` materializes parameters from an explicit ``torch.Generator``
+  on an explicit device;
+* :func:`from_jax_numpy` turns the JAX package's parameter tree, passed as
+  numpy arrays, into the port's parameters.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+
+SERVED_KINDS = ("dense",)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    init: str = "normal"                  # normal | ones
+    scale: float | None = None            # None -> 1/sqrt(fan_in)
+    dtype: torch.dtype = torch.bfloat16
+
+
+def dense(d_in: int, d_out: int) -> ParamSpec:
+    return ParamSpec((d_in, d_out))
+
+
+def embedding(vocab: int, d: int) -> ParamSpec:
+    return ParamSpec((vocab, d), "normal", 0.02)
+
+
+def norm_scale(d: int) -> ParamSpec:
+    return ParamSpec((d,), "ones", None, torch.float32)
+
+
+def layer_kinds(cfg: ArchConfig) -> list[str]:
+    """The decoder's layer kinds in execution order (blocks unrolled)."""
+    kinds = [k for unit, rep in cfg.blocks for _ in range(rep) for k in unit]
+    unsupported = sorted(set(kinds) - set(SERVED_KINDS))
+    if unsupported or cfg.is_encdec or cfg.post_norms or cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: this slice of the port serves dense decoder layers "
+            f"only (got kinds {sorted(set(kinds))})")
+    return kinds
+
+
+def layer_spec(cfg: ArchConfig) -> dict:
+    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    return {
+        "ln1": norm_scale(d),
+        "attn": {"wq": dense(d, cfg.num_heads * hd),
+                 "wk": dense(d, cfg.num_kv_heads * hd),
+                 "wv": dense(d, cfg.num_kv_heads * hd),
+                 "wo": dense(cfg.num_heads * hd, d)},
+        "ln2": norm_scale(d),
+        "ffn": {"w_gate": dense(d, f), "w_up": dense(d, f),
+                "w_down": dense(f, d)},
+    }
+
+
+def model_spec(cfg: ArchConfig) -> dict:
+    spec: dict[str, Any] = {
+        "embed": embedding(cfg.vocab_size, cfg.d_model),
+        "layers": [layer_spec(cfg) for _ in layer_kinds(cfg)],
+        "final_norm": norm_scale(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = dense(cfg.d_model, cfg.vocab_size)
+    return spec
+
+
+def _map_spec(spec: Any, fn) -> Any:
+    if isinstance(spec, ParamSpec):
+        return fn(spec)
+    if isinstance(spec, list):
+        return [_map_spec(s, fn) for s in spec]
+    return {k: _map_spec(v, fn) for k, v in spec.items()}
+
+
+def init(cfg: ArchConfig, generator: torch.Generator,
+         device: "str | torch.device | None" = None) -> dict:
+    """Random parameters for ``cfg``: N(0, 1/fan_in) matrices (0.02 for the
+    embedding), unit norm scales.  Every draw comes from ``generator``, which
+    must live on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+
+    def make(s: ParamSpec) -> torch.Tensor:
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=s.dtype, device=dev)
+        fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+        scale = s.scale if s.scale is not None else 1.0 / math.sqrt(fan_in)
+        w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return (w * scale).to(s.dtype)
+
+    return _map_spec(model_spec(cfg), make)
+
+
+def from_jax_numpy(tree: dict, cfg: ArchConfig,
+                   device: "str | torch.device | None" = None, *,
+                   dtype: torch.dtype | None = None) -> dict:
+    """The JAX package's parameter tree (``repro.models.params.init`` of
+    ``model_spec(cfg)``), passed as numpy arrays, as the port's parameters.
+
+    The scanned ``g<i>["layers"]["<j>:<kind>"]`` stacks are unstacked into
+    one dict per layer (``repro/models/transformer.py:57-72``).  bf16 leaves
+    arrive as float32 numpy (numpy has no bf16) and are cast back to each
+    leaf's own dtype — an exact round trip.  ``dtype`` casts every leaf to
+    one dtype instead (the float32 parity tests)."""
+    dev = resolve_device(device)
+    spec = model_spec(cfg)
+
+    def conv(arr, s: ParamSpec) -> torch.Tensor:
+        a = np.array(arr, dtype=np.float32)      # a writable copy
+        if a.shape != s.shape:
+            raise ValueError(f"shape {a.shape} where {s.shape} was expected")
+        return torch.from_numpy(a).to(device=dev, dtype=dtype or s.dtype)
+
+    def tree_conv(node, s):
+        if isinstance(s, ParamSpec):
+            return conv(node, s)
+        return {k: tree_conv(node[k], v) for k, v in s.items()}
+
+    layers = []
+    li = 0
+    for gi, (unit, rep) in enumerate(cfg.blocks):
+        stacked = tree[f"g{gi}"]["layers"]
+        for r in range(rep):
+            for j, kind in enumerate(unit):
+                one = _unstack(stacked[f"{j}:{kind}"], r)
+                layers.append(tree_conv(one, spec["layers"][li]))
+                li += 1
+    out = {k: tree_conv(tree[k], s) for k, s in spec.items() if k != "layers"}
+    out["layers"] = layers
+    return out
+
+
+def _unstack(node, r: int):
+    if isinstance(node, dict):
+        return {k: _unstack(v, r) for k, v in node.items()}
+    return np.asarray(node)[r]
+
+
+def count(params: Any) -> int:
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    if isinstance(params, list):
+        return sum(count(p) for p in params)
+    return sum(count(p) for p in params.values())

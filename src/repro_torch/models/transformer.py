@@ -1,0 +1,62 @@
+"""The decoder stack: embedding, a Python loop over the layers, the head.
+
+Port of the dense path of ``repro/models/transformer.py``.  The reference
+scans each block of stacked layers (``transformer.py:179-222``); the port
+loops over a list of per-layer parameter dicts.  Caches are one dict per
+layer (``{"k", "v", "index"}``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import attn_fwd, linear, mlp_fwd, rmsnorm_fwd
+
+
+def layer_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+              positions: torch.Tensor, cache: dict | None):
+    """One dense layer. Returns (x, new_cache)."""
+    rs = cfg.residual_scale
+    h = rmsnorm_fwd(p["ln1"], x, cfg.norm_eps)
+    h, new_cache = attn_fwd(p["attn"], h, cfg, positions=positions, cache=cache)
+    x = x + rs * h
+    h = rmsnorm_fwd(p["ln2"], x, cfg.norm_eps)
+    h = mlp_fwd(p["ffn"], h, cfg)
+    return x + rs * h, new_cache
+
+
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    h = params["embed"][tokens] * cfg.embed_scale
+    return h.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+
+
+def unembed(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = linear(h.float(), params["embed"].float().t())
+    else:
+        logits = linear(h.float(), params["lm_head"].float())
+    if cfg.final_softcap is not None:
+        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+    return logits
+
+
+def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            pos0: "torch.Tensor | int" = 0, caches: list | None = None):
+    """Decoder stack. Returns (hidden, new_caches)."""
+    h = embed_tokens(params, tokens, cfg)
+    steps = torch.arange(tokens.shape[1], device=tokens.device)
+    if isinstance(pos0, torch.Tensor) and pos0.dim() >= 1:
+        # per-row start positions (B,) -> ragged (B, S) position grid; the
+        # attention layers switch to per-row cache writes/masks on seeing it
+        positions = pos0[:, None] + steps[None, :]
+    else:
+        positions = pos0 + steps
+    new_caches = None if caches is None else []
+    for li, lp in enumerate(params["layers"]):      # dense layers (layer_kinds)
+        c = caches[li] if caches is not None else None
+        h, nc = layer_fwd(lp, h, cfg, positions=positions, cache=c)
+        if new_caches is not None:
+            new_caches.append(nc)
+    h = rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps)
+    return h, new_caches

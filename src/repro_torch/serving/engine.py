@@ -1,0 +1,183 @@
+"""Batched serving engine: slot-based continuous batching over a shared
+decode step.
+
+The engine owns a fixed pool of ``batch`` sequence slots backed by one KV
+cache per layer, so decode is a single batched ``decode_step`` call.
+Requests are admitted into free slots, prefilled one at a time into their
+slot's cache stripe, then decoded jointly; finished slots are recycled.
+Greedy sampling (argmax) keeps the engine deterministic.
+
+Passing ``overlay=`` routes BOTH serving steps through the JIT-assembly
+frontend: prefill and decode become two *separate accelerators resident on
+one shared fabric*, each traced, lowered onto the operator library, placed
+into its own tiles under a footprint budget (``tile_budget``, default a
+quarter of the fabric) and held in the overlay's bitstream cache.  With
+``overlay=None`` the steps run as plain PyTorch calls.
+
+Decode is *ragged*: every slot carries its own KV position (``slot_pos``
+feeds ``decode_step(positions=...)``).  Each decode tick performs ONE fused
+on-device update (sample + advance positions) and ONE device-to-host copy.
+
+Port of ``ServeEngine`` in ``repro/serving/engine.py`` (synchronous
+overlays only; the event-loop engine and fleets wait for later slices).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.overlay import Overlay
+from repro_torch.device import resolve_device
+from repro_torch.models import model as mdl
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new_tokens: int = 16
+    out: list[int] = dataclasses.field(default_factory=list)
+    decode_steps: int = 0     # batched decode ticks this request has taken
+    done: bool = False
+
+
+def _fused_tick_update(logits, cur_tokens, slot_pos, live):
+    """One on-device update for a decode tick: greedy-sample every live
+    slot, advance its position, and pack (token, new_position) per slot
+    into one (2, B) int32 tensor so the host reads the whole tick with ONE
+    copy (``engine.py:81``).  Dead slots keep their token/position."""
+    live_b = live.bool()
+    tok = torch.where(live_b, torch.argmax(logits, dim=-1).to(torch.int32),
+                      cur_tokens[:, 0])
+    new_pos = slot_pos + live
+    return tok[:, None], new_pos, torch.stack([tok, new_pos])
+
+
+class ServeEngine:
+    def __init__(self, params: Any, cfg: ArchConfig, *, batch: int,
+                 max_len: int, overlay: Overlay | None = None,
+                 device: "str | torch.device | None" = None):
+        self.params = params
+        self.cfg = cfg
+        self.batch = batch
+        self.max_len = max_len
+        self.overlay = overlay
+        self.device = resolve_device(device)
+        self.caches = mdl.init_cache(cfg, batch, max_len, self.device)
+        self.slot_req: list[Request | None] = [None] * batch
+        self.slot_pos = torch.zeros((batch,), dtype=torch.int32, device=self.device)
+        self.queue: collections.deque[Request] = collections.deque()
+        # ragged decode: every slot decodes at its own KV position
+        step = lambda p, t, c, pos: mdl.decode_step(p, cfg, t, c, positions=pos)
+        pf = lambda p, toks, c: mdl.prefill(p, cfg, toks, c)
+        if overlay is not None:
+            # a quarter of the fabric each, so engines and prompt-length
+            # variants co-reside
+            tile_budget = max(1, overlay.grid.num_tiles // 4)
+            self._decode = overlay.jit(step, name=f"{cfg.name}.decode",
+                                       tile_budget=tile_budget)
+            self._prefill = overlay.jit(pf, name=f"{cfg.name}.prefill",
+                                        tile_budget=tile_budget)
+        else:
+            self._decode, self._prefill = step, pf
+        self.cur_tokens = torch.zeros((batch, 1), dtype=torch.int32, device=self.device)
+        self._live_mask = torch.zeros((batch,), dtype=torch.int32, device=self.device)
+
+    # -- admission -----------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        """Queue a request.  The prompt must fit in ``max_len`` with one
+        decode step of headroom (checked here, at the API boundary)."""
+        n = len(req.prompt)
+        if n == 0:
+            raise ValueError(f"request {req.rid}: empty prompt")
+        if n + 1 > self.max_len:
+            raise ValueError(
+                f"request {req.rid}: prompt of {n} tokens does not fit in "
+                f"max_len={self.max_len} with decode headroom (the engine "
+                f"needs len(prompt) + 1 <= max_len; got {n + 1})")
+        self.queue.append(req)
+
+    def _admit(self) -> None:
+        for slot in range(self.batch):
+            if self.slot_req[slot] is not None or not self.queue:
+                continue
+            self._prefill_slot(slot, self.queue.popleft())
+
+    def _prefill_slot(self, slot: int, req: Request) -> None:
+        """Prefill a single slot with a batch-1 cache, then scatter the
+        stripe into the pooled cache."""
+        prompt = torch.tensor([req.prompt], dtype=torch.int32, device=self.device)
+        c1 = mdl.init_cache(self.cfg, 1, self.max_len, self.device)
+        logits, c1 = self._prefill(self.params, prompt, c1)
+        self._install_stripe(slot, req, c1, int(torch.argmax(logits[0])))
+
+    def _install_stripe(self, slot: int, req: Request, c1: list, tok: int) -> None:
+        """Scatter a finished batch-1 prefill cache into the pooled cache
+        and mark the slot live for decode."""
+        at = torch.tensor([slot], device=self.device)
+        self.caches = [
+            {"k": pool["k"].index_copy(0, at, one["k"]),
+             "v": pool["v"].index_copy(0, at, one["v"]),
+             # shared per-layer scalar index: keep the max; ragged decode
+             # never reads it (it uses the per-slot positions)
+             "index": torch.maximum(pool["index"], one["index"])}
+            for pool, one in zip(self.caches, c1)]
+        self.slot_pos[slot] = len(req.prompt)
+        req.out.append(tok)
+        self.cur_tokens[slot, 0] = tok
+        self.slot_req[slot] = req
+        self._live_mask[slot] = 1
+
+    # -- decode --------------------------------------------------------------
+    def step(self) -> list[Request]:
+        """One engine tick: admit, batched-decode, retire. Returns finished."""
+        self._admit()
+        live = [s for s, r in enumerate(self.slot_req) if r is not None]
+        if not live:
+            return []
+        return self._decode_tick(live)
+
+    def _decode_tick(self, live: list[int]) -> list[Request]:
+        """Batched ragged decode over ``live`` slots with ONE host transfer."""
+        logits, self.caches = self._decode(
+            self.params, self.cur_tokens, self.caches, self.slot_pos)
+        self.cur_tokens, self.slot_pos, packed = _fused_tick_update(
+            logits, self.cur_tokens, self.slot_pos, self._live_mask)
+        toks, poss = packed.tolist()            # the tick's one device->host
+
+        finished: list[Request] = []
+        for slot in live:
+            req = self.slot_req[slot]
+            req.out.append(toks[slot])
+            req.decode_steps += 1
+            # retire on decode steps, not len(out): out already holds the
+            # prefill-produced token, which is not a decode step
+            if req.decode_steps >= req.max_new_tokens or \
+                    poss[slot] + 1 >= self.max_len:
+                req.done = True
+                finished.append(req)
+                self.slot_req[slot] = None
+                self._live_mask[slot] = 0
+        return finished
+
+    def run_until_drained(self, max_ticks: int = 10_000) -> list[Request]:
+        """Tick until every queued and resident request retires.  Raises
+        :class:`RuntimeError` if ``max_ticks`` runs out with work left."""
+        done: list[Request] = []
+        for _ in range(max_ticks):
+            if not self.queue and all(r is None for r in self.slot_req):
+                return done
+            done.extend(self.step())
+        queued = len(self.queue)
+        resident = sum(1 for r in self.slot_req if r is not None)
+        if queued or resident:
+            raise RuntimeError(
+                f"run_until_drained: {max_ticks} ticks exhausted with {queued} "
+                f"request(s) still queued and {resident} still resident "
+                f"({len(done)} finished)")
+        return done
