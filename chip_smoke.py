@@ -8,7 +8,7 @@ Drives the port's main path end to end and fails loudly if any phase fails:
    (one nvcc per source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it (tolerances stated below), and checks that
-   repeated vmul_reduce launches are bit-identical;
+   repeated vmul_reduce and flash_attention launches are bit-identical;
 3. runs the paper's workload, ``sum(a * b)``, through ``Overlay(3, 3).jit``
    on the static placements with 0-3 pass-through tiles and on dynamic
    placement — outputs bit-identical across placements — plus the LARGE
@@ -16,25 +16,38 @@ Drives the port's main path end to end and fails loudly if any phase fails:
 4. serves phi3-mini-3.8b at full width (random bf16 weights from a seed,
    32 layers) through ``Overlay(3, 3)`` and with ``overlay=None``: identical
    greedy token streams, and one rmsnorm launch per norm call;
-5. checks the model's outputs: finite full-width logits, and a small
-   float32 model on the card (kernels) against the same model on the CPU
-   (plain versions);
-6. prints the kernels line (time, bound, plain and library times, launches),
+5. trains phi3-mini-3.8b at full width (32 layers, batch 1, seq 4096) for 4
+   eager steps of ``launch.train.make_step`` on the synthetic stream:
+   finite losses, and the flash_attention and rmsnorm launches each step
+   must make (forward plus the remat recompute);
+6. trains 4 full-width layers at seq 1024 for 2 steps through
+   ``Overlay(3, 3)`` and eagerly from the same state: equal losses and
+   parameters;
+7. checks the model's outputs: finite full-width logits, a small float32
+   model on the card (kernels) against the same model on the CPU (plain
+   versions), serving and one train step;
+8. runs the train launcher with an injected failure: it restarts from its
+   checkpoint and ends with rc 0;
+9. prints the kernels line (time, bound, plain and library times, launches),
    the card's name and power limit, and last the result line.
 
 Launch counts come from the wrappers' counters, set to 0 just before each
-driven path (the paper workload, the overlay-served run) and read just
-after; launches made to compare or time a kernel are not counted.  Exits
-non-zero without a result line when CUDA is unavailable or the port's
-sources are missing.
+driven path (the paper workload, the overlay-served run, the full-width
+training run) and read just after; launches made to compare or time a
+kernel are not counted.  Exits non-zero without a result line when CUDA is
+unavailable or the port's sources are missing.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,20 +61,29 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: CUDA is not available")
 
-from repro_torch.configs import PAPER_VECTOR_LEN, get_config  # noqa: E402
+from torch.utils import _pytree as pytree  # noqa: E402
+
+from repro_torch.configs import PAPER_VECTOR_LEN, get_config, smoke_config  # noqa: E402
 from repro_torch.core import Overlay, PlacementPolicy  # noqa: E402
+from repro_torch.data.pipeline import make_batch  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import native, ops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
 from repro_torch.kernels import vmul_reduce as vr_mod  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.models import params as pm  # noqa: E402
+from repro_torch.optim import adamw_init, constant, cosine  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 
 DEV = torch.device("cuda")
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32 peak outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 peak in the tensor cores
 BATCH, PROMPT, MAX_NEW, MAX_LEN, REQUESTS = 2, 16, 8, 128, 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 4        # the reference's train_4k shape
+OVERLAY_LAYERS, OVERLAY_SEQ, OVERLAY_STEPS = 4, 1024, 2
 
 
 def log(msg: str) -> None:
@@ -135,21 +157,66 @@ def phase_kernel_checks(gen: torch.Generator) -> dict[str, float]:
             log(f"[kernels] vmul_reduce n={n} {str(dt)[6:]}: kernel {k1.float().item():.6f} "
                 f"plain {p.float().item():.6f} err {err:.3g} tol {tol:.3g} bit-identical repeat")
             del a, b
-    for rows in (PROMPT, BATCH * PROMPT, BATCH):
+    # serving's prompt, batched prompt and decode rows; training's x
+    for lead in ((PROMPT,), (BATCH * PROMPT,), (BATCH,), (TRAIN_BATCH, TRAIN_SEQ)):
         for dt in (torch.bfloat16, torch.float32):
-            x = torch.randn(rows, 3072, generator=gen, device=DEV).to(dt)
+            x = torch.randn(*lead, 3072, generator=gen, device=DEV).to(dt)
             w = 1.0 + 0.1 * torch.randn(3072, generator=gen, device=DEV)
             y = rn_mod.rmsnorm_cuda(x, w)
             p = rn_mod.plain(x, w)
             diff = (y.float() - p.float()).abs()
             rel = 2 ** -7 if dt == torch.bfloat16 else 1e-5
             check(bool((diff <= rel * (1 + p.float().abs())).all()),
-                  f"rmsnorm ({rows}, 3072) {dt}: max err {diff.max().item()}")
+                  f"rmsnorm {(*lead, 3072)} {dt}: max err {diff.max().item()}")
             errs["rmsnorm"] = max(errs["rmsnorm"], diff.max().item())
-            log(f"[kernels] rmsnorm ({rows}, 3072) {str(dt)[6:]} x, f32 w: "
+            log(f"[kernels] rmsnorm {(*lead, 3072)} {str(dt)[6:]} x, f32 w: "
                 f"max err {diff.max().item():.3g}")
+    errs["flash_attention"] = check_flash(gen)
     torch.cuda.synchronize()
     return errs
+
+
+FLASH_CASES = [   # (B, Hq, Hkv, S, D, dtype, options)
+    (TRAIN_BATCH, 32, 32, TRAIN_SEQ, 96, torch.bfloat16, {}),   # the training path
+    (2, 8, 2, 256, 64, torch.bfloat16, {}),                     # GQA
+    (2, 8, 2, 256, 64, torch.float32, {}),
+    (1, 4, 4, 384, 96, torch.float32, dict(window=100)),
+    (1, 4, 4, 384, 96, torch.bfloat16, dict(window=100)),
+    (1, 4, 2, 256, 32, torch.float32, dict(softcap=30.0, scale=0.1)),
+    (1, 4, 2, 256, 32, torch.bfloat16, dict(softcap=30.0, scale=0.1)),
+    (1, 4, 4, 200, 128, torch.float32, dict(causal=False)),     # ragged tiles
+]
+
+
+def check_flash(gen: torch.Generator) -> float:
+    """flash_attention against the plain version (``ref.attention``).
+
+    Tolerances: both compute in f32, but the kernel scales q before the
+    product (as the TPU kernel does) where the plain version scales the
+    scores, sums in another order and normalizes online, so in f32
+    |kernel - plain| <= 1e-5 * (1 + |plain|); a bf16 output is rounded once
+    from f32 values that close, so it lands within one bf16 ulp,
+    |kernel - plain| <= 2**-7 * |plain| + 1e-5."""
+    worst = 0.0
+    for b, hq, hkv, s, d, dt, kw in FLASH_CASES:
+        q = torch.randn(b, hq, s, d, generator=gen, device=DEV).to(dt)
+        k = torch.randn(b, hkv, s, d, generator=gen, device=DEV).to(dt)
+        v = torch.randn(b, hkv, s, d, generator=gen, device=DEV).to(dt)
+        k1 = fa_mod.flash_attention(q, k, v, **kw)
+        k2 = fa_mod.flash_attention(q, k, v, **kw)
+        p = fa_mod.plain(q, k, v, **kw).float()
+        diff = (k1.float() - p).abs()
+        tol = (2 ** -7 * p.abs() + 1e-5) if dt == torch.bfloat16 else 1e-5 * (1 + p.abs())
+        check(torch.equal(k1, k2), f"flash_attention {(b, hq, hkv, s, d)} {dt} {kw}: "
+              f"repeated launches differ")
+        check(bool((diff <= tol).all()), f"flash_attention {(b, hq, hkv, s, d)} {dt} {kw}: "
+              f"max err {diff.max().item()}")
+        worst = max(worst, diff.max().item())
+        log(f"[kernels] flash_attention q ({b}, {hq}, {s}, {d}) kv heads {hkv} "
+            f"{str(dt)[6:]} {kw or 'causal'}: max err {diff.max().item():.3g}, "
+            f"bit-identical repeat")
+        del q, k, v, k1, k2, p, diff, tol
+    return worst
 
 
 class Counted:
@@ -307,6 +374,185 @@ def phase_serve(gen: torch.Generator) -> dict:
             "tok_s_plain": tokens / dt_pl}
 
 
+def _sync_ms(fn) -> tuple:
+    """Host time of ``fn()`` up to a device synchronize, in ms, and its result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_train() -> dict:
+    """phi3-mini-3.8b at its published widths and all 32 layers, random bf16
+    weights from the seed, 4 eager in-place steps at batch 1 x seq 4096 on
+    the synthetic stream.  Per step: one flash_attention launch per layer in
+    the forward and one in the remat recompute; one rmsnorm launch per norm
+    in the forward (2 per layer + the final norm) and per layer norm in the
+    recompute (the final norm is outside the rematerialized layers)."""
+    cfg = get_config("phi3-mini-3.8b")
+    params = pm.init(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    opt = adamw_init(params)
+    step_fn = train_cli.make_step(cfg, cosine(3e-4, warmup=1, total=TRAIN_STEPS))
+    batches = [make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, step=i, seed=SEED, device=DEV)
+               for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, step_ms = (params, opt), [], []
+    reset_counters()                           # the driven path starts here
+    for batch in batches:
+        ms, (state, metrics) = _sync_ms(lambda: step_fn(state, batch))
+        step_ms.append(ms)
+        losses.append(metrics["loss"].item())
+        log(f"[train] step {len(losses)}: loss {losses[-1]:.4f} grad_norm "
+            f"{metrics['grad_norm'].item():.3f} lr {metrics['lr'].item():.2e} "
+            f"{ms:.1f} ms")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    profile_step(lambda: step_fn(state, batches[0]))
+    check(all(math.isfinite(x) for x in losses), f"non-finite training loss {losses}")
+    want = {"flash_attention": TRAIN_STEPS * 2 * cfg.num_layers,
+            "rmsnorm": TRAIN_STEPS * ((2 * cfg.num_layers + 1) + 2 * cfg.num_layers)}
+    for name, n in want.items():
+        check(launches[name] == n, f"training {name} launches {launches[name]} != {n}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = float(np.median(step_ms[1:]))
+    log(f"[train] {cfg.name}: {pm.count(params) / 1e9:.3f} B params, {cfg.num_layers} "
+        f"layers, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, remat {cfg.remat}: step ms "
+        f"first {step_ms[0]:.1f}, steady (median of the rest) {steady:.1f}; "
+        f"{tokens / steady * 1e3:.0f} tokens/s; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); launches {launches} "
+        f"(want {want})")
+    del params, opt, state, batches
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "losses": losses,
+            "peak_bytes": peak, "tok_s": tokens / steady * 1e3}
+
+
+KERNEL_GROUPS = (   # (group, lower-case substrings of CUDA kernel names), first match wins
+    ("flash_attention", ("flash_fwd",)),
+    ("rmsnorm", ("rmsnorm_rows",)),
+    ("matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "cublas")),
+    ("softmax", ("softmax",)),
+    ("reductions", ("reduce",)),
+    ("copies", ("copy", "memcpy", "memset")),
+)
+
+
+def profile_step(fn) -> None:
+    """One more train step (after the counted run) under ``torch.profiler``:
+    device time by kernel group, and the device's busy share of the step's
+    wall time (kernels run on one stream, so their times add)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ms, _ = _sync_ms(fn)
+    groups: dict[str, float] = {}
+    busy = 0.0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        busy += us
+        name = ev.name.lower()
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
+                     "other elementwise")
+        groups[group] = groups.get(group, 0.0) + us
+    if busy == 0.0:
+        log("[train] profile: the profiler saw no device time; breakdown not measured")
+        return
+    parts = ", ".join(f"{g} {us / 1e3:.1f} ms ({us / busy:.0%})"
+                      for g, us in sorted(groups.items(), key=lambda kv: -kv[1]))
+    log(f"[train] profile of one step ({ms:.1f} ms wall, under the profiler): device busy "
+        f"{busy / 1e3:.1f} ms ({busy / 1e3 / ms:.0%} of the step, idle {1 - busy / 1e3 / ms:.0%}); "
+        f"{parts}")
+
+
+def phase_train_overlay() -> None:
+    """The train step through ``Overlay(3, 3)`` (functional: forward, the
+    backward and the optimizer traced into one accelerator) against the
+    eager in-place step from the same state, at the published widths with
+    4 layers, batch 1 x seq 1024, 2 steps.  The traced graph replays the
+    eager run's aten ops, so losses and parameters must be bit-identical."""
+    cfg = get_config("phi3-mini-3.8b").scaled(blocks=((("dense",), OVERLAY_LAYERS),))
+    params = pm.init(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    sched = cosine(3e-4, warmup=1, total=OVERLAY_STEPS)
+    ov = Overlay(3, 3)
+    traced = train_cli.make_step(cfg, sched, overlay=ov)
+    eager = train_cli.make_step(cfg, sched)
+    s_ov = (params, adamw_init(params))
+    s_eg = (pytree.tree_map(torch.clone, params), adamw_init(params))
+    ms_ov, ms_eg = [], []
+    for i in range(OVERLAY_STEPS):
+        batch = make_batch(cfg, 1, OVERLAY_SEQ, step=i, seed=SEED, device=DEV)
+        ms, (s_ov, m_ov) = _sync_ms(lambda: traced(s_ov, batch))
+        ms_ov.append(ms)
+        ms, (s_eg, m_eg) = _sync_ms(lambda: eager(s_eg, batch))
+        ms_eg.append(ms)
+        check(torch.equal(m_ov["loss"], m_eg["loss"]),
+              f"overlay step {i + 1} loss {m_ov['loss'].item()} != eager {m_eg['loss'].item()}")
+        log(f"[train-overlay] step {i + 1}: loss overlay {m_ov['loss'].item():.6f} "
+            f"eager {m_eg['loss'].item():.6f}; ms overlay {ms_ov[-1]:.1f} eager {ms_eg[-1]:.1f}")
+    mismatched = [i for i, (a, b) in enumerate(zip(pytree.tree_leaves(s_ov),
+                                                   pytree.tree_leaves(s_eg)))
+                  if not torch.equal(a, b)]
+    check(not mismatched, f"overlay and eager states differ in leaves {mismatched}")
+    (entry,) = traced._entries.values()
+    names = [n.name for n in entry.lowered.graph.op_nodes()]
+    log(f"[train-overlay] {OVERLAY_LAYERS} layers, seq {OVERLAY_SEQ}: states bit-identical "
+        f"after {OVERLAY_STEPS} steps; trace {entry.trace_seconds:.2f} s, assembly "
+        f"{entry.assemble_seconds:.2f} s; graph {len(names)} op nodes "
+        f"({len(entry.lowered.unmapped)} residue, {names.count('kernels/attention')} "
+        f"attention, {names.count('kernels/rmsnorm')} rmsnorm), "
+        f"{entry.acc.placement.total_passthrough} pass-through hops")
+    del params, s_ov, s_eg
+    torch.cuda.empty_cache()
+
+
+def phase_small_train_reference() -> None:
+    """One train step of a small float32 phi3 (d_model 128, seq 128, so both
+    kernels run) on the card against the CPU (plain versions).  Loss within
+    rtol 1e-5 and grad norm within 1e-4 (f32 sums in other orders; the
+    kernel scales q before the product).  Parameters within 0.1 * lr: Adam
+    divides each gradient by its own magnitude, so a near-zero gradient's
+    rounding difference moves its update by up to lr."""
+    cfg = smoke_config("phi3-mini-3.8b").scaled(d_model=128, head_dim=32, dtype="float32")
+    lr = 1e-3
+    base = _to(pm.init(cfg, torch.Generator().manual_seed(SEED), "cpu"), "cpu", torch.float32)
+    out = {}
+    for dev in ("cpu", DEV):
+        params = _to(base, dev)
+        step = train_cli.make_step(cfg, constant(lr))
+        (params, _), m = step((params, adamw_init(params)),
+                              make_batch(cfg, 2, 128, seed=SEED, device=dev))
+        out[dev] = (m["loss"].item(), m["grad_norm"].item(),
+                         pytree.tree_leaves(_to(params, "cpu")))
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out[DEV]
+    check(abs(lg - lc) <= 1e-5 * abs(lc), f"small train loss card {lg} vs CPU {lc}")
+    check(abs(gg - gc) <= 1e-4 * abs(gc), f"small train grad norm card {gg} vs CPU {gc}")
+    perr = max((a - b).abs().max().item() for a, b in zip(pg, pc))
+    check(perr <= 0.1 * lr, f"small train step: parameters differ by {perr}")
+    log(f"[reference] small f32 phi3 train step: card (kernels) vs CPU (plain): loss "
+        f"{lg:.6f} vs {lc:.6f}, grad norm {gg:.6f} vs {gc:.6f}, params max err {perr:.3g}")
+
+
+def phase_launcher() -> None:
+    """``launch.train.main`` on the card with a failure injected at step 3:
+    it restores the step-2 checkpoint, replays and ends with rc 0."""
+    with tempfile.TemporaryDirectory() as ckpt:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(["--arch", "phi3-mini-3.8b", "--smoke", "--steps", "6",
+                                 "--batch", "2", "--seq", "128", "--ckpt-every", "2",
+                                 "--fail-at", "3", "--log-every", "2",
+                                 "--ckpt-dir", ckpt])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[launcher] {line}")
+    check(rc == 0 and "restarts=1" in text and "on cuda" in text,
+          "train launcher did not restart from its checkpoint and finish")
+
+
 def phase_small_reference() -> None:
     """A small float32 phi3 (d_model 128, 2 layers) on the card (CUDA
     kernels) against the same model on the CPU (plain versions).
@@ -334,8 +580,10 @@ def phase_small_reference() -> None:
 
 
 def _to(tree, dev, dtype=None):
+    """A copy of ``tree`` on ``dev`` (a copy even where nothing moves: the
+    eager train step updates its parameters in place)."""
     if torch.is_tensor(tree):
-        return tree.to(device=dev, dtype=dtype)
+        return tree.to(device=dev, dtype=dtype, copy=True)
     if isinstance(tree, list):
         return [_to(t, dev, dtype) for t in tree]
     return {k: _to(v, dev, dtype) for k, v in tree.items()}
@@ -381,6 +629,27 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
         else "operations",
         "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6), 500),
         "shape": f"x: ({rows}, {d}) bfloat16, w: ({d},) float32"})
+    b, h, sq, hd = TRAIN_BATCH, 32, TRAIN_SEQ, 96      # the training path's attention
+    q, k, v = (torch.randn(b, h, sq, hd, generator=gen, device=DEV).bfloat16()
+               for _ in range(3))
+    bytes_ = 4 * b * h * sq * hd * 2                    # q, k, v read, o written
+    flops = 4 * b * h * hd * sq * (sq + 1) // 2         # QK^T and PV over the causal half
+    out.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:115",
+        "launches": launches["flash_attention"],
+        "max_abs_err": errs["flash_attention"],
+        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 10, warmup=2),
+        "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v), 3, warmup=1),
+        "bound_ms": max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3,
+        "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
+        else "operations",
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                              10, warmup=2),
+        "shape": f"q, k, v: ({b}, {h}, {sq}, {hd}) bfloat16, causal"})
+    del q, k, v
+    torch.cuda.empty_cache()
     # the same kernels at the sizes that show their bandwidth
     for size in (1 << 26,):
         a = torch.randn(size, generator=gen, device=DEV)
@@ -392,7 +661,7 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
             f"{time_ms(lambda: vr_mod.plain(a, b), 20):.4f} ms, torch.dot "
             f"{time_ms(lambda: torch.dot(a, b), 20):.4f} ms")
         del a, b
-    for rows in (PROMPT, BATCH * PROMPT, 8192):
+    for rows in (PROMPT, BATCH * PROMPT, TRAIN_SEQ, 8192):
         x = torch.randn(rows, d, generator=gen, device=DEV).bfloat16()
         ms = time_ms(lambda: rn_mod.rmsnorm_cuda(x, w), 100)
         bound = (2 * rows * d * 2 + d * 4) / HBM_BYTES_PER_S * 1e3
@@ -408,14 +677,23 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False     # f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
     phase_build()
     errs = phase_kernel_checks(gen)
     paper = phase_overlay_paper(gen)
     served = phase_serve(gen)
+    trained = phase_train()
+    phase_train_overlay()
     phase_small_reference()
-    launches = {"vmul_reduce": paper["launches"]["vmul_reduce"],
-                "rmsnorm": served["launches"]["rmsnorm"]}
+    phase_small_train_reference()
+    phase_launcher()
+    by_path = {"fig3": paper["launches"], "serve": served["launches"],
+               "train": trained["launches"]}
+    launches = {c.name: sum(p[c.name] for p in by_path.values()) for c in ops.LAUNCH_COUNTERS}
     kernels = phase_kernel_line(gen, errs, launches)
+    for entry in kernels:
+        entry["launches_by_path"] = {path: n[entry["name"]] for path, n in by_path.items()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

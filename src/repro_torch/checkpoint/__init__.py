@@ -1,0 +1,7 @@
+"""Checkpointing (port of ``repro/checkpoint``)."""
+
+from repro_torch.checkpoint.ckpt import (CheckpointManager, latest_step,
+                                         load_checkpoint, save_checkpoint)
+
+__all__ = ["CheckpointManager", "latest_step", "load_checkpoint",
+           "save_checkpoint"]

@@ -169,6 +169,7 @@ class _Step:
     node_id: int
     fn: Callable[..., Any] | None        # None: select
     srcs: tuple[tuple[int, int], ...]    # (source slot, edge index)
+    frees: tuple[int, ...] = ()          # slots no later step reads
 
 
 class Kernel:
@@ -179,7 +180,11 @@ class Kernel:
     list over value slots, each step naming its operator and, per input,
     the source slot and the edge whose hop count the runtime ``routes``
     vector supplies.  One kernel is valid for *every* placement of the
-    graph — relocation swaps the routes vector, the kernel stays."""
+    graph — relocation swaps the routes vector, the kernel stays.  Each
+    step drops the values it read last (and an unread result of its own),
+    so a walk holds only live values, as eager execution does: a traced
+    train step's activations and optimizer temporaries would not fit on the
+    card otherwise."""
 
     def __init__(self, graph: Graph) -> None:
         order = edge_order(graph)
@@ -193,10 +198,19 @@ class Kernel:
         self.output_ids = tuple(graph.output_ids)
         self.consts = tuple((n.node_id, n.payload) for n in graph.nodes
                             if n.kind == "const")
-        self.steps = tuple(
-            _Step(n.node_id, n.op.fn if n.kind == "op" else None,
-                  tuple((s, eidx[(s, n.node_id)]) for s in n.inputs))
-            for n in graph.toposorted() if n.kind in ("op", "select"))
+        steps = [_Step(n.node_id, n.op.fn if n.kind == "op" else None,
+                       tuple((s, eidx[(s, n.node_id)]) for s in n.inputs))
+                 for n in graph.toposorted() if n.kind in ("op", "select")]
+        last = {step.node_id: i for i, step in enumerate(steps)}
+        for i, step in enumerate(steps):
+            for src, _ in step.srcs:
+                last[src] = i
+        frees: list[list[int]] = [[] for _ in steps]
+        for slot, i in last.items():
+            if slot not in self.output_ids:
+                frees[i].append(slot)
+        self.steps = tuple(dataclasses.replace(step, frees=tuple(f))
+                           for step, f in zip(steps, frees))
 
     def __call__(self, routes: torch.Tensor, *inputs):
         hops = routes.tolist()
@@ -221,6 +235,8 @@ class Kernel:
             else:
                 p, t, f = args
                 vals[step.node_id] = torch.where(p, t, f)
+            for slot in step.frees:
+                vals[slot] = None
         outs = tuple(vals[i] for i in self.output_ids)
         return outs[0] if len(outs) == 1 else outs
 

@@ -265,9 +265,9 @@ def trace_to_graph(fn: Callable[..., Any], *args, name: str | None = None,
     out_trees = []
 
     def flat_fn(*flat):       # one placeholder per leaf, whatever fn's signature
-        out = fn(*pytree.tree_unflatten(list(flat), in_tree))
-        out_trees.append(pytree.tree_structure(out))   # the caller's containers
-        return out
+        leaves, out_tree = pytree.tree_flatten(fn(*pytree.tree_unflatten(list(flat), in_tree)))
+        out_trees.append(out_tree)   # the caller's containers (e.g. a dataclass)
+        return leaves                # make_fx sees a flat list of tensors
 
     with mode:
         gm = make_fx(flat_fn, tracing_mode="real")(*flat_fake)
@@ -279,9 +279,9 @@ def trace_to_graph(fn: Callable[..., Any], *args, name: str | None = None,
     for i, (node, val) in enumerate(zip(placeholders, flat_fake)):
         ref = g.input(f"arg{i}", tuple(val.shape), val.dtype, val.device)
         env[node] = ref.node_id
-    # the output node holds the result's leaves in flattening order (in fx's
-    # own immutable containers); the caller's structure was recorded above
-    outs, out_tree = pytree.tree_leaves(lowering.lower(gm, env)), out_trees[0]
+    # the output node holds the result's leaves in flattening order; the
+    # caller's structure was recorded above
+    outs, out_tree = list(lowering.lower(gm, env)), out_trees[0]
     g.output(*[lowering._ref(env, v) for v in outs])
     # every node carries its traced aval: no meta-tensor shape sweep needed
     g.seal_shapes()

@@ -5,8 +5,10 @@ Kernel inventory (one module per kernel, each with its plain version in
 
   vmul_reduce — the paper's own evaluation pattern (Σ A⃗·B⃗), csrc/vmul_reduce.cu
   rmsnorm     — fused RMSNorm, one block per row, csrc/rmsnorm.cu
+  flash_attention — blocked online-softmax attention (causal, GQA, sliding
+                window, soft-cap), one block per 64-row query tile,
+                csrc/flash_attention.cu
 
-The reference's flash_attention and ssd_scan kernels are not ported yet
-(ROADMAP queue 2).  Importing :mod:`repro_torch.kernels.ops` registers the
+The reference's ssd_scan kernel is not ported yet (ROADMAP queue 2).  Importing :mod:`repro_torch.kernels.ops` registers the
 kernels with the overlay's trace frontend.
 """

@@ -3,7 +3,8 @@ the overlay's LARGE-tile bitstreams (``repro/kernels/ops.py:148-166``).
 
 Each kernel is one ``torch.library.custom_op``:
 
-* ``repro_torch::vmul_reduce(a, b)`` and ``repro_torch::rmsnorm(x, w, eps)``;
+* ``repro_torch::vmul_reduce(a, b)``, ``repro_torch::rmsnorm(x, w, eps)`` and
+  ``repro_torch::attention(q, k, v, causal, window, softcap, scale)``;
 * the CUDA implementation is the hand-written kernel (it launches or raises;
   there is no fallback), the CPU implementation is the plain version — a
   wrapper takes the plain version only because its tensors lie on the CPU;
@@ -12,15 +13,20 @@ Each kernel is one ``torch.library.custom_op``:
   counterpart of the reference's rule for registered calls
   (``repro/core/trace.py:17-21``).
 
-rmsnorm's backward is the VJP of the plain version, recomputed from the
-inputs inside a ``torch.autograd.Function`` (``repro/kernels/ops.py:42-45``).
+rmsnorm's and attention's backward is the VJP of the plain version,
+recomputed from the inputs inside a ``torch.autograd.Function``
+(``repro/kernels/ops.py:42-45,69-75``); the reference has no backward
+kernel, so the port has none either.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.patterns import Operator, TileClass, register_call
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import vmul_reduce as _vr
@@ -94,6 +100,59 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
+# attention — backward recomputes the plain version's VJP from q, k, v
+# ---------------------------------------------------------------------------
+@torch.library.custom_op("repro_torch::attention", mutates_args=(),
+                         device_types="cpu")
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: Optional[int], softcap: Optional[float],
+                  scale: float) -> torch.Tensor:
+    _fa.check_shapes(q, k, v)
+    return _fa.plain(q, k, v, causal=causal, window=window, softcap=softcap,
+                     scale=scale)
+
+
+@_attention_op.register_kernel("cuda")
+def _(q, k, v, causal, window, softcap, scale):
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, scale=scale)
+
+
+@_attention_op.register_fake
+def _(q, k, v, causal, window, softcap, scale):
+    _fa.check_shapes(q, k, v)
+    return torch.empty_like(q)
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        return _attention_op(q, k, v, causal, window, softcap, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            grads = torch.autograd.grad(ref.attention(*qkv, **ctx.opts), qkv, g)
+        return (*(gr if need else None
+                  for gr, need in zip(grads, ctx.needs_input_grad)),
+                None, None, None, None)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              softcap: float | None = None,
+              scale: float | None = None) -> torch.Tensor:
+    """Flash attention with GQA + sliding window + softcap, in the
+    reference's layout: q (B, Hq, S, D), k/v (B, Hkv, S, D)."""
+    scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
+    return _Attention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal, window, softcap, scale)
+
+
+# ---------------------------------------------------------------------------
 # Overlay registry: the custom ops are pre-synthesized LARGE-tile bitstreams.
 # A traced function calling one of these wrappers lowers to a single LARGE
 # node (named below) instead of being decomposed into scalar aten ops.
@@ -104,5 +163,8 @@ register_call("repro_torch::vmul_reduce",
 register_call("repro_torch::rmsnorm",
               Operator("kernels/rmsnorm", 2, rmsnorm,
                        TileClass.LARGE, flops_per_elem=4.0), override=True)
+register_call("repro_torch::attention",
+              Operator("kernels/attention", 3, attention,
+                       TileClass.LARGE, flops_per_elem=4.0), override=True)
 
-LAUNCH_COUNTERS = (_vr.launches, _rn.launches)
+LAUNCH_COUNTERS = (_vr.launches, _rn.launches, _fa.launches)

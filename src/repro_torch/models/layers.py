@@ -8,8 +8,8 @@ Port of the dense subset of ``repro/models/layers.py``.  Attention over a
 KV cache — cached prefill and decode, including the ragged per-row decode
 branch (``layers.py:314-332``) — is plain tensor code in the reference
 (``layers.py:304-351``) and plain PyTorch here.  Attention without a cache
-runs the flash_attention kernel in the reference, which a later slice ports;
-here it raises.
+(the training loss, the cache-free forward) runs the flash_attention
+kernel through its custom op.
 """
 
 from __future__ import annotations
@@ -138,17 +138,14 @@ def _attention(q, k, v, *, softcap, scale, q_offset, kv_len):
 
 def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
              positions: torch.Tensor, cache: dict | None):
-    """Self-attention over a KV cache.
+    """Self-attention, over a KV cache or (``cache=None``) over the whole
+    sequence.
 
-    x: (B, S, D). cache: {"k": (B, Hkv, Smax, hd), "v": ..., "index": ()}.
-    ``positions`` is (S,) for a uniform batch, or (B, S) for ragged decode,
-    where every row writes its KV entry at its own position.
-    Returns (out, updated_cache).
+    x: (B, S, D). cache: None or {"k": (B, Hkv, Smax, hd), "v": ...,
+    "index": ()}.  ``positions`` is (S,) for a uniform batch, or (B, S) for
+    ragged decode, where every row writes its KV entry at its own position.
+    Returns (out, updated_cache); the cache is None without one.
     """
-    if cache is None:
-        raise NotImplementedError(
-            "attention without a KV cache runs the flash_attention kernel, "
-            "which a later slice of the port brings")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
@@ -164,6 +161,16 @@ def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    if cache is None:
+        # the flash_attention op at every length: the CUDA kernel masks
+        # ragged tiles itself, so the reference's gate to plain code where S
+        # is not a multiple of its 128 blocks (repro/models/layers.py:237-255)
+        # has nothing to route around here
+        o = kops.attention(qt, kt, vt, causal=True, softcap=cfg.attn_softcap,
+                           scale=scale)
+        o = o.transpose(1, 2).reshape(b, s, hq * hd)
+        return linear(o, p["wo"]), None
 
     idx = cache["index"]
     if positions.dim() >= 2:

@@ -1,7 +1,9 @@
-"""Top-level serving steps: KV-cache allocation, prefill, decode.
+"""Top-level model API: the training loss, KV-cache allocation, prefill,
+decode.
 
-Port of ``repro/models/model.py`` (``init_cache`` :92, ``prefill`` :96,
-``decode_step`` :150) for dense decoders.
+Port of ``repro/models/model.py`` (``cross_entropy`` :25, ``loss_fn`` :51,
+``init_cache`` :92, ``prefill`` :96, ``decode_step`` :150) for dense
+decoder LMs.
 """
 
 from __future__ import annotations
@@ -14,6 +16,44 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.params import layer_kinds
 
 
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None):
+    """Mean next-token CE in f32 + accuracy. logits: (B,S,V), labels: (B,S).
+
+    The reference extracts the gold logit as ``sum(logits * one_hot)`` to
+    keep a model-sharded vocab axis local; on one device a gather picks the
+    same element (the one-hot sum only adds exact zeros to it), so both give
+    the same value."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    loss = torch.sum(nll * mask) / denom
+    acc = torch.sum((torch.argmax(logits, -1) == labels) * mask) / denom
+    return loss, acc
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
+    """Returns (loss, metrics) for a dense decoder LM.  batch: ``tokens``
+    and ``labels`` (tokens shifted by the caller), optional ``mask``."""
+    if cfg.is_encdec or cfg.frontend or cfg.mtp_depth:
+        raise NotImplementedError(
+            f"{cfg.name}: the loss of the enc-dec, vlm and multi-token-"
+            f"prediction families is not ported yet (ROADMAP queue 1 item 12)")
+    h, _ = tfm.forward(params, cfg, batch["tokens"])
+    logits = tfm.unembed(params, h, cfg)
+    ce, acc = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return ce, {"ce": ce, "acc": acc}
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: "str | torch.device | None" = None) -> list[dict]:
     """Zeroed bf16 KV caches, one ``{"k", "v", "index"}`` dict per layer

@@ -3,12 +3,16 @@
 Port of the dense path of ``repro/models/transformer.py``.  The reference
 scans each block of stacked layers (``transformer.py:179-222``); the port
 loops over a list of per-layer parameter dicts.  Caches are one dict per
-layer (``{"k", "v", "index"}``).
+layer (``{"k", "v", "index"}``).  Without caches, under autograd, each layer
+is rematerialized in the backward (``cfg.remat == "full"``), the
+counterpart of ``jax.checkpoint`` on the reference's scan body
+(``transformer.py:199-200``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attn_fwd, linear, mlp_fwd, rmsnorm_fwd
@@ -52,11 +56,32 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         positions = pos0[:, None] + steps[None, :]
     else:
         positions = pos0 + steps
-    new_caches = None if caches is None else []
-    for li, lp in enumerate(params["layers"]):      # dense layers (layer_kinds)
-        c = caches[li] if caches is not None else None
+    if caches is None:
+        remat = torch.is_grad_enabled() and _remat(cfg)
+        for lp in params["layers"]:                 # dense layers (layer_kinds)
+            if remat:
+                h = checkpoint(_cache_free_layer, lp, h, cfg, positions,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                h = _cache_free_layer(lp, h, cfg, positions)
+        return rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps), None
+    new_caches = []
+    for lp, c in zip(params["layers"], caches):
         h, nc = layer_fwd(lp, h, cfg, positions=positions, cache=c)
-        if new_caches is not None:
-            new_caches.append(nc)
+        new_caches.append(nc)
     h = rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps)
     return h, new_caches
+
+
+def _cache_free_layer(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                      positions: torch.Tensor) -> torch.Tensor:
+    return layer_fwd(p, x, cfg, positions=positions, cache=None)[0]
+
+
+def _remat(cfg: ArchConfig) -> bool:
+    """Whether to rematerialize each layer in the backward."""
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save only the matrix products) is not ported yet "
+            "(ROADMAP queue 1 item 12); use 'full' or 'none'")
+    return cfg.remat == "full"

@@ -1,0 +1,245 @@
+"""The port's attention: the plain version and the ``repro_torch::attention``
+custom op against the JAX package's Pallas flash_attention (interpret mode,
+as the JAX suite runs it on the CPU) and its ``ref.attention``; the autograd
+backward against ``jax.vjp`` of ``repro.kernels.ops.attention``; the
+model's cache-free attention (``layers.attn_fwd``), which takes the op at
+every length, and the overlay's LARGE node.
+
+Every comparison feeds the same numpy arrays, made from a seed, to both
+sides.  Tolerances: in float32 the two sides differ only in summation order
+and in where ``scale`` is applied (the Pallas kernel scales q before the
+product, the plain versions scale the scores), a few f32 ulps of the
+output's scale: rtol = atol = 1e-5.  In bfloat16 both compute in f32 and
+round the output once, so they may land one bf16 ulp apart: rtol 2^-7 with
+an absolute floor of 1e-5 for outputs near 0.  Tests that need the card
+carry the ``cuda`` marker and skip where there is none; the JAX side is
+imported in a fixture, so they also collect where JAX is missing.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import smoke_config
+from repro_torch.core import Overlay
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops, ref
+from repro_torch.models import layers
+from repro_torch.models import params as tparams
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
+
+# (hq, hkv, seq, head dim, dtype, options): causal, GQA, window, softcap +
+# scale, non-causal, float32 and bfloat16
+CASES = [
+    (4, 4, 128, 32, "float32", {}),
+    (8, 2, 256, 64, "float32", {}),
+    (4, 2, 256, 96, "bfloat16", {}),
+    (4, 1, 256, 32, "float32", dict(window=48)),
+    (4, 2, 128, 64, "float32", dict(softcap=30.0, scale=0.1)),
+    (2, 2, 128, 32, "float32", dict(causal=False)),
+    (4, 2, 128, 64, "bfloat16", dict(window=20, softcap=5.0)),
+]
+IDS = [f"h{c[0]}-{c[1]}_s{c[2]}_d{c[3]}_{c[4]}_{'-'.join(c[5]) or 'causal'}"
+       for c in CASES]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's side of the parity tests."""
+    jax = pytest.importorskip("jax")
+    from repro.kernels import flash_attention as jfa
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    from repro.models import layers as jlayers
+    return types.SimpleNamespace(jax=jax, jnp=jax.numpy, fa=jfa, ops=jops,
+                                 ref=jref, layers=jlayers)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card: python -m pytest -m cuda)")
+    return torch.device("cuda")
+
+
+def _qkv(seed, b, hq, hkv, s, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape, np.float32)
+            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def _torch(arrs, dtype):
+    return [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+
+
+def _jax(jx, arrs, dtype):
+    return [jx.jnp.asarray(a, dtype=getattr(jx.jnp, dtype)) for a in arrs]
+
+
+def _f32(t) -> np.ndarray:
+    return np.asarray(t.float() if isinstance(t, torch.Tensor) else t, np.float32)
+
+
+@pytest.mark.parametrize("hq,hkv,s,d,dtype,kw", CASES, ids=IDS)
+def test_attention_matches_pallas_and_jax_ref(jx, hq, hkv, s, d, dtype, kw):
+    arrs = _qkv(s + d + hq, 2, hq, hkv, s, d)
+    q, k, v = _torch(arrs, dtype)
+    jq, jk, jv = _jax(jx, arrs, dtype)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    plain = ref.attention(q, k, v, **kw)
+    op = ops.attention(q, k, v, **kw)            # the custom op's CPU path
+    assert plain.dtype == op.dtype == q.dtype and plain.shape == q.shape
+    assert torch.equal(plain, op)
+    np.testing.assert_allclose(_f32(plain), _f32(jx.ref.attention(jq, jk, jv, **kw)), **tol)
+    pallas = jx.fa.flash_attention(jq, jk, jv, interpret=True, **kw)
+    np.testing.assert_allclose(_f32(plain), _f32(pallas), **tol)
+
+
+def test_fully_masked_rows_are_zero(jx):
+    """A window of 0 masks every key: the plain version turns the NaN rows
+    into 0, as the Pallas kernel's guard does."""
+    arrs = _qkv(11, 1, 2, 2, 128, 32)
+    q, k, v = _torch(arrs, "float32")
+    out = ref.attention(q, k, v, window=0)
+    assert torch.equal(out, torch.zeros_like(out))
+    pallas = jx.fa.flash_attention(*_jax(jx, arrs, "float32"), window=0, interpret=True)
+    np.testing.assert_array_equal(_f32(pallas), 0.0)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(window=40, softcap=20.0)],
+                         ids=["causal", "window-softcap"])
+def test_attention_grad_matches_jax_vjp(jx, kw):
+    """The autograd backward (the plain version's VJP, recomputed) against
+    ``jax.vjp`` of the reference's ``ops.attention`` (Pallas forward, the
+    reference VJP backward), GQA 8/2.  f32: rtol = atol = 1e-4, the same
+    products summed in other orders through two more products."""
+    arrs = _qkv(5, 1, 8, 2, 128, 32)
+    g = np.random.default_rng(6).standard_normal((1, 8, 128, 32)).astype(np.float32)
+    tq, tk, tv = (t.requires_grad_() for t in _torch(arrs, "float32"))
+    ops.attention(tq, tk, tv, **kw).backward(torch.from_numpy(g))
+    out, vjp = jx.jax.vjp(lambda *t: jx.ops.attention(*t, **kw), *_jax(jx, arrs, "float32"))
+    for got, want in zip((tq.grad, tk.grad, tv.grad), vjp(jx.jnp.asarray(g))):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-4, atol=1e-4)
+
+
+def test_attention_grad_is_vjp_of_plain_version():
+    arrs = _qkv(9, 2, 4, 2, 128, 16)
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal((2, 4, 128, 16), np.float32))
+    a = [t.requires_grad_() for t in _torch(arrs, "float32")]
+    b = [t.requires_grad_() for t in _torch(arrs, "float32")]
+    ops.attention(*a, softcap=10.0).backward(g)
+    ref.attention(*b, softcap=10.0).backward(g)
+    for x, y in zip(a, b):
+        assert torch.equal(x.grad, y.grad)
+
+
+@pytest.mark.parametrize("s", [128, 20])
+def test_multihead_attention_matches_jax_dispatch(jx, s):
+    """The port's cache-free attention takes the op at every length.  At
+    128 the JAX package's dispatch takes its kernel too; at 20 it takes its
+    plain path, which rounds the probabilities to bf16 before the value
+    product, so there the port is held to the function of the kernel, the
+    JAX ``ref.attention``."""
+    arrs = _qkv(s, 2, 4, 2, s, 32)
+    q, k, v = _torch(arrs, "bfloat16")
+    jq, jk, jv = _jax(jx, arrs, "bfloat16")
+    want = (jx.layers.multihead_attention(jq, jk, jv, softcap=30.0) if s % 128 == 0
+            else jx.ref.attention(jq, jk, jv, softcap=30.0))
+    np.testing.assert_allclose(_f32(ops.attention(q, k, v, softcap=30.0)), _f32(want),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("s", [128, 20])
+def test_cache_free_attn_fwd_takes_the_kernel_at_any_length(s):
+    """A traced cache-free attention layer holds one ``kernels/attention``
+    LARGE node whether or not S is a multiple of 128, and runs it to the
+    same bits as eager."""
+    cfg = smoke_config("phi3-mini-3.8b").scaled(num_kv_heads=2)
+    p = tparams.init(cfg, torch.Generator().manual_seed(s), "cpu")["layers"][0]["attn"]
+    x = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (1, s, cfg.d_model), np.float32)).to(torch.bfloat16)
+
+    def fn(x):
+        return layers.attn_fwd(p, x, cfg, positions=torch.arange(s), cache=None)[0]
+
+    jitted = Overlay(3, 3).jit(fn)
+    names = [n.name for n in jitted.lower(x).graph.op_nodes()]
+    assert [n for n in names if n.startswith("kernels/")] == ["kernels/attention"]
+    torch.testing.assert_close(jitted(x), fn(x), rtol=0, atol=0)
+
+
+def test_attention_traces_to_one_large_node():
+    q, k, v = _torch(_qkv(2, 1, 4, 2, 128, 32), "float32")
+    jitted = Overlay(3, 3).jit(lambda q, k, v: ops.attention(q, k, v, window=64))
+    graph = jitted.lower(q, k, v).graph
+    assert [n.name for n in graph.op_nodes()] == ["kernels/attention"]
+    assert graph.op_nodes()[0].op.tile_class.value == "large"
+    assert torch.equal(jitted(q, k, v), ref.attention(q, k, v, window=64))
+
+
+def test_attention_rejects_bad_shapes():
+    with pytest.raises(ValueError):
+        ops.attention(torch.ones(1, 3, 8, 4), torch.ones(1, 2, 8, 4), torch.ones(1, 2, 8, 4))
+    with pytest.raises(ValueError):
+        ops.attention(torch.ones(1, 2, 8, 4), torch.ones(1, 2, 8, 4), torch.ones(1, 2, 9, 4))
+    with pytest.raises(ValueError):
+        ops.attention(torch.ones(2, 8, 4), torch.ones(2, 8, 4), torch.ones(2, 8, 4))
+
+
+def test_flash_wrapper_rejects_cpu_tensors_without_launching():
+    before = tfa.launches.count
+    t = torch.ones(1, 2, 128, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(t, t, t)
+    ops.attention(t, t, t)                       # CPU: the plain version
+    assert tfa.launches.count == before
+
+
+# ---------------------------------------------------------------------------
+# on the card (run there: python -m pytest -m cuda tests/test_torch_attention.py)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,s,d,dtype,kw", CASES, ids=IDS)
+def test_flash_kernel_matches_plain_on_card(cuda, hq, hkv, s, d, dtype, kw):
+    q, k, v = (t.to(cuda) for t in _torch(_qkv(s + d, 2, hq, hkv, s, d), dtype))
+    before = tfa.launches.count
+    k1, k2 = ops.attention(q, k, v, **kw), ops.attention(q, k, v, **kw)
+    assert tfa.launches.count == before + 2
+    assert torch.equal(k1, k2)                   # no atomics: same bits
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    torch.testing.assert_close(k1.float(), ref.attention(q, k, v, **kw).float(), **tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_ragged_lengths_on_card(cuda):
+    """Lengths that are not multiples of the kernel's 64-row tiles are
+    masked in the kernel."""
+    for s, d in ((200, 16), (77, 128), (1, 8)):
+        q, k, v = (t.to(cuda) for t in _torch(_qkv(s, 1, 4, 2, s, d), "float32"))
+        torch.testing.assert_close(tfa.flash_attention(q, k, v),
+                                   ref.attention(q, k, v), **F32_TOL)
+
+
+@pytest.mark.cuda
+def test_attention_grad_on_card_matches_cpu(cuda):
+    arrs = _qkv(3, 1, 4, 2, 256, 64)
+    g = np.random.default_rng(4).standard_normal((1, 4, 256, 64)).astype(np.float32)
+    grads = []
+    for dev in ("cpu", cuda):
+        t = [x.to(dev).requires_grad_() for x in _torch(arrs, "float32")]
+        ops.attention(*t, window=100).backward(torch.from_numpy(g).to(dev))
+        grads.append([x.grad.cpu() for x in t])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)

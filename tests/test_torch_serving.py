@@ -22,7 +22,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.core import Overlay
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.launch import serve as serve_cli
-from repro_torch.models import layers
+from repro_torch.models import transformer as tfm
 from repro_torch.models import model as tmodel
 from repro_torch.models import params as tparams
 from repro_torch.serving.engine import Request, ServeEngine
@@ -194,11 +194,22 @@ def test_entry_points_default_to_cuda():
         serve_cli.main(["--arch", "phi3-mini-3.8b", "--smoke"])
 
 
-def test_cache_free_attention_is_left_to_the_flash_slice():
-    _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        layers.attn_fwd({}, torch.zeros(1, 2, 128), tcfg,
-                        positions=torch.arange(2), cache=None)
+@pytest.mark.parametrize("seq", [128, 20])
+def test_cache_free_forward_matches_cached_prefill(f32_models, seq):
+    """The cache-free forward (the attention op, at a length that is a
+    multiple of its 128 blocks and at a ragged one) against the cached
+    prefill on the same f32 weights.
+    Tolerance 2e-2: the cached path stores k and v in the bf16 cache and
+    rounds the probabilities to bf16 before the value product (2^-8
+    relative each); the cache-free path keeps both in f32."""
+    _, tcfg, _, tp = f32_models
+    toks = torch.from_numpy(np.random.default_rng(seq).integers(
+        0, tcfg.vocab_size, size=(2, seq)).astype(np.int32))
+    with torch.no_grad():
+        free, none = tfm.forward(tp, tcfg, toks)
+        cached, _ = tfm.forward(tp, tcfg, toks, caches=tmodel.init_cache(tcfg, 2, seq, "cpu"))
+    assert none is None and free.shape == cached.shape == (2, seq, tcfg.d_model)
+    torch.testing.assert_close(free, cached, rtol=2e-2, atol=2e-2)
 
 
 def test_serve_launcher_on_cpu(capsys):
