@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path end to end and fails loudly if any phase fails:
+Drives the port's main paths end to end and fails loudly if any phase fails:
 
-1. builds every CUDA kernel of the path from ``src/repro_torch/csrc``
+1. builds every CUDA kernel of the paths from ``src/repro_torch/csrc``
    (one nvcc per source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it (tolerances stated below), and checks that
-   repeated vmul_reduce and flash_attention launches are bit-identical;
+   shapes the main paths give it (tolerances stated below), checks that
+   repeated vmul_reduce, flash_attention and ssd_chunk launches are
+   bit-identical, and holds the full SSD scan with an initial state against
+   the sequential recurrence;
 3. runs the paper's workload, ``sum(a * b)``, through ``Overlay(3, 3).jit``
    on the static placements with 0-3 pass-through tiles and on dynamic
    placement — outputs bit-identical across placements — plus the LARGE
@@ -23,17 +25,24 @@ Drives the port's main path end to end and fails loudly if any phase fails:
 6. trains 4 full-width layers at seq 1024 for 2 steps through
    ``Overlay(3, 3)`` and eagerly from the same state: equal losses and
    parameters;
-7. checks the model's outputs: finite full-width logits, a small float32
-   model on the card (kernels) against the same model on the CPU (plain
-   versions), serving and one train step;
-8. runs the train launcher with an injected failure: it restarts from its
-   checkpoint and ends with rc 0;
-9. prints the kernels line (time, bound, plain and library times, launches),
-   the card's name and power limit, and last the result line.
+7. serves mamba2-130m at full width (24 layers) with prompts of 37, 500 and
+   4096 tokens through ``Overlay(3, 3)`` and plainly: identical streams,
+   one ``kernels/ssd`` node per layer in each traced prefill, and the
+   ssd_chunk and rmsnorm launches each prefill and decode must make;
+8. trains mamba2-130m at full width for 3 eager steps at batch 1 x seq 4096:
+   finite losses and 48 ssd_chunk and 49 rmsnorm launches a step;
+9. checks the models' outputs: finite full-width logits, small float32 phi3
+   and mamba2 models on the card (kernels) against the same models on the
+   CPU (plain versions), serving and one train step;
+10. runs the serve launcher on mamba2-130m at full width, and the train
+    launcher with an injected failure: it restarts from its checkpoint and
+    ends with rc 0;
+11. prints the kernels line (time, bound, plain and library times, launches),
+    the card's name and power limit, and last the result line.
 
 Launch counts come from the wrappers' counters, set to 0 just before each
-driven path (the paper workload, the overlay-served run, the full-width
-training run) and read just after; launches made to compare or time a
+driven path (the paper workload, the overlay-served runs, the full-width
+training runs) and read just after; launches made to compare or time a
 kernel are not counted.  Exits non-zero without a result line when CUDA is
 unavailable or the port's sources are missing.
 """
@@ -68,8 +77,11 @@ from repro_torch.core import Overlay, PlacementPolicy  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import native, ops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels import vmul_reduce as vr_mod  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.models import params as pm  # noqa: E402
@@ -84,6 +96,19 @@ BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 peak in the tensor cores
 BATCH, PROMPT, MAX_NEW, MAX_LEN, REQUESTS = 2, 16, 8, 128, 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 4        # the reference's train_4k shape
 OVERLAY_LAYERS, OVERLAY_SEQ, OVERLAY_STEPS = 4, 1024, 2
+MAMBA = "mamba2-130m"
+MAMBA_BATCH, MAMBA_REQUESTS, MAMBA_NEW = 4, 6, 16
+MAMBA_PROMPTS = (37, 500, 4096)       # one ragged chunk, a padded tail, 64 full chunks
+MAMBA_MAX_LEN = 4096 + 64
+MAMBA_TRAIN_STEPS = 3
+SSD_PATH = (24, 4096 // 64, 64, 64, 128)   # (batch*heads, chunks, L, p, n) of a 4096-token prefill
+MAMBA_D = 768
+# rmsnorm's x on the main paths: phi3's serving prompt, batched prompt and
+# decode rows and its training x (d 3072); mamba2's prefills, one request at
+# a time, its training x and its decode rows (d 768)
+RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072),
+                  (TRAIN_BATCH, TRAIN_SEQ, 3072),
+                  *((1, s, MAMBA_D) for s in MAMBA_PROMPTS), (MAMBA_BATCH, 1, MAMBA_D))
 
 
 def log(msg: str) -> None:
@@ -157,21 +182,21 @@ def phase_kernel_checks(gen: torch.Generator) -> dict[str, float]:
             log(f"[kernels] vmul_reduce n={n} {str(dt)[6:]}: kernel {k1.float().item():.6f} "
                 f"plain {p.float().item():.6f} err {err:.3g} tol {tol:.3g} bit-identical repeat")
             del a, b
-    # serving's prompt, batched prompt and decode rows; training's x
-    for lead in ((PROMPT,), (BATCH * PROMPT,), (BATCH,), (TRAIN_BATCH, TRAIN_SEQ)):
+    for shape in RMSNORM_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
-            x = torch.randn(*lead, 3072, generator=gen, device=DEV).to(dt)
-            w = 1.0 + 0.1 * torch.randn(3072, generator=gen, device=DEV)
+            x = torch.randn(*shape, generator=gen, device=DEV).to(dt)
+            w = 1.0 + 0.1 * torch.randn(shape[-1], generator=gen, device=DEV)
             y = rn_mod.rmsnorm_cuda(x, w)
             p = rn_mod.plain(x, w)
             diff = (y.float() - p.float()).abs()
             rel = 2 ** -7 if dt == torch.bfloat16 else 1e-5
             check(bool((diff <= rel * (1 + p.float().abs())).all()),
-                  f"rmsnorm {(*lead, 3072)} {dt}: max err {diff.max().item()}")
+                  f"rmsnorm {shape} {dt}: max err {diff.max().item()}")
             errs["rmsnorm"] = max(errs["rmsnorm"], diff.max().item())
-            log(f"[kernels] rmsnorm {(*lead, 3072)} {str(dt)[6:]} x, f32 w: "
+            log(f"[kernels] rmsnorm {shape} {str(dt)[6:]} x, f32 w: "
                 f"max err {diff.max().item():.3g}")
     errs["flash_attention"] = check_flash(gen)
+    errs["ssd_chunk"] = check_ssd(gen)
     torch.cuda.synchronize()
     return errs
 
@@ -219,6 +244,59 @@ def check_flash(gen: torch.Generator) -> float:
     return worst
 
 
+SSD_CASES = [   # (bh, nc, L, p, n, dtype of x/b/c, a_cum span per chunk)
+    (*SSD_PATH, torch.bfloat16, 2.0),           # the 4096-token prefill, f32 a
+    (24, 1, 37, 64, 128, torch.bfloat16, 2.0),  # a 37-token prompt: one ragged chunk
+    (24, 8, 64, 64, 128, torch.float32, 2.0),
+    (16, 3, 8, 16, 16, torch.float32, 2.0),     # the smoke configs' shape
+    (24, 4, 64, 64, 128, torch.bfloat16, 60.0), # a_cum spans -60..0: the masked exp
+]
+
+
+def check_ssd(gen: torch.Generator) -> float:
+    """ssd_chunk against the plain version (``ssd_scan.plain``), all three
+    outputs.  Tolerance: both sides compute in f32 from the same inputs and
+    differ only in the order of their sums (the dot products, the cumsum),
+    so every output is within 1e-5 of the largest plain value of its tensor
+    (a normwise bound: a sum's rounding scales with its terms, not with a
+    cancelled result).  Then the full scan (``ssd_scan.ssd``) with an
+    initial state against the sequential recurrence (``ref.ssd_naive``),
+    another order of the whole sum: the reference's own 2e-4."""
+    worst = 0.0
+    for bh, nc, L, p, n, dt, span in SSD_CASES:
+        x = torch.randn(bh, nc, L, p, generator=gen, device=DEV).to(dt)
+        b = torch.randn(bh, nc, L, n, generator=gen, device=DEV).to(dt)
+        c = torch.randn(bh, nc, L, n, generator=gen, device=DEV).to(dt)
+        a = -torch.rand(bh, nc, L, generator=gen, device=DEV) * (2 * span / L)
+        k1 = ssd_mod.ssd_chunk(x, a, b, c, chunk=L)
+        k2 = ssd_mod.ssd_chunk(x, a, b, c, chunk=L)
+        want = ssd_mod.plain(x, a, b, c, chunk=L)
+        errs = []
+        for name, u, v, w in zip(("y_diag", "states", "a_cum"), k1, k2, want):
+            check(torch.equal(u, v), f"ssd_chunk {(bh, nc, L, p, n)} {dt}: repeated {name} differ")
+            err, scale = (u - w).abs().max().item(), w.abs().max().item()
+            check(err <= 1e-5 * scale, f"ssd_chunk {(bh, nc, L, p, n)} {dt} span {span}: "
+                  f"{name} max err {err} > 1e-5 * {scale}")
+            errs.append(f"{name} {err:.3g} (of {scale:.3g})")
+            worst = max(worst, err)
+        log(f"[kernels] ssd_chunk x ({bh}, {nc}, {L}, {p}) n {n} {str(dt)[6:]}, a_cum span "
+            f"{span}: max err " + ", ".join(errs) + ", bit-identical repeat")
+        del x, b, c, a, k1, k2, want
+    x, b, c = (0.5 * torch.randn(2, 256, 3, 16, generator=gen, device=DEV) for _ in range(3))
+    a = -0.2 * torch.rand(2, 256, 3, generator=gen, device=DEV)
+    init = torch.randn(2, 3, 16, 16, generator=gen, device=DEV)
+    y, final = ssd_mod.ssd(x, a, b, c, chunk=64, initial_state=init)
+    yn, fn = ref.ssd_naive(x, a, b, c, init)
+    for name, got, want in (("y", y, yn), ("final state", final, fn)):
+        err = (got - want).abs()
+        check(bool((err <= 2e-4 * (1 + want.abs())).all()),
+              f"ssd scan with an initial state: {name} max err {err.max().item()}")
+    log(f"[kernels] ssd scan (2, 256, 3, 16) chunk 64 with an initial state vs the sequential "
+        f"recurrence: y max err {(y - yn).abs().max().item():.3g}, final state "
+        f"{(final - fn).abs().max().item():.3g}")
+    return worst
+
+
 class Counted:
     """Counts calls of a serving step (prefill or decode) and keeps each
     call's host time.  The steps are host-bound (the card idles while Python
@@ -226,10 +304,11 @@ class Counted:
     to run; the tick's one device-to-host copy ends each decode call."""
 
     def __init__(self, fn):
-        self.fn, self.calls, self.seconds = fn, 0, []
+        self.fn, self.calls, self.seconds, self.lengths = fn, 0, [], []
 
     def __call__(self, *args):
         self.calls += 1
+        self.lengths.append(args[1].shape[1])      # tokens of the call
         t0 = time.perf_counter()
         out = self.fn(*args)
         self.seconds.append(time.perf_counter() - t0)
@@ -240,6 +319,15 @@ class Counted:
         the rest, in ms."""
         return (f"first {self.seconds[0] * 1e3:.1f} ms, then median "
                 f"{float(np.median(self.seconds[1:])) * 1e3:.1f} ms")
+
+    def by_length_ms(self) -> str:
+        """Per call length: first call and the median of the rest, in ms."""
+        out = []
+        for n in sorted(set(self.lengths)):
+            ts = [t * 1e3 for t, m in zip(self.seconds, self.lengths) if m == n]
+            rest = f", then median {float(np.median(ts[1:])):.1f}" if len(ts) > 1 else ""
+            out.append(f"{n} tokens: first {ts[0]:.1f}{rest} ({len(ts)} calls)")
+        return "; ".join(out)
 
 
 def phase_overlay_paper(gen: torch.Generator) -> dict:
@@ -431,6 +519,7 @@ def phase_train() -> dict:
 
 KERNEL_GROUPS = (   # (group, lower-case substrings of CUDA kernel names), first match wins
     ("flash_attention", ("flash_fwd",)),
+    ("ssd_chunk", ("ssd_chunk_kernel",)),
     ("rmsnorm", ("rmsnorm_rows",)),
     ("matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "cublas")),
     ("softmax", ("softmax",)),
@@ -439,7 +528,7 @@ KERNEL_GROUPS = (   # (group, lower-case substrings of CUDA kernel names), first
 )
 
 
-def profile_step(fn) -> None:
+def profile_step(fn, tag: str = "train") -> None:
     """One more train step (after the counted run) under ``torch.profiler``:
     device time by kernel group, and the device's busy share of the step's
     wall time (kernels run on one stream, so their times add)."""
@@ -459,11 +548,11 @@ def profile_step(fn) -> None:
                      "other elementwise")
         groups[group] = groups.get(group, 0.0) + us
     if busy == 0.0:
-        log("[train] profile: the profiler saw no device time; breakdown not measured")
+        log(f"[{tag}] profile: the profiler saw no device time; breakdown not measured")
         return
     parts = ", ".join(f"{g} {us / 1e3:.1f} ms ({us / busy:.0%})"
                       for g, us in sorted(groups.items(), key=lambda kv: -kv[1]))
-    log(f"[train] profile of one step ({ms:.1f} ms wall, under the profiler): device busy "
+    log(f"[{tag}] profile of one step ({ms:.1f} ms wall, under the profiler): device busy "
         f"{busy / 1e3:.1f} ms ({busy / 1e3 / ms:.0%} of the step, idle {1 - busy / 1e3 / ms:.0%}); "
         f"{parts}")
 
@@ -509,6 +598,168 @@ def phase_train_overlay() -> None:
     torch.cuda.empty_cache()
 
 
+def serve_mamba(params, cfg, overlay) -> tuple[list, dict, float, ServeEngine]:
+    engine = ServeEngine(params, cfg, batch=MAMBA_BATCH, max_len=MAMBA_MAX_LEN,
+                         overlay=overlay, device=DEV)
+    engine._prefill, engine._decode = Counted(engine._prefill), Counted(engine._decode)
+    rng = np.random.default_rng(SEED)
+    for rid in range(MAMBA_REQUESTS):
+        n = MAMBA_PROMPTS[rid % len(MAMBA_PROMPTS)]
+        prompt = rng.integers(0, cfg.vocab_size, size=(n,)).tolist()
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAMBA_NEW))
+    torch.cuda.synchronize()
+    reset_counters()                           # the driven path starts here
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts()
+    streams = [r.out for r in sorted(done, key=lambda r: r.rid)]
+    return streams, launches, dt, engine
+
+
+def phase_serve_mamba(gen: torch.Generator) -> dict:
+    """mamba2-130m at its published widths and all 24 layers, random bf16
+    weights from the seed: 6 requests of 37, 500 and 4096 prompt tokens
+    (one ragged chunk, a padded tail, 64 full chunks), 16 new tokens each,
+    batch 4, through ``Overlay(3, 3)`` and plainly.  Each prefill launches
+    ssd_chunk once per layer (24) and decode never (its step is plain); each
+    prefill and decode call launches rmsnorm 25 times (24 ln1 + final)."""
+    cfg = get_config(MAMBA)
+    check(cfg.d_model == MAMBA_D, f"{MAMBA} d_model {cfg.d_model}: the rmsnorm checks use {MAMBA_D}")
+    params = pm.init(cfg, gen, DEV)
+    torch.cuda.synchronize()
+    log(f"[serve-mamba] {cfg.name}: {pm.count(params) / 1e6:.1f} M params (d_model "
+        f"{cfg.d_model}, {cfg.num_layers} layers, state {cfg.ssm_state}, bf16)")
+    torch.cuda.reset_peak_memory_stats()
+    ov = Overlay(3, 3)
+    s_ov, l_ov, dt_ov, eng_ov = serve_mamba(params, cfg, ov)
+    s_pl, l_pl, dt_pl, eng_pl = serve_mamba(params, cfg, None)
+    peak = torch.cuda.max_memory_allocated()
+    check(s_ov == s_pl, f"mamba overlay and plain token streams differ:\n{s_ov}\n{s_pl}")
+    check(all(len(s) == 1 + MAMBA_NEW and all(0 <= t < cfg.vocab_size for t in s)
+              for s in s_ov), "unexpected mamba token stream shape/range")
+    layers = cfg.num_layers
+    for name, eng, got in (("overlay", eng_ov, l_ov), ("plain", eng_pl, l_pl)):
+        calls = eng._prefill.calls + eng._decode.calls
+        want = {"ssd_chunk": layers * eng._prefill.calls, "rmsnorm": (layers + 1) * calls}
+        for kernel, n in want.items():
+            check(got[kernel] == n, f"mamba {name} serving: {kernel} launches {got[kernel]} != {n}")
+    tokens = sum(len(s) for s in s_ov)
+    desc = ov.describe()
+    log(f"[serve-mamba] overlay: {tokens} tokens in {dt_ov:.2f}s ({tokens / dt_ov:.1f} tok/s), "
+        f"prefill {eng_ov._prefill.calls} / decode {eng_ov._decode.calls} calls, launches "
+        f"{l_ov}; traces {desc['traces']} ({desc['trace_seconds']:.1f}s), downloads "
+        f"{desc['downloads']}")
+    log(f"[serve-mamba] plain:   {tokens} tokens in {dt_pl:.2f}s ({tokens / dt_pl:.1f} tok/s), "
+        f"launches {l_pl}; streams identical: {s_ov == s_pl}")
+    for step in ("prefill", "decode"):
+        log(f"[serve-mamba] {step} host ms per call: overlay "
+            f"{getattr(eng_ov, f'_{step}').by_length_ms()}; plain "
+            f"{getattr(eng_pl, f'_{step}').by_length_ms()}")
+        for entry in getattr(eng_ov, f"_{step}").fn._entries.values():
+            graph = entry.lowered.graph
+            names = [nd.name for nd in graph.op_nodes()]
+            toks = next(a.shape for a in graph.input_avals()
+                        if a.dtype == torch.int32 and len(a.shape) == 2)
+            if step == "prefill":
+                check(names.count("kernels/ssd") == layers,
+                      f"a traced mamba prefill holds {names.count('kernels/ssd')} kernels/ssd nodes")
+            log(f"[serve-mamba] {step} signature tokens {toks}: trace "
+                f"{entry.trace_seconds:.2f} s, assemble {entry.assemble_seconds:.2f} s; "
+                f"{len(names)} op nodes ({len(entry.lowered.unmapped)} residue, "
+                f"{names.count('kernels/ssd')} kernels/ssd, {names.count('kernels/rmsnorm')} "
+                f"kernels/rmsnorm), {entry.acc.placement.total_passthrough} pass-through hops")
+    log(f"[serve-mamba] streams: {[s[:6] for s in s_ov]}...")
+    log(f"[serve-mamba] max_memory_allocated {peak / 2**30:.2f} GiB")
+    del params, eng_ov, eng_pl
+    torch.cuda.empty_cache()
+    return {"launches": l_ov, "tok_s_overlay": tokens / dt_ov, "tok_s_plain": tokens / dt_pl}
+
+
+def phase_train_mamba() -> dict:
+    """mamba2-130m at its published widths and all 24 layers, random bf16
+    weights from the seed, 3 eager in-place steps at batch 1 x seq 4096 on
+    the synthetic stream.  Per step: one ssd_chunk launch per layer in the
+    forward and one in the remat recompute (the backward is plain); one
+    rmsnorm launch per ln1 in the forward and the recompute, plus the final
+    norm."""
+    cfg = get_config(MAMBA)
+    params = pm.init(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    opt = adamw_init(params)
+    step_fn = train_cli.make_step(cfg, cosine(3e-4, warmup=1, total=MAMBA_TRAIN_STEPS))
+    batches = [make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, step=i, seed=SEED, device=DEV)
+               for i in range(MAMBA_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, step_ms = (params, opt), [], []
+    reset_counters()                           # the driven path starts here
+    for batch in batches:
+        ms, (state, metrics) = _sync_ms(lambda: step_fn(state, batch))
+        step_ms.append(ms)
+        losses.append(metrics["loss"].item())
+        log(f"[train-mamba] step {len(losses)}: loss {losses[-1]:.4f} grad_norm "
+            f"{metrics['grad_norm'].item():.3f} {ms:.1f} ms")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    profile_step(lambda: step_fn(state, batches[0]), tag="train-mamba")
+    check(all(math.isfinite(x) for x in losses), f"non-finite mamba training loss {losses}")
+    want = {"ssd_chunk": MAMBA_TRAIN_STEPS * 2 * cfg.num_layers,
+            "rmsnorm": MAMBA_TRAIN_STEPS * (2 * cfg.num_layers + 1)}
+    for name, n in want.items():
+        check(launches[name] == n, f"mamba training {name} launches {launches[name]} != {n}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = float(np.median(step_ms[1:]))
+    log(f"[train-mamba] {cfg.name}: {pm.count(params) / 1e6:.1f} M params, {cfg.num_layers} "
+        f"layers, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, remat {cfg.remat}: step ms first "
+        f"{step_ms[0]:.1f}, steady (median of the rest) {steady:.1f}; "
+        f"{tokens / steady * 1e3:.0f} tokens/s; max_memory_allocated {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB); launches {launches} (want {want})")
+    del params, opt, state, batches
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "losses": losses}
+
+
+def phase_small_mamba_reference() -> None:
+    """A small float32 mamba2 (d_model 128, 2 layers, state 16, head dim 16,
+    chunk 8, so rmsnorm and ssd_chunk both run) on the card (kernels)
+    against the same model on the CPU (plain versions): prefill and decode
+    logits, and one train step.  f32 everywhere (the conv windows the
+    decode reads come from the prefill in f32), so the two differ by f32
+    sums in other orders only: logits within 1e-4 * (1 + |logit|), loss
+    rtol 1e-5, grad norm rtol 1e-4, parameters within 0.1 * lr (Adam divides
+    each gradient by its own magnitude, so a near-zero gradient's rounding
+    difference moves its update by up to lr)."""
+    cfg = smoke_config(MAMBA).scaled(d_model=128, dtype="float32")
+    cpu = _to(pm.init(cfg, torch.Generator().manual_seed(SEED), "cpu"), "cpu", torch.float32)
+    cuda = _to(cpu, DEV)
+    toks = torch.tensor([[5, 17, 42, 99, 7, 3, 11, 200, 31, 64, 2, 9, 77]], dtype=torch.int32)
+    lc, cc = mdl.prefill(cpu, cfg, toks, mdl.init_cache(cfg, 1, 16, "cpu"))
+    lg, cg = mdl.prefill(cuda, cfg, toks.to(DEV), mdl.init_cache(cfg, 1, 16, DEV))
+    dc, _ = mdl.decode_step(cpu, cfg, toks[:, :1], cc)
+    dg, _ = mdl.decode_step(cuda, cfg, toks[:, :1].to(DEV), cg)
+    for name, want, got in (("prefill", lc, lg), ("decode", dc, dg)):
+        err = (got.cpu() - want).abs()
+        check(bool(err.le(1e-4 * (1 + want.abs())).all()),
+              f"small mamba {name}: card vs CPU max err {err.max().item()}")
+        log(f"[reference] small f32 mamba2 {name} logits: card (kernels) vs CPU (plain) max "
+            f"err {err.max().item():.3g}")
+    lr = 1e-3
+    out = {}
+    for dev, params in (("cpu", _to(cpu, "cpu")), (DEV, _to(cpu, DEV))):
+        step = train_cli.make_step(cfg, constant(lr))
+        (params, _), m = step((params, adamw_init(params)),
+                              make_batch(cfg, 2, 64, seed=SEED, device=dev))
+        out[dev] = (m["loss"].item(), m["grad_norm"].item(), pytree.tree_leaves(_to(params, "cpu")))
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out[DEV]
+    check(abs(lg - lc) <= 1e-5 * abs(lc), f"small mamba train loss card {lg} vs CPU {lc}")
+    check(abs(gg - gc) <= 1e-4 * abs(gc), f"small mamba grad norm card {gg} vs CPU {gc}")
+    perr = max((a - b).abs().max().item() for a, b in zip(pg, pc))
+    check(perr <= 0.1 * lr, f"small mamba train step: parameters differ by {perr}")
+    log(f"[reference] small f32 mamba2 train step: card (kernels) vs CPU (plain): loss "
+        f"{lg:.6f} vs {lc:.6f}, grad norm {gg:.6f} vs {gc:.6f}, params max err {perr:.3g}")
+
+
 def phase_small_train_reference() -> None:
     """One train step of a small float32 phi3 (d_model 128, seq 128, so both
     kernels run) on the card against the CPU (plain versions).  Loss within
@@ -537,8 +788,18 @@ def phase_small_train_reference() -> None:
 
 
 def phase_launcher() -> None:
-    """``launch.train.main`` on the card with a failure injected at step 3:
+    """``launch.serve.main`` serving mamba2-130m at full width, then
+    ``launch.train.main`` on the card with a failure injected at step 3:
     it restores the step-2 checkpoint, replays and ends with rc 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(["--arch", MAMBA, "--requests", "4", "--batch", "2",
+                             "--prompt-len", "100", "--max-new", "4"])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[launcher] {line}")
+    check(rc == 0 and "4/4 requests" in text and "on cuda" in text,
+          "serve launcher did not serve mamba2-130m on the card")
     with tempfile.TemporaryDirectory() as ckpt:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -649,6 +910,31 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
                               10, warmup=2),
         "shape": f"q, k, v: ({b}, {h}, {sq}, {hd}) bfloat16, causal"})
     del q, k, v
+    bh, nc, L, p, n = SSD_PATH                          # a 4096-token mamba2 prefill or train row
+    x = torch.randn(bh, nc, L, p, generator=gen, device=DEV).bfloat16()
+    b, c = (torch.randn(bh, nc, L, n, generator=gen, device=DEV).bfloat16() for _ in range(2))
+    a = -torch.rand(bh, nc, L, generator=gen, device=DEV) * (4.0 / L)
+    rows = bh * nc
+    bytes_ = (rows * L * (p + 2 * n) * 2 + rows * L * 4            # x, b, c bf16 and a f32 read
+              + rows * (L * p + n * p + L) * 4)                    # y_diag, states, a_cum f32 written
+    flops = rows * (2 * n * L * (L + 1) // 2        # C B^T over the causal half
+                    + 2 * p * L * (L + 1) // 2      # S x over the causal half
+                    + 2 * n * p * L)                # the chunk state
+    out.append({
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:73",
+        "launches": launches["ssd_chunk"],
+        "max_abs_err": errs["ssd_chunk"],
+        "ms": time_ms(lambda: ssd_mod.ssd_chunk(x, a, b, c, chunk=L), 50),
+        "plain_ms": time_ms(lambda: ssd_mod.plain(x, a, b, c, chunk=L), 20),
+        "bound_ms": max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3,
+        "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
+        else "operations",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the chunk-local SSD terms",
+        "shape": f"x ({bh}, {nc}, {L}, {p}), b/c n {n} bfloat16, a float32"})
+    del x, a, b, c
     torch.cuda.empty_cache()
     # the same kernels at the sizes that show their bandwidth
     for size in (1 << 26,):
@@ -661,8 +947,11 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
             f"{time_ms(lambda: vr_mod.plain(a, b), 20):.4f} ms, torch.dot "
             f"{time_ms(lambda: torch.dot(a, b), 20):.4f} ms")
         del a, b
-    for rows in (PROMPT, BATCH * PROMPT, TRAIN_SEQ, 8192):
+    # phi3's rows, then mamba2's (a 4096-token prefill or train row, a decode batch)
+    for rows, d in ((PROMPT, 3072), (BATCH * PROMPT, 3072), (TRAIN_SEQ, 3072), (8192, 3072),
+                    (TRAIN_SEQ, MAMBA_D), (MAMBA_BATCH, MAMBA_D)):
         x = torch.randn(rows, d, generator=gen, device=DEV).bfloat16()
+        w = torch.ones(d, device=DEV)
         ms = time_ms(lambda: rn_mod.rmsnorm_cuda(x, w), 100)
         bound = (2 * rows * d * 2 + d * 4) / HBM_BYTES_PER_S * 1e3
         log(f"[timing] rmsnorm ({rows}, {d}) bf16: {ms:.4f} ms, bound {bound:.4f} ms, "
@@ -685,11 +974,15 @@ def main() -> int:
     served = phase_serve(gen)
     trained = phase_train()
     phase_train_overlay()
+    served_mamba = phase_serve_mamba(gen)
+    trained_mamba = phase_train_mamba()
     phase_small_reference()
     phase_small_train_reference()
+    phase_small_mamba_reference()
     phase_launcher()
     by_path = {"fig3": paper["launches"], "serve": served["launches"],
-               "train": trained["launches"]}
+               "train": trained["launches"], "serve_mamba": served_mamba["launches"],
+               "train_mamba": trained_mamba["launches"]}
     launches = {c.name: sum(p[c.name] for p in by_path.values()) for c in ops.LAUNCH_COUNTERS}
     kernels = phase_kernel_line(gen, errs, launches)
     for entry in kernels:

@@ -1,13 +1,13 @@
 """Registration of the architectures the port serves, the paper's own
 VMUL&Reduce workload constants, and the smoke-test reduction helper.
 
-A copy of ``repro/configs/archs.py`` restricted to what this slice serves:
-only phi3-mini-3.8b is registered.
+A copy of ``repro/configs/archs.py`` restricted to what the port serves:
+phi3-mini-3.8b and mamba2-130m are registered.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import phi3_mini_3_8b  # noqa: F401  (registers)
+from repro_torch.configs import mamba2_130m, phi3_mini_3_8b  # noqa: F401  (registers)
 from repro_torch.configs.base import ArchConfig, get_config
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,10 @@ Kernel inventory (one module per kernel, each with its plain version in
   flash_attention — blocked online-softmax attention (causal, GQA, sliding
                 window, soft-cap), one block per 64-row query tile,
                 csrc/flash_attention.cu
+  ssd_scan    — Mamba-2 SSD, the chunk-local quadratic part, one block per
+                (batch·head, chunk), csrc/ssd_chunk.cu; the inter-chunk scan
+                around it is plain PyTorch
 
-The reference's ssd_scan kernel is not ported yet (ROADMAP queue 2).  Importing :mod:`repro_torch.kernels.ops` registers the
-kernels with the overlay's trace frontend.
+Importing :mod:`repro_torch.kernels.ops` registers the kernels with the
+overlay's trace frontend.
 """

@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("vmul_reduce", "rmsnorm", "flash_attention")   # csrc/<name>.cu
+SOURCES = ("vmul_reduce", "rmsnorm", "flash_attention", "ssd_chunk")   # csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

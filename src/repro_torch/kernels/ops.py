@@ -3,8 +3,9 @@ the overlay's LARGE-tile bitstreams (``repro/kernels/ops.py:148-166``).
 
 Each kernel is one ``torch.library.custom_op``:
 
-* ``repro_torch::vmul_reduce(a, b)``, ``repro_torch::rmsnorm(x, w, eps)`` and
-  ``repro_torch::attention(q, k, v, causal, window, softcap, scale)``;
+* ``repro_torch::vmul_reduce(a, b)``, ``repro_torch::rmsnorm(x, w, eps)``,
+  ``repro_torch::attention(q, k, v, causal, window, softcap, scale)`` and
+  ``repro_torch::ssd(x, a, b, c, initial_state, chunk)``;
 * the CUDA implementation is the hand-written kernel (it launches or raises;
   there is no fallback), the CPU implementation is the plain version — a
   wrapper takes the plain version only because its tensors lie on the CPU;
@@ -13,10 +14,10 @@ Each kernel is one ``torch.library.custom_op``:
   counterpart of the reference's rule for registered calls
   (``repro/core/trace.py:17-21``).
 
-rmsnorm's and attention's backward is the VJP of the plain version,
+rmsnorm's, attention's and ssd's backward is the VJP of the plain version,
 recomputed from the inputs inside a ``torch.autograd.Function``
-(``repro/kernels/ops.py:42-45,69-75``); the reference has no backward
-kernel, so the port has none either.
+(``repro/kernels/ops.py:42-45,69-75,114-118``); the reference has no
+backward kernel, so the port has none either.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from repro_torch.core.patterns import Operator, TileClass, register_call
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import vmul_reduce as _vr
 
 
@@ -153,6 +155,91 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# SSD — the chunked scan; backward recomputes the plain chunked VJP
+# ---------------------------------------------------------------------------
+def _check_ssd(x, a, b, c, initial_state, chunk) -> None:
+    if x.dim() != 4 or a.shape != x.shape[:3] or b.dim() != 4 or \
+            b.shape != c.shape or b.shape[:3] != x.shape[:3]:
+        raise ValueError(f"expect x (B, S, H, p), a (B, S, H) and b, c (B, S, H, n), got "
+                         f"{tuple(x.shape)}, {tuple(a.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(c.shape)}")
+    bsz, s, h, p = x.shape
+    if s % chunk:
+        raise ValueError(f"seqlen {s} must divide chunk {chunk}")
+    if initial_state is not None and initial_state.shape != (bsz, h, b.shape[-1], p):
+        raise ValueError(f"initial_state {tuple(initial_state.shape)} is not "
+                         f"{(bsz, h, b.shape[-1], p)}")
+
+
+# Both implementations return contiguous tensors, as the fake one does: a
+# traced graph records views of the result that only a contiguous tensor has.
+@torch.library.custom_op("repro_torch::ssd", mutates_args=(), device_types="cpu")
+def _ssd_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+            initial_state: Optional[torch.Tensor],
+            chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    _check_ssd(x, a, b, c, initial_state, chunk)
+    y, final = ref.ssd_chunked(x, a, b, c, chunk=chunk, initial_state=initial_state,
+                               return_state=True)
+    return y.contiguous(), final.contiguous()
+
+
+@_ssd_op.register_kernel("cuda")
+def _(x, a, b, c, initial_state, chunk):
+    _check_ssd(x, a, b, c, initial_state, chunk)
+    y, final = _ssd.ssd(x, a, b, c, chunk=chunk, initial_state=initial_state)
+    return y.contiguous(), final.contiguous()
+
+
+@_ssd_op.register_fake
+def _(x, a, b, c, initial_state, chunk):
+    _check_ssd(x, a, b, c, initial_state, chunk)
+    bsz, _, h, p = x.shape
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            x.new_empty((bsz, h, b.shape[-1], p), dtype=torch.float32))
+
+
+class _SSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a, b, c, chunk):
+        ctx.save_for_backward(x, a, b, c)
+        ctx.chunk = chunk
+        return _ssd_op(x, a, b, c, None, chunk)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        # the chunked plain version, not the per-step recurrence: its
+        # residuals are per-chunk states (repro/kernels/ops.py:89-92)
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            grads = torch.autograd.grad(ref.ssd_chunked(*ins, chunk=ctx.chunk), ins, g)
+        return (*(gr if need else None
+                  for gr, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+        chunk: int = 64) -> torch.Tensor:
+    """Mamba-2 SSD, y only (use :func:`ssd_with_state` for stateful decode).
+    x (B, S, H, p), a (B, S, H), b/c (B, S, H, n); S a multiple of chunk."""
+    return _SSD.apply(x, a, b, c, chunk)
+
+
+def ssd_with_state(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                   *, chunk: int = 64, initial_state: torch.Tensor | None = None):
+    """(y, final_state (B, H, n, p) f32), starting from ``initial_state``."""
+    return _ssd_op(x, a, b, c, initial_state, chunk)
+
+
+def ssd_decode_step(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    state: torch.Tensor):
+    """Single-token SSD update (serving): x (B, H, p), a (B, H), b/c
+    (B, H, n), state (B, H, n, p).  Plain PyTorch, as it is jnp in the
+    reference (``repro/kernels/ops.py:137-142``)."""
+    new = state * torch.exp(a)[..., None, None] + b[..., :, None] * x[..., None, :]
+    y = torch.sum(c[..., :, None] * new, dim=-2)
+    return y.to(x.dtype), new
+
+
+# ---------------------------------------------------------------------------
 # Overlay registry: the custom ops are pre-synthesized LARGE-tile bitstreams.
 # A traced function calling one of these wrappers lowers to a single LARGE
 # node (named below) instead of being decomposed into scalar aten ops.
@@ -166,5 +253,8 @@ register_call("repro_torch::rmsnorm",
 register_call("repro_torch::attention",
               Operator("kernels/attention", 3, attention,
                        TileClass.LARGE, flops_per_elem=4.0), override=True)
+register_call("repro_torch::ssd",
+              Operator("kernels/ssd", 4, ssd,
+                       TileClass.LARGE, flops_per_elem=6.0), override=True)
 
-LAUNCH_COUNTERS = (_vr.launches, _rn.launches, _fa.launches)
+LAUNCH_COUNTERS = (_vr.launches, _rn.launches, _fa.launches, _ssd.launches)

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels — the correctness ground truth.
 
 Each function computes what its TPU kernel computes, in the most obvious
-dense formulation (copies of ``repro/kernels/ref.py:14,19,25``).  The custom
+dense formulation (copies of ``repro/kernels/ref.py:14,19,25,55,112``).  The custom
 ops in :mod:`repro_torch.kernels.ops` run these on CPU tensors, the CPU tests
 hold them against the JAX package, and ``chip_smoke.py`` holds the CUDA
 kernels against them on the card.
@@ -57,3 +57,73 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.bmm(p.reshape(b * hq, sq, sk),
                   v.float().reshape(b * hq, sk, v.shape[-1]))
     return o.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+
+
+def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+                chunk: int = 64, initial_state: torch.Tensor | None = None,
+                return_state: bool = False):
+    """Chunked SSD in plain PyTorch, the same math as the kernel and
+    autograd-friendly (the backward's residuals are per-chunk states, not
+    per-step states).  Batch and heads stay separate dims, as in the
+    reference.  Shapes as :func:`ssd_naive`.  Returns y, or
+    (y, final_state (b, h, n, p)).  Products are ``bmm`` (this code is
+    traced as the ssd op's backward)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = s // chunk
+    L = chunk
+    z = bsz * h * nc
+
+    def to5(t):   # (b, s, h, f?) -> (b, h, nc, L, f?)
+        t = t.transpose(1, 2)
+        return t.reshape(bsz, h, nc, L, *t.shape[3:]).float()
+
+    xb, ab, bb, cb = to5(x), to5(a), to5(b), to5(c)
+
+    a_cum = torch.cumsum(ab, dim=-1)                             # (b, h, nc, L)
+    seg = a_cum[..., :, None] - a_cum[..., None, :]              # (b, h, nc, L, L)
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    # mask BEFORE exp: the j>i entries have seg>0 and can overflow to inf,
+    # which turns the where()'s backward into 0*inf = NaN
+    decay = torch.exp(torch.where(tri, seg, -torch.inf))
+    scores = torch.bmm(cb.reshape(z, L, n), bb.reshape(z, L, n).transpose(1, 2))
+    scores = scores.reshape(bsz, h, nc, L, L) * decay
+    y_diag = torch.bmm(scores.reshape(z, L, L), xb.reshape(z, L, p))
+
+    w = torch.exp(a_cum[..., -1:] - a_cum)                       # (b, h, nc, L)
+    states = torch.bmm((bb * w[..., None]).reshape(z, L, n).transpose(1, 2),
+                       xb.reshape(z, L, p)).reshape(bsz, h, nc, n, p)
+
+    a_tot = a_cum[..., -1]                                       # (b, h, nc)
+    carry = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    prev = []
+    for ci in range(nc):
+        prev.append(carry)
+        carry = carry * torch.exp(a_tot[..., ci])[..., None, None] + states[:, :, ci]
+    prev = torch.stack(prev, dim=2)                              # (b, h, nc, n, p)
+
+    y_off = torch.bmm(cb.reshape(z, L, n), prev.reshape(z, n, p))
+    y_off = y_off.reshape(bsz, h, nc, L, p) * torch.exp(a_cum)[..., None]
+    y = (y_diag.reshape(bsz, h, nc, L, p) + y_off).reshape(bsz, h, s, p).transpose(1, 2)
+    if return_state:
+        return y.to(x.dtype), carry
+    return y.to(x.dtype)
+
+
+def ssd_naive(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+              initial_state: torch.Tensor | None = None):
+    """Sequential SSD recurrence: h_t = e^{a_t} h_{t-1} + B_t⊗x_t; y_t = C_t·h_t.
+
+    x: (batch, s, h, p); a: (batch, s, h); b, c: (batch, s, h, n).
+    Returns y: (batch, s, h, p), final_state: (batch, h, n, p)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    hs = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+          if initial_state is None else initial_state.float())
+    xf, af, bf, cf = x.float(), a.float(), b.float(), c.float()
+    ys = []
+    for t in range(s):
+        hs = hs * torch.exp(af[:, t])[..., None, None] + bf[:, t, :, :, None] * xf[:, t, :, None, :]
+        ys.append(torch.sum(cf[:, t, :, :, None] * hs, dim=-2))
+    return torch.stack(ys, dim=1).to(x.dtype), hs

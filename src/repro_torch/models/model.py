@@ -2,8 +2,8 @@
 decode.
 
 Port of ``repro/models/model.py`` (``cross_entropy`` :25, ``loss_fn`` :51,
-``init_cache`` :92, ``prefill`` :96, ``decode_step`` :150) for dense
-decoder LMs.
+``init_cache`` :92, ``prefill`` :96, ``decode_step`` :150,
+``_current_index`` :185) for decoder LMs of dense and mamba layers.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.params import layer_kinds
+from repro_torch.models.ssm import ssm_cache
 
 
 # ---------------------------------------------------------------------------
@@ -39,7 +40,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
-    """Returns (loss, metrics) for a dense decoder LM.  batch: ``tokens``
+    """Returns (loss, metrics) for a decoder LM.  batch: ``tokens``
     and ``labels`` (tokens shifted by the caller), optional ``mask``."""
     if cfg.is_encdec or cfg.frontend or cfg.mtp_depth:
         raise NotImplementedError(
@@ -56,14 +57,20 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: "str | torch.device | None" = None) -> list[dict]:
-    """Zeroed bf16 KV caches, one ``{"k", "v", "index"}`` dict per layer
-    (the reference's cache is bf16 whatever the parameter dtype)."""
+    """Zeroed caches, one dict per layer: a bf16 KV cache
+    ``{"k", "v", "index"}`` for a dense layer (the reference's cache is bf16
+    whatever the parameter dtype), the conv windows and SSD state
+    (:func:`~repro_torch.models.ssm.ssm_cache`) for a mamba layer."""
     dev = resolve_device(device)
     shape = (batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
-    return [{"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-             "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-             "index": torch.zeros((), dtype=torch.int32, device=dev)}
-            for _ in layer_kinds(cfg)]
+
+    def kv():
+        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                "index": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    return [ssm_cache(cfg, batch, dev) if kind == "mamba" else kv()
+            for kind in layer_kinds(cfg)]
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, caches: list):
@@ -80,6 +87,15 @@ def decode_step(params: dict, cfg: ArchConfig, token: torch.Tensor,
     ``positions=None`` reads the shared scalar cache index (uniform batch).
     Pass a (B,) int tensor to decode each row at its OWN KV position
     (ragged continuous batching)."""
-    pos0 = caches[0]["index"] if positions is None else positions
+    pos0 = _current_index(cfg, caches) if positions is None else positions
     h, caches = tfm.forward(params, cfg, token, pos0=pos0, caches=caches)
     return tfm.unembed(params, h, cfg)[:, 0], caches
+
+
+def _current_index(cfg: ArchConfig, caches: list) -> torch.Tensor:
+    """The shared decode position: the first attention layer's cache index
+    (mamba layers keep none; a pure-SSM model has no position, so 0)."""
+    for kind, c in zip(layer_kinds(cfg), caches):
+        if kind != "mamba":
+            return c["index"]
+    return torch.zeros((), dtype=torch.int32, device=caches[0]["ssm"].device)

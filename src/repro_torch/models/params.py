@@ -5,7 +5,9 @@ A model is described by a *spec tree*: nested dicts (and a list of layers)
 whose leaves are :class:`ParamSpec` (shape + init + dtype).  Matrices are
 bf16 and norm scales f32, as in ``repro/models/params.py:32,52``.  The
 reference stacks each block's layers for ``lax.scan``; the port keeps one
-dict per layer in ``spec["layers"]`` and loops over them.
+dict per layer in ``spec["layers"]`` and loops over them.  A layer's spec
+depends on its kind: ``dense`` (attention + MLP) or ``mamba`` (the Mamba-2
+mixer of :mod:`repro_torch.models.ssm`).
 
 * :func:`init` materializes parameters from an explicit ``torch.Generator``
   on an explicit device;
@@ -25,13 +27,13 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
-SERVED_KINDS = ("dense",)
+SERVED_KINDS = ("dense", "mamba")
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
-    init: str = "normal"                  # normal | ones
+    init: str = "normal"                  # normal | zeros | ones | ssm_a
     scale: float | None = None            # None -> 1/sqrt(fan_in)
     dtype: torch.dtype = torch.bfloat16
 
@@ -54,13 +56,18 @@ def layer_kinds(cfg: ArchConfig) -> list[str]:
     unsupported = sorted(set(kinds) - set(SERVED_KINDS))
     if unsupported or cfg.is_encdec or cfg.post_norms or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: this slice of the port serves dense decoder layers "
-            f"only (got kinds {sorted(set(kinds))})")
+            f"{cfg.name}: the port serves decoder layers of kinds "
+            f"{list(SERVED_KINDS)} only (got kinds {sorted(set(kinds))}); "
+            f"shared_attn, MoE, MLA and encoder-decoder models are ROADMAP "
+            f"queue 1 item 11")
     return kinds
 
 
-def layer_spec(cfg: ArchConfig) -> dict:
+def layer_spec(cfg: ArchConfig, kind: str) -> dict:
     d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    if kind == "mamba":
+        from repro_torch.models.ssm import ssm_spec   # ssm imports this module
+        return {"ln1": norm_scale(d), "mixer": ssm_spec(cfg)}
     return {
         "ln1": norm_scale(d),
         "attn": {"wq": dense(d, cfg.num_heads * hd),
@@ -76,7 +83,7 @@ def layer_spec(cfg: ArchConfig) -> dict:
 def model_spec(cfg: ArchConfig) -> dict:
     spec: dict[str, Any] = {
         "embed": embedding(cfg.vocab_size, cfg.d_model),
-        "layers": [layer_spec(cfg) for _ in layer_kinds(cfg)],
+        "layers": [layer_spec(cfg, kind) for kind in layer_kinds(cfg)],
         "final_norm": norm_scale(cfg.d_model),
     }
     if not cfg.tie_embeddings:
@@ -95,13 +102,20 @@ def _map_spec(spec: Any, fn) -> Any:
 def init(cfg: ArchConfig, generator: torch.Generator,
          device: "str | torch.device | None" = None) -> dict:
     """Random parameters for ``cfg``: N(0, 1/fan_in) matrices (0.02 for the
-    embedding), unit norm scales.  Every draw comes from ``generator``, which
-    must live on ``device`` (default ``cuda``)."""
+    embedding), unit norm scales, zero biases, and Mamba's ``a_log`` as the
+    log of Uniform[1, 16] (``repro/models/params.py:67-77``).  Every draw
+    comes from ``generator``, which must live on ``device`` (default
+    ``cuda``)."""
     dev = resolve_device(device)
 
     def make(s: ParamSpec) -> torch.Tensor:
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=s.dtype, device=dev)
         if s.init == "ones":
             return torch.ones(s.shape, dtype=s.dtype, device=dev)
+        if s.init == "ssm_a":
+            u = torch.rand(s.shape, generator=generator, dtype=torch.float32, device=dev)
+            return torch.log(1.0 + 15.0 * u).to(s.dtype)
         fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
         scale = s.scale if s.scale is not None else 1.0 / math.sqrt(fan_in)
         w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
@@ -117,8 +131,9 @@ def from_jax_numpy(tree: dict, cfg: ArchConfig,
     """The JAX package's parameter tree (``repro.models.params.init`` of
     ``model_spec(cfg)``), passed as numpy arrays, as the port's parameters.
 
-    The scanned ``g<i>["layers"]["<j>:<kind>"]`` stacks are unstacked into
-    one dict per layer (``repro/models/transformer.py:57-72``).  bf16 leaves
+    The scanned ``g<i>["layers"]["<j>:<kind>"]`` stacks (``dense`` and
+    ``mamba``) are unstacked into one dict per layer
+    (``repro/models/transformer.py:57-72``).  bf16 leaves
     arrive as float32 numpy (numpy has no bf16) and are cast back to each
     leaf's own dtype — an exact round trip.  ``dtype`` casts every leaf to
     one dtype instead (the float32 parity tests)."""

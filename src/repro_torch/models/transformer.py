@@ -1,12 +1,14 @@
 """The decoder stack: embedding, a Python loop over the layers, the head.
 
-Port of the dense path of ``repro/models/transformer.py``.  The reference
-scans each block of stacked layers (``transformer.py:179-222``); the port
-loops over a list of per-layer parameter dicts.  Caches are one dict per
-layer (``{"k", "v", "index"}``).  Without caches, under autograd, each layer
-is rematerialized in the backward (``cfg.remat == "full"``), the
-counterpart of ``jax.checkpoint`` on the reference's scan body
-(``transformer.py:199-200``).
+Port of the dense and Mamba-2 paths of ``repro/models/transformer.py``.
+The reference scans each block of stacked layers
+(``transformer.py:179-222``); the port loops over a list of per-layer
+parameter dicts beside the list of their kinds (``params.layer_kinds``).
+Caches are one dict per layer: ``{"k", "v", "index"}`` for a dense layer,
+``{"conv": {"x", "b", "c"}, "ssm"}`` for a mamba layer.  Without caches,
+under autograd, each layer is rematerialized in the backward
+(``cfg.remat == "full"``), the counterpart of ``jax.checkpoint`` on the
+reference's scan body (``transformer.py:199-200``).
 """
 
 from __future__ import annotations
@@ -16,13 +18,18 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attn_fwd, linear, mlp_fwd, rmsnorm_fwd
+from repro_torch.models.params import layer_kinds
+from repro_torch.models.ssm import ssm_fwd
 
 
-def layer_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+def layer_fwd(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig, *,
               positions: torch.Tensor, cache: dict | None):
-    """One dense layer. Returns (x, new_cache)."""
+    """One layer of kind ``dense`` or ``mamba``. Returns (x, new_cache)."""
     rs = cfg.residual_scale
     h = rmsnorm_fwd(p["ln1"], x, cfg.norm_eps)
+    if kind == "mamba":
+        h, new_cache = ssm_fwd(p["mixer"], h, cfg, cache=cache)
+        return x + rs * h, new_cache
     h, new_cache = attn_fwd(p["attn"], h, cfg, positions=positions, cache=cache)
     x = x + rs * h
     h = rmsnorm_fwd(p["ln2"], x, cfg.norm_eps)
@@ -56,26 +63,27 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         positions = pos0[:, None] + steps[None, :]
     else:
         positions = pos0 + steps
+    kinds = layer_kinds(cfg)
     if caches is None:
         remat = torch.is_grad_enabled() and _remat(cfg)
-        for lp in params["layers"]:                 # dense layers (layer_kinds)
+        for lp, kind in zip(params["layers"], kinds):
             if remat:
-                h = checkpoint(_cache_free_layer, lp, h, cfg, positions,
+                h = checkpoint(_cache_free_layer, lp, h, kind, cfg, positions,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                h = _cache_free_layer(lp, h, cfg, positions)
+                h = _cache_free_layer(lp, h, kind, cfg, positions)
         return rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps), None
     new_caches = []
-    for lp, c in zip(params["layers"], caches):
-        h, nc = layer_fwd(lp, h, cfg, positions=positions, cache=c)
+    for lp, kind, c in zip(params["layers"], kinds, caches):
+        h, nc = layer_fwd(lp, h, kind, cfg, positions=positions, cache=c)
         new_caches.append(nc)
     h = rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps)
     return h, new_caches
 
 
-def _cache_free_layer(p: dict, x: torch.Tensor, cfg: ArchConfig,
+def _cache_free_layer(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig,
                       positions: torch.Tensor) -> torch.Tensor:
-    return layer_fwd(p, x, cfg, positions=positions, cache=None)[0]
+    return layer_fwd(p, x, kind, cfg, positions=positions, cache=None)[0]
 
 
 def _remat(cfg: ArchConfig) -> bool:

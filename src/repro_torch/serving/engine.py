@@ -1,8 +1,9 @@
 """Batched serving engine: slot-based continuous batching over a shared
 decode step.
 
-The engine owns a fixed pool of ``batch`` sequence slots backed by one KV
-cache per layer, so decode is a single batched ``decode_step`` call.
+The engine owns a fixed pool of ``batch`` sequence slots backed by one cache
+per layer (KV for attention, conv windows and SSD state for mamba), so
+decode is a single batched ``decode_step`` call.
 Requests are admitted into free slots, prefilled one at a time into their
 slot's cache stripe, then decoded jointly; finished slots are recycled.
 Greedy sampling (argmax) keeps the engine deterministic.
@@ -29,6 +30,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.overlay import Overlay
@@ -118,15 +120,19 @@ class ServeEngine:
 
     def _install_stripe(self, slot: int, req: Request, c1: list, tok: int) -> None:
         """Scatter a finished batch-1 prefill cache into the pooled cache
-        and mark the slot live for decode."""
+        and mark the slot live for decode (``place`` in
+        ``repro/serving/engine.py:248-262``).  Every cache leaf has the batch
+        on axis 0 except the scalar per-layer ``index``."""
         at = torch.tensor([slot], device=self.device)
-        self.caches = [
-            {"k": pool["k"].index_copy(0, at, one["k"]),
-             "v": pool["v"].index_copy(0, at, one["v"]),
-             # shared per-layer scalar index: keep the max; ragged decode
-             # never reads it (it uses the per-slot positions)
-             "index": torch.maximum(pool["index"], one["index"])}
-            for pool, one in zip(self.caches, c1)]
+
+        def place(pool: torch.Tensor, one: torch.Tensor) -> torch.Tensor:
+            if pool.dim() == 0:
+                # shared per-layer scalar index: keep the max; ragged decode
+                # never reads it (it uses the per-slot positions)
+                return torch.maximum(pool, one.to(pool.dtype))
+            return pool.index_copy(0, at, one.to(pool.dtype))
+
+        self.caches = pytree.tree_map(place, self.caches, c1)
         self.slot_pos[slot] = len(req.prompt)
         req.out.append(tok)
         self.cur_tokens[slot, 0] = tok

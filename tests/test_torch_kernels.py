@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as trn
+from repro_torch.kernels import ssd_scan
 from repro_torch.kernels import vmul_reduce as tvr
 
 
@@ -180,13 +181,54 @@ def test_vmul_reduce_kernel_matches_plain_on_card(cuda, n, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [3072, 768])           # phi3's and mamba2's d_model
 @pytest.mark.parametrize("rows", [2, 16, 130])
-def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows):
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, d):
     g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(rows, 3072, generator=g, device=cuda).bfloat16()
-    w = 1 + 0.1 * torch.randn(3072, generator=g, device=cuda)
+    x = torch.randn(rows, d, generator=g, device=cuda).bfloat16()
+    w = 1 + 0.1 * torch.randn(d, generator=g, device=cuda)
     before = trn.launches.count
     y = ops.rmsnorm(x, w)
     assert trn.launches.count == before + 1
     torch.testing.assert_close(y.float(), ref.rmsnorm(x, w).float(),
                                rtol=2 ** -7, atol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,span", [
+    ((24, 4, 64, 64, 128), torch.bfloat16, 1.0),      # the path's shape, 4 chunks
+    ((6, 1, 37, 64, 128), torch.bfloat16, 1.0),       # a ragged chunk
+    ((6, 3, 64, 64, 128), torch.float32, 1.0),
+    ((16, 3, 8, 16, 16), torch.float32, 1.0),         # the smoke shape
+    ((4, 2, 64, 64, 128), torch.bfloat16, 60.0),      # a_cum spans -60..0
+])
+def test_kernel_matches_plain_on_the_card(cuda, shape, dtype, span):
+    """All three outputs within rtol 1e-5 of the largest plain value (f32 on
+    both sides from the same inputs, sums in other orders); repeated launches
+    bit-identical; one launch counted per call."""
+    bh, nc, L, p, n = shape
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(bh, nc, L, p, generator=g, device=cuda).to(dtype)
+    b = torch.randn(bh, nc, L, n, generator=g, device=cuda).to(dtype)
+    c = torch.randn(bh, nc, L, n, generator=g, device=cuda).to(dtype)
+    a = -torch.rand(bh, nc, L, generator=g, device=cuda) * (2 * span / L)
+    before = ssd_scan.launches.count
+    k1 = ssd_scan.ssd_chunk(x, a, b, c, chunk=L)
+    k2 = ssd_scan.ssd_chunk(x, a, b, c, chunk=L)
+    want = ssd_scan.plain(x, a, b, c, chunk=L)
+    assert ssd_scan.launches.count == before + 2
+    for u, v, w in zip(k1, k2, want):
+        assert torch.equal(u, v)
+        assert float((u - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_ssd_with_state_matches_naive_on_the_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x, bm, cm = (0.5 * torch.randn(2, 96, 3, 16, generator=g, device=cuda) for _ in range(3))
+    a = -0.2 * torch.rand(2, 96, 3, generator=g, device=cuda)
+    init = torch.randn(2, 3, 16, 16, generator=g, device=cuda)
+    y, f = ops.ssd_with_state(x, a, bm, cm, chunk=32, initial_state=init)
+    yn, fn = ref.ssd_naive(x, a, bm, cm, init)
+    torch.testing.assert_close(y, yn, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(f, fn, rtol=2e-4, atol=2e-4)
