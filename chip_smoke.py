@@ -10,7 +10,9 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
    shapes the main paths give it (tolerances stated below), checks that
    repeated vmul_reduce, flash_attention and ssd_chunk launches are
    bit-identical, and holds the full SSD scan with an initial state against
-   the sequential recurrence;
+   the sequential recurrence; flash_attention runs the variant its wrapper
+   picks (the tensor-core kernel for bf16 with a head dim that is a multiple
+   of 16, the CUDA-core kernel otherwise);
 3. runs the paper's workload, ``sum(a * b)``, through ``Overlay(3, 3).jit``
    on the static placements with 0-3 pass-through tiles and on dynamic
    placement — outputs bit-identical across placements — plus the LARGE
@@ -21,7 +23,8 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 5. trains phi3-mini-3.8b at full width (32 layers, batch 1, seq 4096) for 4
    eager steps of ``launch.train.make_step`` on the synthetic stream:
    finite losses, and the flash_attention and rmsnorm launches each step
-   must make (forward plus the remat recompute);
+   must make (forward plus the remat recompute), every flash_attention
+   launch on the tensor-core kernel;
 6. trains 4 full-width layers at seq 1024 for 2 steps through
    ``Overlay(3, 3)`` and eagerly from the same state: equal losses and
    parameters;
@@ -37,8 +40,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 10. runs the serve launcher on mamba2-130m at full width, and the train
     launcher with an injected failure: it restarts from its checkpoint and
     ends with rc 0;
-11. prints the kernels line (time, bound, plain and library times, launches),
-    the card's name and power limit, and last the result line.
+11. prints the kernels line (time, bound, plain and library times, launches,
+    flash_attention's by variant and its CUDA-core kernel's time), timings
+    at other shapes, the card's name and power limit, and last the result
+    line.
 
 Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, the overlay-served runs, the full-width
@@ -140,7 +145,11 @@ def reset_counters() -> None:
 
 
 def counts() -> dict[str, int]:
-    return {c.name: c.count for c in ops.LAUNCH_COUNTERS}
+    """Launches by kernel, and by variant as ``<kernel>/<variant>``."""
+    out = {c.name: c.count for c in ops.LAUNCH_COUNTERS}
+    for c in ops.LAUNCH_COUNTERS:
+        out.update({f"{c.name}/{v}": n for v, n in c.by_variant.items()})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -150,9 +159,29 @@ def phase_build() -> None:
     log(f"[build] {sorted(paths)} in {time.perf_counter() - t0:.1f}s "
         f"(nvcc -gencode arch=compute_90a,code=sm_90a)")
     for name, path in paths.items():
-        regs = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
-                if "registers" in ln]
+        text = path.with_suffix(".log").read_text()
+        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
         log(f"[build] {name}: " + " | ".join(sorted(set(regs))))
+        if name == "flash_attention":
+            for entry, props in ptxas_entries(text).items():
+                if "flash_fwd_wgmma" in entry:
+                    log(f"[build] flash_attention {entry}: {props}")
+            for ln in text.splitlines():
+                if "Performance Loss" in ln or "arning" in ln:
+                    log(f"[build] flash_attention ptxas: {ln.strip()}")
+
+
+def ptxas_entries(log_text: str) -> dict[str, str]:
+    """Registers and spills of each kernel in an ``nvcc -Xptxas -v`` log, by
+    the kernel's (mangled) name."""
+    out, entry = {}, None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            out[entry] = ""
+        elif entry and ("spill" in ln or "registers" in ln):
+            out[entry] = (out[entry] + " | " if out[entry] else "") + ln.strip()
+    return out
 
 
 def phase_kernel_checks(gen: torch.Generator) -> dict[str, float]:
@@ -205,41 +234,51 @@ FLASH_CASES = [   # (B, Hq, Hkv, S, D, dtype, options)
     (TRAIN_BATCH, 32, 32, TRAIN_SEQ, 96, torch.bfloat16, {}),   # the training path
     (2, 8, 2, 256, 64, torch.bfloat16, {}),                     # GQA
     (2, 8, 2, 256, 64, torch.float32, {}),
+    (2, 8, 2, 512, 128, torch.bfloat16, {}),                    # GQA at d 128
     (1, 4, 4, 384, 96, torch.float32, dict(window=100)),
     (1, 4, 4, 384, 96, torch.bfloat16, dict(window=100)),
     (1, 4, 2, 256, 32, torch.float32, dict(softcap=30.0, scale=0.1)),
     (1, 4, 2, 256, 32, torch.bfloat16, dict(softcap=30.0, scale=0.1)),
     (1, 4, 4, 200, 128, torch.float32, dict(causal=False)),     # ragged tiles
+    (1, 4, 2, 77, 96, torch.bfloat16, {}),                      # ragged, bf16
+    (1, 4, 2, 200, 16, torch.bfloat16, dict(causal=False)),
+    (1, 4, 4, 1, 64, torch.bfloat16, {}),
+    (1, 4, 2, 256, 40, torch.bfloat16, {}),                     # bf16 on the CUDA cores
 ]
 
 
 def check_flash(gen: torch.Generator) -> float:
-    """flash_attention against the plain version (``ref.attention``).
+    """flash_attention against the plain version (``ref.attention``), each
+    case on the variant its wrapper picks.
 
-    Tolerances: both compute in f32, but the kernel scales q before the
-    product (as the TPU kernel does) where the plain version scales the
-    scores, sums in another order and normalizes online, so in f32
+    Tolerances (``flash_attention.tolerance``): both compute the scores and
+    the softmax in f32, but the kernels scale in another place than the
+    plain version, sum in another order and normalize online, so in f32
     |kernel - plain| <= 1e-5 * (1 + |plain|); a bf16 output is rounded once
     from f32 values that close, so it lands within one bf16 ulp,
-    |kernel - plain| <= 2**-7 * |plain| + 1e-5."""
+    |kernel - plain| <= 2**-7 * |plain| + 1e-5; the tensor-core kernel also
+    rounds P to bf16 before P V, which moves an output by at most
+    2**-9 * max|v|, so it gets 2**-8 * max|v| more (the max over the keys of
+    the row's kv head, per column)."""
     worst = 0.0
     for b, hq, hkv, s, d, dt, kw in FLASH_CASES:
         q = torch.randn(b, hq, s, d, generator=gen, device=DEV).to(dt)
         k = torch.randn(b, hkv, s, d, generator=gen, device=DEV).to(dt)
         v = torch.randn(b, hkv, s, d, generator=gen, device=DEV).to(dt)
+        kernel = fa_mod.variant(dt, d)
         k1 = fa_mod.flash_attention(q, k, v, **kw)
         k2 = fa_mod.flash_attention(q, k, v, **kw)
-        p = fa_mod.plain(q, k, v, **kw).float()
-        diff = (k1.float() - p).abs()
-        tol = (2 ** -7 * p.abs() + 1e-5) if dt == torch.bfloat16 else 1e-5 * (1 + p.abs())
-        check(torch.equal(k1, k2), f"flash_attention {(b, hq, hkv, s, d)} {dt} {kw}: "
-              f"repeated launches differ")
-        check(bool((diff <= tol).all()), f"flash_attention {(b, hq, hkv, s, d)} {dt} {kw}: "
-              f"max err {diff.max().item()}")
+        p = fa_mod.plain(q, k, v, **kw)
+        diff = (k1.float() - p.float()).abs()
+        tol = fa_mod.tolerance(p, v, kernel)
+        case = f"flash_attention {(b, hq, hkv, s, d)} {dt} {kw} on {kernel}"
+        check(torch.equal(k1, k2), f"{case}: repeated launches differ")
+        check(bool((diff <= tol).all()), f"{case}: max err {diff.max().item()}, "
+              f"worst err / tol {(diff / tol).max().item()}")
         worst = max(worst, diff.max().item())
         log(f"[kernels] flash_attention q ({b}, {hq}, {s}, {d}) kv heads {hkv} "
-            f"{str(dt)[6:]} {kw or 'causal'}: max err {diff.max().item():.3g}, "
-            f"bit-identical repeat")
+            f"{str(dt)[6:]} {kw or 'causal'} on {kernel}: max err {diff.max().item():.3g} "
+            f"(worst err / tol {(diff / tol).max().item():.3f}), bit-identical repeat")
         del q, k, v, k1, k2, p, diff, tol
     return worst
 
@@ -503,6 +542,9 @@ def phase_train() -> dict:
             "rmsnorm": TRAIN_STEPS * ((2 * cfg.num_layers + 1) + 2 * cfg.num_layers)}
     for name, n in want.items():
         check(launches[name] == n, f"training {name} launches {launches[name]} != {n}")
+    check(launches["flash_attention/wgmma"] == want["flash_attention"],
+          f"training flash_attention launches by variant: {launches} (every one must be "
+          f"a tensor-core launch)")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = float(np.median(step_ms[1:]))
     log(f"[train] {cfg.name}: {pm.count(params) / 1e9:.3f} B params, {cfg.num_layers} "
@@ -850,6 +892,16 @@ def _to(tree, dev, dtype=None):
     return {k: _to(v, dev, dtype) for k, v in tree.items()}
 
 
+def flash_bound_ms(b: int, hq: int, hkv: int, s: int, d: int) -> tuple[float, str]:
+    """The least time of causal attention on the card, bf16: q, k, v read
+    once and o written once against QK^T and PV over the causal half on the
+    tensor cores."""
+    bytes_ = (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2
+    flops = 4 * b * hq * d * s * (s + 1) // 2
+    by = "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S else "operations"
+    return max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3, by
+
+
 def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[dict]:
     """Time each kernel at the main path's shape beside its bound, its plain
     version and one library call computing the same function."""
@@ -893,21 +945,22 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
     b, h, sq, hd = TRAIN_BATCH, 32, TRAIN_SEQ, 96      # the training path's attention
     q, k, v = (torch.randn(b, h, sq, hd, generator=gen, device=DEV).bfloat16()
                for _ in range(3))
-    bytes_ = 4 * b * h * sq * hd * 2                    # q, k, v read, o written
-    flops = 4 * b * h * hd * sq * (sq + 1) // 2         # QK^T and PV over the causal half
+    bound, by = flash_bound_ms(b, h, h, sq, hd)
     out.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:115",
         "launches": launches["flash_attention"],
+        "launches_by_variant": {v_: launches[f"flash_attention/{v_}"] for v_ in fa_mod.VARIANTS},
         "max_abs_err": errs["flash_attention"],
-        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 10, warmup=2),
+        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 50, warmup=5),
+        "variant": fa_mod.variant(q.dtype, hd),
+        "simt_ms": time_ms(lambda: fa_mod.flash_attention(q, k, v, kernel="simt"), 5, warmup=1),
         "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v), 3, warmup=1),
-        "bound_ms": max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3,
-        "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
-        else "operations",
+        "bound_ms": bound,
+        "bound_by": by,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-                              10, warmup=2),
+                              50, warmup=5),
         "shape": f"q, k, v: ({b}, {h}, {sq}, {hd}) bfloat16, causal"})
     del q, k, v
     bh, nc, L, p, n = SSD_PATH                          # a 4096-token mamba2 prefill or train row
@@ -936,6 +989,19 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
         "shape": f"x ({bh}, {nc}, {L}, {p}), b/c n {n} bfloat16, a float32"})
     del x, a, b, c
     torch.cuda.empty_cache()
+    # flash_attention at the train-overlay phase's shape and, for reach, GQA at d 128
+    for b, hq, hkv, s, hd in ((1, 32, 32, OVERLAY_SEQ, 96), (2, 8, 2, 2048, 128)):
+        q = torch.randn(b, hq, s, hd, generator=gen, device=DEV).bfloat16()
+        k, v = (torch.randn(b, hkv, s, hd, generator=gen, device=DEV).bfloat16() for _ in range(2))
+        bound, by = flash_bound_ms(b, hq, hkv, s, hd)
+        ms = time_ms(lambda: fa_mod.flash_attention(q, k, v), 50, warmup=5)
+        simt = time_ms(lambda: fa_mod.flash_attention(q, k, v, kernel="simt"), 5, warmup=1)
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=hq != hkv), 50, warmup=5)
+        log(f"[timing] flash_attention q ({b}, {hq}, {s}, {hd}) kv heads {hkv} bf16 causal: "
+            f"{fa_mod.variant(q.dtype, hd)} {ms:.4f} ms ({bound / ms:.0%} of the bound "
+            f"{bound:.4f} ms, by {by}), simt {simt:.4f} ms, SDPA {sdpa:.4f} ms")
+        del q, k, v
     # the same kernels at the sizes that show their bandwidth
     for size in (1 << 26,):
         a = torch.randn(size, generator=gen, device=DEV)
@@ -983,7 +1049,7 @@ def main() -> int:
     by_path = {"fig3": paper["launches"], "serve": served["launches"],
                "train": trained["launches"], "serve_mamba": served_mamba["launches"],
                "train_mamba": trained_mamba["launches"]}
-    launches = {c.name: sum(p[c.name] for p in by_path.values()) for c in ops.LAUNCH_COUNTERS}
+    launches = {name: sum(p[name] for p in by_path.values()) for name in counts()}
     kernels = phase_kernel_line(gen, errs, launches)
     for entry in kernels:
         entry["launches_by_path"] = {path: n[entry["name"]] for path, n in by_path.items()}

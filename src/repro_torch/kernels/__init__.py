@@ -6,8 +6,10 @@ Kernel inventory (one module per kernel, each with its plain version in
   vmul_reduce — the paper's own evaluation pattern (Σ A⃗·B⃗), csrc/vmul_reduce.cu
   rmsnorm     — fused RMSNorm, one block per row, csrc/rmsnorm.cu
   flash_attention — blocked online-softmax attention (causal, GQA, sliding
-                window, soft-cap), one block per 64-row query tile,
-                csrc/flash_attention.cu
+                window, soft-cap), csrc/flash_attention.cu: bf16 with a head
+                dim that is a multiple of 16 on the tensor cores (wgmma, a
+                TMA-fed K/V ring), float32 and other head dims on the CUDA
+                cores
   ssd_scan    — Mamba-2 SSD, the chunk-local quadratic part, one block per
                 (batch·head, chunk), csrc/ssd_chunk.cu; the inter-chunk scan
                 around it is plain PyTorch

@@ -38,14 +38,18 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 class LaunchCounter:
     """Launches of one CUDA kernel.  Its wrapper adds one where it launches
     the kernel and nowhere else, so a run can show that the main path went
-    through the kernel (``chip_smoke.py`` resets and reads these)."""
+    through the kernel (``chip_smoke.py`` resets and reads these).  A kernel
+    built in variants also counts each launch under its variant in
+    :attr:`by_variant`."""
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str, variants: "tuple[str, ...]" = ()) -> None:
         self.name = name
-        self.count = 0
+        self.variants = variants
+        self.reset()
 
     def reset(self) -> None:
         self.count = 0
+        self.by_variant = dict.fromkeys(self.variants, 0)
 
 
 def csrc_dir() -> Path:

@@ -11,9 +11,12 @@ and in where ``scale`` is applied (the Pallas kernel scales q before the
 product, the plain versions scale the scores), a few f32 ulps of the
 output's scale: rtol = atol = 1e-5.  In bfloat16 both compute in f32 and
 round the output once, so they may land one bf16 ulp apart: rtol 2^-7 with
-an absolute floor of 1e-5 for outputs near 0.  Tests that need the card
-carry the ``cuda`` marker and skip where there is none; the JAX side is
-imported in a fixture, so they also collect where JAX is missing.
+an absolute floor of 1e-5 for outputs near 0.  The tensor-core kernel also
+rounds the probabilities to bf16 before P V; its bound,
+``flash_attention.tolerance``, adds 2^-8 max|v| and is checked here on a
+plain emulation of that kernel's numerics.  Tests that need the card carry
+the ``cuda`` marker and skip where there is none; the JAX side is imported
+in a fixture, so they also collect where JAX is missing.
 """
 
 import types
@@ -207,29 +210,160 @@ def test_flash_wrapper_rejects_cpu_tensors_without_launching():
     assert tfa.launches.count == before
 
 
+def emulate_wgmma(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
+    """The tensor-core kernel's numerics in plain PyTorch: f32 scores, scaled
+    (and capped) in log2 units, online softmax over 128-key tiles with the
+    row sums taken from the f32 probabilities, P rounded to bf16 before
+    P V, the output normalized after the last tile and rounded to bf16."""
+    b, hq, sq, d = q.shape
+    group = hq // k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    log2e = 1.4426950408889634
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    m = torch.full((b, hq, sq, 1), -torch.inf)
+    l = torch.zeros((b, hq, sq, 1))
+    acc = torch.zeros((b, hq, sq, d))
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, k.shape[2], 128):
+        kt, vt = kf[:, :, k0:k0 + 128], vf[:, :, k0:k0 + 128]
+        s = q.float() @ kt.transpose(-1, -2)
+        s = (torch.tanh(s * (scale / softcap)) * (softcap * log2e) if softcap is not None
+             else s * (scale * log2e))
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = torch.ones_like(s, dtype=torch.bool)
+        if causal:
+            ok = ok & (kpos <= qpos)
+        if window is not None:
+            ok = ok & (qpos - kpos < window)
+        s = torch.where(ok, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_sub = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha, p = torch.exp2(m - m_sub), torch.exp2(s - m_sub)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vt
+        m = m_new
+    return (acc / torch.where(l == 0, 1.0, l)).bfloat16()
+
+
+# the CASES in bf16, then d 96 (the training path's head dim) ragged,
+# GQA, and with a window and a soft cap
+EMULATED = [(hq, hkv, s, d, kw) for hq, hkv, s, d, _, kw in CASES] + [
+    (4, 4, 200, 96, {}),
+    (4, 4, 77, 96, dict(causal=False)),
+    (8, 2, 256, 96, {}),
+    (4, 2, 384, 96, dict(window=100, softcap=30.0)),
+]
+
+
+@pytest.mark.parametrize("hq,hkv,s,d,kw", EMULATED,
+                         ids=[f"h{c[0]}-{c[1]}_s{c[2]}_d{c[3]}_{'-'.join(c[4]) or 'causal'}"
+                              for c in EMULATED])
+def test_wgmma_numerics_within_tolerance(jx, hq, hkv, s, d, kw):
+    """The tensor-core kernel's numerics, emulated, stay within
+    ``tolerance(..., "wgmma")`` of the plain version and of the JAX
+    package's ``ref.attention`` on the same bf16 inputs."""
+    arrs = _qkv(3 * s + d, 2, hq, hkv, s, d)
+    q, k, v = _torch(arrs, "bfloat16")
+    got = emulate_wgmma(q, k, v, **kw).float()
+    for want in (ref.attention(q, k, v, **kw),
+                 torch.from_numpy(_f32(jx.ref.attention(*_jax(jx, arrs, "bfloat16"), **kw)))):
+        err = (got - want.float()).abs()
+        assert bool((err <= tfa.tolerance(want, v, "wgmma")).all()), err.max().item()
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 48, "wgmma"), (torch.bfloat16, 96, "wgmma"),
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 40, "simt"), (torch.bfloat16, 8, "simt"),
+    (torch.float32, 96, "simt"), (torch.float32, 64, "simt")])
+def test_flash_variant_choice(dtype, d, want):
+    assert tfa.variant(dtype, d) == want
+
+
+def test_flash_wrapper_refuses_wgmma_where_it_does_not_apply():
+    t = torch.ones(1, 2, 128, 96)                # float32: the CUDA-core kernel only
+    before = dict(tfa.launches.by_variant)
+    for kernel in ("wgmma", "tensor"):
+        with pytest.raises(ValueError, match="does not take"):
+            tfa.flash_attention(t, t, t, kernel=kernel)
+    assert tfa.launches.by_variant == before
+
+
+def test_flash_tolerance_per_variant():
+    """float32 keeps 1e-5 (1 + |plain|), bf16 on the CUDA cores one bf16 ulp,
+    and the tensor-core kernel adds 2^-8 max|v| of each row's kv head, per
+    column (kv head h serves q heads 2h and 2h + 1 here)."""
+    plain = torch.full((1, 4, 3, 2), -2.0)
+    v = torch.zeros(1, 2, 3, 2)
+    v[0, 0, 1] = torch.tensor([4.0, -8.0])
+    v[0, 1, 2, 0] = 16.0
+    assert torch.equal(tfa.tolerance(plain, v, "simt"), 1e-5 * (1 + plain.abs()))
+    vb = v.bfloat16()
+    base = 2 ** -7 * 2.0 + 1e-5
+    assert torch.equal(tfa.tolerance(plain, vb, "simt"), torch.full_like(plain, base))
+    tol = tfa.tolerance(plain, vb, "wgmma")
+    want = torch.tensor([[4.0, 8.0], [4.0, 8.0], [16.0, 0.0], [16.0, 0.0]])[None, :, None]
+    assert torch.equal(tol, base + 2 ** -8 * want.expand(1, 4, 3, 2))
+
+
 # ---------------------------------------------------------------------------
 # on the card (run there: python -m pytest -m cuda tests/test_torch_attention.py)
 # ---------------------------------------------------------------------------
+# CASES, then bf16 at every head dim the tensor-core kernel is built for,
+# each run on every kernel that takes it
+CARD_CASES = CASES + [(4, 2, 256, d, "bfloat16", {}) for d in (16, 64, 96, 128)]
+CARD_RUNS = [(*c, kernel) for c in CARD_CASES for kernel in tfa.VARIANTS
+             if kernel == "simt" or tfa.variant(getattr(torch, c[4]), c[3]) == kernel]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hq,hkv,s,d,dtype,kw", CASES, ids=IDS)
-def test_flash_kernel_matches_plain_on_card(cuda, hq, hkv, s, d, dtype, kw):
+@pytest.mark.parametrize("hq,hkv,s,d,dtype,kw,kernel", CARD_RUNS,
+                         ids=[f"h{c[0]}-{c[1]}_s{c[2]}_d{c[3]}_{c[4]}_"
+                              f"{'-'.join(c[5]) or 'causal'}_{c[6]}" for c in CARD_RUNS])
+def test_flash_kernel_matches_plain_on_card(cuda, hq, hkv, s, d, dtype, kw, kernel):
     q, k, v = (t.to(cuda) for t in _torch(_qkv(s + d, 2, hq, hkv, s, d), dtype))
-    before = tfa.launches.count
-    k1, k2 = ops.attention(q, k, v, **kw), ops.attention(q, k, v, **kw)
-    assert tfa.launches.count == before + 2
+    before = dict(tfa.launches.by_variant)
+    k1 = tfa.flash_attention(q, k, v, kernel=kernel, **kw)
+    k2 = tfa.flash_attention(q, k, v, kernel=kernel, **kw)
+    assert tfa.launches.by_variant[kernel] == before[kernel] + 2
     assert torch.equal(k1, k2)                   # no atomics: same bits
-    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
-    torch.testing.assert_close(k1.float(), ref.attention(q, k, v, **kw).float(), **tol)
+    plain = ref.attention(q, k, v, **kw)
+    assert bool(((k1.float() - plain.float()).abs() <= tfa.tolerance(plain, v, kernel)).all())
+    if kernel == tfa.variant(q.dtype, d):       # the op launches the chosen kernel
+        n = tfa.launches.count
+        assert torch.equal(ops.attention(q, k, v, **kw), k1)
+        assert tfa.launches.count == n + 1
 
 
 @pytest.mark.cuda
 def test_flash_kernel_ragged_lengths_on_card(cuda):
-    """Lengths that are not multiples of the kernel's 64-row tiles are
-    masked in the kernel."""
-    for s, d in ((200, 16), (77, 128), (1, 8)):
-        q, k, v = (t.to(cuda) for t in _torch(_qkv(s, 1, 4, 2, s, d), "float32"))
-        torch.testing.assert_close(tfa.flash_attention(q, k, v),
-                                   ref.attention(q, k, v), **F32_TOL)
+    """Lengths that are not multiples of the kernels' query and key tiles
+    (64 on the CUDA cores, 128 on the tensor cores) are masked in the
+    kernel; repeated launches give the same bits."""
+    runs = [(200, 16, "float32"), (77, 128, "float32"), (1, 8, "float32"),
+            (77, 96, "bfloat16"), (200, 16, "bfloat16"), (1, 64, "bfloat16")]
+    for s, d, dtype in runs:
+        q, k, v = (t.to(cuda) for t in _torch(_qkv(s, 1, 4, 2, s, d), dtype))
+        for kernel in ("simt", tfa.variant(q.dtype, d)):
+            out = tfa.flash_attention(q, k, v, kernel=kernel)
+            assert torch.equal(out, tfa.flash_attention(q, k, v, kernel=kernel))
+            plain = ref.attention(q, k, v)
+            assert bool(((out.float() - plain.float()).abs()
+                         <= tfa.tolerance(plain, v, kernel)).all()), (s, d, dtype, kernel)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_misaligned_views_on_card(cuda):
+    """TMA needs 16-byte aligned tensors: a contiguous view one element into
+    its storage is refused, not read wrongly."""
+    q = torch.randn(1, 2, 128, 64, device=cuda).bfloat16()
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view_as(q)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_attention(shifted, q, q)
+    assert torch.equal(tfa.flash_attention(shifted, q, q, kernel="simt"),
+                       tfa.flash_attention(q, q, q, kernel="simt"))
 
 
 @pytest.mark.cuda
