@@ -12,11 +12,16 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
    bit-identical, and holds the full SSD scan with an initial state against
    the sequential recurrence; flash_attention runs the variant its wrapper
    picks (the tensor-core kernel for bf16 with a head dim that is a multiple
-   of 16, the CUDA-core kernel otherwise);
+   of 16, the CUDA-core kernel otherwise); checks with ``torch.profiler``
+   that one vmul_reduce call and one rmsnorm call each run exactly one CUDA
+   kernel, on every variant;
 3. runs the paper's workload, ``sum(a * b)``, through ``Overlay(3, 3).jit``
-   on the static placements with 0-3 pass-through tiles and on dynamic
-   placement — outputs bit-identical across placements — plus the LARGE
-   ``vmul_reduce`` bitstream, and times each;
+   at n = 4096 and 2^24, each size on a fresh static and a fresh dynamic
+   overlay: the static placements with 0-3 pass-through tiles, dynamic
+   placement (0 pass-through tiles, or the run fails) — outputs
+   bit-identical across placements — and the LARGE ``vmul_reduce``
+   bitstream; prints every row's pass-through count and ms per call, and
+   the host time of each layer of the LARGE row at 4096;
 4. serves phi3-mini-3.8b at full width (random bf16 weights from a seed,
    32 layers) through ``Overlay(3, 3)`` and with ``overlay=None``: identical
    greedy token streams, and one rmsnorm launch per norm call;
@@ -40,10 +45,12 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 10. runs the serve launcher on mamba2-130m at full width, and the train
     launcher with an injected failure: it restarts from its checkpoint and
     ends with rc 0;
-11. prints the kernels line (time, bound, plain and library times, launches,
-    flash_attention's by variant and its CUDA-core kernel's time), timings
-    at other shapes, the card's name and power limit, and last the result
-    line.
+11. prints the kernels line (time per call, host included, and device time
+    alone from CUDA-graph replays, for each kernel and its library call;
+    bound, plain time, launches by path and by variant, flash_attention's
+    CUDA-core kernel's time), timings at other shapes (vmul_reduce's launch
+    variants against each other, rmsnorm at every row shape of the paths),
+    the card's name and power limit, and last the result line.
 
 Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, the overlay-served runs, the full-width
@@ -139,6 +146,54 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+_capture_stream = None
+
+
+def device_ms(fn, calls: int = 100, replays: int = 10) -> float:
+    """Device time of one call alone: ``calls`` calls captured in one CUDA
+    graph (``torch.cuda.CUDAGraph``), replayed ``replays`` times between CUDA
+    events, so the host's cost of issuing each call is not in it.  Warmed up
+    on the capture stream first, so anything a wrapper allocates once per
+    stream is allocated outside the capture."""
+    global _capture_stream
+    if _capture_stream is None:
+        _capture_stream = torch.cuda.Stream()
+    s = _capture_stream
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (replays * calls)
+
+
+def kernels_launched(fn, calls: int = 3) -> list[str]:
+    """The names of the CUDA kernels (and copies) the card ran for ``calls``
+    calls of ``fn``, as ``torch.profiler`` records them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def reset_counters() -> None:
     for c in ops.LAUNCH_COUNTERS:
         c.reset()
@@ -228,6 +283,35 @@ def phase_kernel_checks(gen: torch.Generator) -> dict[str, float]:
     errs["ssd_chunk"] = check_ssd(gen)
     torch.cuda.synchronize()
     return errs
+
+
+def phase_one_launch(gen: torch.Generator) -> None:
+    """One vmul_reduce call and one rmsnorm call each make exactly one CUDA
+    kernel, through the wrapper and through the custom op, on every variant
+    (``torch.profiler``'s record of three calls: three kernels, each the
+    wrapper's own)."""
+    cases = []
+    for n in (PAPER_VECTOR_LEN, 1 << 24):
+        a = torch.randn(n, generator=gen, device=DEV)
+        b = torch.randn(n, generator=gen, device=DEV)
+        kind = "cluster" if vr_mod.plan(n).cluster else "grid"
+        cases += [(f"vmul_reduce_cuda n={n} ({kind})", "vmul_reduce_" + kind,
+                   lambda a=a, b=b: vr_mod.vmul_reduce_cuda(a, b)),
+                  (f"ops.vmul_reduce n={n} ({kind})", "vmul_reduce_" + kind,
+                   lambda a=a, b=b: ops.vmul_reduce(a, b))]
+    for shape, kind in (((BATCH, 3072), "warp"), ((8192, 3072), "warp"), ((5, 3001), "block")):
+        x = torch.randn(*shape, generator=gen, device=DEV).bfloat16()
+        w = 1.0 + 0.1 * torch.randn(shape[-1], generator=gen, device=DEV)
+        check(rn_mod.variant(x, x) == kind, f"rmsnorm {shape} picks {rn_mod.variant(x, x)}")
+        cases += [(f"rmsnorm_cuda {shape} ({kind})", "rmsnorm_" + kind,
+                   lambda x=x, w=w: rn_mod.rmsnorm_cuda(x, w)),
+                  (f"ops.rmsnorm {shape} ({kind})", "rmsnorm_" + kind,
+                   lambda x=x, w=w: ops.rmsnorm(x, w))]
+    for case, kernel, fn in cases:
+        names = kernels_launched(fn)
+        check(len(names) == 3 and all(kernel in nm for nm in names),
+              f"{case}: three calls ran {names}, not three {kernel} kernels")
+        log(f"[kernels] {case}: one kernel per call ({kernel}), by torch.profiler")
 
 
 FLASH_CASES = [   # (B, Hq, Hkv, S, D, dtype, options)
@@ -369,66 +453,132 @@ class Counted:
         return "; ".join(out)
 
 
+FIG3_SIZES = (PAPER_VECTOR_LEN, 1 << 24)
+# trace node ids: inputs 0, 1; VMUL (mul) 2; Reduce (sum) 3.  The grid's LARGE
+# tiles are (0,0), (1,1), (2,2): Reduce is pinned at (0,0) and VMUL moved
+# progressively further away (fig. 2 of the paper).
+FIG3_STATIC = (("static_0pass", (0, 1)), ("static_1pass", (0, 2)),
+               ("static_2pass", (1, 2)), ("static_3pass", (2, 2)))
+
+
+def _fig3_dot(a, b):
+    return torch.sum(a * b)
+
+
+def _fig3_large(a, b):
+    return ops.vmul_reduce(a, b)
+
+
 def phase_overlay_paper(gen: torch.Generator) -> dict:
-    """The paper's VMUL&Reduce through Overlay.jit on every placement."""
-    def dot(a, b):
-        return torch.sum(a * b)
-
-    def large(a, b):
-        return ops.vmul_reduce(a, b)
-
-    n = PAPER_VECTOR_LEN
-    a = torch.randn(n, generator=gen, device=DEV)
-    b = torch.randn(n, generator=gen, device=DEV)
-    # trace node ids: inputs 0, 1; VMUL (mul) 2; Reduce (sum) 3.  The grid's
-    # LARGE tiles are (0,0), (1,1), (2,2): Reduce is pinned at (0,0) and VMUL
-    # moved progressively further away (fig. 2 of the paper).
-    scenarios = [("static_0pass", (0, 1)), ("static_1pass", (0, 2)),
-                 ("static_2pass", (1, 2)), ("static_3pass", (2, 2))]
-    static_ov = Overlay(3, 3, policy=PlacementPolicy.STATIC)
-    dyn_ov = Overlay(3, 3)
-    fns = {name: static_ov.jit(dot, name="vmul_reduce", fixed={2: vmul, 3: (0, 0)})
-           for name, vmul in scenarios}
-    fns["dynamic"] = dyn_ov.jit(dot, name="vmul_reduce")
-    fns["large_vmul_reduce"] = dyn_ov.jit(large, name="vmul_reduce_large")
-
+    """The paper's VMUL&Reduce through Overlay.jit on every placement, each
+    size on fresh fabrics (one static and one dynamic ``Overlay`` per size,
+    as the reference places each size anew): outputs bit-identical across
+    placements, the pass-through count of every row from that size's own
+    placement, 0 for dynamic placement, then ms per call of each row and the
+    host time of each layer of the LARGE row at the paper's size."""
     reset_counters()                           # the driven path starts here
-    outs = {name: f(a, b) for name, f in fns.items()}
-    before = (dyn_ov.stats.traces, dyn_ov.stats.downloads)
-    outs["large_again"] = fns["large_vmul_reduce"](a, b)   # a resident hit
+    runs = {}
+    for size in FIG3_SIZES:
+        a = torch.randn(size, generator=gen, device=DEV)
+        b = torch.randn(size, generator=gen, device=DEV)
+        static_ov = Overlay(3, 3, policy=PlacementPolicy.STATIC)
+        dyn_ov = Overlay(3, 3)
+        fns = {name: static_ov.jit(_fig3_dot, name="vmul_reduce", fixed={2: vmul, 3: (0, 0)})
+               for name, vmul in FIG3_STATIC}
+        fns["dynamic"] = dyn_ov.jit(_fig3_dot, name="vmul_reduce")
+        fns["large_vmul_reduce"] = dyn_ov.jit(_fig3_large, name="vmul_reduce_large")
+        outs = {name: f(a, b) for name, f in fns.items()}
+        before = (dyn_ov.stats.traces, dyn_ov.stats.downloads)
+        outs["large_again"] = fns["large_vmul_reduce"](a, b)   # a resident hit
+        check((dyn_ov.stats.traces, dyn_ov.stats.downloads) == before,
+              f"n={size}: second LARGE call traced or downloaded again")
+        base = outs["dynamic"]
+        for name, _ in FIG3_STATIC:
+            check(torch.equal(outs[name], base), f"n={size}: {name} differs from dynamic placement")
+        check(torch.equal(outs["large_vmul_reduce"], outs["large_again"]),
+              f"n={size}: LARGE vmul_reduce not bit-identical across calls")
+        check(abs(outs["large_vmul_reduce"].item() - base.item())
+              <= 1e-5 * (a * b).abs().sum().item(), f"n={size}: LARGE vmul_reduce disagrees "
+              f"with sum(a*b)")
+        passes = {name: f.accelerator(a, b).placement.total_passthrough
+                  for name, f in fns.items()}
+        for i, (name, _) in enumerate(FIG3_STATIC):
+            check(passes[name] == i, f"n={size}: {name} placed with {passes[name]} pass-through tiles")
+        check(passes["dynamic"] == 0,
+              f"n={size}: dynamic placement has {passes['dynamic']} pass-through tiles")
+        large_graph = fns["large_vmul_reduce"].lower(a, b).graph
+        check([nd.name for nd in large_graph.op_nodes()] == ["kernels/vmul_reduce"],
+              f"n={size}: the LARGE call did not lower to one kernels/vmul_reduce node")
+        runs[size] = (fns, a, b, passes)
     torch.cuda.synchronize()
     launches = counts()
-    check((dyn_ov.stats.traces, dyn_ov.stats.downloads) == before,
-          "second LARGE call traced or downloaded again")
-
-    base = outs["dynamic"]
-    for name in ("static_0pass", "static_1pass", "static_2pass", "static_3pass"):
-        check(torch.equal(outs[name], base), f"{name} differs from dynamic placement")
-    check(torch.equal(outs["large_vmul_reduce"], outs["large_again"]),
-          "LARGE vmul_reduce not bit-identical across calls")
-    check(abs(outs["large_vmul_reduce"].item() - base.item())
-          <= 1e-5 * (a * b).abs().sum().item(), "LARGE vmul_reduce disagrees with sum(a*b)")
-    check(launches["vmul_reduce"] >= 2, f"vmul_reduce launched {launches} on the overlay path")
-    hops = {name: f.accelerator(a, b).placement.total_passthrough for name, f in fns.items()}
-    large_graph = fns["large_vmul_reduce"].lower(a, b).graph
-    check([nd.name for nd in large_graph.op_nodes()] == ["kernels/vmul_reduce"],
-          "the LARGE call did not lower to one kernels/vmul_reduce node")
-    log(f"[overlay] bit-identical across static 0-3 pass-through and dynamic "
-        f"placement; LARGE vmul_reduce = one {large_graph.op_nodes()[0].op.tile_class.value} "
-        f"node; launches {launches}")
+    check(launches["vmul_reduce"] == 2 * len(FIG3_SIZES),
+          f"vmul_reduce launched {launches} on the overlay path (want 2 a size)")
+    log(f"[overlay] each size on a fresh static and a fresh dynamic Overlay(3, 3): "
+        f"bit-identical across static 0-3 pass-through and dynamic placement; LARGE "
+        f"vmul_reduce = one large node; launches {launches}")
 
     times = {}
-    for size in (n, 1 << 24):
-        a2 = torch.randn(size, generator=gen, device=DEV)
-        b2 = torch.randn(size, generator=gen, device=DEV)
-        iters = 200 if size == n else 50
-        row = {name: time_ms(lambda f=f: f(a2, b2), iters) for name, f in fns.items()}
-        row["custom_torch_sum"] = time_ms(lambda: dot(a2, b2), iters)
+    for size, (fns, a, b, passes) in runs.items():
+        iters = 200 if size == PAPER_VECTOR_LEN else 50
+        row = {name: time_ms(lambda f=f: f(a, b), iters) for name, f in fns.items()}
+        row["custom_torch_sum"] = time_ms(lambda: _fig3_dot(a, b), iters)
         times[size] = row
         log(f"[overlay] n={size} ms per call: " + ", ".join(
-            f"{k}={v:.4f}" + (f"(pass={hops[k]})" if k in hops and k.startswith("static") else "")
+            f"{k}={v:.4f}" + (f"(pass={passes[k]})" if k in passes else "")
             for k, v in row.items()))
-    return {"launches": launches, "times": times}
+    split = large_host_split(*runs[PAPER_VECTOR_LEN][:3])
+    log(f"[overlay] n={PAPER_VECTOR_LEN} LARGE row, host us per call by layer (perf_counter_ns "
+        f"over {HOST_SPLIT_CALLS} calls each, no synchronize inside): " +
+        ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    return {"launches": launches, "times": times, "host_split_us": split}
+
+
+HOST_SPLIT_CALLS, HOST_SPLIT_BATCH = 4000, 100
+
+
+def _host_us(fn) -> float:
+    """Host microseconds a call of ``fn`` takes to return, over
+    ``HOST_SPLIT_CALLS`` calls in batches of ``HOST_SPLIT_BATCH`` with a
+    synchronize between batches (outside the clock), so the launch queue
+    never fills and blocks the host."""
+    for _ in range(HOST_SPLIT_BATCH):
+        fn()
+    total = 0
+    for _ in range(HOST_SPLIT_CALLS // HOST_SPLIT_BATCH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(HOST_SPLIT_BATCH):
+            fn()
+        total += time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return total / HOST_SPLIT_CALLS / 1e3
+
+
+def large_host_split(fns: dict, a: torch.Tensor, b: torch.Tensor) -> dict[str, float]:
+    """Where the host time of the LARGE row goes, layer by layer: each level
+    of the call is timed alone and the layer is the difference to the level
+    below it."""
+    jitted = fns["large_vmul_reduce"]
+    walk = jitted.accelerator(a, b).fn           # the interpreter's kernel walk, routes bound
+    plan = vr_mod.plan(a.shape[0])
+    check(plan.cluster, "the paper's size takes the cluster launch")
+    out = torch.empty((), dtype=a.dtype, device=DEV)
+    index = a.device.index
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), 0, a.shape[0], plan.blocks,
+            plan.blocks, native.DTYPE_CODES[a.dtype], index, native.raw_stream(index))
+    entry = vr_mod._entry()
+    # (layer, the call that runs it and every layer below)
+    levels = (("overlay dispatch", lambda: jitted(a, b)),
+              ("interpreter step", lambda: walk(a, b)),
+              ("custom-op dispatch", lambda: ops.vmul_reduce(a, b)),
+              ("wrapper", lambda: vr_mod.vmul_reduce_cuda(a, b)),
+              ("launch (ctypes, C entry, cudaLaunchKernelEx)", lambda: entry(*args)))
+    us = [_host_us(fn) for _, fn in levels]
+    split = {"total": us[0]}
+    for i, (layer, _) in enumerate(levels):
+        split[layer] = us[i] - (us[i + 1] if i + 1 < len(us) else 0.0)
+    return split
 
 
 def serve(params, cfg, overlay) -> tuple[list, dict, float, dict, ServeEngine]:
@@ -562,7 +712,7 @@ def phase_train() -> dict:
 KERNEL_GROUPS = (   # (group, lower-case substrings of CUDA kernel names), first match wins
     ("flash_attention", ("flash_fwd",)),
     ("ssd_chunk", ("ssd_chunk_kernel",)),
-    ("rmsnorm", ("rmsnorm_rows",)),
+    ("rmsnorm", ("rmsnorm_warp", "rmsnorm_block")),
     ("matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "cublas")),
     ("softmax", ("softmax",)),
     ("reductions", ("reduce",)),
@@ -902,6 +1052,26 @@ def flash_bound_ms(b: int, hq: int, hkv: int, s: int, d: int) -> tuple[float, st
     return max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3, by
 
 
+VMUL_SWEEP = tuple(1 << k for k in range(12, 19))
+RMSNORM_TIMED = ((BATCH, 3072), (PROMPT, 3072), (BATCH * PROMPT, 3072), (TRAIN_SEQ, 3072),
+                 (8192, 3072), (TRAIN_SEQ, MAMBA_D), (MAMBA_BATCH, MAMBA_D))
+
+
+def vmul_bound_ms(n: int) -> tuple[float, str]:
+    """a and b (f32) read once, one f32 written, against 2n float32 operations."""
+    bytes_, flops = 2 * n * 4 + 4, 2 * n
+    by = "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations"
+    return max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3, by
+
+
+def rmsnorm_bound_ms(rows: int, d: int) -> tuple[float, str]:
+    """bf16 x read and y written once, f32 w read once, against 4 float32
+    operations an element."""
+    bytes_, flops = 2 * rows * d * 2 + d * 4, 4 * rows * d
+    by = "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations"
+    return max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3, by
+
+
 def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[dict]:
     """Time each kernel at the main path's shape beside its bound, its plain
     version and one library call computing the same function."""
@@ -910,37 +1080,41 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
     n = PAPER_VECTOR_LEN
     a = torch.randn(n, generator=gen, device=DEV)
     b = torch.randn(n, generator=gen, device=DEV)
-    bytes_ = 2 * n * 4 + 4
+    bound, by = vmul_bound_ms(n)
     out.append({
         "name": "vmul_reduce", "route": "cuda",
         "source": "src/repro_torch/csrc/vmul_reduce.cu",
         "replaces": "src/repro/kernels/vmul_reduce.py:63",
         "launches": launches["vmul_reduce"],
+        "launches_by_variant": {v_: launches[f"vmul_reduce/{v_}"]
+                                for v_ in vr_mod.launches.variants},
         "max_abs_err": errs["vmul_reduce"],
         "ms": time_ms(lambda: vr_mod.vmul_reduce_cuda(a, b), 500),
+        "device_ms": device_ms(lambda: vr_mod.vmul_reduce_cuda(a, b)),
         "plain_ms": time_ms(lambda: vr_mod.plain(a, b), 500),
-        "bound_ms": max(bytes_ / HBM_BYTES_PER_S, 2 * n / F32_FLOPS_PER_S) * 1e3,
-        "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >= 2 * n / F32_FLOPS_PER_S
-        else "operations",
+        "bound_ms": bound,
+        "bound_by": by,
         "library_ms": time_ms(lambda: torch.dot(a, b), 500),
+        "library_device_ms": device_ms(lambda: torch.dot(a, b)),
         "shape": f"a, b: ({n},) float32"})
     rows, d = BATCH, 3072                       # the decode step's norms
     x = torch.randn(rows, d, generator=gen, device=DEV).bfloat16()
     w = torch.ones(d, device=DEV)
-    bytes_ = 2 * rows * d * 2 + d * 4
-    flops = 4 * rows * d
+    bound, by = rmsnorm_bound_ms(rows, d)
     out.append({
         "name": "rmsnorm", "route": "cuda",
         "source": "src/repro_torch/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:44",
         "launches": launches["rmsnorm"],
+        "launches_by_variant": {v_: launches[f"rmsnorm/{v_}"] for v_ in rn_mod.VARIANTS},
         "max_abs_err": errs["rmsnorm"],
         "ms": time_ms(lambda: rn_mod.rmsnorm_cuda(x, w), 500),
+        "device_ms": device_ms(lambda: rn_mod.rmsnorm_cuda(x, w)),
         "plain_ms": time_ms(lambda: rn_mod.plain(x, w), 500),
-        "bound_ms": max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
-        "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
-        else "operations",
+        "bound_ms": bound,
+        "bound_by": by,
         "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6), 500),
+        "library_device_ms": device_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6)),
         "shape": f"x: ({rows}, {d}) bfloat16, w: ({d},) float32"})
     b, h, sq, hd = TRAIN_BATCH, 32, TRAIN_SEQ, 96      # the training path's attention
     q, k, v = (torch.randn(b, h, sq, hd, generator=gen, device=DEV).bfloat16()
@@ -954,6 +1128,7 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
         "launches_by_variant": {v_: launches[f"flash_attention/{v_}"] for v_ in fa_mod.VARIANTS},
         "max_abs_err": errs["flash_attention"],
         "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 50, warmup=5),
+        "device_ms": device_ms(lambda: fa_mod.flash_attention(q, k, v), calls=20, replays=3),
         "variant": fa_mod.variant(q.dtype, hd),
         "simt_ms": time_ms(lambda: fa_mod.flash_attention(q, k, v, kernel="simt"), 5, warmup=1),
         "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v), 3, warmup=1),
@@ -961,6 +1136,8 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
         "bound_by": by,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
                               50, warmup=5),
+        "library_device_ms": device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), calls=20, replays=3),
         "shape": f"q, k, v: ({b}, {h}, {sq}, {hd}) bfloat16, causal"})
     del q, k, v
     bh, nc, L, p, n = SSD_PATH                          # a 4096-token mamba2 prefill or train row
@@ -980,11 +1157,13 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
         "launches": launches["ssd_chunk"],
         "max_abs_err": errs["ssd_chunk"],
         "ms": time_ms(lambda: ssd_mod.ssd_chunk(x, a, b, c, chunk=L), 50),
+        "device_ms": device_ms(lambda: ssd_mod.ssd_chunk(x, a, b, c, chunk=L), calls=20, replays=3),
         "plain_ms": time_ms(lambda: ssd_mod.plain(x, a, b, c, chunk=L), 20),
         "bound_ms": max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3,
         "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
         else "operations",
         "library_ms": None,
+        "library_device_ms": None,
         "library_note": "no single PyTorch call computes the chunk-local SSD terms",
         "shape": f"x ({bh}, {nc}, {L}, {p}), b/c n {n} bfloat16, a float32"})
     del x, a, b, c
@@ -1002,27 +1181,53 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
             f"{fa_mod.variant(q.dtype, hd)} {ms:.4f} ms ({bound / ms:.0%} of the bound "
             f"{bound:.4f} ms, by {by}), simt {simt:.4f} ms, SDPA {sdpa:.4f} ms")
         del q, k, v
-    # the same kernels at the sizes that show their bandwidth
-    for size in (1 << 26,):
+    # vmul_reduce: the two launch variants against each other (device time
+    # alone), which sets vr_mod.CLUSTER_MAX_N, then the size that shows the
+    # bandwidth
+    for size in VMUL_SWEEP:
         a = torch.randn(size, generator=gen, device=DEV)
         b = torch.randn(size, generator=gen, device=DEV)
-        ms = time_ms(lambda: vr_mod.vmul_reduce_cuda(a, b), 20)
-        bound = 2 * size * 4 / HBM_BYTES_PER_S * 1e3
-        log(f"[timing] vmul_reduce n={size} f32: {ms:.4f} ms, bound {bound:.4f} ms "
-            f"({bound / ms:.0%} of the byte bound), plain "
-            f"{time_ms(lambda: vr_mod.plain(a, b), 20):.4f} ms, torch.dot "
-            f"{time_ms(lambda: torch.dot(a, b), 20):.4f} ms")
+        plans = {f"cluster of {vr_mod.CLUSTER}": vr_mod.Plan(True, vr_mod.CLUSTER),
+                 "grid": vr_mod.Plan(False, min(vr_mod.MAX_BLOCKS,
+                                                -(-size // vr_mod.ELEMS_PER_BLOCK)))}
+        row = {}
+        for name in (*plans, *reversed(plans)):     # in turns: a, b, b, a
+            row.setdefault(name, []).append(device_ms(
+                lambda p=plans[name]: vr_mod.vmul_reduce_cuda(a, b, launch_plan=p), calls=200))
+        row = {(f"grid of {plans[k].blocks}" if k == "grid" else k): min(v)
+               for k, v in row.items()}
+        picked = "cluster" if vr_mod.plan(size).cluster else "grid"
+        log(f"[timing] vmul_reduce launch plans n={size} f32, device us per call: " +
+            ", ".join(f"{k} {v * 1e3:.2f}" for k, v in row.items()) + f"; plan() picks {picked}")
         del a, b
-    # phi3's rows, then mamba2's (a 4096-token prefill or train row, a decode batch)
-    for rows, d in ((PROMPT, 3072), (BATCH * PROMPT, 3072), (TRAIN_SEQ, 3072), (8192, 3072),
-                    (TRAIN_SEQ, MAMBA_D), (MAMBA_BATCH, MAMBA_D)):
+    size = 1 << 26
+    a = torch.randn(size, generator=gen, device=DEV)
+    b = torch.randn(size, generator=gen, device=DEV)
+    bound, _ = vmul_bound_ms(size)
+    ms = time_ms(lambda: vr_mod.vmul_reduce_cuda(a, b), 20)
+    dev_ms = device_ms(lambda: vr_mod.vmul_reduce_cuda(a, b), calls=10, replays=3)
+    dot = time_ms(lambda: torch.dot(a, b), 20)
+    dot_dev = device_ms(lambda: torch.dot(a, b), calls=10, replays=3)
+    log(f"[timing] vmul_reduce n={size} f32: {ms:.4f} ms per call (device {dev_ms:.4f}), bound "
+        f"{bound:.4f} ms ({bound / ms:.0%} of the byte bound; device {bound / dev_ms:.0%}), plain "
+        f"{time_ms(lambda: vr_mod.plain(a, b), 20):.4f} ms, torch.dot {dot:.4f} ms "
+        f"(device {dot_dev:.4f}, {bound / dot_dev:.0%})")
+    del a, b
+    # rmsnorm at every row shape of the paths: phi3's rows, then mamba2's (a
+    # 4096-token prefill or train row, a decode batch)
+    for rows, d in RMSNORM_TIMED:
         x = torch.randn(rows, d, generator=gen, device=DEV).bfloat16()
         w = torch.ones(d, device=DEV)
+        bound, _ = rmsnorm_bound_ms(rows, d)
         ms = time_ms(lambda: rn_mod.rmsnorm_cuda(x, w), 100)
-        bound = (2 * rows * d * 2 + d * 4) / HBM_BYTES_PER_S * 1e3
-        log(f"[timing] rmsnorm ({rows}, {d}) bf16: {ms:.4f} ms, bound {bound:.4f} ms, "
-            f"plain {time_ms(lambda: rn_mod.plain(x, w), 100):.4f} ms, F.rms_norm "
-            f"{time_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6), 100):.4f} ms")
+        dev_ms = device_ms(lambda: rn_mod.rmsnorm_cuda(x, w))
+        lib = time_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6), 100)
+        lib_dev = device_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6))
+        log(f"[timing] rmsnorm ({rows}, {d}) bf16 on {rn_mod.variant(x, x)}: {ms:.4f} ms per "
+            f"call, device {dev_ms:.4f} ms ({bound / dev_ms:.0%} of the bound {bound:.4f} ms); "
+            f"plain {time_ms(lambda: rn_mod.plain(x, w), 100):.4f} ms; F.rms_norm {lib:.4f} ms "
+            f"per call, device {lib_dev:.4f} ms ({bound / lib_dev:.0%})")
+        del x, w
     return out
 
 
@@ -1036,6 +1241,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     errs = phase_kernel_checks(gen)
+    phase_one_launch(gen)
     paper = phase_overlay_paper(gen)
     served = phase_serve(gen)
     trained = phase_train()
@@ -1050,6 +1256,9 @@ def main() -> int:
                "train": trained["launches"], "serve_mamba": served_mamba["launches"],
                "train_mamba": trained_mamba["launches"]}
     launches = {name: sum(p[name] for p in by_path.values()) for name in counts()}
+    for path, n in by_path.items():
+        check(n["rmsnorm/warp"] == n["rmsnorm"],
+              f"{path}: rmsnorm launches by variant {n} (every one must be on the warp kernel)")
     kernels = phase_kernel_line(gen, errs, launches)
     for entry in kernels:
         entry["launches_by_path"] = {path: n[entry["name"]] for path, n in by_path.items()}

@@ -76,6 +76,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <mutex>
 
 namespace {
 
@@ -273,12 +274,32 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_simt(Args a) {
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// Per device and kernel instance: the dynamic shared memory the kernel is set
+// to allow (0 until set), raised only when a launch needs more, so a launch at
+// a size already allowed makes no driver call beyond cudaGetDevice.
+template <typename T, int NC>
+cudaError_t allow_smem(int bytes) {
+  static std::atomic<int> allowed[kMaxDevices];
+  static std::mutex mutex;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= allowed[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  std::lock_guard<std::mutex> lock(mutex);
+  if (bytes <= allowed[dev].load(std::memory_order_relaxed)) return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_fwd_simt<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) allowed[dev].store(bytes, std::memory_order_release);
+  return err;
+}
+
 template <typename T, int NC>
 int launch(const Args& a, int batch, cudaStream_t stream) {
   const size_t bytes = smem_floats(a.d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_simt<T, NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+  const cudaError_t err = allow_smem<T, NC>((int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(batch * a.hq), (unsigned)((a.sq + kBQ - 1) / kBQ));
   flash_fwd_simt<T, NC><<<grid, kThreads, bytes, stream>>>(a);

@@ -122,7 +122,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       int(window is not None), int(window or 0),
                       int(softcap is not None), float(softcap or 0.0),
                       native.DTYPE_CODES[q.dtype], _VARIANT_CODES[kernel],
-                      native.stream_handle(q.device))
+                      native.raw_stream(q.device.index))
     native.check_launch(rc, f"flash_attention ({kernel})")
     launches.count += 1
     launches.by_variant[kernel] += 1

@@ -126,6 +126,8 @@ def check_launch(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error code {rc}")
 
 
-def stream_handle(device: torch.device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as the int ctypes passes."""
-    return torch.cuda.current_stream(device).cuda_stream
+def raw_stream(index: int) -> int:
+    """PyTorch's current CUDA stream on device ``index``, as the int ctypes
+    passes, without building a ``torch.cuda.Stream`` object (the lookup the
+    compiled code PyTorch generates makes on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -123,7 +123,7 @@ def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     with torch.cuda.device(x.device):
         rc = _entry()(*(t.data_ptr() for t in (x, a, b, c, y, st, a_cum)), bh * nc,
                       L, p, n, *(native.DTYPE_CODES[t.dtype] for t in ins),
-                      native.stream_handle(x.device))
+                      native.raw_stream(x.device.index))
     native.check_launch(rc, "ssd_chunk")
     launches.count += 1
     return y, st, a_cum

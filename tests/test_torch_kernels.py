@@ -110,10 +110,139 @@ def test_vmul_reduce_cuda_wrapper_rejects_cpu_tensors_without_launching():
     assert tvr.launches.count == before
 
 
-@pytest.mark.parametrize("n,blocks", [(0, 1), (1, 1), (8192, 1), (8193, 2),
-                                      (1 << 26, 1024)])
-def test_vmul_reduce_grid_depends_on_n_only(n, blocks):
-    assert tvr.num_blocks(n) == blocks
+_C = tvr.CLUSTER_MAX_N
+
+
+@pytest.mark.parametrize("n,want", [
+    (0, (True, 8)), (1, (True, 8)), (4096, (True, 8)), (_C, (True, 8)),
+    (_C + 1, (False, -(-(_C + 1) // 4096))), (1 << 20, (False, 256)),
+    (528 * 4096, (False, 528)), (528 * 4096 + 1, (False, 528)), (1 << 26, (False, 528))])
+def test_vmul_reduce_grid_depends_on_n_only(n, want):
+    """The launch plan -- one cluster of 8 CTAs or a grid of blocks, and how
+    many -- is a function of n alone (so are the summation order and the
+    bits); the cluster takes every n up to CLUSTER_MAX_N."""
+    assert tvr.plan(n) == tvr.Plan(*want)
+    assert _C >= 4096                      # the paper's 16 KB takes the cluster
+
+
+def test_vmul_reduce_workspace_is_keyed_by_device_and_stream(monkeypatch):
+    """The grid variant's ticket and partials: one zeroed buffer per
+    (device, stream), reused by that stream's later calls, never shared by
+    two streams."""
+    monkeypatch.setattr(tvr, "_workspaces", {})
+    cpu = torch.device("cpu")
+    w1, w2 = tvr.workspace(cpu, 1), tvr.workspace(cpu, 2)
+    assert w1 is tvr.workspace(cpu, 1) and w2 is tvr.workspace(cpu, 2)
+    assert w1.data_ptr() != w2.data_ptr()
+    assert w1.shape == (1 + tvr.MAX_BLOCKS,) and w1.dtype == torch.int32
+    assert not w1.any() and not w2.any()
+    assert set(tvr._workspaces) == {(cpu, 1), (cpu, 2)}
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' orders of operations, emulated in f32 on the CPU.  Each
+# step is one IEEE f32 operation (the kernels use __fmul_rn/__fadd_rn, never
+# FMAs), so the vmul_reduce emulation gives the kernel's bits (the card test
+# holds it to that) and both are held to the JAX package here.
+# ---------------------------------------------------------------------------
+def _halving_tree(v: np.ndarray) -> np.ndarray:
+    """A warp's shuffle tree over the last axis (32 lanes): lane i adds lane
+    i + off for off = 16, 8, ..., 1; lane 0's value."""
+    v = np.concatenate([v, np.zeros(v.shape[:-1] + (32 - v.shape[-1],), np.float32)], -1)
+    for off in (16, 8, 4, 2, 1):
+        v = v[..., :off] + v[..., off:2 * off]
+    return v[..., 0]
+
+
+def _block_tree(v: np.ndarray) -> np.ndarray:
+    """A block's sum over the last axis: each warp's tree, then a tree over
+    the warps' sums."""
+    warps = v.reshape(v.shape[:-1] + (v.shape[-1] // 32, 32))
+    return _halving_tree(_halving_tree(warps))
+
+
+def emulate_vmul_reduce(a: np.ndarray, b: np.ndarray, vec: int, plan) -> np.float32:
+    """``csrc/vmul_reduce.cu``'s order for f32 values ``a``, ``b`` (bf16
+    inputs widened; ``vec`` elements a 16-byte chunk): thread g of W sums
+    chunks g, g + W, ... per chunk lane, the lanes in a halving tree, each
+    block in its tree; then the cluster's rank 0 (one warp) or the last
+    block (thread t takes partials t, t + 256, ..., then its tree)."""
+    p = a.astype(np.float32) * b.astype(np.float32)
+    threads = plan.blocks * tvr.THREADS
+    iters = max(1, -(-(-(-len(p) // vec)) // threads))
+    p = np.concatenate([p, np.zeros(iters * threads * vec - len(p), np.float32)])
+    acc = np.zeros((threads, vec), np.float32)
+    for chunk in p.reshape(iters, threads, vec):
+        acc = acc + chunk
+    while acc.shape[1] > 1:
+        h = acc.shape[1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    parts = _block_tree(acc[:, 0].reshape(plan.blocks, tvr.THREADS))
+    if plan.cluster:
+        return _halving_tree(parts)
+    rounds = -(-plan.blocks // tvr.THREADS)
+    parts = np.concatenate([parts, np.zeros(rounds * tvr.THREADS - plan.blocks, np.float32)])
+    s = np.zeros(tvr.THREADS, np.float32)
+    for r in parts.reshape(rounds, tvr.THREADS):
+        s = s + r
+    return _block_tree(s)
+
+
+RMSNORM_BLOCK_THREADS = 128   # csrc/rmsnorm.cu's kThreads
+
+
+def emulate_rmsnorm(x: np.ndarray, w: np.ndarray, vec: int, eps: float = 1e-6) -> np.ndarray:
+    """``csrc/rmsnorm.cu``'s order, in f32, for rows ``x`` (rows, d) and
+    ``w`` as f32 values.  The warp kernel (d a multiple of ``vec``, at most
+    MAX_WARP_D): lane l sums the squares of its vectors l, l + 32, ... in
+    order, the warp adds the lanes in a tree.  The block kernel (the rest):
+    thread t sums elements t, t + 128, ..., then the block's tree.  Then
+    r = rsqrt(ss / d + eps) (each step rounded once) and (x * r) * w."""
+    rows, d = x.shape
+    sq = x * x
+    if d % vec == 0 and d <= trn.MAX_WARP_D:
+        per_lane = -(-(d // vec) // 32)
+        sq = np.concatenate([sq, np.zeros((rows, per_lane * 32 * vec - d), np.float32)], 1)
+        sq = sq.reshape(rows, per_lane, 32, vec)
+        ss = np.zeros((rows, 32), np.float32)
+        for i in range(per_lane):
+            for k in range(vec):
+                ss = ss + sq[:, i, :, k]
+        ss = _halving_tree(ss)
+    else:
+        t = RMSNORM_BLOCK_THREADS
+        sq = np.concatenate([sq, np.zeros((rows, -(-d // t) * t - d), np.float32)], 1)
+        acc = np.zeros((rows, t), np.float32)
+        for step in sq.reshape(rows, -1, t).transpose(1, 0, 2):
+            acc = acc + step
+        ss = _block_tree(acc)
+    ms = ss / np.float32(d) + np.float32(eps)
+    r = (1.0 / np.sqrt(ms.astype(np.float64))).astype(np.float32)   # rsqrt, rounded once
+    return (x * r[:, None]) * w[None, :]
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """``x`` rounded to bfloat16 (to nearest even), as f32 values."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 4095, 4096, 4097, _C - 1, _C, _C + 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vmul_reduce_kernel_order_matches_jax(jx, n, dtype):
+    """The emulated kernel order against the JAX reference (and the Pallas
+    kernel in interpret mode at the paper's size), at the tolerance of
+    test_vmul_reduce_plain_matches_pallas_and_jax_ref."""
+    rng = np.random.default_rng(n + 11)
+    (a, ja), (b, jb) = (_as(jx, rng.standard_normal(n, np.float32), dtype) for _ in range(2))
+    af, bf = _f32(a), _f32(b)
+    got = emulate_vmul_reduce(af, bf, 16 // a.element_size(), tvr.plan(n))
+    got = float(torch.tensor(got).to(a.dtype).float())
+    scale = float(np.sum(np.abs(af * bf)))
+    tol = 1e-5 * scale + (2 ** -8 * abs(got) if dtype == "bfloat16" else 0)
+    np.testing.assert_allclose(got, _f32(jx.ref.vmul_reduce(ja, jb)), rtol=0, atol=tol)
+    if n == 4096:
+        np.testing.assert_allclose(
+            got, _f32(jx.vmul_reduce.vmul_reduce(ja, jb, interpret=True)), rtol=0, atol=tol)
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +266,37 @@ def test_rmsnorm_plain_matches_pallas_and_jax_ref(jx, shape, dtype, wdtype):
     np.testing.assert_allclose(_f32(got), _f32(jx.ref.rmsnorm(jxx, jw)), **tol)
     np.testing.assert_allclose(_f32(got), _f32(jx.rmsnorm.rmsnorm(jxx, jw, interpret=True)),
                                **tol)
+
+
+@pytest.mark.parametrize("shape", [(3, 3072), (5, 768), (2, 3001)])
+@pytest.mark.parametrize("dtype,wdtype", [("float32", "float32"), ("float32", "bfloat16"),
+                                          ("bfloat16", "float32"), ("bfloat16", "bfloat16")])
+def test_rmsnorm_kernel_order_matches_jax(jx, shape, dtype, wdtype):
+    """The emulated order of the warp kernel (d 3072 and 768) and of the
+    block kernel (the ragged d 3001) against the JAX reference, at the
+    tolerance of test_rmsnorm_plain_matches_pallas_and_jax_ref."""
+    rng = np.random.default_rng(sum(shape) + len(dtype) + len(wdtype))
+    x, jxx = _as(jx, rng.standard_normal(shape, np.float32), dtype)
+    w, jw = _as(jx, 1 + 0.1 * rng.standard_normal(shape[-1]).astype(np.float32), wdtype)
+    assert trn.variant(x, x) == ("block" if shape[-1] == 3001 else "warp")
+    got = emulate_rmsnorm(_f32(x), _f32(w), 16 // x.element_size())
+    got = _bf16(got) if dtype == "bfloat16" else got
+    tol = dict(rtol=2 ** -7, atol=2 ** -7) if dtype == "bfloat16" else \
+        dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, _f32(jx.ref.rmsnorm(jxx, jw)), **tol)
+
+
+def test_rmsnorm_variant_by_shape_and_alignment():
+    """The warp kernel takes rows of whole 16-byte vectors up to MAX_WARP_D,
+    16-byte aligned; everything else goes to the block kernel."""
+    bf = torch.zeros(4, 3072, dtype=torch.bfloat16)
+    assert trn.variant(bf, bf) == "warp"
+    assert trn.variant(torch.zeros(4, 768), torch.zeros(4, 768)) == "warp"
+    assert trn.variant(torch.zeros(2, 4096), torch.zeros(2, 4096)) == "warp"
+    assert trn.variant(torch.zeros(2, 4100), torch.zeros(2, 4100)) == "block"   # too wide
+    assert trn.variant(torch.zeros(2, 3001), torch.zeros(2, 3001)) == "block"   # ragged
+    odd = torch.zeros(2 * 3072 + 8, dtype=torch.bfloat16)[1:1 + 2 * 3072].view(2, 3072)
+    assert trn.variant(odd, bf[:2]) == "block"                                  # unaligned
 
 
 def test_rmsnorm_rejects_bad_shapes():
@@ -164,10 +324,29 @@ def test_rmsnorm_grad_is_vjp_of_plain_version():
 # ---------------------------------------------------------------------------
 # on the card (run there: python -m pytest -m cuda tests/test_torch_kernels.py)
 # ---------------------------------------------------------------------------
+def _kernels_per_call(fn) -> list[str]:
+    """The CUDA kernels one call of ``fn`` runs, by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _vmul_tol(a, b, p):
+    return 1e-5 * (a.float() * b.float()).abs().sum() + \
+        (2 ** -8 * p.abs() if a.dtype == torch.bfloat16 else 0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4096, 1000003])
+@pytest.mark.parametrize("n", [0, 1, 7, 4095, 4096, 4097, _C - 1, _C, _C + 1, 1000003,
+                               1 << 26])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_vmul_reduce_kernel_matches_plain_on_card(cuda, n, dtype):
+    """Within tolerance of plain, bit-identical on repeat and to the emulated
+    order, one kernel a call."""
     g = torch.Generator(device=cuda).manual_seed(0)
     a = torch.randn(n, generator=g, device=cuda).to(dtype)
     b = torch.randn(n, generator=g, device=cuda).to(dtype)
@@ -176,22 +355,96 @@ def test_vmul_reduce_kernel_matches_plain_on_card(cuda, n, dtype):
     assert tvr.launches.count == before + 2
     assert torch.equal(k1, k2)                      # no atomics: same bits
     p = ref.vmul_reduce(a, b).float()
-    tol = 1e-5 * (a.float() * b.float()).abs().sum() + 2 ** -8 * p.abs()
-    assert (k1.float() - p).abs() <= tol
+    assert (k1.float() - p).abs() <= _vmul_tol(a, b, p)
+    emulated = emulate_vmul_reduce(_f32(a.cpu()), _f32(b.cpu()), 16 // a.element_size(),
+                                   tvr.plan(n))
+    assert torch.equal(k1.cpu(), torch.tensor(emulated).to(dtype))
+    kind = "cluster" if tvr.plan(n).cluster else "grid"
+    names = _kernels_per_call(lambda: ops.vmul_reduce(a, b))
+    assert len(names) == 1 and f"vmul_reduce_{kind}" in names[0], names
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [3072, 768])           # phi3's and mamba2's d_model
-@pytest.mark.parametrize("rows", [2, 16, 130])
-def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, d):
+@pytest.mark.parametrize("n", [4097, _C + 1, 1000003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vmul_reduce_unaligned_views_on_card(cuda, n, dtype):
+    """``a[1:]`` and ``b[1:]`` start off a 16-byte boundary: scalar loads of
+    the same chunks in the same order, so the same bits as aligned copies."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn(n + 1, generator=g, device=cuda).to(dtype)
+    b = torch.randn(n + 1, generator=g, device=cuda).to(dtype)
+    av, bv = a[1:], b[1:]
+    assert av.data_ptr() % 16 and bv.data_ptr() % 16
+    got = tvr.vmul_reduce_cuda(av, bv)
+    assert torch.equal(got, tvr.vmul_reduce_cuda(av.clone(), bv.clone()))
+    p = ref.vmul_reduce(av, bv).float()
+    assert (got.float() - p).abs() <= _vmul_tol(av, bv, p)
+    assert len(_kernels_per_call(lambda: tvr.vmul_reduce_cuda(av, bv))) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 1 << 20])
+def test_vmul_reduce_two_streams_concurrently(cuda, n):
+    """Calls issued in turns on two streams, each with its own workspace and
+    ticket: every answer equals the one-stream answer, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    ins = [(torch.randn(n, generator=g, device=cuda), torch.randn(n, generator=g, device=cuda))
+           for _ in range(2)]
+    want = [tvr.vmul_reduce_cuda(a, b) for a, b in ins]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(50):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(tvr.vmul_reduce_cuda(*ins[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(x, want[i]) for x in got[i])
+    if not tvr.plan(n).cluster:
+        keys = {(cuda.index or 0, s.cuda_stream) for s in streams}
+        assert keys <= {(d.index, st) for d, st in tvr._workspaces}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [768, 3072, 3000])      # mamba2's and phi3's d_model, ragged
+@pytest.mark.parametrize("rows", [1, 2, 3, 16, 32, 130, 4096, 8192])
+@pytest.mark.parametrize("dtype,wdtype", [(torch.bfloat16, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16),
+                                          (torch.float32, torch.float32),
+                                          (torch.float32, torch.bfloat16)])
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows, d, dtype, wdtype):
+    """Within one bf16 ulp (2^-7, bf16 x) or 1e-5 (f32 x) of plain, on the
+    warp kernel (every d here is whole 16-byte vectors), one kernel a call."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(rows, d, generator=g, device=cuda).bfloat16()
-    w = 1 + 0.1 * torch.randn(d, generator=g, device=cuda)
-    before = trn.launches.count
+    x = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    w = (1 + 0.1 * torch.randn(d, generator=g, device=cuda)).to(wdtype)
+    before = trn.launches.by_variant["warp"]
     y = ops.rmsnorm(x, w)
-    assert trn.launches.count == before + 1
-    torch.testing.assert_close(y.float(), ref.rmsnorm(x, w).float(),
-                               rtol=2 ** -7, atol=2 ** -7)
+    assert trn.launches.by_variant["warp"] == before + 1
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(y.float(), ref.rmsnorm(x, w).float(), rtol=tol, atol=tol)
+    names = _kernels_per_call(lambda: ops.rmsnorm(x, w))
+    assert len(names) == 1 and "rmsnorm_warp" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 3001), (2, 5000)])
+def test_rmsnorm_block_kernel_on_card(cuda, shape):
+    """Ragged and wide rows and an unaligned view go to the block kernel."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(*shape, generator=g, device=cuda).bfloat16()
+    w = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=cuda)
+    flat = torch.randn(2 * 3072 + 8, generator=g, device=cuda).bfloat16()
+    odd, w3 = flat[1:1 + 2 * 3072].view(2, 3072), torch.ones(3072, device=cuda)
+    for xi, wi in ((x, w), (odd, w3)):
+        before = trn.launches.by_variant["block"]
+        y = trn.rmsnorm_cuda(xi, wi)
+        assert trn.launches.by_variant["block"] == before + 1
+        torch.testing.assert_close(y.float(), ref.rmsnorm(xi, wi).float(),
+                                   rtol=2 ** -7, atol=2 ** -7)
+        assert len(_kernels_per_call(lambda: trn.rmsnorm_cuda(xi, wi))) == 1
 
 
 @pytest.mark.cuda
