@@ -9,10 +9,13 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it (tolerances stated below), checks that
    repeated vmul_reduce, flash_attention and ssd_chunk launches are
-   bit-identical, and holds the full SSD scan with an initial state against
-   the sequential recurrence; flash_attention runs the variant its wrapper
-   picks (the tensor-core kernel for bf16 with a head dim that is a multiple
-   of 16, the CUDA-core kernel otherwise); checks with ``torch.profiler``
+   bit-identical, and holds the full SSD scan (its inter-chunk recurrence in
+   closed form) with an initial state against the sequential recurrence,
+   also across 64 chunks of steep decay, where the op's gradients must be
+   finite; flash_attention runs the variant its wrapper picks (the
+   tensor-core kernel for bf16 with a head dim that is a multiple of 16, the
+   CUDA-core kernel otherwise), ssd_chunk every variant that takes each
+   case; checks with ``torch.profiler``
    that one vmul_reduce call and one rmsnorm call each run exactly one CUDA
    kernel, on every variant;
 3. runs the paper's workload, ``sum(a * b)``, through ``Overlay(3, 3).jit``
@@ -36,9 +39,12 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 7. serves mamba2-130m at full width (24 layers) with prompts of 37, 500 and
    4096 tokens through ``Overlay(3, 3)`` and plainly: identical streams,
    one ``kernels/ssd`` node per layer in each traced prefill, and the
-   ssd_chunk and rmsnorm launches each prefill and decode must make;
+   ssd_chunk and rmsnorm launches each prefill and decode must make, every
+   ssd_chunk launch on the tensor-core kernel;
 8. trains mamba2-130m at full width for 3 eager steps at batch 1 x seq 4096:
-   finite losses and 48 ssd_chunk and 49 rmsnorm launches a step;
+   finite losses and 48 ssd_chunk and 49 rmsnorm launches a step, every
+   ssd_chunk launch on the tensor-core kernel; the aten ops the host issues
+   a step;
 9. checks the models' outputs: finite full-width logits, small float32 phi3
    and mamba2 models on the card (kernels) against the same models on the
    CPU (plain versions), serving and one train step;
@@ -48,8 +54,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 11. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
-    CUDA-core kernel's time), timings at other shapes (vmul_reduce's launch
-    variants against each other, rmsnorm at every row shape of the paths),
+    and ssd_chunk's CUDA-core kernels' times), timings at other shapes
+    (vmul_reduce's launch variants against each other, rmsnorm at every row
+    shape of the paths, ssd_chunk's variants at every checked shape, the
+    inter-chunk recurrence as the old loop over chunks and in closed form),
     the card's name and power limit, and last the result line.
 
 Launch counts come from the wrappers' counters, set to 0 just before each
@@ -180,16 +188,25 @@ def device_ms(fn, calls: int = 100, replays: int = 10) -> float:
     return start.elapsed_time(stop) / (replays * calls)
 
 
+PROFILE_MARGIN_S = 0.02     # idle card time at each edge of a profiler window
+
+
 def kernels_launched(fn, calls: int = 3) -> list[str]:
     """The names of the CUDA kernels (and copies) the card ran for ``calls``
-    calls of ``fn``, as ``torch.profiler`` records them."""
+    calls of ``fn``, as ``torch.profiler`` records them.  The window opens
+    and closes on an idle card, ``PROFILE_MARGIN_S`` from the first and the
+    last launch: a kernel launched right at an edge of the window is now and
+    then left out of its record."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     return [ev.name for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA]
 
@@ -378,45 +395,67 @@ SSD_CASES = [   # (bh, nc, L, p, n, dtype of x/b/c, a_cum span per chunk)
 
 def check_ssd(gen: torch.Generator) -> float:
     """ssd_chunk against the plain version (``ssd_scan.plain``), all three
-    outputs.  Tolerance: both sides compute in f32 from the same inputs and
-    differ only in the order of their sums (the dot products, the cumsum),
-    so every output is within 1e-5 of the largest plain value of its tensor
-    (a normwise bound: a sum's rounding scales with its terms, not with a
-    cancelled result).  Then the full scan (``ssd_scan.ssd``) with an
-    initial state against the sequential recurrence (``ref.ssd_naive``),
-    another order of the whole sum: the reference's own 2e-4."""
+    outputs, each case on every variant that takes it.  Tolerance: both
+    sides compute in f32 from the same inputs and differ only in the order
+    of their sums (the dot products, the cumsum), so every output is within
+    1e-5 of the largest plain value of its tensor (a normwise bound: a sum's
+    rounding scales with its terms, not with a cancelled result).  The
+    tensor-core kernel multiplies bf16 operands exactly and splits each f32
+    operand into three bf16 parts, which carry its 24 bits: it is held to
+    the same bound.  Then the full scan (``ssd_scan.ssd``, the inter-chunk
+    recurrence in closed form) with an initial state against the sequential
+    recurrence (``ref.ssd_naive``), another order of the whole sum: the
+    reference's own 2e-4, at 4 chunks and at 64 chunks whose a_cum spans 60
+    each, where the op's gradients must also be finite."""
     worst = 0.0
     for bh, nc, L, p, n, dt, span in SSD_CASES:
         x = torch.randn(bh, nc, L, p, generator=gen, device=DEV).to(dt)
         b = torch.randn(bh, nc, L, n, generator=gen, device=DEV).to(dt)
         c = torch.randn(bh, nc, L, n, generator=gen, device=DEV).to(dt)
         a = -torch.rand(bh, nc, L, generator=gen, device=DEV) * (2 * span / L)
-        k1 = ssd_mod.ssd_chunk(x, a, b, c, chunk=L)
-        k2 = ssd_mod.ssd_chunk(x, a, b, c, chunk=L)
         want = ssd_mod.plain(x, a, b, c, chunk=L)
-        errs = []
-        for name, u, v, w in zip(("y_diag", "states", "a_cum"), k1, k2, want):
-            check(torch.equal(u, v), f"ssd_chunk {(bh, nc, L, p, n)} {dt}: repeated {name} differ")
-            err, scale = (u - w).abs().max().item(), w.abs().max().item()
-            check(err <= 1e-5 * scale, f"ssd_chunk {(bh, nc, L, p, n)} {dt} span {span}: "
-                  f"{name} max err {err} > 1e-5 * {scale}")
-            errs.append(f"{name} {err:.3g} (of {scale:.3g})")
-            worst = max(worst, err)
-        log(f"[kernels] ssd_chunk x ({bh}, {nc}, {L}, {p}) n {n} {str(dt)[6:]}, a_cum span "
-            f"{span}: max err " + ", ".join(errs) + ", bit-identical repeat")
-        del x, b, c, a, k1, k2, want
-    x, b, c = (0.5 * torch.randn(2, 256, 3, 16, generator=gen, device=DEV) for _ in range(3))
-    a = -0.2 * torch.rand(2, 256, 3, generator=gen, device=DEV)
-    init = torch.randn(2, 3, 16, 16, generator=gen, device=DEV)
-    y, final = ssd_mod.ssd(x, a, b, c, chunk=64, initial_state=init)
-    yn, fn = ref.ssd_naive(x, a, b, c, init)
-    for name, got, want in (("y", y, yn), ("final state", final, fn)):
-        err = (got - want).abs()
-        check(bool((err <= 2e-4 * (1 + want.abs())).all()),
-              f"ssd scan with an initial state: {name} max err {err.max().item()}")
-    log(f"[kernels] ssd scan (2, 256, 3, 16) chunk 64 with an initial state vs the sequential "
-        f"recurrence: y max err {(y - yn).abs().max().item():.3g}, final state "
-        f"{(final - fn).abs().max().item():.3g}")
+        chosen = ssd_mod.variant(x, a, b, c)
+        for kernel in ssd_mod.VARIANTS:
+            if kernel == "mma" and chosen != "mma":
+                continue                       # the CUDA-core kernel takes every case
+            k1 = ssd_mod.ssd_chunk(x, a, b, c, chunk=L, kernel=kernel)
+            k2 = ssd_mod.ssd_chunk(x, a, b, c, chunk=L, kernel=kernel)
+            case = f"ssd_chunk {(bh, nc, L, p, n)} {dt} span {span} on {kernel}"
+            errs = []
+            for name, u, v, w in zip(("y_diag", "states", "a_cum"), k1, k2, want):
+                check(torch.equal(u, v), f"{case}: repeated {name} differ")
+                err, scale = (u - w).abs().max().item(), w.abs().max().item()
+                check(err <= 1e-5 * scale, f"{case}: {name} max err {err} > 1e-5 * {scale}")
+                errs.append(f"{name} {err:.3g} (of {scale:.3g})")
+                worst = max(worst, err)
+            log(f"[kernels] ssd_chunk x ({bh}, {nc}, {L}, {p}) n {n} {str(dt)[6:]}, a_cum span "
+                f"{span} on {kernel}{' (picked)' if kernel == chosen else ''}: max err "
+                + ", ".join(errs) + ", bit-identical repeat")
+            del k1, k2
+        del x, b, c, a, want
+    for s, span in ((256, None), (4096, 60.0)):
+        x, b, c = (0.5 * torch.randn(2, s, 3, 16, generator=gen, device=DEV) for _ in range(3))
+        a = -(0.2 if span is None else 2 * span / 64) * torch.rand(2, s, 3, generator=gen,
+                                                                   device=DEV)
+        init = torch.randn(2, 3, 16, 16, generator=gen, device=DEV)
+        y, final = ssd_mod.ssd(x, a, b, c, chunk=64, initial_state=init)
+        yn, fn = ref.ssd_naive(x, a, b, c, init)
+        case = f"ssd scan (2, {s}, 3, 16) chunk 64" + (f", a_cum span {span} a chunk"
+                                                       if span else "")
+        for name, got, want in (("y", y, yn), ("final state", final, fn)):
+            err = (got - want).abs()
+            check(bool((err <= 2e-4 * (1 + want.abs())).all()),
+                  f"{case} with an initial state: {name} max err {err.max().item()}")
+        msg = ""
+        if span is not None:
+            ins = [t.detach().requires_grad_() for t in (x, a, b, c)]
+            grads = torch.autograd.grad(ops.ssd(*ins, chunk=64).sum(), ins)
+            check(all(bool(torch.isfinite(g_).all()) for g_ in grads),
+                  f"{case}: non-finite gradients of the ssd op")
+            msg = "; the op's four gradients finite"
+        log(f"[kernels] {case} with an initial state vs the sequential recurrence: y max err "
+            f"{(y - yn).abs().max().item():.3g}, final state "
+            f"{(final - fn).abs().max().item():.3g}{msg}")
     return worst
 
 
@@ -711,13 +750,32 @@ def phase_train() -> dict:
 
 KERNEL_GROUPS = (   # (group, lower-case substrings of CUDA kernel names), first match wins
     ("flash_attention", ("flash_fwd",)),
-    ("ssd_chunk", ("ssd_chunk_kernel",)),
+    ("ssd_chunk", ("ssd_chunk_mma", "ssd_chunk_simt")),
     ("rmsnorm", ("rmsnorm_warp", "rmsnorm_block")),
     ("matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "cublas")),
     ("softmax", ("softmax",)),
     ("reductions", ("reduce",)),
     ("copies", ("copy", "memcpy", "memset")),
 )
+
+
+def aten_ops(fn) -> int:
+    """The aten ops one call of ``fn`` dispatches, the backward's included
+    (a ``TorchDispatchMode`` that counts and runs each): what the host
+    issues one at a time."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return Count.n
 
 
 def profile_step(fn, tag: str = "train") -> None:
@@ -815,8 +873,9 @@ def phase_serve_mamba(gen: torch.Generator) -> dict:
     weights from the seed: 6 requests of 37, 500 and 4096 prompt tokens
     (one ragged chunk, a padded tail, 64 full chunks), 16 new tokens each,
     batch 4, through ``Overlay(3, 3)`` and plainly.  Each prefill launches
-    ssd_chunk once per layer (24) and decode never (its step is plain); each
-    prefill and decode call launches rmsnorm 25 times (24 ln1 + final)."""
+    ssd_chunk once per layer (24), each on the tensor-core kernel, and decode
+    never (its step is plain); each prefill and decode call launches rmsnorm
+    25 times (24 ln1 + final)."""
     cfg = get_config(MAMBA)
     check(cfg.d_model == MAMBA_D, f"{MAMBA} d_model {cfg.d_model}: the rmsnorm checks use {MAMBA_D}")
     params = pm.init(cfg, gen, DEV)
@@ -837,6 +896,9 @@ def phase_serve_mamba(gen: torch.Generator) -> dict:
         want = {"ssd_chunk": layers * eng._prefill.calls, "rmsnorm": (layers + 1) * calls}
         for kernel, n in want.items():
             check(got[kernel] == n, f"mamba {name} serving: {kernel} launches {got[kernel]} != {n}")
+        check(got["ssd_chunk/mma"] == got["ssd_chunk"],
+              f"mamba {name} serving: ssd_chunk launches by variant {got} (every one must be a "
+              f"tensor-core launch)")
     tokens = sum(len(s) for s in s_ov)
     desc = ov.describe()
     log(f"[serve-mamba] overlay: {tokens} tokens in {dt_ov:.2f}s ({tokens / dt_ov:.1f} tok/s), "
@@ -873,7 +935,8 @@ def phase_train_mamba() -> dict:
     """mamba2-130m at its published widths and all 24 layers, random bf16
     weights from the seed, 3 eager in-place steps at batch 1 x seq 4096 on
     the synthetic stream.  Per step: one ssd_chunk launch per layer in the
-    forward and one in the remat recompute (the backward is plain); one
+    forward and one in the remat recompute (the backward is plain), each on
+    the tensor-core kernel; one
     rmsnorm launch per ln1 in the forward and the recompute, plus the final
     norm."""
     cfg = get_config(MAMBA)
@@ -895,11 +958,19 @@ def phase_train_mamba() -> dict:
     launches = counts()
     peak = torch.cuda.max_memory_allocated()
     profile_step(lambda: step_fn(state, batches[0]), tag="train-mamba")
+    step_ops = aten_ops(lambda: step_fn(state, batches[0]))
+    grad_ops = aten_ops(lambda: train_cli._loss_and_grads(cfg, state[0], batches[0]))
+    log(f"[train-mamba] aten ops the host issues a step: {step_ops} ({step_ops / cfg.num_layers:.0f} "
+        f"a layer), of which the loss and gradients {grad_ops}, the optimizer and the rest "
+        f"{step_ops - grad_ops}")
     check(all(math.isfinite(x) for x in losses), f"non-finite mamba training loss {losses}")
     want = {"ssd_chunk": MAMBA_TRAIN_STEPS * 2 * cfg.num_layers,
             "rmsnorm": MAMBA_TRAIN_STEPS * (2 * cfg.num_layers + 1)}
     for name, n in want.items():
         check(launches[name] == n, f"mamba training {name} launches {launches[name]} != {n}")
+    check(launches["ssd_chunk/mma"] == want["ssd_chunk"],
+          f"mamba training ssd_chunk launches by variant: {launches} (every one must be a "
+          f"tensor-core launch)")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = float(np.median(step_ms[1:]))
     log(f"[train-mamba] {cfg.name}: {pm.count(params) / 1e6:.1f} M params, {cfg.num_layers} "
@@ -1072,6 +1143,74 @@ def rmsnorm_bound_ms(rows: int, d: int) -> tuple[float, str]:
     return max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3, by
 
 
+def loop_chunk_states(states: torch.Tensor, a_tot: torch.Tensor, init: torch.Tensor):
+    """The inter-chunk recurrence as the port ran it before its closed form:
+    a Python loop over chunks, a few ops each.  Kept here only as the timing
+    yardstick of ``ref.chunk_states``; the port does not call it."""
+    carry, prev = init, []
+    for ci in range(states.shape[1]):
+        prev.append(carry)
+        carry = carry * torch.exp(a_tot[:, ci])[:, None, None] + states[:, ci]
+    return torch.stack(prev, dim=1), carry
+
+
+def _host_ms(fn, calls: int = 20) -> float:
+    """Median host ms for ``fn()`` to return (its work queued, not done),
+    each call timed alone after a synchronize."""
+    fn()
+    out = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(out))
+
+
+def time_ssd_cases(gen: torch.Generator) -> None:
+    """ssd_chunk's device ms at every ``SSD_CASES`` shape on every variant
+    that takes it (CUDA-graph replays, the variants in turns)."""
+    for bh, nc, L, p, n, dt, span in SSD_CASES:
+        x = torch.randn(bh, nc, L, p, generator=gen, device=DEV).to(dt)
+        b, c = (torch.randn(bh, nc, L, n, generator=gen, device=DEV).to(dt) for _ in range(2))
+        a = -torch.rand(bh, nc, L, generator=gen, device=DEV) * (2 * span / L)
+        kernels = ssd_mod.VARIANTS if ssd_mod.variant(x, a, b, c) == "mma" else ("simt",)
+        ms = {k: [] for k in kernels}
+        for k in (*kernels, *reversed(kernels)):
+            ms[k].append(device_ms(lambda k=k: ssd_mod.ssd_chunk(x, a, b, c, chunk=L, kernel=k),
+                                   calls=20, replays=3))
+        log(f"[timing] ssd_chunk x ({bh}, {nc}, {L}, {p}) n {n} {str(dt)[6:]}, a_cum span {span}, "
+            f"device ms (best of two, in turns): " +
+            ", ".join(f"{k} {min(v):.4f}" for k, v in ms.items()))
+        del x, a, b, c
+
+
+def time_chunk_states(gen: torch.Generator) -> None:
+    """The inter-chunk recurrence at the path's shape (a 4096-token row of 24
+    heads: 64 chunk states of (128, 64), f32) as the old loop over chunks and
+    in closed form (``ref.chunk_states``), on the same inputs: device ms
+    (CUDA-graph replay) and host ms to issue a call, and their difference
+    (another order of the same f32 sums)."""
+    bh, nc, _, p, n = SSD_PATH
+    states = torch.randn(bh, nc, n, p, generator=gen, device=DEV)
+    a_tot = -4.0 * torch.rand(bh, nc, generator=gen, device=DEV)
+    init = torch.randn(bh, n, p, generator=gen, device=DEV)
+    (p_loop, f_loop), (p_cf, f_cf) = (loop_chunk_states(states, a_tot, init),
+                                      ref.chunk_states(states, a_tot, init))
+    err = max((p_cf - p_loop).abs().max().item() / p_loop.abs().max().item(),
+              (f_cf - f_loop).abs().max().item() / f_loop.abs().max().item())
+    check(err <= 1e-5, f"closed-form chunk states differ from the loop by {err} (normwise)")
+    fns = {"loop": lambda: loop_chunk_states(states, a_tot, init),
+           "closed form": lambda: ref.chunk_states(states, a_tot, init)}
+    dev = {k: device_ms(f, calls=10, replays=5) for k, f in fns.items()}
+    host = {k: _host_ms(f) for k, f in fns.items()}
+    log(f"[timing] inter-chunk recurrence ({bh}, {nc}) chunk states of ({n}, {p}) f32: loop over "
+        f"chunks device {dev['loop']:.4f} ms, host {host['loop']:.4f} ms a call; closed form "
+        f"device {dev['closed form']:.4f} ms, host {host['closed form']:.4f} ms; normwise "
+        f"difference {err:.3g}")
+
+
 def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[dict]:
     """Time each kernel at the main path's shape beside its bound, its plain
     version and one library call computing the same function."""
@@ -1155,9 +1294,14 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
         "source": "src/repro_torch/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:73",
         "launches": launches["ssd_chunk"],
+        "launches_by_variant": {v_: launches[f"ssd_chunk/{v_}"] for v_ in ssd_mod.VARIANTS},
         "max_abs_err": errs["ssd_chunk"],
         "ms": time_ms(lambda: ssd_mod.ssd_chunk(x, a, b, c, chunk=L), 50),
         "device_ms": device_ms(lambda: ssd_mod.ssd_chunk(x, a, b, c, chunk=L), calls=20, replays=3),
+        "variant": ssd_mod.variant(x, a, b, c),
+        "simt_ms": time_ms(lambda: ssd_mod.ssd_chunk(x, a, b, c, chunk=L, kernel="simt"), 20),
+        "simt_device_ms": device_ms(lambda: ssd_mod.ssd_chunk(x, a, b, c, chunk=L, kernel="simt"),
+                                    calls=20, replays=3),
         "plain_ms": time_ms(lambda: ssd_mod.plain(x, a, b, c, chunk=L), 20),
         "bound_ms": max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3,
         "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
@@ -1168,6 +1312,8 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
         "shape": f"x ({bh}, {nc}, {L}, {p}), b/c n {n} bfloat16, a float32"})
     del x, a, b, c
     torch.cuda.empty_cache()
+    time_ssd_cases(gen)
+    time_chunk_states(gen)
     # flash_attention at the train-overlay phase's shape and, for reach, GQA at d 128
     for b, hq, hkv, s, hd in ((1, 32, 32, OVERLAY_SEQ, 96), (2, 8, 2, 2048, 128)):
         q = torch.randn(b, hq, s, hd, generator=gen, device=DEV).bfloat16()

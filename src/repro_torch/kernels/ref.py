@@ -9,7 +9,10 @@ kernels against them on the card.
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 
 def vmul_reduce(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -94,21 +97,52 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tens
     states = torch.bmm((bb * w[..., None]).reshape(z, L, n).transpose(1, 2),
                        xb.reshape(z, L, p)).reshape(bsz, h, nc, n, p)
 
-    a_tot = a_cum[..., -1]                                       # (b, h, nc)
-    carry = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
-             if initial_state is None else initial_state.float())
-    prev = []
-    for ci in range(nc):
-        prev.append(carry)
-        carry = carry * torch.exp(a_tot[..., ci])[..., None, None] + states[:, :, ci]
-    prev = torch.stack(prev, dim=2)                              # (b, h, nc, n, p)
+    prev, final = chunk_states(states, a_cum[..., -1], initial_state)
 
     y_off = torch.bmm(cb.reshape(z, L, n), prev.reshape(z, n, p))
     y_off = y_off.reshape(bsz, h, nc, L, p) * torch.exp(a_cum)[..., None]
     y = (y_diag.reshape(bsz, h, nc, L, p) + y_off).reshape(bsz, h, s, p).transpose(1, 2)
     if return_state:
-        return y.to(x.dtype), carry
+        return y.to(x.dtype), final
     return y.to(x.dtype)
+
+
+def segsum(v: torch.Tensor) -> torch.Tensor:
+    """(..., T) -> (..., T, T): ``out[..., i, j] = v[j+1] + ... + v[i]`` for
+    j <= i (0 on the diagonal) and -inf above it.  Each segment is summed
+    from its own start (a masked cumsum of ``v`` repeated along a new axis),
+    not as the difference of one running cumsum, whose rounding grows with
+    the running total; the -inf is set before any exp, so nothing above the
+    diagonal can overflow (Mamba-2's minimal SSD code, arXiv:2405.21060)."""
+    t = v.shape[-1]
+    rep = v[..., :, None].expand(*v.shape, t)                   # rep[..., i, j] = v[i]
+    strict = torch.ones((t, t), dtype=torch.bool, device=v.device).tril(-1)
+    seg = torch.cumsum(torch.where(strict, rep, 0.0), dim=-2)
+    lower = torch.ones((t, t), dtype=torch.bool, device=v.device).tril()
+    return torch.where(lower, seg, -torch.inf)
+
+
+def chunk_states(states: torch.Tensor, a_tot: torch.Tensor,
+                 initial_state: torch.Tensor | None):
+    """The inter-chunk recurrence ``prev[0] = init``,
+    ``prev[c+1] = e^{a_tot[c]} prev[c] + states[c]`` in closed form:
+    ``prev[c] = e^{S[c,-1]} init + sum_{k<c} e^{S[c,k]} states[k]`` with
+    ``S[c, k] = a_tot[k+1] + ... + a_tot[c-1]``, as ONE ``bmm`` of the
+    (nc+1, nc+1) decays (:func:`segsum` of a_tot behind a leading 0, init
+    being chunk -1) by the (nc+1) stacked states.  No loop over chunks, so
+    the host issues the same few ops whatever the sequence length.
+
+    states (..., nc, n, p) f32, a_tot (..., nc), initial_state None or of
+    as many elements as (..., n, p).  Returns (prev (..., nc, n, p): the state entering each
+    chunk, final (..., n, p)), f32."""
+    *lead, nc, n, p = states.shape
+    z = math.prod(lead)
+    init = (torch.zeros((z, 1, n * p), dtype=torch.float32, device=states.device)
+            if initial_state is None else initial_state.float().reshape(z, 1, n * p))
+    stacked = torch.cat([init, states.reshape(z, nc, n * p)], dim=1)      # (z, nc+1, n*p)
+    decay = torch.exp(segsum(F.pad(a_tot.float().reshape(z, nc), (1, 0))))  # (z, nc+1, nc+1)
+    out = torch.bmm(decay, stacked)
+    return (out[:, :nc].reshape(*lead, nc, n, p), out[:, nc].reshape(*lead, n, p))
 
 
 def ssd_naive(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

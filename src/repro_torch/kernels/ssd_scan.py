@@ -4,16 +4,20 @@ version, and the full chunked scan around it.
 The SSD recurrence  h_t = e^{a_t} h_{t-1} + B_t ⊗ x_t ,  y_t = C_t · h_t  is
 evaluated chunk by chunk (Mamba-2 paper §6): inside a chunk of L steps it is
 expanded into a quadratic, attention-like form — the kernel — and across
-chunks only the (n, p) chunk states take part in a short sequential scan,
-which stays plain PyTorch as it stays jnp in the reference.
+chunks only the (n, p) chunk states take part, in closed form: one ``bmm``
+of the chunk-pair decays by the stacked states (:func:`ref.chunk_states`),
+where the reference runs a ``jax.lax.scan`` under jit.
 
 * :func:`ssd_chunk` replaces ``repro/kernels/ssd_scan.py::ssd_chunk`` (its
-  Pallas kernel ``_kernel`` at :31, ``pallas_call`` at :73).  The kernel is
-  bound by bytes; see the note at the top of the CUDA source for the design.
-  It checks its inputs, allocates the f32 outputs, launches one block per
-  (batch·head, chunk) on PyTorch's current stream and counts the launch in
-  :data:`launches`; it raises for tensors off the card.  :func:`plain`
-  repeats the kernel body (``ssd_scan.py:32-51``) in f32.
+  Pallas kernel ``_kernel`` at :31, ``pallas_call`` at :73).  The kernels
+  are bound by bytes; see the note at the top of the CUDA source for the
+  design.  It checks its inputs, allocates the f32 outputs, launches on
+  PyTorch's current stream and counts the launch in :data:`launches`,
+  under its variant (:func:`variant`): ``"mma"``, the tensor-core kernel,
+  for bf16 x, b, c with f32 a, p 64 and n 128 (every mamba2 path launch);
+  ``"simt"``, the CUDA-core kernel, for everything else.  It raises for
+  tensors off the card.  :func:`plain` repeats the kernel body
+  (``ssd_scan.py:32-51``) in f32.
 * :func:`ssd` is ``ssd_scan.py:97-145``: the transpose to rows
   ``batch·h + head``, the chunk kernel, the inter-chunk recurrence and the
   ``y_off`` term.  Products are ``bmm`` (never ``einsum``/``matmul``:
@@ -28,18 +32,33 @@ import functools
 
 import torch
 
-from repro_torch.kernels import native
+from repro_torch.kernels import native, ref
 
-launches = native.LaunchCounter("ssd_chunk")
+VARIANTS = ("mma", "simt")
+launches = native.LaunchCounter("ssd_chunk", VARIANTS)
 
-MAX_CHUNK = 64                   # the kernel's 4 x 4 register tiles over 16-row steps
+MAX_CHUNK = 64                   # both kernels: 16-row steps over at most 64 rows
 MAX_SMEM_BYTES = 232_448         # shared memory one Hopper block may opt in to (227 KB)
+MMA_HEAD_DIM, MMA_STATE = 64, 128   # the only p and n the tensor-core kernel takes
+_VARIANT_CODES = {"simt": 0, "mma": 1}
+
+
+def variant(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> str:
+    """The kernel that runs these chunk inputs (shapes as :func:`ssd_chunk`):
+    ``"mma"`` for bf16 x, b, c, f32 a, p 64, n 128, chunks of at most 64
+    steps and 16-byte aligned x, b, c (its copies move 16 bytes at a time);
+    ``"simt"`` otherwise."""
+    if x.dtype == b.dtype == c.dtype == torch.bfloat16 and a.dtype == torch.float32 \
+            and x.shape[-1] == MMA_HEAD_DIM and b.shape[-1] == MMA_STATE \
+            and x.shape[2] <= MAX_CHUNK and all(t.data_ptr() % 16 == 0 for t in (x, b, c)):
+        return "mma"
+    return "simt"
 
 
 def smem_bytes(L: int, p: int, n: int) -> int:
-    """Shared memory of one block: x (Lp, p), b and c (Lp, n + 1), the score
-    tile (Lp, Lp + 1), a_cum and w (Lp), in f32; Lp is L rounded up to 16
-    (the sum ``smem_floats`` in the CUDA source)."""
+    """Shared memory of one ``simt`` block: x (Lp, p), b and c (Lp, n + 1),
+    the score tile (Lp, Lp + 1), a_cum and w (Lp), in f32; Lp is L rounded
+    up to 16 (the sum ``smem_floats`` in the CUDA source)."""
     lp = (L + 15) // 16 * 16
     return 4 * (lp * p + 2 * lp * (n + 1) + lp * (lp + 1) + 2 * lp)
 
@@ -82,22 +101,30 @@ def _entry():
     p, i = ctypes.c_void_p, ctypes.c_int
     return native.c_function("ssd_chunk", "repro_ssd_chunk",
                              [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i,
-                              i, i, i, i, p])
+                              i, i, i, i, i, p])
 
 
 def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
-              chunk: int):
-    """Chunk-local SSD terms, by the kernel.
+              chunk: int, kernel: str | None = None):
+    """Chunk-local SSD terms, by a kernel.
 
     Args:
       x: (bh, nc, L, p) pre-discretized inputs (x·Δ).
       a: (bh, nc, L) log-decay per step (Δ·A, ≤ 0).
       b, c: (bh, nc, L, n) input/output projections.
       All on one CUDA device, float32 or bfloat16, contiguous.
+      kernel: the variant to launch; by default :func:`variant` picks it.
+        ``"simt"`` takes every input; ``"mma"`` raises for inputs it does
+        not take.
     Returns:
       y_diag (bh, nc, L, p), states (bh, nc, n, p), a_cum (bh, nc, L), f32.
     """
     check_shapes(x, a, b, c, chunk)
+    chosen = variant(x, a, b, c)
+    kernel = chosen if kernel is None else kernel
+    if kernel not in VARIANTS or (kernel == "mma" and chosen != "mma"):
+        raise ValueError(f"ssd_chunk kernel {kernel!r} does not take x {x.dtype} "
+                         f"{tuple(x.shape)}, a {a.dtype}, b/c {b.dtype} n {b.shape[-1]}")
     ins = (x, a, b, c)
     if x.device.type != "cuda" or any(t.device != x.device for t in ins):
         raise ValueError(f"ssd_chunk needs x, a, b, c on one CUDA device, got "
@@ -111,7 +138,7 @@ def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     n = b.shape[-1]
     if L > MAX_CHUNK:
         raise ValueError(f"ssd_chunk takes chunks of at most {MAX_CHUNK} steps, got {L}")
-    if smem_bytes(L, p, n) > MAX_SMEM_BYTES:
+    if kernel == "simt" and smem_bytes(L, p, n) > MAX_SMEM_BYTES:
         raise ValueError(f"ssd_chunk: chunk {L}, head dim {p} and state {n} need "
                          f"{smem_bytes(L, p, n)} bytes of shared memory a block, over "
                          f"the {MAX_SMEM_BYTES} a Hopper block may use")
@@ -123,9 +150,10 @@ def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     with torch.cuda.device(x.device):
         rc = _entry()(*(t.data_ptr() for t in (x, a, b, c, y, st, a_cum)), bh * nc,
                       L, p, n, *(native.DTYPE_CODES[t.dtype] for t in ins),
-                      native.raw_stream(x.device.index))
-    native.check_launch(rc, "ssd_chunk")
+                      _VARIANT_CODES[kernel], native.raw_stream(x.device.index))
+    native.check_launch(rc, f"ssd_chunk ({kernel})")
     launches.count += 1
+    launches.by_variant[kernel] += 1
     return y, st, a_cum
 
 
@@ -153,20 +181,12 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
     xb, ab, bb, cb = to_bh(x), to_bh(a), to_bh(b), to_bh(c)
     y_diag, states, a_cum = ssd_chunk(xb, ab, bb, cb, chunk=chunk)
 
-    # inter-chunk recurrence on (n, p) states — O(nc) sequential, tiny
-    a_tot = a_cum[..., -1]                                       # (bh, nc)
-    carry = (torch.zeros((bsz * h, n, p), dtype=torch.float32, device=x.device)
-             if initial_state is None
-             else initial_state.reshape(bsz * h, n, p).float())
-    prev = []
-    for ci in range(nc):
-        prev.append(carry)                                       # state *entering* chunk ci
-        carry = carry * torch.exp(a_tot[:, ci])[:, None, None] + states[:, ci]
-    prev_states = torch.stack(prev, dim=1)                       # (bh, nc, n, p)
+    # the inter-chunk recurrence on (n, p) states, in closed form (one bmm)
+    prev_states, final = ref.chunk_states(states, a_cum[..., -1], initial_state)
 
     # inter-chunk contribution: y_off[l] = C_l · prev_state · e^{a_cum_l}
     z = bsz * h * nc
     y_off = torch.bmm(cb.float().reshape(z, chunk, n), prev_states.reshape(z, n, p))
     y_off = y_off.reshape(bsz * h, nc, chunk, p) * torch.exp(a_cum)[..., None]
     y = (y_diag + y_off).reshape(bsz, h, s, p).transpose(1, 2)
-    return y.to(x.dtype), carry.reshape(bsz, h, n, p)
+    return y.to(x.dtype), final.reshape(bsz, h, n, p)

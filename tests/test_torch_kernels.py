@@ -9,13 +9,15 @@ also collect on a machine that has the card but no JAX:
 ``python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
 
+import re
+import time
 import types
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import native, ops, ref
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import ssd_scan
 from repro_torch.kernels import vmul_reduce as tvr
@@ -35,8 +37,9 @@ def jx():
     jnp = pytest.importorskip("jax.numpy")
     from repro.kernels import ref as jref
     from repro.kernels import rmsnorm as jrn
+    from repro.kernels import ssd_scan as jssd
     from repro.kernels import vmul_reduce as jvr
-    return types.SimpleNamespace(jnp=jnp, ref=jref, rmsnorm=jrn, vmul_reduce=jvr)
+    return types.SimpleNamespace(jnp=jnp, ref=jref, rmsnorm=jrn, ssd_scan=jssd, vmul_reduce=jvr)
 
 
 @pytest.fixture
@@ -322,16 +325,156 @@ def test_rmsnorm_grad_is_vjp_of_plain_version():
 
 
 # ---------------------------------------------------------------------------
+# ssd_chunk: the tensor-core kernel's numerics, the variant choice
+# ---------------------------------------------------------------------------
+def _mma_parts() -> int:
+    """The bf16 parts ``ssd_chunk_mma`` splits an f32 operand into, as the
+    CUDA source sets them."""
+    src = (native.csrc_dir() / "ssd_chunk.cu").read_text()
+    return int(re.search(r"constexpr int kParts = (\d+);", src).group(1))
+
+
+def _warp_scan(a: np.ndarray) -> np.ndarray:
+    """a_cum as the kernels' warp 0 builds it, in f32: a shuffle scan
+    (Hillis-Steele: offsets 1, 2, 4, 8, 16) of each 32 steps, plus the carry
+    of the 32 before.  a: (..., 64), zero past L."""
+    out = np.empty_like(a, dtype=np.float32)
+    carry = np.zeros(a.shape[:-1], np.float32)
+    for base in range(0, a.shape[-1], 32):
+        v = a[..., base:base + 32].astype(np.float32)
+        off = 1
+        while off < 32:
+            v = np.concatenate([v[..., :off], v[..., off:] + v[..., :-off]], axis=-1)
+            off *= 2
+        v = v + carry[..., None]
+        out[..., base:base + 32] = v
+        carry = v[..., -1]
+    return out
+
+
+def _bf16_parts(t: torch.Tensor, parts: int) -> list[torch.Tensor]:
+    """f32 ``t`` as ``parts`` bf16-valued tensors summing to it: each the
+    remainder of the ones before rounded to bf16 (every subtraction exact)."""
+    out = []
+    for _ in range(parts):
+        out.append(t.bfloat16().float())
+        t = t - out[-1]
+    return out
+
+
+def emulate_ssd_mma(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """``ssd_chunk_mma``'s numerics on the CPU: a_cum by the warp scan; the
+    scores C B^T from the bf16 inputs (products exact in f32, f32 sums); the
+    decay taken under the mask; S x and b^T (w o x) with the f32 operand (S,
+    w o x) split into the kernel's bf16 parts, one product each, summed in
+    f32.  Returns (y_diag, states, a_cum) as the kernel does."""
+    bh, nc, L, p = x.shape
+    n = b.shape[-1]
+    z = bh * nc
+    xf, bf, cf = (t.float().reshape(z, L, -1) for t in (x, b, c))
+    padded = np.zeros((z, 64), np.float32)
+    padded[:, :L] = a.float().reshape(z, L).numpy()
+    ac = torch.from_numpy(_warp_scan(padded)[:, :L])
+    tri = torch.ones((L, L), dtype=torch.bool).tril()
+    decay = torch.exp(torch.where(tri, ac[:, :, None] - ac[:, None, :], -torch.inf))
+    scores = torch.bmm(cf, bf.transpose(1, 2)) * decay
+    parts = _mma_parts()
+    y = sum(torch.bmm(s, xf) for s in _bf16_parts(scores, parts))
+    wx = torch.exp(ac[:, -1:] - ac)[:, :, None] * xf
+    st = sum(torch.bmm(bf.transpose(1, 2), s) for s in _bf16_parts(wx, parts))
+    return (y.reshape(bh, nc, L, p), st.reshape(bh, nc, n, p), ac.reshape(bh, nc, L))
+
+
+@pytest.mark.parametrize("shape,span", [
+    ((2, 64, 64, 64, 128), 2.0),        # the 4096-token path, cut to 2 heads
+    ((3, 1, 37, 64, 128), 2.0),         # a 37-token prompt: one ragged chunk
+    ((2, 4, 64, 64, 128), 60.0),        # a_cum spans -60..0 a chunk
+], ids=["path_2_heads", "ragged_37", "span_60"])
+def test_ssd_mma_numerics_within_tolerance(jx, shape, span):
+    """The tensor-core kernel's numerics (:func:`emulate_ssd_mma`) against
+    the plain version and against JAX's Pallas ``ssd_chunk`` (interpret
+    mode) on the same bf16 x, b, c and f32 a: within the 1e-5 normwise bound
+    that ``chip_smoke.py`` and the card tests hold the kernel to, for every
+    output."""
+    bh, nc, L, p, n = shape
+    rng = np.random.default_rng(L + nc)
+    x = rng.standard_normal((bh, nc, L, p)).astype(np.float32)
+    b = rng.standard_normal((bh, nc, L, n)).astype(np.float32)
+    c = rng.standard_normal((bh, nc, L, n)).astype(np.float32)
+    a = (-(2 * span / L) * rng.random((bh, nc, L))).astype(np.float32)
+    tx, tb, tc = (torch.from_numpy(t).bfloat16() for t in (x, b, c))
+    ta = torch.from_numpy(a)
+    assert ssd_scan.variant(tx, ta, tb, tc) == "mma"
+    got = emulate_ssd_mma(tx, ta, tb, tc)
+    plain = ssd_scan.plain(tx, ta, tb, tc, chunk=L)
+    jx_, jb, jc = (jx.jnp.asarray(t, jx.jnp.bfloat16) for t in (x, b, c))
+    jout = jx.ssd_scan.ssd_chunk(jx_, jx.jnp.asarray(a), jb, jc, chunk=L, interpret=True)
+    for g, pl, jw in zip(got, plain, jout):
+        for want in (pl.numpy(), np.asarray(jw, np.float32)):
+            assert g.shape == want.shape
+            err = float(np.abs(g.numpy() - want).max())
+            assert err <= 1e-5 * float(np.abs(want).max()), err
+
+
+def _chunk_inputs(dtype=torch.bfloat16, adtype=torch.float32, L=64, p=64, n=128):
+    x = torch.zeros(2, 3, L, p, dtype=dtype)
+    b = torch.zeros(2, 3, L, n, dtype=dtype)
+    return x, torch.zeros(2, 3, L, dtype=adtype), b, b.clone()
+
+
+@pytest.mark.parametrize("kw,want", [
+    ({}, "mma"),                                            # the mamba2 paths
+    (dict(L=37), "mma"),                                    # a ragged chunk
+    (dict(L=1), "mma"),
+    (dict(dtype=torch.float32), "simt"),
+    (dict(adtype=torch.bfloat16), "simt"),
+    (dict(p=32), "simt"),
+    (dict(n=64), "simt"),
+    (dict(p=16, n=16, L=8, dtype=torch.float32), "simt"),   # the smoke configs
+])
+def test_ssd_variant_choice(kw, want):
+    assert ssd_scan.variant(*_chunk_inputs(**kw)) == want
+
+
+def test_ssd_variant_needs_16_byte_aligned_tiles():
+    """A view 2 bytes into its storage cannot be copied 16 bytes at a time:
+    the CUDA-core kernel takes it."""
+    x, a, b, c = _chunk_inputs()
+    flat = torch.zeros(x.numel() + 8, dtype=torch.bfloat16)
+    assert ssd_scan.variant(flat[1:1 + x.numel()].view(x.shape), a, b, c) == "simt"
+    assert ssd_scan.variant(flat[8:8 + x.numel()].view(x.shape), a, b, c) == "mma"
+
+
+@pytest.mark.parametrize("kernel", ["mma", "wgmma"])
+def test_ssd_wrapper_refuses_a_kernel_that_does_not_take_the_inputs(kernel):
+    """Asked for the tensor-core kernel on f32 inputs (or for no kernel at
+    all), the wrapper raises before it looks at the device, and counts
+    nothing."""
+    before = dict(ssd_scan.launches.by_variant)
+    with pytest.raises(ValueError, match="does not take"):
+        ssd_scan.ssd_chunk(*_chunk_inputs(dtype=torch.float32), chunk=64, kernel=kernel)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_scan.ssd_chunk(*_chunk_inputs(), chunk=64, kernel="mma")
+    assert ssd_scan.launches.by_variant == before
+
+
+# ---------------------------------------------------------------------------
 # on the card (run there: python -m pytest -m cuda tests/test_torch_kernels.py)
 # ---------------------------------------------------------------------------
 def _kernels_per_call(fn) -> list[str]:
-    """The CUDA kernels one call of ``fn`` runs, by ``torch.profiler``."""
+    """The CUDA kernels one call of ``fn`` runs, by ``torch.profiler``.  The
+    window opens and closes on an idle card, 20 ms from the call: a kernel
+    launched right at an edge of the window is now and then left out of its
+    record."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.02)
         fn()
         torch.cuda.synchronize()
+        time.sleep(0.02)
     return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
@@ -447,32 +590,86 @@ def test_rmsnorm_block_kernel_on_card(cuda, shape):
         assert len(_kernels_per_call(lambda: trn.rmsnorm_cuda(xi, wi))) == 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,span", [
+SSD_CARD_CASES = [   # (bh, nc, L, p, n), dtype of x/b/c, a_cum span per chunk
     ((24, 4, 64, 64, 128), torch.bfloat16, 1.0),      # the path's shape, 4 chunks
+    ((24, 64, 64, 64, 128), torch.bfloat16, 2.0),     # a 4096-token row
     ((6, 1, 37, 64, 128), torch.bfloat16, 1.0),       # a ragged chunk
+    ((3, 5, 1, 64, 128), torch.bfloat16, 1.0),        # one-step chunks
+    ((2, 700, 64, 64, 128), torch.bfloat16, 2.0),     # more chunks than a wave of blocks
     ((6, 3, 64, 64, 128), torch.float32, 1.0),
     ((16, 3, 8, 16, 16), torch.float32, 1.0),         # the smoke shape
     ((4, 2, 64, 64, 128), torch.bfloat16, 60.0),      # a_cum spans -60..0
-])
-def test_kernel_matches_plain_on_the_card(cuda, shape, dtype, span):
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,span,kernel", [
+    (*case, kernel) for case in SSD_CARD_CASES
+    for kernel in (ssd_scan.VARIANTS if case[1] == torch.bfloat16 else ("simt",))])
+def test_kernel_matches_plain_on_the_card(cuda, shape, dtype, span, kernel):
     """All three outputs within rtol 1e-5 of the largest plain value (f32 on
-    both sides from the same inputs, sums in other orders); repeated launches
-    bit-identical; one launch counted per call."""
+    both sides from the same inputs, sums in other orders; the tensor-core
+    kernel splits each f32 operand into bf16 parts that carry its 24 bits);
+    repeated launches bit-identical; one launch counted per call, under its
+    variant."""
     bh, nc, L, p, n = shape
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(bh, nc, L, p, generator=g, device=cuda).to(dtype)
     b = torch.randn(bh, nc, L, n, generator=g, device=cuda).to(dtype)
     c = torch.randn(bh, nc, L, n, generator=g, device=cuda).to(dtype)
     a = -torch.rand(bh, nc, L, generator=g, device=cuda) * (2 * span / L)
-    before = ssd_scan.launches.count
-    k1 = ssd_scan.ssd_chunk(x, a, b, c, chunk=L)
-    k2 = ssd_scan.ssd_chunk(x, a, b, c, chunk=L)
+    before = dict(ssd_scan.launches.by_variant)
+    k1 = ssd_scan.ssd_chunk(x, a, b, c, chunk=L, kernel=kernel)
+    k2 = ssd_scan.ssd_chunk(x, a, b, c, chunk=L, kernel=kernel)
     want = ssd_scan.plain(x, a, b, c, chunk=L)
-    assert ssd_scan.launches.count == before + 2
+    assert ssd_scan.launches.by_variant[kernel] == before[kernel] + 2
     for u, v, w in zip(k1, k2, want):
         assert torch.equal(u, v)
         assert float((u - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_ssd_op_runs_the_tensor_core_kernel_on_the_card(cuda):
+    """The ssd op on a mamba2-shaped bf16 prefill (24 heads of 64, state 128,
+    two chunks of 64) launches the tensor-core kernel once; its final state
+    (f32) is within 1e-5 normwise of the plain chunked scan on the same
+    card, and y (bf16) within one bf16 rounding of it."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(1, 128, 24, 64, generator=g, device=cuda).bfloat16()
+    b, c = (torch.randn(1, 128, 24, 128, generator=g, device=cuda).bfloat16() for _ in range(2))
+    a = -0.05 * torch.rand(1, 128, 24, generator=g, device=cuda)
+    init = torch.randn(1, 24, 128, 64, generator=g, device=cuda)
+    before = dict(ssd_scan.launches.by_variant)
+    y, final = ops.ssd_with_state(x, a, b, c, chunk=64, initial_state=init)
+    assert ssd_scan.launches.by_variant == {**before, "mma": before["mma"] + 1}
+    yw, fw = ref.ssd_chunked(x, a, b, c, chunk=64, initial_state=init, return_state=True)
+    assert float((final - fw).abs().max()) <= 1e-5 * float(fw.abs().max())
+    assert bool(((y.float() - yw.float()).abs()
+                 <= 2 ** -7 * yw.float().abs() + 1e-5 * float(yw.float().abs().max())).all())
+
+
+@pytest.mark.cuda
+def test_ssd_misaligned_views_and_wrong_picks_on_the_card(cuda):
+    """A view 2 bytes into its storage goes to the CUDA-core kernel (same
+    bits as on an aligned copy); the wrapper refuses the tensor-core kernel
+    for it, and the C entry point refuses a wrong pick by itself."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    flat = torch.randn(2 * 64 * 64 + 8, generator=g, device=cuda).bfloat16()
+    x = flat[1:1 + 2 * 64 * 64].view(2, 1, 64, 64)
+    b, c = (torch.randn(2, 1, 64, 128, generator=g, device=cuda).bfloat16() for _ in range(2))
+    a = -0.05 * torch.rand(2, 1, 64, generator=g, device=cuda)
+    assert ssd_scan.variant(x, a, b, c) == "simt"
+    for u, v in zip(ssd_scan.ssd_chunk(x, a, b, c, chunk=64),
+                    ssd_scan.ssd_chunk(x.clone(), a, b, c, chunk=64, kernel="simt")):
+        assert torch.equal(u, v)
+    with pytest.raises(ValueError, match="does not take"):
+        ssd_scan.ssd_chunk(x, a, b, c, chunk=64, kernel="mma")
+    xf = torch.randn(2, 1, 64, 64, generator=g, device=cuda)
+    outs = [torch.empty(2, 1, 64, 64, device=cuda), torch.empty(2, 1, 128, 64, device=cuda),
+            torch.empty(2, 1, 64, device=cuda)]
+    rc = ssd_scan._entry()(*(t.data_ptr() for t in (xf, a, b, c, *outs)), 2, 64, 64, 128,
+                           0, 0, 1, 1, 1, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0                     # variant 1 on f32 x: cudaErrorInvalidValue
 
 
 @pytest.mark.cuda

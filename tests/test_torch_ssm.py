@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs.archs import smoke_config as jax_smoke_config
 from repro.configs.base import get_config as jax_get_config
@@ -234,6 +235,151 @@ def test_ssd_backward_is_finite_under_steep_decay():
     ins = [_t(t).requires_grad_() for t in (x, a, bm, cm)]
     grads = torch.autograd.grad(ops.ssd(*ins, chunk=16).sum(), ins)
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+# ---------------------------------------------------------------------------
+# the inter-chunk recurrence in closed form (ref.chunk_states)
+# ---------------------------------------------------------------------------
+CF_CHUNK = 4                                  # small chunks, so 64 chunks stay small
+
+
+@pytest.mark.parametrize("impl", ["op", "scan"])
+@pytest.mark.parametrize("decay", [0.2, 7.5], ids=["mild", "steep"])
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero_state", "initial_state"])
+@pytest.mark.parametrize("nc", [1, 3, 16, 64])
+def test_closed_form_scan_matches_jax_across_chunks(nc, with_state, decay, impl, monkeypatch):
+    """The op on the CPU (``ref.ssd_chunked``) and ``ssd_scan.ssd`` with the
+    plain version in place of its kernel, both computing the inter-chunk
+    recurrence as one product over a segment sum, against JAX's
+    ``ssd_scan.ssd`` (a ``lax.scan`` over chunks, Pallas in interpret mode)
+    at 1 to 64 chunks, mild and steep decay (a_cum spans ~15 a chunk of 4):
+    normwise rtol 1e-5, and against the sequential ``ref.ssd_naive`` at the
+    reference's 2e-4 (the tolerances of ``test_ssd_matches_jax_and_naive``)."""
+    monkeypatch.setattr(ssd_scan, "ssd_chunk", ssd_scan.plain)
+    x, a, bm, cm = _ssd_inputs(100 + nc, (2, nc * CF_CHUNK, 2, 8), 4, decay=decay)
+    init = np.random.default_rng(200 + nc).standard_normal((2, 2, 4, 8)).astype(np.float32)
+    jinit = jnp.asarray(init) if with_state else None
+    jy, jf = jssd.ssd(*(jnp.asarray(t) for t in (x, a, bm, cm)), chunk=CF_CHUNK,
+                      interpret=True, initial_state=jinit)
+    ny, nf = jref.ssd_naive(*(jnp.asarray(t) for t in (x, a, bm, cm)), initial_state=jinit)
+    fn = ops.ssd_with_state if impl == "op" else ssd_scan.ssd
+    ty, tf = fn(*(_t(t) for t in (x, a, bm, cm)), chunk=CF_CHUNK,
+                initial_state=_t(init) if with_state else None)
+    assert ty.dtype == tf.dtype == torch.float32
+    assert tuple(ty.shape) == x.shape and tuple(tf.shape) == (2, 2, 4, 8)
+    _close_normwise(ty.numpy(), jy, 1e-5)
+    _close_normwise(tf.numpy(), jf, 1e-5)
+    np.testing.assert_allclose(ty.numpy(), ny, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(tf.numpy(), nf, rtol=2e-4, atol=2e-4)
+
+
+def test_chunk_states_is_the_recurrence():
+    """``ref.chunk_states`` against the recurrence it replaces, written out
+    as a loop here: row c is the state entering chunk c, the last the final
+    state; with leading batch dims kept, f32 sums in another order (1e-6
+    normwise), and an a_cum of -60 a chunk gives finite zeros, not NaN."""
+    rng = np.random.default_rng(21)
+    states = _t(rng.standard_normal((2, 3, 7, 4, 5)))
+    init = _t(rng.standard_normal((2, 3, 4, 5)))
+    for a_tot in (_t(-rng.random((2, 3, 7))), _t(-60.0 * (1 + rng.random((2, 3, 7))))):
+        prev, final = ref.chunk_states(states, a_tot, init)
+        carry, want = init, []
+        for ci in range(7):
+            want.append(carry)
+            carry = carry * torch.exp(a_tot[..., ci])[..., None, None] + states[:, :, ci]
+        assert prev.shape == (2, 3, 7, 4, 5) and final.shape == (2, 3, 4, 5)
+        assert bool(torch.isfinite(prev).all() and torch.isfinite(final).all())
+        _close_normwise(prev.numpy(), torch.stack(want, dim=2).numpy(), 1e-6)
+        _close_normwise(final.numpy(), carry.numpy(), 1e-6)
+    zero_init, _ = ref.chunk_states(states, a_tot, None)
+    assert not zero_init[:, :, 0].any()
+
+
+def test_segsum_sums_each_segment_from_its_start():
+    """``ref.segsum``: out[i, j] = v[j+1] + ... + v[i] below the diagonal, 0
+    on it, -inf above; each segment summed from its own start, so a short
+    segment far down a long steep row keeps its few-ulp accuracy instead of
+    the rounding of a running total in the hundreds."""
+    v = torch.tensor([0.0, -1.5, -2.25, -0.5])
+    want = torch.tensor([[0.0, -np.inf, -np.inf, -np.inf],
+                         [-1.5, 0.0, -np.inf, -np.inf],
+                         [-3.75, -2.25, 0.0, -np.inf],
+                         [-4.25, -2.75, -0.5, 0.0]])
+    assert torch.equal(ref.segsum(v), want)
+    rng = np.random.default_rng(22)
+    steep = -60.0 * rng.random(64).astype(np.float32)
+    got = ref.segsum(torch.from_numpy(steep)).numpy()
+    exact = np.cumsum(steep.astype(np.float64))
+    seg = exact[:, None] - exact[None, :]
+    for i, j in ((63, 62), (63, 60), (40, 38)):
+        assert abs(got[i, j] - seg[i, j]) <= 4 * np.finfo(np.float32).eps * abs(seg[i, j])
+
+
+def test_ssd_backward_matches_jax_vjp_at_16_chunks():
+    """y and the four input gradients of ``ops.ssd`` at 16 chunks against
+    ``jax.vjp`` of ``repro.kernels.ops.ssd`` (whose recurrence is a
+    ``lax.scan``; the port's backward is the VJP of the closed form): f32
+    sums in other orders, normwise rtol 1e-5 for y and 1e-4 for each
+    gradient, as ``test_ssd_backward_matches_jax_vjp``."""
+    x, a, bm, cm = _ssd_inputs(23, (2, 16 * CF_CHUNK, 2, 8), 4)
+    g = np.random.default_rng(24).standard_normal(x.shape).astype(np.float32)
+    jy, vjp = jax.vjp(lambda *t: jops.ssd(*t, chunk=CF_CHUNK),
+                      *(jnp.asarray(t) for t in (x, a, bm, cm)))
+    jgrads = vjp(jnp.asarray(g))
+    ins = [_t(t).requires_grad_() for t in (x, a, bm, cm)]
+    ty = ops.ssd(*ins, chunk=CF_CHUNK)
+    tgrads = torch.autograd.grad(ty, ins, _t(g))
+    _close_normwise(ty.detach().numpy(), jy, 1e-5)
+    for tg, jg in zip(tgrads, jgrads):
+        assert np.isfinite(tg.numpy()).all()
+        _close_normwise(tg.numpy(), jg, 1e-4)
+
+
+def test_ssd_backward_is_finite_under_steep_decay_across_64_chunks():
+    """a_cum spans ~60 in each of 64 chunks: the segment sums of the closed
+    form reach +3800 above the diagonal, masked before their exp, so the
+    backward has no 0 * inf."""
+    x, a, bm, cm = _ssd_inputs(25, (1, 64 * 16, 2, 4), 4, decay=7.5)
+    ins = [_t(t).requires_grad_() for t in (x, a, bm, cm)]
+    grads = torch.autograd.grad(ops.ssd(*ins, chunk=16).sum(), ins)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+class _AtenOps(TorchDispatchMode):
+    """Counts the aten ops dispatched under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero_state", "initial_state"])
+@pytest.mark.parametrize("fn", ["scan", "chunked", "chunked_backward"])
+def test_inter_chunk_scan_issues_the_same_ops_at_any_length(fn, with_state, monkeypatch):
+    """No loop over chunks: ``ssd_scan.ssd`` (the plain version in place of
+    its kernel), ``ref.ssd_chunked`` and its backward issue as many aten ops
+    at 64 chunks as at 4."""
+    monkeypatch.setattr(ssd_scan, "ssd_chunk", ssd_scan.plain)
+    counts = []
+    for nc in (4, 64):
+        x, a, bm, cm = (_t(t) for t in _ssd_inputs(26, (1, nc * CF_CHUNK, 2, 8), 4))
+        init = torch.ones((1, 2, 4, 8)) if with_state else None
+        mode = _AtenOps()
+        if fn == "chunked_backward":
+            ins = [t.requires_grad_() for t in (x, a, bm, cm)]
+            y = ref.ssd_chunked(*ins, chunk=CF_CHUNK, initial_state=init)
+            with mode:
+                torch.autograd.grad(y.sum(), ins)
+        else:
+            call = ssd_scan.ssd if fn == "scan" else ref.ssd_chunked
+            with mode:
+                call(x, a, bm, cm, chunk=CF_CHUNK, initial_state=init)
+        counts.append(mode.n)
+    assert counts[0] == counts[1] > 0, counts
 
 
 # ---------------------------------------------------------------------------
