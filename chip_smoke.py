@@ -28,6 +28,16 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 4. serves phi3-mini-3.8b at full width (random bf16 weights from a seed,
    32 layers) through ``Overlay(3, 3)`` and with ``overlay=None``: identical
    greedy token streams, and one rmsnorm launch per norm call;
+   Then, on the same weights: ``[relocate]`` serves them through an
+   ``Overlay(3, 3)`` that first holds fig3's LARGE ``sum(a * b)`` at 2^24,
+   evicts it and ``compact()``s, then ``resize(1)``s, serving after each:
+   streams identical to plain, relocations with no new download or cache
+   insertion, the host ms of each move; ``[specialize]`` captures the decode
+   step as a CUDA graph (the route-constant tier), serves on it, relocates
+   it (it despecializes and frees the graph), serves, specializes again and
+   serves: every decode call of a specialized round on the graph, streams
+   identical to plain, outputs bit-identical to the generic walk, host ms
+   per decode call for generic, specialized and plain;
 5. trains phi3-mini-3.8b at full width (32 layers, batch 1, seq 4096) for 4
    eager steps of ``launch.train.make_step`` on the synthetic stream:
    finite losses, and the flash_attention and rmsnorm launches each step
@@ -40,7 +50,9 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
    4096 tokens through ``Overlay(3, 3)`` and plainly: identical streams,
    one ``kernels/ssd`` node per layer in each traced prefill, and the
    ssd_chunk and rmsnorm launches each prefill and decode must make, every
-   ssd_chunk launch on the tensor-core kernel;
+   ssd_chunk launch on the tensor-core kernel; once more on
+   ``Overlay(3, 3, cost_model_placement=True)``, identical streams, its
+   downloads and re-downloads beside first-fit's;
 8. trains mamba2-130m at full width for 3 eager steps at batch 1 x seq 4096:
    finite losses and 48 ssd_chunk and 49 rmsnorm launches a step, every
    ssd_chunk launch on the tensor-core kernel; the aten ops the host issues
@@ -61,9 +73,11 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the card's name and power limit, and last the result line.
 
 Launch counts come from the wrappers' counters, set to 0 just before each
-driven path (the paper workload, the overlay-served runs, the full-width
-training runs) and read just after; launches made to compare or time a
-kernel are not counted.  Exits non-zero without a result line when CUDA is
+driven path (the paper workload, the overlay-served runs, the relocation
+and specialization rounds, the full-width training runs) and read just
+after; launches made to compare or time a kernel are not counted.  A
+CUDA-graph replay runs no wrapper: it adds to the counters the launches its
+capture recorded.  Exits non-zero without a result line when CUDA is
 unavailable or the port's sources are missing.
 """
 
@@ -93,7 +107,8 @@ if not torch.cuda.is_available():
 from torch.utils import _pytree as pytree  # noqa: E402
 
 from repro_torch.configs import PAPER_VECTOR_LEN, get_config, smoke_config  # noqa: E402
-from repro_torch.core import Overlay, PlacementPolicy  # noqa: E402
+from repro_torch.core import Overlay, PlacementPolicy, place  # noqa: E402
+from repro_torch.core import interpreter as interp  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import native, ops  # noqa: E402
@@ -468,6 +483,14 @@ class Counted:
     def __init__(self, fn):
         self.fn, self.calls, self.seconds, self.lengths = fn, 0, [], []
 
+    @property
+    def tile_budget(self):              # ServeEngine.resize sets the step's budget
+        return self.fn.tile_budget
+
+    @tile_budget.setter
+    def tile_budget(self, value):
+        self.fn.tile_budget = value
+
     def __call__(self, *args):
         self.calls += 1
         self.lengths.append(args[1].shape[1])      # tokens of the call
@@ -684,10 +707,219 @@ def phase_serve(gen: torch.Generator) -> dict:
     logits, _ = mdl.prefill(params, cfg, prompt, mdl.init_cache(cfg, 1, MAX_LEN, DEV))
     check(tuple(logits.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
           "full-width prefill logits not finite / wrong shape")
-    del params
+    del eng_ov, eng_pl, ov
+    ov, eng, relocated = phase_relocate(params, cfg, s_pl, gen)
+    specialized = phase_specialize(params, cfg, s_pl, ov, eng)
+    del params, ov, eng
     torch.cuda.empty_cache()
     return {"launches": l_ov, "calls": calls, "tok_s_overlay": tokens / dt_ov,
-            "tok_s_plain": tokens / dt_pl}
+            "tok_s_plain": tokens / dt_pl, "relocate": relocated,
+            "specialize": specialized}
+
+
+class TimedOverlay(Overlay):
+    """An ``Overlay`` that keeps the host ms of each relocation it makes (the
+    move: controller program, routes, tiles and the rebind of live entries;
+    the placement search that precedes a move is outside it)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.relocation_ms: list[float] = []
+
+    def _relocate_resident(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        res = super()._relocate_resident(*args, **kwargs)
+        self.relocation_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+
+def serve_round(engine: ServeEngine, cfg, first_rid: int) -> tuple[list, float]:
+    """The serve phase's requests (the same prompts) through ``engine``: the
+    streams in request order and the round's seconds."""
+    rng = np.random.default_rng(SEED)
+    for i in range(REQUESTS):
+        prompt = rng.integers(0, cfg.vocab_size, size=(PROMPT,)).tolist()
+        engine.submit(Request(rid=first_rid + i, prompt=prompt, max_new_tokens=MAX_NEW))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    return [r.out for r in sorted(done, key=lambda r: r.rid)], time.perf_counter() - t0
+
+
+def phase_relocate(params, cfg, want: list, gen: torch.Generator):
+    """[relocate] phi3-mini-3.8b served through an ``Overlay(3, 3)`` that
+    first holds a co-tenant, fig3's LARGE ``sum(a * b)`` at 2^24 (the
+    vmul_reduce kernel).  Serve; evict the co-tenant and ``compact()``;
+    serve; ``resize(1)``; serve.  Every round's streams must equal plain
+    serving's; the moves must be relocations (``stats.relocations`` rises)
+    with no new download and no new cache insertion; rmsnorm launches once
+    per norm of every prefill and decode call."""
+    ov = TimedOverlay(3, 3)
+    n = 1 << 24
+    a = torch.randn(n, generator=gen, device=DEV)
+    b = torch.randn(n, generator=gen, device=DEV)
+    engine = ServeEngine(params, cfg, batch=BATCH, max_len=MAX_LEN, overlay=ov, device=DEV)
+    engine._prefill, engine._decode = Counted(engine._prefill), Counted(engine._decode)
+    torch.cuda.synchronize()
+    reset_counters()                           # the driven path starts here
+    y = ov.jit(_fig3_large, name="vmul_reduce_large")(a, b)
+    check(abs(y.item() - torch.dot(a, b).item()) <= 1e-5 * (a * b).abs().sum().item(),
+          "the co-tenant's sum(a*b) disagrees with torch.dot")
+    co_tiles = sorted(ov.fabric.lru().tiles)
+    streams, dt1 = serve_round(engine, cfg, 0)
+    check(streams == want, f"[relocate] round 1 streams differ from plain:\n{streams}\n{want}")
+    (entry,) = engine._decode.fn._entries.values()
+    first_call_s, trace_s, assemble_s = (engine._decode.seconds[0], entry.trace_seconds,
+                                         entry.assemble_seconds)
+    layout = {r.name: sorted(r.tiles) for r in ov.fabric.residents.values()}
+    downloads, insertions = ov.stats.downloads, ov.cache.stats.insertions
+    ov.evict("vmul_reduce_large")
+    t0 = time.perf_counter()
+    moved = engine.compact()
+    compact_ms = (time.perf_counter() - t0) * 1e3
+    check(moved >= 1 and ov.stats.relocations == moved,
+          f"compact() moved {moved} residents, relocations {ov.stats.relocations}")
+    compacted = {r.name: sorted(r.tiles) for r in ov.fabric.residents.values()}
+    streams, dt2 = serve_round(engine, cfg, 100)
+    check(streams == want, "[relocate] streams after compact() differ from plain")
+    engine.resize(1)
+    streams, dt3 = serve_round(engine, cfg, 200)
+    check(streams == want, "[relocate] streams after resize(1) differ from plain")
+    check(ov.stats.relocations > moved, "resize(1) relocated no resident")
+    check(ov.stats.downloads == downloads and ov.cache.stats.insertions == insertions,
+          f"relocations re-downloaded: downloads {downloads} -> {ov.stats.downloads}, "
+          f"cache insertions {insertions} -> {ov.cache.stats.insertions}")
+    launches = counts()
+    norms = 2 * cfg.num_layers + 1
+    calls = engine._prefill.calls + engine._decode.calls
+    check(launches["vmul_reduce"] == 1 and launches["rmsnorm"] == norms * calls,
+          f"[relocate] launches {launches}, want 1 vmul_reduce and {norms} x {calls} rmsnorm")
+    resized = {r.name: sorted(r.tiles) for r in ov.fabric.residents.values()}
+    tokens = REQUESTS * (1 + MAX_NEW)
+    log(f"[relocate] co-tenant vmul_reduce_large (2^24, one vmul_reduce launch) on {co_tiles}; "
+        f"round 1 layout {layout}; evict + compact() moved {moved} in {compact_ms:.1f} ms "
+        f"-> {compacted}; resize(1) -> {resized}")
+    log(f"[relocate] relocations {ov.stats.relocations}, host ms each "
+        f"{[round(ms, 2) for ms in ov.relocation_ms]}; the first decode call took "
+        f"{first_call_s:.2f} s (trace {trace_s:.2f} s, assemble {assemble_s:.2f} s); downloads "
+        f"{ov.stats.downloads} and cache insertions {ov.cache.stats.insertions} unchanged since "
+        f"round 1; streams identical to plain in all 3 rounds; tok/s by round "
+        f"{tokens / dt1:.1f}, {tokens / dt2:.1f}, {tokens / dt3:.1f}; launches {launches}")
+    return ov, engine, launches
+
+
+def _two_caches(caches):
+    """Two copies of a cache pytree, so a call can be fed inputs that moved
+    since the last call, as the engine feeds each tick."""
+    return [pytree.tree_map(torch.clone, caches) for _ in range(2)]
+
+
+def _decode_ms(fn, calls: int = 10) -> tuple[float, float]:
+    """Median host ms for one call to return, and ms a call of ``calls``
+    back-to-back calls ended by a synchronize."""
+    fn(0)
+    torch.cuda.synchronize()
+    host = []
+    t0 = time.perf_counter()
+    for i in range(calls):
+        t1 = time.perf_counter()
+        fn(i)
+        host.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(host)), (time.perf_counter() - t0) * 1e3 / calls
+
+
+def phase_specialize(params, cfg, want: list, ov: Overlay, engine: ServeEngine) -> dict:
+    """[specialize] phi3-mini-3.8b's decode step on the route-constant tier,
+    on the [relocate] engine: ``specialize`` the decode (the walk captured
+    once as a CUDA graph) and serve; relocate the decode resident (it must
+    despecialize and free the graph) and serve; specialize again and serve.
+    Every round's streams equal plain serving's, every decode call of a
+    specialized round dispatches on the specialized tier, and rmsnorm
+    launches once per norm of every prefill and decode call and of each
+    specialization's warm-up walk (a replay adds what its capture
+    recorded).  Then, outside the counted run: specialized and generic
+    outputs bit-identical on the same inputs, and host ms per decode call
+    for generic, specialized and plain."""
+    jitted = engine._decode.fn
+    (entry,) = jitted._entries.values()
+    res = ov.fabric.get(entry.acc.resident_id)
+    stats = ov.cache.spec_stats
+    state = lambda: (params, engine.cur_tokens, engine.caches, engine.slot_pos)
+    calls0 = (engine._prefill.calls, engine._decode.calls)
+    torch.cuda.synchronize()
+    reset_counters()                           # the driven path starts here
+    t0 = time.perf_counter()
+    jitted.specialize(*state())
+    spec_s = [time.perf_counter() - t0]
+    exe = res.spec_fn.func
+    check(isinstance(exe, interp.GraphKernel) and res.tier == "specialized"
+          and entry.record.tier == "specialized", "decode did not go to the CUDA-graph tier")
+    per_replay = exe.launches_per_replay()
+    rounds = []
+    for r in range(3):
+        hits, dec = stats.specialized_hits, engine._decode.calls
+        streams, dt = serve_round(engine, cfg, 300 + 100 * r)
+        check(streams == want, f"[specialize] round {r + 1} streams differ from plain")
+        host_ms = float(np.median(engine._decode.seconds[dec:])) * 1e3
+        rounds.append((engine._decode.calls - dec, stats.specialized_hits - hits,
+                       round(dt, 3), round(host_ms, 2)))
+        if r == 0:
+            g = entry.lowered.graph
+            despec = stats.despecializations
+            mem0 = torch.cuda.memory_allocated()
+            ov.relocate(g, place(g, ov.grid, ov.policy, occupied=ov.fabric.occupied(),
+                                 max_tiles=res.tile_budget))
+            torch.cuda.synchronize()
+            mem1 = torch.cuda.memory_allocated()
+            check(res.tier == "generic" and res.spec_fn is None and exe._graph is None
+                  and ov.cache.specialized_count() == 0
+                  and stats.despecializations == despec + 1,
+                  "relocating the decode resident did not despecialize it and release the graph")
+        if r == 1:
+            t0 = time.perf_counter()
+            jitted.specialize(*state())
+            spec_s.append(time.perf_counter() - t0)
+            check(res.tier == "specialized", "the decode resident did not specialize again")
+    check(rounds[0][1] == rounds[0][0] and rounds[2][1] == rounds[2][0] and rounds[1][1] == 0,
+          f"[specialize] (decode calls, specialized dispatches) by round {rounds}: every "
+          f"decode call of rounds 1 and 3 must be specialized, none of round 2")
+    launches = counts()
+    norms = 2 * cfg.num_layers + 1
+    calls = (engine._prefill.calls - calls0[0]) + (engine._decode.calls - calls0[1])
+    check(launches["rmsnorm"] == norms * (calls + len(spec_s)),
+          f"[specialize] rmsnorm launches {launches['rmsnorm']} != {norms} x ({calls} calls + "
+          f"{len(spec_s)} warm-up walks)")
+    check(per_replay == {"rmsnorm": norms}, f"a decode replay launches {per_replay}")
+    # outside the counted run: bit-identity and host time on the same inputs
+    exe = res.spec_fn.func
+    flat = pytree.tree_leaves(state())
+    generic_out, spec_out = entry.acc.fn(*flat), res.spec_fn(*flat)
+    diff = [i for i, (u, v) in enumerate(zip(pytree.tree_leaves(generic_out),
+                                              pytree.tree_leaves(spec_out)))
+            if not torch.equal(u, v)]
+    check(not diff, f"specialized and generic decode outputs differ in leaves {diff}")
+    caches = _two_caches(engine.caches)
+    args = lambda i: (params, engine.cur_tokens, caches[i % 2], engine.slot_pos)
+    fns = {"generic": lambda i: entry.acc.fn(*pytree.tree_leaves(args(i))),
+           "specialized": lambda i: res.spec_fn(*pytree.tree_leaves(args(i))),
+           "plain": lambda i: mdl.decode_step(params, cfg, engine.cur_tokens, caches[i % 2],
+                                              positions=engine.slot_pos)}
+    times = {k: [] for k in fns}
+    for k in (*fns, *reversed(fns)):               # in turns: a b c c b a
+        times[k].append(_decode_ms(fns[k]))
+    log(f"[specialize] decode captured as a CUDA graph in {spec_s[0]:.2f} s (warm-up walk + "
+        f"capture; again after the relocation {spec_s[1]:.2f} s), {per_replay} launches a "
+        f"replay; (decode calls, specialized dispatches, round s, median decode host ms) by "
+        f"round {rounds}; relocation "
+        f"despecialized and freed {(mem0 - mem1) / 2**20:.0f} MiB; streams identical to plain; "
+        f"generic and specialized outputs bit-identical ({len(pytree.tree_leaves(spec_out))} "
+        f"leaves); launches {launches}")
+    log("[specialize] decode ms a call (host to return, then per call of 10 back-to-back to a "
+        "synchronize; two runs in turns, inputs moved every call): " + "; ".join(
+            f"{k} " + ", ".join(f"{h:.2f} / {e:.2f}" for h, e in v) for k, v in times.items()))
+    return launches
 
 
 def _sync_ms(fn) -> tuple:
@@ -886,12 +1118,16 @@ def phase_serve_mamba(gen: torch.Generator) -> dict:
     ov = Overlay(3, 3)
     s_ov, l_ov, dt_ov, eng_ov = serve_mamba(params, cfg, ov)
     s_pl, l_pl, dt_pl, eng_pl = serve_mamba(params, cfg, None)
+    ov_cm = Overlay(3, 3, cost_model_placement=True)
+    s_cm, l_cm, dt_cm, eng_cm = serve_mamba(params, cfg, ov_cm)
     peak = torch.cuda.max_memory_allocated()
     check(s_ov == s_pl, f"mamba overlay and plain token streams differ:\n{s_ov}\n{s_pl}")
+    check(s_cm == s_pl, f"mamba cost-model overlay and plain token streams differ:\n{s_cm}\n{s_pl}")
     check(all(len(s) == 1 + MAMBA_NEW and all(0 <= t < cfg.vocab_size for t in s)
               for s in s_ov), "unexpected mamba token stream shape/range")
     layers = cfg.num_layers
-    for name, eng, got in (("overlay", eng_ov, l_ov), ("plain", eng_pl, l_pl)):
+    for name, eng, got in (("overlay", eng_ov, l_ov), ("plain", eng_pl, l_pl),
+                           ("cost-model overlay", eng_cm, l_cm)):
         calls = eng._prefill.calls + eng._decode.calls
         want = {"ssd_chunk": layers * eng._prefill.calls, "rmsnorm": (layers + 1) * calls}
         for kernel, n in want.items():
@@ -907,6 +1143,13 @@ def phase_serve_mamba(gen: torch.Generator) -> dict:
         f"{desc['downloads']}")
     log(f"[serve-mamba] plain:   {tokens} tokens in {dt_pl:.2f}s ({tokens / dt_pl:.1f} tok/s), "
         f"launches {l_pl}; streams identical: {s_ov == s_pl}")
+    for name, o, dt in (("first-fit", ov, dt_ov), ("cost-model", ov_cm, dt_cm)):
+        d = o.describe()
+        log(f"[serve-mamba] {name} placement: downloads {d['downloads']} for {d['traces']} "
+            f"signatures ({d['downloads'] - d['traces']} re-downloads), reclaims {d['reclaims']}, "
+            f"{tokens / dt:.1f} tok/s; tiles at the end "
+            f"{ {r.name: sorted(r.tiles) for r in o.fabric.residents.values()} }")
+    log(f"[serve-mamba] cost-model streams identical to plain: {s_cm == s_pl}")
     for step in ("prefill", "decode"):
         log(f"[serve-mamba] {step} host ms per call: overlay "
             f"{getattr(eng_ov, f'_{step}').by_length_ms()}; plain "
@@ -926,9 +1169,10 @@ def phase_serve_mamba(gen: torch.Generator) -> dict:
                 f"kernels/rmsnorm), {entry.acc.placement.total_passthrough} pass-through hops")
     log(f"[serve-mamba] streams: {[s[:6] for s in s_ov]}...")
     log(f"[serve-mamba] max_memory_allocated {peak / 2**30:.2f} GiB")
-    del params, eng_ov, eng_pl
+    del params, eng_ov, eng_pl, eng_cm
     torch.cuda.empty_cache()
-    return {"launches": l_ov, "tok_s_overlay": tokens / dt_ov, "tok_s_plain": tokens / dt_pl}
+    return {"launches": l_ov, "launches_cost_model": l_cm, "tok_s_overlay": tokens / dt_ov,
+            "tok_s_plain": tokens / dt_pl}
 
 
 def phase_train_mamba() -> dict:
@@ -1399,7 +1643,9 @@ def main() -> int:
     phase_small_mamba_reference()
     phase_launcher()
     by_path = {"fig3": paper["launches"], "serve": served["launches"],
+               "relocate": served["relocate"], "specialize": served["specialize"],
                "train": trained["launches"], "serve_mamba": served_mamba["launches"],
+               "serve_mamba_cost_model": served_mamba["launches_cost_model"],
                "train_mamba": trained_mamba["launches"]}
     launches = {name: sum(p[name] for p in by_path.values()) for name in counts()}
     for path, n in by_path.items():

@@ -10,17 +10,26 @@ Public API (frontend first — the paper's programming model):
   placement.TileGrid / PlacementPolicy     — static vs dynamic placement
   isa.compile_graph / Program / Opcode     — 42-instruction controller ISA
   interpreter.run_program / assemble       — eager ISA + JIT assembly
-  cache.BitstreamCache                     — kernel-artifact (PR) cache
-  fabric.Fabric / ResidentAccelerator      — shared-fabric tile residency
+  interpreter.specialize_kernel / GraphKernel — the route-constant tier
+      (on the card: a CUDA-graph replay of the walk)
+  placement.score_placement / check_assignment — the cost-model planner's
+      pure pieces and the relocation guard
+  cache.BitstreamCache / spec_key          — kernel-artifact (PR) cache and
+      its specialized tier
+  fabric.Fabric / ResidentAccelerator      — shared-fabric tile residency,
+      relocation
 """
 
-from repro_torch.core.cache import BitstreamCache, kernel_key, signature_of
+from repro_torch.core.cache import (BitstreamCache, SpecializationStats,
+                                    kernel_key, signature_of, spec_key)
 from repro_torch.core.fabric import Fabric, FabricError, ResidentAccelerator
 from repro_torch.core.graph import (Graph, NodeRef, TensorSpec, branchy_graph,
                                     saxpy_graph, vmul_reduce_graph)
-from repro_torch.core.interpreter import (AssembledAccelerator, Kernel,
-                                          assemble, bind_routes, build_kernel,
-                                          route_hops, route_vector, run_program)
+from repro_torch.core.interpreter import (AssembledAccelerator, GraphKernel,
+                                          Kernel, SpecializedKernel, assemble,
+                                          bind_routes, build_kernel,
+                                          route_hops, route_vector, run_program,
+                                          specialize_kernel, zero_hop)
 from repro_torch.core.isa import (Opcode, Program, compile_compute,
                                   compile_graph, compile_routes)
 from repro_torch.core.overlay import JitAssembled, Overlay, OverlayStats
@@ -30,20 +39,25 @@ from repro_torch.core.patterns import (LIBRARY, Operator, TileClass,
                                        register_op)
 from repro_torch.core.placement import (Placement, PlacementError,
                                         PlacementPolicy, TileGrid,
-                                        candidate_placements, place,
-                                        place_dynamic, place_static)
+                                        candidate_placements, check_assignment,
+                                        place, place_dynamic, place_static,
+                                        placement_crowding,
+                                        placement_footprint, score_placement)
 from repro_torch.core.trace import Lowered, TraceError, trace_to_graph
 
 __all__ = [
     "AssembledAccelerator", "BitstreamCache", "Fabric", "FabricError",
-    "Graph", "JitAssembled", "Kernel", "LIBRARY", "Lowered", "NodeRef",
-    "Opcode", "Operator", "Overlay", "OverlayStats", "Placement",
+    "Graph", "GraphKernel", "JitAssembled", "Kernel", "LIBRARY", "Lowered",
+    "NodeRef", "Opcode", "Operator", "Overlay", "OverlayStats", "Placement",
     "PlacementError", "PlacementPolicy", "Program", "ResidentAccelerator",
-    "TensorSpec", "TileClass", "TileGrid", "TraceError", "assemble",
-    "bind_routes", "branchy_graph", "build_kernel", "candidate_placements",
+    "SpecializationStats", "SpecializedKernel", "TensorSpec", "TileClass",
+    "TileGrid", "TraceError", "assemble", "bind_routes", "branchy_graph",
+    "build_kernel", "candidate_placements", "check_assignment",
     "compile_compute", "compile_graph", "compile_routes", "kernel_key",
     "make_filter", "make_map", "make_reduce", "make_zip_with", "place",
-    "place_dynamic", "place_static", "register_call", "register_op",
-    "route_hops", "route_vector", "run_program", "saxpy_graph",
-    "signature_of", "trace_to_graph", "vmul_reduce_graph",
+    "place_dynamic", "place_static", "placement_crowding",
+    "placement_footprint", "register_call", "register_op", "route_hops",
+    "route_vector", "run_program", "saxpy_graph", "score_placement",
+    "signature_of", "spec_key", "specialize_kernel", "trace_to_graph",
+    "vmul_reduce_graph", "zero_hop",
 ]

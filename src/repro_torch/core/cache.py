@@ -21,8 +21,14 @@ The store is **two-level**, mirroring the paper's relocatable bitstreams:
    a side table (:meth:`BitstreamCache.route_program`), re-emitted in
    microseconds whenever a resident is (re)placed.
 
-Port of ``repro/core/cache.py`` without the specialized tier and the
-persistent store, which wait for later slices.
+A side table holds the third, optional tier: **specialized artifacts**
+(:meth:`BitstreamCache.insert_specialized`), keyed by :func:`spec_key` —
+a kernel key plus the exact hop vector baked into the artifact.  On the
+card such an artifact is a captured CUDA graph of the route-constant walk,
+and dropping it releases the graph and its private memory pool.
+
+Port of ``repro/core/cache.py`` without the persistent store, which waits
+for a later slice.
 """
 
 from __future__ import annotations
@@ -68,6 +74,22 @@ def kernel_key(name: str, signature: tuple, fingerprint: str = "") -> str:
     return f"{name}:{h}"
 
 
+def spec_key(kernel_key: str, hops: "tuple[int, ...]") -> str:
+    """Identity of a route-constant specialized artifact: its generic kernel
+    key plus the exact hop vector baked into it.  Placements with identical
+    hop vectors share one specialized artifact; any other routes make it
+    unusable (the generic tier serves instead)."""
+    return f"{kernel_key}|spec|{','.join(map(str, hops))}"
+
+
+def _release(exe: Any) -> None:
+    """Free what a dropped specialized artifact holds on the device (a
+    captured graph and its memory pool); plain walks hold nothing."""
+    release = getattr(exe, "release", None)
+    if release is not None:
+        release()
+
+
 @dataclasses.dataclass
 class CacheStats:
     hits: int = 0
@@ -86,6 +108,17 @@ class RouteStats:
     emit_seconds: float = 0.0      # total route-emission time
 
 
+@dataclasses.dataclass
+class SpecializationStats:
+    """Lifecycle accounting for the route-constant specialized tier."""
+
+    specializations: int = 0       # specialized artifacts committed
+    despecializations: int = 0     # specialized residents reverted to generic
+    specialized_hits: int = 0      # dispatches served by the specialized tier
+    dropped_stale: int = 0         # spec commits refused (relocated mid-build)
+    compile_seconds: float = 0.0   # specialize (warm-up + capture) time paid
+
+
 class BitstreamCache:
     """LRU of placement-free kernel artifacts (keyed by :func:`kernel_key`)
     plus a side table of per-placement route programs."""
@@ -96,8 +129,10 @@ class BitstreamCache:
         self.capacity = capacity
         self._store: collections.OrderedDict[str, Any] = collections.OrderedDict()
         self._routes: dict[str, Any] = {}   # "<owner>|<placement>" -> routes
+        self._specialized: dict[str, Any] = {}   # spec_key -> artifact
         self.stats = CacheStats()
         self.route_stats = RouteStats()
+        self.spec_stats = SpecializationStats()
 
     def __len__(self) -> int:
         return len(self._store)
@@ -118,10 +153,72 @@ class BitstreamCache:
         self.stats.misses += 1
         self.stats.insertions += 1
         self._store[key] = exe
-        if len(self._store) > self.capacity:
-            self._store.popitem(last=False)
-            self.stats.evictions += 1
+        self._trim()
         return exe
+
+    def _trim(self) -> None:
+        if len(self._store) > self.capacity:
+            old, _ = self._store.popitem(last=False)
+            self.drop_specialized(old)
+            self.stats.evictions += 1
+
+    def put(self, key: str, exe: Any) -> None:
+        """Store an artifact built outside :meth:`get_or_compile` (no miss
+        is booked; an insertion is, for a new key)."""
+        if key not in self._store:
+            self.stats.insertions += 1
+        self._store[key] = exe
+        self._store.move_to_end(key)
+        self._trim()
+
+    def peek(self, key: str) -> Any:
+        """The stored artifact for ``key`` (or None) without touching LRU
+        order or hit/miss statistics — for introspection, not dispatch."""
+        return self._store.get(key)
+
+    # -- specialized tier: route-constant artifacts ---------------------------
+    def specialized(self, key: str) -> Any:
+        """The specialized artifact stored under a :func:`spec_key` (or
+        None).  Lookup only — dispatch accounting (``specialized_hits``)
+        belongs to the overlay's dispatch records."""
+        return self._specialized.get(key)
+
+    def insert_specialized(self, key: str, exe: Any,
+                           compile_seconds: float) -> None:
+        """Publish a finished route-constant build.  Booked on its own
+        ledger: a specialization is an optimization, not a PR download, so
+        ``CacheStats`` (misses/compile_seconds) stays untouched."""
+        if key not in self._specialized:
+            self.spec_stats.specializations += 1
+        else:
+            _release(self._specialized[key])
+        self.spec_stats.compile_seconds += compile_seconds
+        self._specialized[key] = exe
+
+    def drop_specialized(self, kernel_key: str) -> int:
+        """Drop every specialized variant of one generic kernel artifact —
+        for the paths where the kernel key itself dies (eviction of the
+        generic entry, LRU replacement, flush).  Returns entries removed."""
+        prefix = f"{kernel_key}|spec|"
+        doomed = [k for k in self._specialized if k.startswith(prefix)]
+        for k in doomed:
+            _release(self._specialized.pop(k))
+        return len(doomed)
+
+    def drop_specialized_exact(self, key: str) -> int:
+        """Drop ONE specialized artifact by its full :func:`spec_key` — for
+        despecialization/eviction of a single resident, where a sibling
+        resident sharing the kernel key (at other routes) keeps its own
+        variant.  Returns entries removed (0 or 1)."""
+        exe = self._specialized.pop(key, None)
+        if exe is None:
+            return 0
+        _release(exe)
+        return 1
+
+    def specialized_count(self) -> int:
+        """Specialized artifacts currently held (introspection)."""
+        return len(self._specialized)
 
     # -- level 2: per-placement route programs --------------------------------
     def route_program(self, owner: str, placement_desc: str,
@@ -157,6 +254,9 @@ class BitstreamCache:
             if k in self._store:
                 del self._store[k]
                 removed += 1
+            # a specialized variant is meaningless without (or beyond the
+            # life of) its generic kernel: it dies with the key
+            self.drop_specialized(k)
         self.stats.evictions += removed
         return removed
 
@@ -165,6 +265,8 @@ class BitstreamCache:
         doomed = [k for k in self._store if k.startswith(prefix)]
         for k in doomed:
             del self._store[k]
+        for k in [k for k in self._specialized if k.startswith(prefix)]:
+            _release(self._specialized.pop(k))
         self.stats.evictions += len(doomed)
         return len(doomed)
 
@@ -174,3 +276,6 @@ class BitstreamCache:
         self.stats.evictions += len(self._store)
         self._store.clear()
         self._routes.clear()
+        for exe in self._specialized.values():
+            _release(exe)
+        self._specialized.clear()

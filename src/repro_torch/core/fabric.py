@@ -9,9 +9,12 @@ single source of truth for which tile belongs to which resident:
 * :meth:`admit` claims a placement's tiles for a resident (overlap = bug,
   raised as :class:`FabricError`; the placer must have packed into free
   tiles via ``placement.place(..., occupied=fabric.occupied())``),
+* :meth:`relocate` rehomes a resident onto new tiles *without* forfeiting
+  its kernel artifacts or download ledger (relocatable bitstreams: the
+  kernel is placement-free; only the route program is re-emitted),
 * :meth:`release` frees a resident's tiles (PR-region release),
-* :meth:`touch` / :meth:`reclaim_victim` implement the recency order the
-  overlay reclaims in,
+* :meth:`touch` / :meth:`reclaim_victim` implement the recency (or
+  age-per-re-download-cost) order the overlay reclaims in,
 * :meth:`fragmentation` lifts the paper's internal-fragmentation metric
   (§II: LARGE regions squatted by SMALL operators) to the whole fabric.
 
@@ -20,15 +23,15 @@ single source of truth for which tile belongs to which resident:
 cache keys it owns so tile release and bitstream eviction travel through
 one path (``Overlay.evict``).
 
-Port of ``repro/core/fabric.py``: framework-free and nearly verbatim.
-Relocation, the specialization tier and the persisted measurement ledger
-wait for later slices.
+Port of ``repro/core/fabric.py``: framework-free and nearly verbatim.  The
+persisted measurement ledger (``export_ledger``/``seed_ledger``) waits for
+the store's slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable, Iterable
 
 from repro_torch.core.graph import Graph
 from repro_torch.core.isa import Program
@@ -52,7 +55,7 @@ class ResidentAccelerator:
     program: Program               # controller program
     tiles: frozenset[Coord]        # PR regions held
     occupants: dict[Coord, tuple[TileClass, ...]]  # per-tile operator classes
-    generation: int                # bumped on every (re-)admission
+    generation: int                # bumped on every (re-)admission AND relocation
     last_used: int                 # fabric tick of last assembly/dispatch
     tile_budget: int | None = None # footprint cap this resident was placed under
     fixed: "dict[int, Coord] | None" = None  # pinned tiles
@@ -60,9 +63,27 @@ class ResidentAccelerator:
     downloads: int = 1             # times this accelerator was placed+downloaded
     download_cost: float = 0.0     # measured download (kernel build) seconds
     acc: Any = None                # built AssembledAccelerator (hit fast path)
-    # the host-side hop vector, built ONCE at admission.  `live` flips False
-    # on release so lock-free dispatch records invalidate with ONE read.
+    # relocatable bitstreams: the generation at (re-)admission opens this
+    # residency epoch; relocations bump `generation` but not this.
+    # `relocations` counts moves since admission.
+    admit_generation: int = -1
+    relocations: int = 0
+    # tiered route specialization: which artifact tier this resident's
+    # dispatch records point at.  `routes` is the host-side hop vector
+    # (built ONCE at admit/relocate, never on the dispatch path);
+    # `zero_hop` caches whether the placement is pass-through-free;
+    # `stable_dispatches` counts hits since the routes last changed (the
+    # stability trigger); `spec_pending`/`spec_job` mark a specialization
+    # in progress.  `live` flips False on release so dispatch records
+    # invalidate with ONE read.
+    tier: str = "generic"
     routes: Any = None
+    zero_hop: bool = False
+    stable_dispatches: int = 0
+    spec_pending: bool = False
+    spec_job: str | None = None
+    spec_fn: Any = None            # bound specialized artifact (dispatch)
+    spec_failures: int = 0         # failed specializations at these routes
     live: bool = True
     # dispatch observability: per-resident end-to-end call latency (us) and
     # the total hop count of the route program
@@ -119,23 +140,75 @@ class Fabric:
         res = self._residents.get(rid)
         return res is not None and res.generation == generation
 
+    def same_residency(self, rid: str | None, generation: int) -> bool:
+        """Whether ``generation`` belongs to ``rid``'s *current residency
+        epoch* — true for the live generation AND for pre-relocation
+        generations of the same admission (a kernel built before a move is
+        placement-free and still valid; one from before an evict is not)."""
+        if rid is None:
+            return False
+        res = self._residents.get(rid)
+        return (res is not None
+                and res.admit_generation <= generation <= res.generation)
+
     def occupied(self) -> set[Coord]:
         out: set[Coord] = set()
         for res in self._residents.values():
             out |= res.tiles
         return out
 
+    def free(self) -> list[Coord]:
+        occ = self.occupied()
+        return [c for c in self.grid.coords() if c not in occ]
+
     @property
     def utilization(self) -> float:
         return len(self.occupied()) / self.grid.num_tiles
 
-    def reclaim_victim(self) -> ResidentAccelerator | None:
-        """The resident to reclaim under placement pressure: the least
-        recently used, or None on an empty fabric.  (The reference's
-        cost-aware scoring serves its asynchronous mode, a later slice.)"""
+    def lru(self) -> ResidentAccelerator | None:
+        """The least-recently-used resident, or None."""
         if not self._residents:
             return None
         return min(self._residents.values(), key=lambda r: r.last_used)
+
+    def mean_download_cost(self) -> float:
+        """Mean of the measured per-rid re-download costs (0.0 when nothing
+        has been measured) — the planner's neutral price for unknowns."""
+        known = [c for c in self._download_costs.values() if c > 0.0]
+        return sum(known) / len(known) if known else 0.0
+
+    def reclaim_victim(self, *, cost_aware: bool = False,
+                       price: "Callable[[ResidentAccelerator], float] | None"
+                       = None) -> ResidentAccelerator | None:
+        """The resident to reclaim under placement pressure.
+
+        Pure-LRU by default.  ``cost_aware=True`` scores each resident by
+        staleness *per second of re-download cost* — ``age / download_cost``
+        — and evicts the maximum: between two equally-cold residents the
+        cheap-to-redownload one goes first.  A resident with no measurement
+        yet is priced at the mean of the measured costs; with no
+        measurements anywhere the choice is exactly LRU.  ``price``
+        overrides a resident's re-download price (seconds) — the cost-model
+        planner passes its own pricer here."""
+        if not self._residents:
+            return None
+        pool = list(self._residents.values())
+        if not cost_aware:
+            return min(pool, key=lambda r: r.last_used)
+        now = self._tick + 1
+        known = [c for c in self._download_costs.values() if c > 0.0]
+        prior = sum(known) / len(known) if known else 1.0
+
+        def score(r: ResidentAccelerator) -> float:
+            age = now - r.last_used
+            if price is not None:
+                cost = price(r)
+            else:
+                cost = (self._download_costs.get(r.rid) or r.download_cost
+                        or prior)
+            return age / (cost + 1e-3)
+
+        return max(pool, key=score)
 
     def lru_order(self) -> list[ResidentAccelerator]:
         """Residents least-recently-used first."""
@@ -177,6 +250,7 @@ class Fabric:
             tile_budget=tile_budget, fixed=fixed,
             downloads=self._download_counts[rid],
             download_cost=self._download_costs.get(rid, 0.0),
+            admit_generation=self._generation,
             dispatch_hist=Histogram())
         self._residents[rid] = res
         return res
@@ -190,6 +264,10 @@ class Fabric:
         res = self._residents.get(rid)
         if res is not None:
             res.download_cost = cost
+
+    def download_cost(self, rid: str) -> float:
+        """Modeled re-download cost in seconds (0.0 when never measured)."""
+        return self._download_costs.get(rid, 0.0)
 
     def release(self, rid: str) -> ResidentAccelerator | None:
         """Free one resident's PR regions; returns it (for bitstream cleanup)."""
@@ -209,6 +287,61 @@ class Fabric:
         res = self._residents.get(rid)
         if res is not None and key not in res.cache_keys:
             res.cache_keys = res.cache_keys + (key,)
+
+    def relocate(self, rid: str, placement: Placement, program: Program, *,
+                 ignore: "Iterable[str]" = ()) -> ResidentAccelerator:
+        """Move a resident to a new placement — the relocatable-bitstream
+        path (defragmentation, budget repacks, policy moves).
+
+        The new tiles must be free (overlap with *other* residents raises
+        :class:`FabricError`; overlap with the resident's own old tiles is
+        fine) and ``program`` must be the controller program recompiled for
+        the new placement.  Unlike an evict + re-admit, the resident KEEPS
+        its kernel-artifact ``cache_keys`` and its download ledger; only
+        the route program changes.  The generation bumps (stale dispatch
+        records fail closed) while ``admit_generation`` stays.
+
+        ``ignore`` names residents whose *old* tiles don't count as clashes
+        — a multi-resident repack moves several residents onto a mutually
+        disjoint plan, so tiles about to be vacated by a later move of the
+        same plan are fair game."""
+        res = self._residents.get(rid)
+        if res is None:
+            raise FabricError(f"relocate: no resident {rid!r}")
+        skip = set(ignore) | {rid}
+        occupied_others: set[Coord] = set()
+        for other in self._residents.values():
+            if other.rid not in skip:
+                occupied_others |= other.tiles
+        tiles = frozenset(placement.assignment.values())
+        clash = tiles & occupied_others
+        if clash:
+            holders = {c: r.name for r in self._residents.values()
+                       if r.rid not in skip for c in r.tiles if c in clash}
+            raise FabricError(
+                f"relocation of {res.name!r} overlaps occupied tiles "
+                f"{holders}")
+        res.placement = placement
+        res.program = program
+        res.tiles = tiles
+        res.occupants = _occupants_of(res.graph, placement)
+        self._generation += 1
+        res.generation = self._generation
+        res.relocations += 1
+        res.acc = None                # routes changed — rebind (cheap)
+        # the move invalidates the route-constant tier INSTANTLY: the routes
+        # it was specialized for no longer describe the resident's tiles.
+        # This is THE tier-reset point; Overlay._despecialize (called just
+        # before relocating) drops the artifact and books the change.
+        res.tier = "generic"
+        res.routes = None
+        res.zero_hop = False
+        res.stable_dispatches = 0
+        res.spec_pending = False
+        res.spec_job = None
+        res.spec_fn = None
+        res.spec_failures = 0         # new routes: specialization may retry
+        return res
 
     # -- metrics --------------------------------------------------------------
     def fragmentation(self) -> float:
@@ -239,6 +372,10 @@ class Fabric:
                           "tiles": sorted(res.tiles),
                           "downloads": res.downloads,
                           "download_cost": round(res.download_cost, 6),
+                          "relocations": res.relocations,
+                          "tier": res.tier,
+                          "zero_hop": res.zero_hop,
+                          "specializing": res.spec_pending,
                           "last_used": res.last_used,
                           "route_cost": res.route_cost,
                           "dispatch_latency": res.dispatch_hist.summary()}

@@ -21,18 +21,28 @@ per-edge hop counts as a runtime ``routes`` vector (:func:`route_vector`),
 so ONE kernel serves every placement of a graph.  Moving a resident to new
 tiles re-emits only the routes vector (and the controller route program).
 
-Port of the local mode and generic tier of ``repro/core/interpreter.py``;
-the sharded mode (``assemble_sharded``) and the route-constant specialized
-tier (``specialize_kernel``) wait for later slices.
+Tiered route specialization: :func:`specialize_kernel` is the same walk
+with every edge's hop count a Python int baked in at build time — the
+route-constant body, valid for one hop vector.  On the card the overlay
+captures that walk once as a CUDA graph (:class:`GraphKernel`) and replays
+it on every dispatch: the port's form of the reference's compiled
+route-constant executable.  Each walk issues its aten ops one at a time
+from Python; a replay issues them all in one graph launch.
+
+Port of the local mode and both tiers of ``repro/core/interpreter.py``; the
+sharded mode (``assemble_sharded``) waits for a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import weakref
 from functools import partial
 from typing import Any, Callable
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core.graph import Graph
 from repro_torch.core.isa import Opcode, Program, compile_graph
@@ -122,6 +132,13 @@ def route_hops(graph: Graph, placement: Placement) -> tuple[int, ...]:
     """Manhattan hop count per edge, in :func:`edge_order` order."""
     hops = placement.edge_hops
     return tuple(int(hops.get(e, 0)) for e in edge_order(graph))
+
+
+def zero_hop(hops: "tuple[int, ...]") -> bool:
+    """Whether a hop vector implies NO pass-through work: every edge is
+    co-located (0) or nearest-neighbour (1), so the walk makes no copy
+    pass.  This is the contiguous steady state ``defragment()`` produces."""
+    return all(int(h) <= 1 for h in hops)
 
 
 def route_vector(graph: Graph, placement: Placement) -> torch.Tensor:
@@ -218,6 +235,9 @@ class Kernel:
             raise TypeError(
                 f"kernel {self.name!r} takes {self.num_edges} routes and "
                 f"{len(self.input_ids)} inputs, got {len(hops)} and {len(inputs)}")
+        return self._walk(hops, inputs)
+
+    def _walk(self, hops, inputs):
         vals: list[Any] = [None] * self.num_slots
         for nid, x in zip(self.input_ids, inputs):
             vals[nid] = x
@@ -247,6 +267,129 @@ def build_kernel(graph: Graph) -> Kernel:
     return Kernel(graph)
 
 
+class SpecializedKernel(Kernel):
+    """The route-CONSTANT compute body: :class:`Kernel`'s walk and calling
+    convention (``kernel(routes, *inputs)``), with the hop vector baked in
+    at build time.  No hop count is read from the runtime ``routes``
+    argument (the generic walk's ``routes.tolist()`` is gone), so the walk
+    reads nothing on the host and can be captured as a CUDA graph."""
+
+    def __init__(self, graph: Graph, hops: "tuple[int, ...]") -> None:
+        super().__init__(graph)
+        if len(hops) != self.num_edges:
+            raise ValueError(
+                f"hop vector has {len(hops)} entries for {self.num_edges} edges")
+        self.hops = tuple(int(h) for h in hops)
+
+    def __call__(self, routes: Any, *inputs):
+        if len(inputs) != len(self.input_ids):
+            raise TypeError(f"kernel {self.name!r} takes {len(self.input_ids)} "
+                            f"inputs, got {len(inputs)}")
+        return self._walk(self.hops, inputs)
+
+
+def specialize_kernel(graph: Graph, hops: "tuple[int, ...]") -> SpecializedKernel:
+    """The route-constant body of ``graph`` for one hop vector
+    (:func:`route_hops`) — the specialized artifact tier.  Edges with
+    ``h >= 2`` keep their ``h - 1`` copy passes (the pass-through cost
+    model), the rest vanish, exactly as in the generic walk, so the two are
+    bit-identical.  The reference also guards contraction-prone edges with
+    an opaque exact 1.0 (``_contraction_guard_needed``): XLA fuses across
+    the edges of its route-constant body and LLVM could form FMAs there.
+    Eager PyTorch runs each op on its own and fuses nothing, so the port
+    needs no guard."""
+    graph.validate()
+    return SpecializedKernel(graph, hops)
+
+
+@functools.cache
+def _capture_stream(device_index: int) -> "torch.cuda.Stream":
+    """The side stream every capture on a device runs on.  One per device:
+    PyTorch keeps a cuBLAS workspace (32 MiB on an H100) for each stream that
+    ran a cuBLAS call, for the life of the process, so a stream per capture
+    would leak one workspace per specialization."""
+    return torch.cuda.Stream(device=device_index)
+
+
+class GraphKernel:
+    """A route-constant walk captured once as a ``torch.cuda.CUDAGraph``
+    and replayed on every call — the specialized artifact on the card.
+
+    Built from example inputs (copied into private static buffers of the
+    same layout): one eager warm-up walk on the capture stream (it builds
+    and opts in every kernel, allocates per-stream workspaces and starts
+    cuBLAS there), then the capture.  A call copies into the static buffers
+    only the inputs that are not the tensor last copied at its current
+    version (parameters stay put), replays the graph and returns copies of
+    the outputs: the graph's own outputs are overwritten by the next
+    replay, and a value returned by one call must not change after the
+    next.  A replay runs no wrapper, so the kernels' launch counters are
+    advanced by what the capture recorded, once a replay.  A failed capture
+    or replay raises; :meth:`release` frees the graph and its memory pool.
+    """
+
+    def __init__(self, kernel: SpecializedKernel, inputs: "tuple[torch.Tensor, ...]") -> None:
+        from repro_torch.kernels.ops import LAUNCH_COUNTERS
+
+        if not inputs or any(x.device.type != "cuda" for x in inputs):
+            raise ValueError(f"{kernel.name!r}: a CUDA graph needs every input on "
+                             f"the card")
+        self.name = kernel.name
+        device = inputs[0].device
+        self._static_in = [_copy_pass(x) for x in inputs]
+        self._seen = [(weakref.ref(x), x._version) for x in inputs]
+        stream = _capture_stream(device.index)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            kernel(None, *self._static_in)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        before = [(c.count, dict(c.by_variant)) for c in LAUNCH_COUNTERS]
+        self._graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self._graph, stream=stream):
+                self._static_out = kernel(None, *self._static_in)
+        finally:
+            # the capture recorded launches without running them: take them
+            # back off the counters and add them once a replay instead
+            self._launches = []
+            for c, (count, by_variant) in zip(LAUNCH_COUNTERS, before):
+                delta = {v: n - by_variant[v] for v, n in c.by_variant.items()}
+                if c.count != count:
+                    self._launches.append((c, c.count - count, delta))
+                c.count, c.by_variant = count, by_variant
+        self.replays = 0
+
+    def launches_per_replay(self) -> dict[str, int]:
+        """Kernel launches one replay makes, by kernel name."""
+        return {c.name: n for c, n, _ in self._launches}
+
+    def __call__(self, routes: Any, *inputs):
+        if self._graph is None:
+            raise RuntimeError(f"{self.name!r}: specialized artifact was released")
+        if len(inputs) != len(self._static_in):
+            raise TypeError(f"{self.name!r} takes {len(self._static_in)} inputs, "
+                            f"got {len(inputs)}")
+        for i, x in enumerate(inputs):
+            last, version = self._seen[i]
+            if last() is not x or x._version != version:
+                self._static_in[i].copy_(x)
+                self._seen[i] = (weakref.ref(x), x._version)
+        self._graph.replay()
+        self.replays += 1
+        for c, n, by_variant in self._launches:
+            c.count += n
+            for v, m in by_variant.items():
+                c.by_variant[v] += m
+        return pytree.tree_map(_copy_pass, self._static_out)
+
+    def release(self) -> None:
+        """Drop the graph, its static buffers and its private memory pool."""
+        if self._graph is not None:
+            self._graph.reset()
+        self._graph = self._static_in = self._static_out = None
+        self._seen = []
+
+
 def bind_routes(kernel: Callable[..., Any], routes: Any) -> Callable[..., Any]:
     """Close a placement-invariant kernel over one placement's routes."""
     return partial(kernel, routes)
@@ -269,6 +412,9 @@ class AssembledAccelerator:
     generation: int = -1
     kernel: Kernel | None = None
     routes: Any = None
+    # artifact tier this accelerator dispatches to: "generic" (relocatable,
+    # routes as a runtime argument) or "specialized" (route-constant)
+    tier: str = "generic"
 
     def __call__(self, *args):
         return self.fn(*args)

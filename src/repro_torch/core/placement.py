@@ -19,9 +19,9 @@ The cost model is used by the controller ISA to emit ROUTE/BYPASS
 instructions per hop, and by the interpreter as the number of copy passes
 an edge pays (``interpreter.py``).
 
-Port of ``repro/core/placement.py``, framework-free and nearly verbatim; the
-cost-model planner (``score_placement``) and ``check_assignment`` wait for
-the slice that ports relocation and the planner.
+Port of ``repro/core/placement.py``, framework-free and nearly verbatim,
+the cost-model planner's pure pieces (:func:`score_placement` and what it
+reads) and the relocation guard :func:`check_assignment` included.
 """
 
 from __future__ import annotations
@@ -261,6 +261,11 @@ def place_dynamic(graph: Graph, grid: TileGrid, *,
     free: list[Coord] = [c for c in grid.coords() if c not in occupied]
     assignment: dict[int, Coord] = {}
     used: set[Coord] = set()
+    # the tile of the latest assignment, and of the latest one on a LARGE
+    # tile: the reference rescans every assignment for these (O(n^2) in op
+    # nodes, seconds for a 4,500-node decode step); the choice is the same
+    last_any: Coord | None = None
+    last_large: Coord | None = None
 
     for node in ops:
         producers = [assignment[i] for i in node.inputs if i in assignment]
@@ -277,12 +282,15 @@ def place_dynamic(graph: Graph, grid: TileGrid, *,
         if not candidates:
             # co-locate on one of this graph's own class-compatible tiles
             # (two ops packed into one PR region); class limits still hold
-            own_ok = [c for c in assignment.values() if _class_ok(node, c, grid)]
-            if producers and producers[-1] in own_ok:
-                assignment[node.node_id] = producers[-1]
-                continue
-            if own_ok:
-                assignment[node.node_id] = own_ok[-1]
+            if producers and _class_ok(node, producers[-1], grid):
+                own = producers[-1]
+            else:
+                own = last_large if cls is TileClass.LARGE else last_any
+            if own is not None:
+                assignment[node.node_id] = own
+                last_any = own
+                if grid.tile_class(own) is TileClass.LARGE:
+                    last_large = own
                 continue
             if cand_all:
                 # over budget but no own tile fits this class: claim a free
@@ -302,9 +310,62 @@ def place_dynamic(graph: Graph, grid: TileGrid, *,
         assignment[node.node_id] = best
         free.remove(best)
         used.add(best)
+        last_any = best
+        if grid.tile_class(best) is TileClass.LARGE:
+            last_large = best
 
     return Placement(grid, PlacementPolicy.DYNAMIC, assignment,
                      _edge_costs(graph, assignment))
+
+
+def check_assignment(graph: Graph, grid: TileGrid,
+                     placement: Placement) -> None:
+    """Validate a (possibly hand-built) placement against the invariants
+    ``place()`` guarantees: every op node assigned, coordinates on the grid,
+    and LARGE ops only on LARGE tiles.  Raises :class:`PlacementError` —
+    the guard for placements entering the fabric from outside the placer
+    (``Overlay.relocate``)."""
+    nodes = {n.node_id: n for n in graph.toposorted()}
+    coords = set(grid.coords())
+    for nid, coord in placement.assignment.items():
+        node = nodes.get(nid)
+        if node is None:
+            raise PlacementError(f"assignment names unknown node {nid}")
+        if coord not in coords:
+            raise PlacementError(
+                f"tile {coord} outside the {grid.rows}x{grid.cols} grid")
+        if not _class_ok(node, coord, grid):
+            raise PlacementError(
+                f"node {node.name!r} (LARGE) assigned to SMALL tile {coord}")
+    missing = [n.node_id for n in graph.op_nodes()
+               if n.node_id not in placement.assignment]
+    if missing:
+        raise PlacementError(
+            f"assignment missing op nodes {missing[:5]}")
+
+
+# -- cost-model planning ------------------------------------------------------
+#
+# First-fit packing treats every placement of a graph as equally good and
+# every reclaim as equally cheap.  The planner replaces that with candidates
+# scored in SECONDS-equivalent cost, combining what the overlay measures:
+# per-hop dispatch latency, re-download prices (the fabric's EWMA ledger),
+# and how scarce fabric real estate currently is.  The pure pieces live
+# here; victim simulation (which needs the fabric) stays in ``overlay.py``.
+
+def placement_crowding(placement: Placement) -> int:
+    """Co-location pressure: total ops beyond the first on each tile.  Two
+    ops sharing one PR region serialize — the compact candidates the planner
+    generates pay for their density here."""
+    per_tile: dict[Coord, int] = {}
+    for coord in placement.assignment.values():
+        per_tile[coord] = per_tile.get(coord, 0) + 1
+    return sum(n - 1 for n in per_tile.values() if n > 1)
+
+
+def placement_footprint(placement: Placement) -> int:
+    """Distinct tiles a placement claims."""
+    return len(set(placement.assignment.values()))
 
 
 def candidate_budgets(n_ops: int, max_tiles: int | None = None) -> list[int | None]:
@@ -350,6 +411,36 @@ def candidate_placements(graph: Graph, grid: TileGrid, policy: PlacementPolicy,
             seen.add(desc)
             out.append(p)
     return out
+
+
+def score_placement(placement: Placement, *,
+                    hop_cost_s: float,
+                    crowd_cost_s: float,
+                    occupied_tiles: int,
+                    num_tiles: int,
+                    tile_pressure_s: float,
+                    victims_seconds: float = 0.0) -> float:
+    """Seconds-equivalent cost of adopting ``placement``.
+
+    ``victims_seconds``
+        total modeled re-download price of the residents that must be
+        reclaimed to make this placement feasible (0 when it fits as-is),
+    ``hop_cost_s`` × total route hops
+        steady-state routing penalty per dispatch horizon,
+    ``crowd_cost_s`` × :func:`placement_crowding`
+        serialization penalty of co-located operators,
+    footprint × (occupancy-after / tiles)² × ``tile_pressure_s``
+        opportunity cost of claiming scarce real estate: on an empty fabric
+        spreading out is free, near saturation every extra tile claimed is
+        a future reclaim someone else pays for.
+    """
+    footprint = placement_footprint(placement)
+    after = min(occupied_tiles + footprint, num_tiles)
+    pressure = (after / num_tiles) ** 2 if num_tiles else 0.0
+    return (victims_seconds
+            + hop_cost_s * placement.total_hops
+            + crowd_cost_s * placement_crowding(placement)
+            + tile_pressure_s * footprint * pressure)
 
 
 def place(graph: Graph, grid: TileGrid, policy: PlacementPolicy,

@@ -19,8 +19,15 @@ Decode is *ragged*: every slot carries its own KV position (``slot_pos``
 feeds ``decode_step(positions=...)``).  Each decode tick performs ONE fused
 on-device update (sample + advance positions) and ONE device-to-host copy.
 
+The fabric controls of the reference come along: :meth:`ServeEngine.compact`
+closes holes left by departed co-tenants and :meth:`ServeEngine.resize`
+changes the footprint cap, both by relocation (no re-download), and
+:meth:`ServeEngine.warmup` pays the downloads before traffic arrives.
+
 Port of ``ServeEngine`` in ``repro/serving/engine.py`` (synchronous
-overlays only; the event-loop engine and fleets wait for later slices).
+overlays only: the decode prefetch and its eager specialization ride the
+reference's asynchronous scheduler and wait with it, as do the event-loop
+engine and fleets).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.graph import TensorSpec
 from repro_torch.core.overlay import Overlay
 from repro_torch.device import resolve_device
 from repro_torch.models import model as mdl
@@ -63,6 +71,7 @@ def _fused_tick_update(logits, cur_tokens, slot_pos, live):
 class ServeEngine:
     def __init__(self, params: Any, cfg: ArchConfig, *, batch: int,
                  max_len: int, overlay: Overlay | None = None,
+                 tile_budget: int | None = None,
                  device: "str | torch.device | None" = None):
         self.params = params
         self.cfg = cfg
@@ -78,17 +87,62 @@ class ServeEngine:
         step = lambda p, t, c, pos: mdl.decode_step(p, cfg, t, c, positions=pos)
         pf = lambda p, toks, c: mdl.prefill(p, cfg, toks, c)
         if overlay is not None:
-            # a quarter of the fabric each, so engines and prompt-length
-            # variants co-reside
-            tile_budget = max(1, overlay.grid.num_tiles // 4)
+            # by default a quarter of the fabric each, so engines and
+            # prompt-length variants co-reside
+            if tile_budget is None:
+                tile_budget = max(1, overlay.grid.num_tiles // 4)
             self._decode = overlay.jit(step, name=f"{cfg.name}.decode",
                                        tile_budget=tile_budget)
             self._prefill = overlay.jit(pf, name=f"{cfg.name}.prefill",
                                         tile_budget=tile_budget)
         else:
             self._decode, self._prefill = step, pf
+        self.tile_budget = tile_budget
         self.cur_tokens = torch.zeros((batch, 1), dtype=torch.int32, device=self.device)
         self._live_mask = torch.zeros((batch,), dtype=torch.int32, device=self.device)
+
+    # -- fabric management (relocatable bitstreams) --------------------------
+    def compact(self) -> int:
+        """Close occupancy holes left by departed co-tenants.  Moves are
+        relocations — the engine's prefill/decode kernels survive, so
+        compaction is safe between ticks.  Returns residents moved (0
+        without an overlay)."""
+        if self.overlay is None:
+            return 0
+        return self.overlay.defragment()
+
+    def resize(self, tile_budget: int) -> None:
+        """Change the engine's per-accelerator footprint cap in place.  The
+        next prefill/decode dispatch repacks each resident under the new
+        budget via relocation (no re-download): grow when co-tenants leave,
+        shrink to make room before admitting another engine."""
+        if self.overlay is None:
+            raise ValueError("resize() needs an overlay-backed engine")
+        if tile_budget < 1:
+            raise ValueError("tile_budget must be >= 1")
+        self.tile_budget = tile_budget
+        self._decode.tile_budget = tile_budget
+        self._prefill.tile_budget = tile_budget
+
+    def warmup(self, prompt_lens: "tuple[int, ...]" = ()) -> None:
+        """Download the engine's kernels before traffic arrives: the ragged
+        decode step, plus one prefill per prompt length given.  Shapes only
+        (:class:`TensorSpec` pytrees): nothing executes and no engine state
+        changes.  No-op without an overlay."""
+        if self.overlay is None:
+            return
+        spec = lambda t: TensorSpec(tuple(t.shape), t.dtype, t.device)
+        params = pytree.tree_map(spec, self.params)
+        # the device as a tensor reports it (cuda:0, not cuda): it is part
+        # of the signature the calls will look up
+        ints = lambda *shape: TensorSpec(shape, torch.int32, self.slot_pos.device)
+        self._decode.prefetch(params, ints(self.batch, 1),
+                              pytree.tree_map(spec, self.caches), ints(self.batch))
+        if prompt_lens:
+            c1 = pytree.tree_map(spec, mdl.init_cache(self.cfg, 1, self.max_len,
+                                                      self.device))
+            for n in prompt_lens:
+                self._prefill.prefetch(params, ints(1, int(n)), c1)
 
     # -- admission -----------------------------------------------------------
     def submit(self, req: Request) -> None:

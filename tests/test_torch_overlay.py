@@ -290,8 +290,6 @@ def test_overlay_raises_on_deferred_options():
         Overlay(3, 3, store_path="x")
     with pytest.raises(TypeError):
         Overlay(3, 3, not_an_option=1)
-    with pytest.raises(NotImplementedError):
-        Overlay(3, 3).reconfigure(relocate=True)
 
 
 def test_unplaceable_graph_raises_without_evicting():
