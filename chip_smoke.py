@@ -84,6 +84,7 @@ unavailable or the port's sources are missing.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -92,6 +93,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -107,7 +109,7 @@ if not torch.cuda.is_available():
 from torch.utils import _pytree as pytree  # noqa: E402
 
 from repro_torch.configs import PAPER_VECTOR_LEN, get_config, smoke_config  # noqa: E402
-from repro_torch.core import Overlay, PlacementPolicy, place  # noqa: E402
+from repro_torch.core import FaultPlan, Overlay, PlacementPolicy, place  # noqa: E402
 from repro_torch.core import interpreter as interp  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
@@ -122,6 +124,7 @@ from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.models import params as pm  # noqa: E402
 from repro_torch.optim import adamw_init, constant, cosine  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.serving.loop import EventLoopEngine  # noqa: E402
 
 DEV = torch.device("cuda")
 SEED = 0
@@ -138,10 +141,17 @@ MAMBA_MAX_LEN = 4096 + 64
 MAMBA_TRAIN_STEPS = 3
 SSD_PATH = (24, 4096 // 64, 64, 64, 128)   # (batch*heads, chunks, L, p, n) of a 4096-token prefill
 MAMBA_D = 768
+# [serve-loop]: 8 requests, the last two shed by max_queue; prompts of 16
+# and 37 / 100 / 300 tokens reach prefill_chunk as chunks of 16 and 64
+LOOP_PROMPTS = (16, 37, 100, 300) * 2
+LOOP_BATCH, LOOP_MAX_LEN, LOOP_CHUNK, LOOP_NEW, LOOP_QUEUE = 2, 512, 64, 16, 6
+LOOP_FAULTS = dict(download_failure_rate=0.3, dispatch_failure_rate=0.02,
+                   resident_loss_rate=0.02)
 # rmsnorm's x on the main paths: phi3's serving prompt, batched prompt and
-# decode rows and its training x (d 3072); mamba2's prefills, one request at
-# a time, its training x and its decode rows (d 768)
-RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072),
+# decode rows, its event loop's full prefill chunk and its training x (d
+# 3072); mamba2's prefills, one request at a time, its training x and its
+# decode rows (d 768)
+RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOOP_CHUNK, 3072),
                   (TRAIN_BATCH, TRAIN_SEQ, 3072),
                   *((1, s, MAMBA_D) for s in MAMBA_PROMPTS), (MAMBA_BATCH, 1, MAMBA_D))
 
@@ -478,10 +488,17 @@ class Counted:
     """Counts calls of a serving step (prefill or decode) and keeps each
     call's host time.  The steps are host-bound (the card idles while Python
     issues the aten ops), so the time to issue a call is close to its time
-    to run; the tick's one device-to-host copy ends each decode call."""
+    to run; the tick's one device-to-host copy ends each decode call.  For
+    an overlay step it also counts the calls that found a valid
+    specialized dispatch record; other attributes (``prefetch``,
+    ``specialize``) are the step's own."""
 
     def __init__(self, fn):
         self.fn, self.calls, self.seconds, self.lengths = fn, 0, [], []
+        self.spec_calls = 0
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
 
     @property
     def tile_budget(self):              # ServeEngine.resize sets the step's budget
@@ -494,6 +511,12 @@ class Counted:
     def __call__(self, *args):
         self.calls += 1
         self.lengths.append(args[1].shape[1])      # tokens of the call
+        entries = getattr(self.fn, "_entries", None)
+        if entries and len(entries) == 1:          # the fast path's own validity test
+            rec = next(iter(entries.values())).record
+            if rec is not None and rec.tier == "specialized" and rec.res.live \
+                    and rec.res.generation == rec.generation:
+                self.spec_calls += 1
         t0 = time.perf_counter()
         out = self.fn(*args)
         self.seconds.append(time.perf_counter() - t0)
@@ -710,11 +733,15 @@ def phase_serve(gen: torch.Generator) -> dict:
     del eng_ov, eng_pl, ov
     ov, eng, relocated = phase_relocate(params, cfg, s_pl, gen)
     specialized = phase_specialize(params, cfg, s_pl, ov, eng)
-    del params, ov, eng
+    del ov, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    looped = phase_serve_loop(params, cfg)
+    del params
     torch.cuda.empty_cache()
     return {"launches": l_ov, "calls": calls, "tok_s_overlay": tokens / dt_ov,
             "tok_s_plain": tokens / dt_pl, "relocate": relocated,
-            "specialize": specialized}
+            "specialize": specialized, "serve_loop": looped}
 
 
 class TimedOverlay(Overlay):
@@ -920,6 +947,286 @@ def phase_specialize(params, cfg, want: list, ov: Overlay, engine: ServeEngine) 
         "synchronize; two runs in turns, inputs moved every call): " + "; ".join(
             f"{k} " + ", ".join(f"{h:.2f} / {e:.2f}" for h, e in v) for k, v in times.items()))
     return launches
+
+
+def phase_async_fig3(gen: torch.Generator) -> dict:
+    """[async-fig3] The paper's ``sum(a * b)`` at 2^24 f32, its LARGE
+    ``vmul_reduce`` form, through ``Overlay(3, 3, async_downloads=True).jit``:
+    the first call is served by the fallback (the function run eagerly,
+    which launches the kernel) while the kernel builds on the scheduler's
+    worker; after ``drain()`` the next call is served by the resident (its
+    dispatch queues the zero-hop specialization on the low lane: a CUDA
+    graph captured on the worker, whose warm-up walk launches the kernel
+    once); after another ``drain()`` a third call replays the graph.  The
+    three outputs must be bit-identical and every call must launch
+    vmul_reduce: launches = calls + warm-up walks."""
+    n = 1 << 24
+    a = torch.randn(n, generator=gen, device=DEV)
+    b = torch.randn(n, generator=gen, device=DEV)
+    ov = Overlay(3, 3, async_downloads=True)
+    builds = count_spec_builds(ov)
+    f = ov.jit(_fig3_large, name="vmul_reduce_large")
+    torch.cuda.synchronize()
+    reset_counters()                           # the driven path starts here
+    t0 = time.perf_counter()
+    y1 = f(a, b)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    after_first = counts()["vmul_reduce"]
+    check(ov.stats.fallback_calls == 1 and after_first == 1,
+          f"[async-fig3] first call: fallback_calls {ov.stats.fallback_calls}, "
+          f"vmul_reduce launches {after_first} (want 1 and 1)")
+    check(ov.drain(60), "[async-fig3] the download did not drain")
+    y2 = f(a, b)
+    (entry,) = f._entries.values()
+    tiers = [entry.record.tier]
+    check(ov.drain(60), "[async-fig3] the specialization did not drain")
+    y3 = f(a, b)
+    tiers.append(entry.record.tier)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(ov.stats.fallback_calls == 1, "[async-fig3] the resident did not serve the later calls")
+    check(torch.equal(y1, y2) and torch.equal(y1, y3),
+          f"[async-fig3] outputs differ: fallback {y1.item()!r}, resident {y2.item()!r}, "
+          f"specialized {y3.item()!r}")
+    check(launches["vmul_reduce"] == 3 + builds[0] and builds[0] == 1,
+          f"[async-fig3] vmul_reduce launched {launches['vmul_reduce']} for 3 calls and "
+          f"{builds[0]} warm-up walks")
+    check(abs(y1.item() - torch.dot(a, b).item()) <= 1e-5 * (a * b).abs().sum().item(),
+          "[async-fig3] sum(a*b) disagrees with torch.dot")
+    sched = ov.scheduler.describe()
+    log(f"[async-fig3] n={n} f32 on Overlay(3, 3, async_downloads=True): call 1 by the "
+        f"fallback in {first_ms:.1f} ms (trace {entry.trace_seconds:.2f} s), kernel built "
+        f"on the worker in {entry.assemble_seconds * 1e3:.1f} ms; call 2 on the {tiers[0]} "
+        f"tier, call 3 on the {tiers[1]} tier; outputs bit-identical; fallback_calls "
+        f"{ov.stats.fallback_calls}; scheduler submitted {sched['submitted']}, low jobs "
+        f"{sched['low_jobs']}; launches {launches}")
+    ov.close()
+    return launches
+
+
+def count_spec_builds(ov: Overlay) -> list:
+    """Count the overlay's route-constant builds (through its
+    ``_compile_specialized_tier`` seam): on the card each one makes one eager
+    warm-up walk, whose launches are real, before its capture."""
+    n = [0]
+    build = ov._compile_specialized_tier
+
+    def counted(pending):
+        n[0] += 1
+        return build(pending)
+
+    ov._compile_specialized_tier = counted
+    return n
+
+
+def loop_requests(cfg) -> list:
+    rng = np.random.default_rng(SEED)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=(n,)).tolist(),
+                    max_new_tokens=LOOP_NEW, priority=i % 2)
+            for i, n in enumerate(LOOP_PROMPTS)]
+
+
+class TickClock:
+    """Wraps an engine's ``step``: each tick's host seconds, split by whether
+    a background job of the overlay was queued or running when it began or
+    when it ended.  :meth:`detach` drops the engine (a clock kept for its
+    summary must not keep an engine's graphs alive)."""
+
+    def __init__(self, engine, overlay):
+        self.step, self.overlay = engine.step, overlay
+        self.busy, self.idle = [], []
+        engine.step = self
+
+    def __call__(self):
+        busy = self._in_flight()
+        t0 = time.perf_counter()
+        out = self.step()
+        dt = time.perf_counter() - t0
+        (self.busy if busy or self._in_flight() else self.idle).append(dt)
+        return out
+
+    def _in_flight(self) -> bool:
+        return self.overlay is not None and self.overlay.scheduler.outstanding() > 0
+
+    def detach(self) -> None:
+        self.step = self.overlay = None
+
+    def summary(self) -> str:
+        p50 = lambda xs: f"{float(np.median(xs)) * 1e3:.1f} ms" if xs else "none"
+        return (f"tick p50 with a background job in flight {p50(self.busy)} "
+                f"({len(self.busy)} ticks), without {p50(self.idle)} ({len(self.idle)} ticks)")
+
+
+def serve_loop(params, cfg, overlay) -> dict:
+    """One [serve-loop] run: the 8 requests in one burst against
+    ``max_queue=6`` (the last two shed as ``queue_full``), drained."""
+    engine = EventLoopEngine(params, cfg, batch=LOOP_BATCH, max_len=LOOP_MAX_LEN,
+                             overlay=overlay, chunk=LOOP_CHUNK, max_queue=LOOP_QUEUE,
+                             device=DEV)
+    engine._prefill_chunk = Counted(engine._prefill_chunk)
+    engine._decode = Counted(engine._decode)
+    builds = count_spec_builds(overlay) if overlay is not None else [0]
+    ticks = TickClock(engine, overlay)
+    reqs = loop_requests(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()                           # the driven path starts here
+    t0 = time.perf_counter()
+    accepted = [engine.submit(r) for r in reqs]
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if overlay is not None:
+        check(overlay.drain(120), "[serve-loop] background jobs did not drain")
+        torch.cuda.synchronize()
+    launches = counts()
+    return {"engine": engine, "done": done, "accepted": accepted, "seconds": dt,
+            "launches": launches, "builds": builds[0], "ticks": ticks,
+            "streams": {r.rid: r.out for r in done},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def loop_signatures(engine) -> str:
+    """Each traced signature's trace seconds and assembly seconds (for a
+    background download, the worker's kernel build), in order of first call."""
+    out = []
+    sizes = list(dict.fromkeys(engine._prefill_chunk.lengths))
+    for n, entry in zip(sizes, engine._prefill_chunk.fn._entries.values()):
+        out.append(f"prefill_chunk({n}) trace {entry.trace_seconds:.2f} s, assembly "
+                   f"{entry.assemble_seconds:.3f} s")
+    for entry in engine._decode.fn._entries.values():
+        out.append(f"decode trace {entry.trace_seconds:.2f} s, assembly "
+                   f"{entry.assemble_seconds:.3f} s")
+    return "; ".join(out)
+
+
+def phase_serve_loop(params, cfg) -> dict:
+    """[serve-loop] phi3-mini-3.8b at full width (the [serve] weights)
+    through ``EventLoopEngine`` (batch 2, max_len 512, chunk 64): 8 requests
+    of 16, 37, 100 and 300 tokens (twice each, from the seed), 16 new
+    tokens each, priorities 0 and 1 alternating, submitted in one burst
+    against ``max_queue=6``.  Runs: (a) plain (``overlay=None``), (b)
+    ``Overlay(3, 3, async_downloads=True)``, (c) the same with a fault plan,
+    (d) a synchronous ``Overlay(3, 3)`` (for the time to first token).
+    Every run sheds exactly the last two requests as ``queue_full``; (b),
+    (c) and (d) stream exactly what (a) streams; every chunk that reaches
+    ``prefill_chunk`` is 16 or 64 tokens; rmsnorm launches 65 times for
+    every prefill-chunk and decode call and every specialization's warm-up
+    walk, all on the warp kernel; on (b) decode reaches the CUDA-graph tier
+    through a low-lane capture made while serving; (c) records at least
+    one download failure and completes every admitted request.  The
+    synchronous ``ServeEngine``'s streams on the same requests are printed
+    beside them, not required (a 64-token chunk and a whole prompt may get
+    different cuBLAS algorithms)."""
+    norms = 2 * cfg.num_layers + 1
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    runs = {}
+    for name, make in (("plain", lambda: None),
+                       ("async", lambda: Overlay(3, 3, async_downloads=True)),
+                       ("async+faults", lambda: Overlay(
+                           3, 3, async_downloads=True, faults=FaultPlan(SEED, **LOOP_FAULTS))),
+                       ("sync-overlay", lambda: Overlay(3, 3))):
+        ov = make()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", RuntimeWarning)
+            run = serve_loop(params, cfg, ov)
+        eng = run["engine"]
+        shed = [(r.rid, r.shed_reason) for r in eng.shed]
+        check(run["accepted"] == [True] * LOOP_QUEUE + [False] * 2
+              and shed == [(6, "queue_full"), (7, "queue_full")],
+              f"[serve-loop] {name}: shed {shed}, accepted {run['accepted']}")
+        check(len(run["done"]) == LOOP_QUEUE and all(
+            len(s) == 1 + LOOP_NEW and all(0 <= t < cfg.vocab_size for t in s)
+            for s in run["streams"].values()),
+            f"[serve-loop] {name}: {len(run['done'])} requests completed")
+        sizes = set(eng._prefill_chunk.lengths)
+        check(sizes == {16, 64}, f"[serve-loop] {name}: prefill chunk sizes {sizes}")
+        calls = eng._prefill_chunk.calls + eng._decode.calls
+        l = run["launches"]
+        check(l["rmsnorm"] == norms * (calls + run["builds"]) and l["rmsnorm/warp"] == l["rmsnorm"],
+              f"[serve-loop] {name}: rmsnorm launches {l['rmsnorm']} (warp "
+              f"{l['rmsnorm/warp']}) != {norms} x ({calls} calls + {run['builds']} warm-up walks)")
+        run["calls"] = {"prefill_chunk": eng._prefill_chunk.calls, "decode": eng._decode.calls}
+        run["warnings"] = len(caught)
+        run["metrics"] = eng.metrics()
+        run["spec_calls"] = eng._decode.spec_calls
+        first = next(r for r in run["done"] if r.rid == 0)
+        run["ttft0"] = first.first_token_time - first.submit_time
+        if name != "plain":
+            check(run["streams"] == runs["plain"]["streams"],
+                  f"[serve-loop] {name} streams differ from plain:\n{run['streams']}\n"
+                  f"{runs['plain']['streams']}")
+        if ov is not None:
+            run["signatures"] = loop_signatures(eng)
+            run["describe"] = ov.describe()
+            run["ledger"] = ov.failure_ledger()
+            run["tiers"] = {r.name.split(".")[-1]: r.tier for r in ov.fabric.residents.values()}
+            run["graph"] = any(isinstance(r.spec_fn.func, interp.GraphKernel)
+                               for r in ov.fabric.residents.values()
+                               if r.tier == "specialized" and r.name.endswith(".decode"))
+            ov.close()
+        runs[name] = run
+        run.pop("engine")
+        run["ticks"].detach()
+        del eng, ov
+        gc.collect()
+        torch.cuda.empty_cache()
+    b, c = runs["async"], runs["async+faults"]
+    check(b["tiers"].get("decode") == "specialized" and b["graph"]
+          and b["describe"]["scheduler"]["low_jobs"] >= 1
+          and b["describe"]["specialization"]["specialized_hits"] > 0,
+          f"[serve-loop] async: decode did not reach the CUDA-graph tier through the low lane "
+          f"(tiers {b['tiers']}, scheduler {b['describe']['scheduler']})")
+    check(not any(b["ledger"].values()), f"[serve-loop] async without faults: ledger {b['ledger']}")
+    check(c["ledger"]["download_failures"] >= 1,
+          f"[serve-loop] async+faults: no download failure in the ledger {c['ledger']}")
+    # the synchronous engine on the same admitted requests, for comparison only
+    sync = ServeEngine(params, cfg, batch=LOOP_BATCH, max_len=LOOP_MAX_LEN, device=DEV)
+    for r in loop_requests(cfg)[:LOOP_QUEUE]:
+        sync.submit(r)
+    sync_streams = {r.rid: r.out for r in sync.run_until_drained()}
+    agree = sum(sync_streams[k] == v for k, v in runs["plain"]["streams"].items())
+    del sync
+    gc.collect()
+    torch.cuda.synchronize()
+    left = (torch.cuda.memory_allocated() - mem0) / 2**30
+    check(left < 1.0, f"[serve-loop] {left:.2f} GiB still allocated after the runs (a graph or "
+                      f"an engine kept alive)")
+    for name, run in runs.items():
+        tokens = sum(len(s) for s in run["streams"].values())
+        d = run.get("describe")
+        log(f"[serve-loop] {name}: {tokens} tokens in {run['seconds']:.2f} s "
+            f"({tokens / run['seconds']:.1f} tok/s); calls {run['calls']}, decode calls on "
+            f"the specialized tier {run['spec_calls']}; request 0's time "
+            f"to first token {run['ttft0']:.3f} s; {run['ticks'].summary()}; max_memory_allocated "
+            f"{run['peak_gib']:.2f} GiB; launches {run['launches']}; warm-up walks "
+            f"{run['builds']}; RuntimeWarnings {run['warnings']}")
+        log(f"[serve-loop] {name} metrics: {json.dumps(run['metrics'])}")
+        if d is not None:
+            sched = d["scheduler"]
+            log(f"[serve-loop] {name} overlay: fallback_calls {d['fallback_calls']}, "
+                f"prefetch_hits {d['prefetch_hits']}, downloads {d['downloads']}, "
+                f"stale_downloads {d['stale_downloads']}, traces {d['traces']} "
+                f"({d['trace_seconds']:.1f} s); scheduler submitted {sched['submitted']}, "
+                f"coalesced {sched['coalesced']}, completed {sched['completed']}, low jobs "
+                f"{sched['low_jobs']}, priority jobs {sched['priority_jobs']}, dropped stale "
+                f"{sched['dropped_stale']}, cancelled {sched['cancelled']}, failed "
+                f"{sched['failed']}, worker seconds {sched['download_seconds']:.2f}; "
+                f"specialized dispatches {d['specialization']['specialized_hits']} "
+                f"(specializations {d['specialization']['specializations']}, dropped "
+                f"{d['specialization']['dropped_stale']}); tiers {run['tiers']}; "
+                f"{run['signatures']}")
+            log(f"[serve-loop] {name} failure ledger: {run['ledger']}")
+    log(f"[serve-loop] admitted streams identical across plain, async, async+faults and "
+        f"sync-overlay; the synchronous ServeEngine agrees on {agree} of {LOOP_QUEUE} "
+        f"requests (printed, not required); {left:.3f} GiB left allocated after the runs")
+    launches = {}
+    for name in ("plain", "async", "async+faults"):
+        for k, v in runs[name]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"launches": launches, "sync_overlay_launches": runs["sync-overlay"]["launches"]}
 
 
 def _sync_ms(fn) -> tuple:
@@ -1307,6 +1614,15 @@ def phase_launcher() -> None:
         log(f"[launcher] {line}")
     check(rc == 0 and "4/4 requests" in text and "on cuda" in text,
           "serve launcher did not serve mamba2-130m on the card")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(["--arch", "phi3-mini-3.8b", "--smoke", "--event-loop",
+                             "--overlay"])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[launcher] {line[:400]}")
+    check(rc == 0 and "8/8 requests" in text and "on cuda" in text and "metrics" in text,
+          "the event-loop serve launcher did not serve phi3-mini (smoke) on the card")
     with tempfile.TemporaryDirectory() as ckpt:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -1368,7 +1684,8 @@ def flash_bound_ms(b: int, hq: int, hkv: int, s: int, d: int) -> tuple[float, st
 
 
 VMUL_SWEEP = tuple(1 << k for k in range(12, 19))
-RMSNORM_TIMED = ((BATCH, 3072), (PROMPT, 3072), (BATCH * PROMPT, 3072), (TRAIN_SEQ, 3072),
+RMSNORM_TIMED = ((BATCH, 3072), (PROMPT, 3072), (BATCH * PROMPT, 3072), (LOOP_CHUNK, 3072),
+                 (TRAIN_SEQ, 3072),
                  (8192, 3072), (TRAIN_SEQ, MAMBA_D), (MAMBA_BATCH, MAMBA_D))
 
 
@@ -1633,6 +1950,7 @@ def main() -> int:
     errs = phase_kernel_checks(gen)
     phase_one_launch(gen)
     paper = phase_overlay_paper(gen)
+    async_fig3 = phase_async_fig3(gen)
     served = phase_serve(gen)
     trained = phase_train()
     phase_train_overlay()
@@ -1642,8 +1960,11 @@ def main() -> int:
     phase_small_train_reference()
     phase_small_mamba_reference()
     phase_launcher()
-    by_path = {"fig3": paper["launches"], "serve": served["launches"],
+    by_path = {"fig3": paper["launches"], "async_fig3": async_fig3,
+               "serve": served["launches"],
                "relocate": served["relocate"], "specialize": served["specialize"],
+               "serve_loop": served["serve_loop"]["launches"],
+               "serve_loop_sync_overlay": served["serve_loop"]["sync_overlay_launches"],
                "train": trained["launches"], "serve_mamba": served_mamba["launches"],
                "serve_mamba_cost_model": served_mamba["launches_cost_model"],
                "train_mamba": trained_mamba["launches"]}

@@ -18,11 +18,16 @@ Public API (frontend first — the paper's programming model):
       its specialized tier
   fabric.Fabric / ResidentAccelerator      — shared-fabric tile residency,
       relocation
+  scheduler.DownloadScheduler / DownloadHandle — the asynchronous
+      PR-download pipeline (priority, FIFO and low lanes)
+  faults.FaultPlan / FaultError            — seeded, replayable fault
+      injection for the failure model
 """
 
 from repro_torch.core.cache import (BitstreamCache, SpecializationStats,
                                     kernel_key, signature_of, spec_key)
 from repro_torch.core.fabric import Fabric, FabricError, ResidentAccelerator
+from repro_torch.core.faults import FaultError, FaultPlan
 from repro_torch.core.graph import (Graph, NodeRef, TensorSpec, branchy_graph,
                                     saxpy_graph, vmul_reduce_graph)
 from repro_torch.core.interpreter import (AssembledAccelerator, GraphKernel,
@@ -43,10 +48,12 @@ from repro_torch.core.placement import (Placement, PlacementError,
                                         place, place_dynamic, place_static,
                                         placement_crowding,
                                         placement_footprint, score_placement)
+from repro_torch.core.scheduler import DownloadHandle, DownloadScheduler
 from repro_torch.core.trace import Lowered, TraceError, trace_to_graph
 
 __all__ = [
-    "AssembledAccelerator", "BitstreamCache", "Fabric", "FabricError",
+    "AssembledAccelerator", "BitstreamCache", "DownloadHandle",
+    "DownloadScheduler", "Fabric", "FabricError", "FaultError", "FaultPlan",
     "Graph", "GraphKernel", "JitAssembled", "Kernel", "LIBRARY", "Lowered",
     "NodeRef", "Opcode", "Operator", "Overlay", "OverlayStats", "Placement",
     "PlacementError", "PlacementPolicy", "Program", "ResidentAccelerator",

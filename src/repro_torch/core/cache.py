@@ -82,7 +82,7 @@ def spec_key(kernel_key: str, hops: "tuple[int, ...]") -> str:
     return f"{kernel_key}|spec|{','.join(map(str, hops))}"
 
 
-def _release(exe: Any) -> None:
+def release_artifact(exe: Any) -> None:
     """Free what a dropped specialized artifact holds on the device (a
     captured graph and its memory pool); plain walks hold nothing."""
     release = getattr(exe, "release", None)
@@ -162,6 +162,15 @@ class BitstreamCache:
             self.drop_specialized(old)
             self.stats.evictions += 1
 
+    def insert_compiled(self, key: str, exe: Any, compile_seconds: float) -> None:
+        """Store a kernel built *outside* the cache (the asynchronous
+        pipeline builds on a worker thread, then publishes here).  Books
+        what a ``get_or_compile`` miss books: a background download is
+        still a download."""
+        self.stats.misses += 1
+        self.stats.compile_seconds += compile_seconds
+        self.put(key, exe)
+
     def put(self, key: str, exe: Any) -> None:
         """Store an artifact built outside :meth:`get_or_compile` (no miss
         is booked; an insertion is, for a new key)."""
@@ -191,7 +200,7 @@ class BitstreamCache:
         if key not in self._specialized:
             self.spec_stats.specializations += 1
         else:
-            _release(self._specialized[key])
+            release_artifact(self._specialized[key])
         self.spec_stats.compile_seconds += compile_seconds
         self._specialized[key] = exe
 
@@ -202,7 +211,7 @@ class BitstreamCache:
         prefix = f"{kernel_key}|spec|"
         doomed = [k for k in self._specialized if k.startswith(prefix)]
         for k in doomed:
-            _release(self._specialized.pop(k))
+            release_artifact(self._specialized.pop(k))
         return len(doomed)
 
     def drop_specialized_exact(self, key: str) -> int:
@@ -213,7 +222,7 @@ class BitstreamCache:
         exe = self._specialized.pop(key, None)
         if exe is None:
             return 0
-        _release(exe)
+        release_artifact(exe)
         return 1
 
     def specialized_count(self) -> int:
@@ -266,7 +275,7 @@ class BitstreamCache:
         for k in doomed:
             del self._store[k]
         for k in [k for k in self._specialized if k.startswith(prefix)]:
-            _release(self._specialized.pop(k))
+            release_artifact(self._specialized.pop(k))
         self.stats.evictions += len(doomed)
         return len(doomed)
 
@@ -277,5 +286,5 @@ class BitstreamCache:
         self._store.clear()
         self._routes.clear()
         for exe in self._specialized.values():
-            _release(exe)
+            release_artifact(exe)
         self._specialized.clear()

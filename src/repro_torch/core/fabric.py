@@ -89,6 +89,7 @@ class ResidentAccelerator:
     # the total hop count of the route program
     dispatch_hist: Any = None
     route_cost: int = 0
+    dispatch_failures: int = 0     # dispatches that raised (failure ledger)
 
 
 def _occupants_of(graph: Graph, placement: Placement) -> dict[Coord, tuple[TileClass, ...]]:
@@ -378,6 +379,7 @@ class Fabric:
                           "specializing": res.spec_pending,
                           "last_used": res.last_used,
                           "route_cost": res.route_cost,
+                          "dispatch_failures": res.dispatch_failures,
                           "dispatch_latency": res.dispatch_hist.summary()}
                 for res in self.lru_order()
             },

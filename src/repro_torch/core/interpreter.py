@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 import weakref
 from functools import partial
 from typing import Any, Callable
@@ -311,57 +312,81 @@ def _capture_stream(device_index: int) -> "torch.cuda.Stream":
     return torch.cuda.Stream(device=device_index)
 
 
+# captures share their device's side stream: one at a time per process
+_capture_lock = threading.Lock()
+
+
 class GraphKernel:
     """A route-constant walk captured once as a ``torch.cuda.CUDAGraph``
     and replayed on every call — the specialized artifact on the card.
 
-    Built from example inputs (copied into private static buffers of the
-    same layout): one eager warm-up walk on the capture stream (it builds
-    and opts in every kernel, allocates per-stream workspaces and starts
-    cuBLAS there), then the capture.  A call copies into the static buffers
-    only the inputs that are not the tensor last copied at its current
-    version (parameters stay put), replays the graph and returns copies of
-    the outputs: the graph's own outputs are overwritten by the next
-    replay, and a value returned by one call must not change after the
-    next.  A replay runs no wrapper, so the kernels' launch counters are
-    advanced by what the capture recorded, once a replay.  A failed capture
-    or replay raises; :meth:`release` frees the graph and its memory pool.
+    Built from example inputs, on the thread that asks for the tier (the
+    serving thread on a synchronous overlay, a scheduler worker on an
+    asynchronous one, while the serving thread keeps launching work):
+
+    * the inputs' versions are read, then each input is copied into a
+      private static buffer of the same layout on the calling thread's
+      current stream (the device's default stream on a worker, which is
+      also the serving thread's unless it switched): the copies see every
+      write issued there before them, and a write after the version read
+      makes the next call copy that input again;
+    * one eager warm-up walk on the capture stream, after it waits for the
+      copies (it builds and opts in every kernel, allocates per-stream
+      workspaces and starts cuBLAS there);
+    * the capture, in ``"thread_local"`` error mode: CUDA then forbids
+      unsafe calls (a synchronize, an event query) only on the capturing
+      thread, so the serving thread's allocations and its device-to-host
+      copies go on.  The capture's launches are booked on this thread's
+      record (:func:`~repro_torch.kernels.native.recording_launches`), so
+      launches the serving thread makes meanwhile stay its own.  The
+      device-wide synchronize and cache release that ``torch.cuda.graph``
+      does first are skipped: they would stall the serving thread.
+
+    The default stream then waits for the capture stream, so no replay
+    reads a buffer before the warm-up and capture are done.  A call copies
+    into the static buffers only the inputs that are not the tensor last
+    copied at its current version (parameters stay put), replays the graph
+    on the caller's current stream and returns copies of the outputs: the
+    graph's own outputs are overwritten by the next replay, and a value
+    returned by one call must not change after the next.  Each replay adds
+    the launches its capture recorded to the kernels' counters.  A failed
+    capture or replay raises; :meth:`release` frees the graph and its
+    memory pool.
     """
 
     def __init__(self, kernel: SpecializedKernel, inputs: "tuple[torch.Tensor, ...]") -> None:
-        from repro_torch.kernels.ops import LAUNCH_COUNTERS
+        from repro_torch.kernels.native import recording_launches
 
         if not inputs or any(x.device.type != "cuda" for x in inputs):
             raise ValueError(f"{kernel.name!r}: a CUDA graph needs every input on "
                              f"the card")
         self.name = kernel.name
         device = inputs[0].device
-        self._static_in = [_copy_pass(x) for x in inputs]
-        self._seen = [(weakref.ref(x), x._version) for x in inputs]
-        stream = _capture_stream(device.index)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            kernel(None, *self._static_in)
-        torch.cuda.current_stream(device).wait_stream(stream)
-        before = [(c.count, dict(c.by_variant)) for c in LAUNCH_COUNTERS]
-        self._graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self._graph, stream=stream):
-                self._static_out = kernel(None, *self._static_in)
-        finally:
-            # the capture recorded launches without running them: take them
-            # back off the counters and add them once a replay instead
-            self._launches = []
-            for c, (count, by_variant) in zip(LAUNCH_COUNTERS, before):
-                delta = {v: n - by_variant[v] for v, n in c.by_variant.items()}
-                if c.count != count:
-                    self._launches.append((c, c.count - count, delta))
-                c.count, c.by_variant = count, by_variant
+        with torch.cuda.device(device), _capture_lock:
+            self._seen = [(weakref.ref(x), x._version) for x in inputs]
+            self._static_in = [_copy_pass(x) for x in inputs]
+            default = torch.cuda.current_stream(device)
+            stream = _capture_stream(device.index)
+            stream.wait_stream(default)
+            self._graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                kernel(None, *self._static_in)
+                with recording_launches() as record:
+                    self._graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        self._static_out = kernel(None, *self._static_in)
+                    finally:
+                        self._graph.capture_end()
+            default.wait_stream(stream)
+        self._launches = [(c, v, n) for (c, v), n in record.items()]
         self.replays = 0
 
     def launches_per_replay(self) -> dict[str, int]:
         """Kernel launches one replay makes, by kernel name."""
-        return {c.name: n for c, n, _ in self._launches}
+        out: dict[str, int] = {}
+        for c, _, n in self._launches:
+            out[c.name] = out.get(c.name, 0) + n
+        return out
 
     def __call__(self, routes: Any, *inputs):
         if self._graph is None:
@@ -376,10 +401,8 @@ class GraphKernel:
                 self._seen[i] = (weakref.ref(x), x._version)
         self._graph.replay()
         self.replays += 1
-        for c, n, by_variant in self._launches:
-            c.count += n
-            for v, m in by_variant.items():
-                c.by_variant[v] += m
+        for c, variant, n in self._launches:
+            c.add(variant, n)
         return pytree.tree_map(_copy_pass, self._static_out)
 
     def release(self) -> None:

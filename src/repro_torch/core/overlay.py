@@ -21,6 +21,17 @@ Also provided, mirroring the paper's runtime controls:
 
 * ``Overlay.aot(fn, *args)``  — ahead-of-time bitstream-cache population
   (pay the "PR download" before traffic arrives),
+* ``Overlay(async_downloads=True)`` — the asynchronous PR-download
+  pipeline: a miss is served at once by a fallback (the traced function run
+  eagerly, the paper's software fallback while the bitstream downloads, or
+  the prior generation's accelerator) while the kernel builds on a
+  :class:`~repro_torch.core.scheduler.DownloadScheduler` worker and swaps
+  in; ``jitted.prefetch(*args)`` starts a download ahead of demand,
+* the failure model — ``faults=FaultPlan(...)`` injects download,
+  dispatch and resident-loss faults; a failed download retries on a
+  deterministic backoff clock behind a per-entry circuit breaker, a failed
+  dispatch evicts the suspect resident and serves the call from the
+  fallback, and :meth:`Overlay.failure_ledger` counts it all,
 * ``Overlay.reconfigure()``   — flush the fabric: placements + bitstreams
   (``relocate=True`` moves residents instead — kernels survive),
 * ``Overlay.evict(name)``     — free one accelerator's PR regions,
@@ -31,32 +42,37 @@ Also provided, mirroring the paper's runtime controls:
 * tiered route specialization — ``jitted.specialize(*args)`` builds the
   route-constant tier for a resident (on the card: the walk captured once
   as a CUDA graph, replayed on every dispatch) and swaps the dispatch
-  record onto it; any relocation instantly despecializes back to the
+  record onto it; on an asynchronous overlay the build rides the
+  scheduler's low lane; any relocation instantly despecializes back to the
   generic kernel,
 * ``Overlay(cost_model_placement=True)`` — candidate placements scored in
   seconds-equivalent cost instead of first-fit, and priced reclaims,
 * ``Overlay.assemble(graph)`` — the low-level IR path (hand-built Graphs),
-  idempotent and cached: re-assembling the same graph signature is a hit.
+  idempotent and cached.
 
 All accelerators of one overlay co-reside on one :class:`Fabric`; an
 admission that does not fit reclaims least-recently-used residents.  A
 resident hit dispatches through an immutable per-entry dispatch record that
-one generation read validates.
+one generation read validates, without the overlay lock; every fabric and
+cache mutation, foreground or a worker's commit, holds it.
 
-Port of the synchronous subset of ``repro/core/overlay.py``.  The overlay is
-synchronous: where the reference queues work on its scheduler (a
-specialization on the low lane, a rebind after a relocation), the port does
-it inline.  Asynchronous downloads and the scheduler, the failure model,
-the persistent store, the fleet, donation and the sanitizer wait for later
-slices: the port's :class:`Overlay` raises on the keyword arguments that ask
-for them instead of ignoring them.
+Port of ``repro/core/overlay.py``.  Where the reference queues work on its
+scheduler on a synchronous overlay too (an auto-specialization, a rebind
+after a relocation), the port does it inline there and queues it only on an
+asynchronous overlay.  The trace stays on the caller, as in the reference:
+the asynchronous pipeline hides the assembly, not the trace.  Sharded
+assembly (``mesh``), the persistent store, donation and the sanitizer wait
+for later slices: the port's :class:`Overlay` raises on the keyword
+arguments that ask for them instead of ignoring them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 import time
+import warnings
 import weakref
 from typing import Any, Callable
 
@@ -68,36 +84,32 @@ from repro_torch.core import interpreter as interp
 from repro_torch.core import trace as trace_lib
 from repro_torch.core.cache import BitstreamCache
 from repro_torch.core.fabric import Fabric, FabricError, ResidentAccelerator
+from repro_torch.core.faults import FaultError, FaultPlan
 from repro_torch.core.graph import Graph
 from repro_torch.core.isa import Program, compile_graph
 from repro_torch.core.placement import (Coord, Placement, PlacementError,
                                         PlacementPolicy, TileGrid,
                                         candidate_placements, check_assignment,
                                         place, score_placement)
+from repro_torch.core.scheduler import DownloadHandle, DownloadScheduler
 from repro_torch.serving.metrics import Histogram
 
 logger = logging.getLogger(__name__)
 
-# a resident whose specialization keeps failing stops being retried at its
-# routes after this many attempts (the cap resets on relocation)
-_MAX_SPEC_FAILURES = 3
+# a persistently failing download opens its breaker after this many attempts
+# (the default breaker_threshold), and a resident whose specialization keeps
+# failing stops being retried at its routes after as many (the cap resets on
+# relocation)
+_MAX_DOWNLOAD_FAILURES = 3
 
 # Overlay keyword arguments of the reference that belong to later slices of
 # the port, and the subsystem each asks for.
 _DEFERRED = {
     "mesh": "sharded assembly across devices",
     "tile_axis": "sharded assembly across devices",
-    "async_downloads": "the asynchronous download scheduler",
-    "download_workers": "the asynchronous download scheduler",
     "sanitize": "the invariant sanitizer",
     "store": "the persistent bitstream store",
     "store_path": "the persistent bitstream store",
-    "faults": "the failure model",
-    "breaker_threshold": "the failure model",
-    "retry_backoff": "the failure model",
-    "breaker_probe_after": "the failure model",
-    "download_deadline": "the failure model",
-    "drain_timeout": "the asynchronous download scheduler",
 }
 
 
@@ -115,6 +127,16 @@ class OverlayStats:
     defrag_failures: int = 0    # defrag passes aborted by an unplaceable survivor
     prefetches: int = 0         # downloads begun on a hint, not a demand
     prefetch_hits: int = 0      # demand requests satisfied by a prior prefetch
+    fallback_calls: int = 0     # calls served by a fallback mid-download
+    stale_downloads: int = 0    # background results dropped (generation flushed)
+    download_failures: int = 0  # download attempts that raised
+    download_retries: int = 0   # re-attempts after a backoff window elapsed
+    breaker_opens: int = 0      # entries pinned to fallback (failure cap hit)
+    breaker_probes: int = 0     # probe downloads while a breaker was open
+    breaker_closes: int = 0     # breakers re-closed by a successful probe
+    dispatch_failures: int = 0  # resident dispatches that raised
+    dispatch_fallbacks: int = 0 # failed dispatches served by the fallback
+    resident_losses: int = 0    # residents lost at dispatch time (injected)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,15 +161,43 @@ class _JitEntry:
     acc: interp.AssembledAccelerator | None   # None: traced but not assembled
     trace_seconds: float            # capture + aten->Graph lowering
     assemble_seconds: float = 0.0   # placement + ISA compile + kernel build
+    closed: Callable[..., Any] | None = None  # traced closure (eager fallback)
+    pending: DownloadHandle | None = None     # in-flight background download
+    download_failures: int = 0                # consecutive failed downloads
     record: _DispatchRecord | None = None
+    # deterministic retry/backoff clock: `calls` ticks once per slow-path
+    # call and every retry decision keys on it, never on wall-clock, so a
+    # failure schedule replays exactly.  The breaker pins a repeatedly
+    # failing entry to its fallback; while "open" only probe downloads
+    # (every `probe_interval` calls, doubling per failed probe) are
+    # attempted, and one success re-closes it.
+    calls: int = 0
+    retry_at: int = 0
+    breaker: str = "closed"                   # "closed" | "open"
+    breaker_opened_at: int = 0
+    probe_interval: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class _PendingDownload:
+    """What a background download builds from, and what its commit checks
+    to publish the kernel or recognize it went stale."""
+
+    rid: str
+    generation: int
+    key: str
+    graph: Graph
 
 
 @dataclasses.dataclass(frozen=True)
 class _PendingSpecialize:
-    """What a specialization is built from: the baked hop constants
-    describe one placement, the resident's current one."""
+    """What a specialization is built from.  Unlike a download (a
+    ``same_residency`` guard — kernels are placement-free), its commit
+    validates the EXACT generation: the baked hop constants describe one
+    placement, so a relocation in flight makes the build useless."""
 
     rid: str
+    generation: int                    # exact — relocation invalidates
     key: str                           # generic kernel key being specialized
     spec_key: str                      # key + baked hop vector
     graph: Graph
@@ -216,26 +266,169 @@ class JitAssembled:
             dt = time.perf_counter() - t0
             self.overlay.stats.traces += 1
             self.overlay.stats.trace_seconds += dt
-            entry = _JitEntry(lowered=lowered, acc=None, trace_seconds=dt)
+            entry = _JitEntry(lowered=lowered, acc=None, trace_seconds=dt,
+                              closed=closed)
             self._entries[key] = entry
         return entry
 
-    def _entry(self, args: tuple, *, _presplit=None) -> _JitEntry:
+    def _swap(self, entry: _JitEntry, acc, t0: float,
+              handle: DownloadHandle | None) -> None:
+        """Background-download completion: publish the assembled
+        accelerator (``acc is None``: download cancelled, stale or failed —
+        clear the pending marker so the next call asks again)."""
+        if handle is not None and entry.pending is not None \
+                and entry.pending is not handle:
+            # a superseded job's late delivery (the pre-reconfigure
+            # download, flushed and replaced): the live download owns the
+            # entry
+            return
+        if acc is not None:
+            entry.acc = acc
+            # the handle's measured worker time is the download cost; the
+            # submit->delivery wall clock would also bill queue wait
+            entry.assemble_seconds = (handle.seconds if handle is not None
+                                      and handle.seconds > 0.0
+                                      else time.perf_counter() - t0)
+            self._note_download_success(entry)
+            self.overlay._publish_record(entry)
+        elif handle is not None and handle.error is not None:
+            self._note_download_failure(entry, handle.error)
+        entry.pending = None
+
+    # -- retry / circuit breaker ----------------------------------------------
+    def _download_allowed(self, entry: _JitEntry) -> bool:
+        """Whether an attempt may start NOW, per the entry's deterministic
+        retry clock.  Closed breaker: allowed once the exponential-backoff
+        window (in slow-path calls, not seconds) has elapsed.  Open
+        breaker: only a probe every ``probe_interval`` calls."""
+        ov = self.overlay
+        if entry.breaker == "open":
+            if entry.calls - entry.breaker_opened_at < entry.probe_interval:
+                return False
+            entry.breaker_opened_at = entry.calls
+            ov.stats.breaker_probes += 1
+            return True
+        if entry.download_failures and entry.calls < entry.retry_at:
+            return False
+        if entry.download_failures:
+            ov.stats.download_retries += 1
+        return True
+
+    def _note_download_failure(self, entry: _JitEntry,
+                               error: BaseException) -> None:
+        """Book one failed download attempt: schedule the deterministic
+        backoff, open the breaker at the threshold, double the probe window
+        on a failed probe.  The fallback keeps serving throughout."""
+        ov = self.overlay
+        entry.download_failures += 1
+        ov.stats.download_failures += 1
+        if entry.breaker == "open":
+            entry.probe_interval = min(256, max(1, entry.probe_interval * 2))
+            entry.breaker_opened_at = entry.calls
+            return
+        if entry.download_failures >= ov.breaker_threshold:
+            entry.breaker = "open"
+            entry.breaker_opened_at = entry.calls
+            entry.probe_interval = ov.breaker_probe_after
+            ov.stats.breaker_opens += 1
+            warnings.warn(
+                f"PR downloads for {self.name!r} failed "
+                f"{entry.download_failures} times ({error!r}); breaker "
+                f"open — pinned to the fallback, probing every "
+                f"{entry.probe_interval} calls.",
+                RuntimeWarning, stacklevel=2)
+        else:
+            entry.retry_at = entry.calls + ov.retry_backoff * (
+                2 ** (entry.download_failures - 1))
+            if entry.download_failures == 1:
+                warnings.warn(
+                    f"background PR download for {self.name!r} failed "
+                    f"({error!r}); serving from the fallback and retrying "
+                    f"with backoff.",
+                    RuntimeWarning, stacklevel=2)
+
+    def _note_download_success(self, entry: _JitEntry) -> None:
+        if entry.breaker == "open":
+            entry.breaker = "closed"
+            self.overlay.stats.breaker_closes += 1
+        entry.download_failures = 0
+        entry.retry_at = 0
+
+    def _submit(self, entry: _JitEntry, *, kind: str = "demand",
+                reclaim: bool = True, low: bool = False
+                ) -> DownloadHandle | None:
+        """Request this entry's download under the backoff clock and the
+        breaker (the fallback serves either way).  After
+        ``overlay.close()`` no download starts, and calls are still
+        served."""
+        if self.overlay.scheduler.closed or not self._download_allowed(entry):
+            return None
+        t0 = time.perf_counter()
+        # clear first: a cached kernel completes inline, delivering on_done
+        # before submit_download returns, and _swap must not mistake the
+        # previous outage's done handle for a live download
+        entry.pending = None
+        handle = self.overlay.submit_download(
+            entry.lowered.graph, fixed=self.fixed, tile_budget=self.tile_budget,
+            kind=kind, reclaim=reclaim, low=low,
+            on_done=lambda acc, h: self._swap(entry, acc, t0, h))
+        entry.pending = handle
+        return handle
+
+    def _entry(self, args: tuple, *, aot: bool = False,
+               _presplit=None) -> _JitEntry:
         dyn, closed, static_repr = _presplit or self._split(args)
         entry = self._traced(self._sig_key(dyn, static_repr), closed, dyn)
         ov = self.overlay
         acc = entry.acc
-        # first assembly for this signature, the accelerator was reclaimed /
-        # flushed since (re-place and re-download), or the wrapper's budget
-        # changed and the resident relocated (a cheap rebind)
-        if acc is None or not ov.resident_current(acc) or \
-                ov.repack(acc.resident_id, self.tile_budget):
+        if acc is not None and ov.resident_current(acc):
+            if not ov.repack(acc.resident_id, self.tile_budget):
+                # still resident in the fabric: bump recency
+                ov.fabric.touch(acc.resident_id)
+                ov._note_demand(acc.resident_id)
+                return entry
+            # the budget changed and the resident relocated: fall through,
+            # the (cheap) re-assembly rebinds the entry to its routes
+        # first assembly for this signature, or the accelerator was
+        # reclaimed / flushed since: re-place and re-download
+        if aot or not ov.async_downloads:
+            if not self._download_allowed(entry):
+                return entry               # backing off / breaker open
             t0 = time.perf_counter()
-            entry.acc = ov.assemble(entry.lowered.graph, fixed=self.fixed,
-                                    tile_budget=self.tile_budget)
+            try:
+                entry.acc = ov.assemble(entry.lowered.graph, fixed=self.fixed,
+                                        tile_budget=self.tile_budget)
+            except (PlacementError, FabricError):
+                raise                      # structural — must propagate
+            except Exception as exc:
+                # a failed download (injected or real): serve from the
+                # fallback and retry later on the backoff clock
+                self._note_download_failure(entry, exc)
+                entry.pending = None
+                return entry
             entry.assemble_seconds = time.perf_counter() - t0
-        ov._publish_record(entry)
+            entry.pending = None
+            self._note_download_success(entry)
+            ov._publish_record(entry)
+            return entry
+        # asynchronous pipeline: the fallback serves.  ``__call__`` requests
+        # the download only AFTER the response is computed (and
+        # :meth:`prefetch` ahead of demand), so a request never contends
+        # with its own download for the interpreter lock.
         return entry
+
+    def _ensure_download(self, entry: _JitEntry) -> None:
+        """Request the background download once per outage; the scheduler
+        coalesces repeats by residency key."""
+        if not self.overlay.async_downloads:
+            return          # a synchronous overlay retries through _entry
+        if entry.pending is not None and not entry.pending.done():
+            # demanded while in flight: keep the resident's recency honest
+            # (handle.key IS the rid), so a hot accelerator does not look
+            # like the LRU victim before its bitstream lands
+            self.overlay.fabric.touch(entry.pending.key)
+            return
+        self._submit(entry)
 
     # -- public surface -------------------------------------------------------
     def lower(self, *args) -> trace_lib.Lowered:
@@ -243,8 +436,9 @@ class JitAssembled:
         dyn, closed, static_repr = self._split(args)
         return self._traced(self._sig_key(dyn, static_repr), closed, dyn).lowered
 
-    def accelerator(self, *args) -> interp.AssembledAccelerator:
-        """The assembled accelerator for this signature (traces if needed)."""
+    def accelerator(self, *args) -> interp.AssembledAccelerator | None:
+        """The assembled accelerator for this signature (traces if needed;
+        None on an asynchronous overlay until its download lands)."""
         return self._entry(args).acc
 
     def timings(self, *args) -> dict[str, float]:
@@ -253,29 +447,65 @@ class JitAssembled:
         return {"trace_seconds": e.trace_seconds,
                 "assemble_seconds": e.assemble_seconds}
 
-    def prefetch(self, *args) -> None:
+    def prefetch(self, *args, low: bool = False,
+                 reclaim: bool = True) -> DownloadHandle | None:
         """Hint: download this signature's bitstream before traffic needs
         it.  ``args`` may be concrete tensors or :class:`TensorSpec`
-        pytrees.  The overlay is synchronous, so the download is paid here
-        (AOT population); an already-resident signature is a no-op."""
+        pytrees.  On an asynchronous overlay the kernel builds on the
+        scheduler's worker (returns the in-flight handle; ``low=True``
+        rides the low lane, ``reclaim=False`` raises
+        :class:`PlacementError` under pressure instead of displacing
+        residents); on a synchronous overlay the download is paid here (AOT
+        population).  An already-resident signature is a no-op."""
         presplit = self._split(args)
         dyn, closed, static_repr = presplit
         entry = self._traced(self._sig_key(dyn, static_repr), closed, dyn)
+        ov = self.overlay
         acc = entry.acc
-        if acc is not None and self.overlay.resident_current(acc):
-            return
-        self._entry(args, _presplit=presplit)
-        self.overlay.stats.prefetches += 1
-        self.overlay._prefetched.add(entry.acc.resident_id)
+        if acc is not None and ov.resident_current(acc):
+            return None
+        if not ov.async_downloads:
+            self._entry(args, aot=True, _presplit=presplit)
+            ov.stats.prefetches += 1
+            if entry.acc is not None:     # the download may have failed
+                ov._prefetched.add(entry.acc.resident_id)
+            return None
+        if entry.pending is not None and not entry.pending.done():
+            return entry.pending
+        return self._submit(entry, kind="prefetch", reclaim=reclaim, low=low)
 
-    def specialize(self, *args) -> None:
+    def _prefetch_known(self) -> int:
+        """Re-request downloads for every signature this wrapper has seen —
+        the warm-up after ``reconfigure()`` (the flush dropped every
+        resident; the traced graphs are still in the entry table)."""
+        ov = self.overlay
+        n = 0
+        for entry in list(self._entries.values()):
+            acc = entry.acc
+            if acc is not None and ov.resident_current(acc):
+                continue
+            if not ov.fabric.free():
+                break            # fabric full: a warm-up must not reclaim
+            try:                 # through just-prefetched residents
+                submitted = self._submit(entry, kind="prefetch", reclaim=False)
+            except PlacementError:
+                break
+            if submitted is not None:
+                n += 1
+        return n
+
+    def specialize(self, *args) -> DownloadHandle | None:
         """Build the route-constant *specialized* tier for this signature
         and swap the dispatch record onto it.  ``args`` may be concrete
         tensors (the warm-up and capture read them) or :class:`TensorSpec`
         pytrees (zeros of those shapes are used).  Admits/downloads the
         generic tier first if needed; a no-op when the resident is already
         specialized.  On the card the tier is the walk captured as a CUDA
-        graph; a capture that fails raises.  A later relocation instantly
+        graph.  On an asynchronous overlay the build is queued on the
+        scheduler's LOW lane (it never delays a download or relocation) and
+        its handle returned; a failed build there is counted and the
+        generic tier keeps serving.  On a synchronous overlay it is paid
+        here, and a failure raises.  A later relocation instantly
         despecializes back to the generic kernel."""
         ov = self.overlay
         presplit = self._split(args)
@@ -283,13 +513,21 @@ class JitAssembled:
         entry = self._traced(self._sig_key(dyn, static_repr), closed, dyn)
         acc = entry.acc
         if acc is None or not ov.resident_current(acc):
-            self._entry(args, _presplit=presplit)
-        res = ov.fabric.get(entry.acc.resident_id)
+            if ov.async_downloads:
+                self.prefetch(*args)       # admit + download the generic first
+            else:
+                self._entry(args, aot=True, _presplit=presplit)
+        graph = entry.lowered.graph
+        res = ov.fabric.get(ov._resident_key(graph, graph.input_avals(), self.fixed))
         if res is None or res.tier != "generic" or res.spec_pending:
-            return
+            return None
         leaves = tuple(x if isinstance(x, torch.Tensor) else None
                        for x in pytree.tree_leaves(dyn))
+        if ov.async_downloads and not ov.scheduler.closed:
+            with ov._lock:
+                return ov._submit_specialize_locked(entry, res, leaves)
         ov._specialize_now(entry, res, leaves)
+        return None
 
     def __call__(self, *args):
         presplit = self._split(args)
@@ -297,39 +535,116 @@ class JitAssembled:
         rec = entry.record if entry is not None else None
         # the ENTIRE hot-path validation: liveness + one generation read
         # (+ the wrapper's budget, when capped)
-        if rec is None or not rec.res.live or \
-                rec.res.generation != rec.generation or \
-                (self.tile_budget is not None
-                 and rec.res.tile_budget != self.tile_budget):
-            entry = self._entry(args, _presplit=presplit)
-            rec = entry.record
-        return self._dispatch(entry, rec, presplit[0])
+        if rec is not None and rec.res.live and \
+                rec.res.generation == rec.generation and \
+                (self.tile_budget is None
+                 or rec.res.tile_budget == self.tile_budget):
+            return self._dispatch_fast(args, entry, rec, presplit)
+        return self._call_slow(args, presplit)
 
-    def _dispatch(self, entry: _JitEntry, rec: _DispatchRecord, dyn: tuple):
+    def _dispatch_fast(self, args, entry: _JitEntry, rec: _DispatchRecord,
+                       presplit):
+        """Resident-hit dispatch without the overlay lock, and the fault
+        plan's choke points: an injected resident loss degrades this call to
+        the slow path (fallback + re-download), an injected dispatch failure
+        to :meth:`_dispatch_failed`."""
+        ov = self.overlay
+        plan = ov.faults
+        if plan is not None and plan.fires("resident_loss", rec.res.rid):
+            ov._lose_resident(rec.res.rid)
+            return self._call_slow(args, presplit)
+        return self._dispatch(entry, rec, args, presplit, plan)
+
+    def _dispatch(self, entry: _JitEntry, rec: _DispatchRecord, args,
+                  presplit, plan: FaultPlan | None = None):
+        """Run a resident's dispatch record: recency, tier bookkeeping, the
+        call.  Also the specialization trigger point — a contiguous
+        (zero-hop) or dispatch-stable generic resident builds its
+        route-constant tier (inline on a synchronous overlay, on the
+        scheduler's low lane on an asynchronous one); this call is still
+        served by the record it came with."""
         ov = self.overlay
         res = rec.res
         ov.fabric.touch_resident(res)
         if ov._prefetched:
             ov._note_demand(res.rid)
-        flat = pytree.tree_leaves(dyn)
+        flat = pytree.tree_leaves(presplit[0])
         if rec.tier == "specialized":
             ov.cache.spec_stats.specialized_hits += 1
         elif ov._auto_specialize and res.tier == "generic" \
                 and not res.spec_pending \
-                and res.spec_failures < _MAX_SPEC_FAILURES:
-            # the trigger: a contiguous (zero-hop) or dispatch-stable
-            # resident builds its route-constant tier; this call is still
-            # served by the generic one
+                and res.spec_failures < _MAX_DOWNLOAD_FAILURES:
             res.stable_dispatches += 1
             if res.zero_hop or res.stable_dispatches >= ov.specialize_after:
-                ov._specialize_now(entry, res, tuple(flat))
+                if ov.async_downloads:
+                    ov._request_specialize(entry, res, tuple(flat))
+                else:
+                    ov._specialize_now(entry, res, tuple(flat))
         t0 = time.perf_counter()
-        out = rec.fn(*flat)
+        try:
+            if plan is not None and plan.fires("dispatch", res.rid):
+                raise FaultError(f"injected dispatch failure on {res.rid!r}")
+            out = rec.fn(*flat)
+        except (PlacementError, FabricError):
+            raise
+        except Exception as exc:
+            return self._dispatch_failed(entry, res, exc, presplit)
         us = (time.perf_counter() - t0) * 1e6
         res.dispatch_hist.record(us)
         ov.dispatch_hist.record(us)
         leaves = list(out) if len(entry.lowered.graph.output_ids) > 1 else [out]
         return pytree.tree_unflatten(leaves, entry.lowered.out_tree)
+
+    def _dispatch_failed(self, entry: _JitEntry, res: ResidentAccelerator,
+                         exc: BaseException, presplit):
+        """A resident dispatch raised: evict the suspect resident (its state
+        is unknown), serve THIS call from the fallback — the traced function
+        run eagerly, which launches the same kernels — and re-request the
+        download.  An admitted call never surfaces the failure; it shows up
+        as latency and in the failure ledger."""
+        ov = self.overlay
+        ov.stats.dispatch_failures += 1
+        logger.warning("dispatch on %r (%s) failed: %r — serving the "
+                       "fallback", res.rid, self.name, exc)
+        with ov._lock:
+            res.dispatch_failures += 1
+            if ov.fabric.get(res.rid) is res:
+                ov._evict_resident(res.rid)
+            entry.record = None
+        ov.stats.dispatch_fallbacks += 1
+        ov.stats.fallback_calls += 1
+        out = entry.closed(*presplit[0])
+        self._ensure_download(entry)
+        return out
+
+    def _call_slow(self, args, presplit):
+        entry = self._entry(args, _presplit=presplit)
+        entry.calls += 1               # the deterministic retry clock
+        ov = self.overlay
+        acc = entry.acc
+        if acc is None:
+            # nothing assembled yet: serve the call from the traced function
+            # run eagerly (the paper's "software fallback while the
+            # bitstream downloads"); the download is requested after the
+            # response is computed and the accelerator swaps in underneath
+            ov.stats.fallback_calls += 1
+            out = entry.closed(*presplit[0])
+            self._ensure_download(entry)
+            return out
+        if not ov.resident_current(acc):
+            # mid-re-download: the prior generation's accelerator lost its
+            # PR regions but is still a correct pure function — it serves
+            # while the fabric downloads this signature again
+            ov.stats.fallback_calls += 1
+            out = acc.fn(*pytree.tree_leaves(presplit[0]))
+            self._ensure_download(entry)
+            leaves = list(out) if len(entry.lowered.graph.output_ids) > 1 else [out]
+            return pytree.tree_unflatten(leaves, entry.lowered.out_tree)
+        # a resident hit that missed the fast path (first dispatch, or a
+        # just-invalidated record): republish, then dispatch through the
+        # record so this call already serves the best live tier
+        ov._publish_record(entry)
+        return self._dispatch(entry, entry.record, args, presplit)
 
 
 class Overlay:
@@ -342,14 +657,21 @@ class Overlay:
       cache_capacity: bitstream cache slots.
       auto_defragment: re-place surviving residents contiguously after every
         pressure reclaim (moves are relocations: no re-download).
+      async_downloads: build kernels (downloads) on a background
+        :class:`~repro_torch.core.scheduler.DownloadScheduler` and serve
+        jit misses from a fallback until the kernel swaps in.  The default
+        (False) is the deterministic synchronous mode: every miss pays its
+        download on the critical path.
+      download_workers: scheduler worker threads (asynchronous mode).
       cost_aware_reclaim: reclaim the resident with the best
-        age/re-download-cost ratio instead of pure LRU.  Off by default,
-        as on the reference's synchronous overlay.
+        age/re-download-cost ratio instead of pure LRU.  Defaults to
+        following ``async_downloads``.
       auto_specialize: build the route-constant tier for residents whose
         placement is contiguous (zero pass-through hops) or whose routes
-        have been stable for ``specialize_after`` dispatches, inline on the
-        dispatch that crosses the threshold and after a defragment.  Off by
-        default, as on the reference's synchronous overlay;
+        have been stable for ``specialize_after`` dispatches, on the
+        dispatch that crosses the threshold and after a defragment: on the
+        scheduler's low lane on an asynchronous overlay, inline on a
+        synchronous one.  Defaults to following ``async_downloads``;
         ``jitted.specialize(*args)`` works either way.
       specialize_after: dispatch-stability threshold for that trigger.
       cost_model_placement: replace first-fit packing with the cost-model
@@ -359,6 +681,17 @@ class Overlay:
         by modeled re-download cost.  Off by default.
       autotune_thresholds: re-derive ``specialize_after`` and the
         auto-defragment trigger from live measurements.  Off by default.
+      faults: a :class:`~repro_torch.core.faults.FaultPlan` to inject
+        download, slow-download, dispatch and resident-loss faults.
+      breaker_threshold: consecutive failed downloads of an entry that open
+        its circuit breaker (it then serves from the fallback and probes
+        every ``breaker_probe_after`` slow-path calls, doubling on each
+        failed probe).
+      retry_backoff: slow-path calls before the first retry of a failed
+        download, doubling per failure.
+      download_deadline: seconds after which the scheduler's watchdog fails
+        a background download still outstanding (None: no deadline).
+      drain_timeout: seconds :meth:`close` waits for background work.
     """
 
     def __init__(self, rows: int = 3, cols: int = 3, *,
@@ -366,11 +699,19 @@ class Overlay:
                  large_fraction: float = 0.25,
                  cache_capacity: int = 256,
                  auto_defragment: bool = False,
+                 async_downloads: bool = False,
+                 download_workers: int = 1,
                  cost_aware_reclaim: bool | None = None,
                  auto_specialize: bool | None = None,
                  specialize_after: int = 32,
                  cost_model_placement: bool | None = None,
                  autotune_thresholds: bool | None = None,
+                 faults: FaultPlan | None = None,
+                 breaker_threshold: int = _MAX_DOWNLOAD_FAILURES,
+                 retry_backoff: int = 1,
+                 breaker_probe_after: int = 8,
+                 download_deadline: float | None = None,
+                 drain_timeout: float = 30.0,
                  **deferred: Any) -> None:
         unknown = sorted(set(deferred) - set(_DEFERRED))
         if unknown:
@@ -379,20 +720,41 @@ class Overlay:
             k = sorted(deferred)[0]
             raise NotImplementedError(
                 f"Overlay({k}=...) asks for {_DEFERRED[k]}, which a later "
-                f"slice of the port brings; this overlay is synchronous")
+                f"slice of the port brings")
         if specialize_after < 1:
             raise ValueError("specialize_after must be >= 1")
+        if breaker_threshold < 1 or retry_backoff < 1 or breaker_probe_after < 1:
+            raise ValueError("breaker_threshold, retry_backoff and "
+                             "breaker_probe_after must be >= 1")
         self.grid = TileGrid(rows, cols, large_fraction)
         self.policy = policy
         self.cache = BitstreamCache(cache_capacity)
         self.fabric = Fabric(self.grid)
         self.stats = OverlayStats()
-        # the reference's defaults for a synchronous overlay (None = follow
-        # async_downloads / the store, both absent here)
         self.auto_defragment = auto_defragment
-        self.cost_aware_reclaim = bool(cost_aware_reclaim)
-        self._auto_specialize = bool(auto_specialize)
+        self.async_downloads = bool(async_downloads)
+        # None follows async_downloads, as in the reference (whose store,
+        # absent here, would also turn on the planner and the autotuner)
+        self.cost_aware_reclaim = (self.async_downloads if cost_aware_reclaim is None
+                                   else bool(cost_aware_reclaim))
+        self._auto_specialize = (self.async_downloads if auto_specialize is None
+                                 else bool(auto_specialize))
         self.specialize_after = int(specialize_after)
+        # failure model: fault injection, retry/backoff + per-entry circuit
+        # breaker, download deadlines
+        self.faults = faults
+        self.breaker_threshold = int(breaker_threshold)
+        self.retry_backoff = int(retry_backoff)
+        self.breaker_probe_after = int(breaker_probe_after)
+        self.download_deadline = download_deadline
+        self.drain_timeout = float(drain_timeout)
+        # worker threads start at the first submit: a synchronous overlay
+        # never starts one
+        self.scheduler = DownloadScheduler(workers=download_workers,
+                                           drain_timeout=drain_timeout)
+        # one lock for every fabric and cache mutation: foreground
+        # assemblies and the workers' commits serialize on it
+        self._lock = threading.RLock()
         self.cost_model_placement = bool(cost_model_placement)
         self.autotune_thresholds = bool(autotune_thresholds)
         # adaptive auto-defragment gate (only consulted when autotuning):
@@ -414,6 +776,47 @@ class Overlay:
         if rid in self._prefetched:
             self._prefetched.discard(rid)
             self.stats.prefetch_hits += 1
+
+    # -- failure model --------------------------------------------------------
+    def _inject_download_fault(self, key: str) -> None:
+        """Chaos choke point of a kernel build (both paths): optionally
+        sleep first (slow download), optionally raise :class:`FaultError`
+        (failed download).  No-op without a plan."""
+        plan = self.faults
+        if plan is None:
+            return
+        if plan.slow_seconds > 0.0 and plan.fires("slow_download", key):
+            time.sleep(plan.slow_seconds)
+        if plan.fires("download", key):
+            raise FaultError(f"injected download failure for {key!r}")
+
+    def _lose_resident(self, rid: str) -> None:
+        """Injected dispatch-time resident loss (a PR region wiped): the
+        resident leaves the fabric through the one evict path; the caller
+        degrades to the slow path and re-downloads."""
+        with self._lock:
+            if self.fabric.get(rid) is not None:
+                self.stats.resident_losses += 1
+                self._evict_resident(rid)
+
+    def failure_ledger(self) -> dict[str, Any]:
+        """One-stop failure accounting: retries, breaker state, dispatch
+        fallbacks, watchdog timeouts (the serving engines surface it)."""
+        open_breakers = sum(1 for wrapper in list(self._wrappers)
+                            for entry in list(wrapper._entries.values())
+                            if entry.breaker == "open")
+        return {
+            "download_failures": self.stats.download_failures,
+            "download_retries": self.stats.download_retries,
+            "breaker_opens": self.stats.breaker_opens,
+            "breaker_probes": self.stats.breaker_probes,
+            "breaker_closes": self.stats.breaker_closes,
+            "breakers_open": open_breakers,
+            "dispatch_failures": self.stats.dispatch_failures,
+            "dispatch_fallbacks": self.stats.dispatch_fallbacks,
+            "resident_losses": self.stats.resident_losses,
+            "timed_out_downloads": self.scheduler.stats.timed_out,
+        }
 
     # -- trace-based frontend -------------------------------------------------
     def jit(self, fn: Callable[..., Any] | None = None, *,
@@ -445,7 +848,7 @@ class Overlay:
         with matching inputs is a pure cache hit."""
         jitted = self.jit(fn, strict=strict, name=name, fixed=fixed,
                           tile_budget=tile_budget)
-        jitted._entry(abstract_args)
+        jitted._entry(abstract_args, aot=True)
         return jitted
 
     # -- placement ------------------------------------------------------------
@@ -630,8 +1033,12 @@ class Overlay:
     # -- admission and assembly -----------------------------------------------
     def _get_or_admit(self, graph: Graph, rid: str,
                       fixed: dict[int, Coord] | None,
-                      tile_budget: int | None) -> ResidentAccelerator:
-        """Resident lookup-or-admission (the PR download decision)."""
+                      tile_budget: int | None, *,
+                      reclaim: bool = True) -> ResidentAccelerator:
+        """Resident lookup-or-admission (the PR download decision); the
+        caller holds the overlay lock.  ``reclaim=False`` raises
+        :class:`PlacementError` under pressure instead of evicting (hint
+        paths that must not displace live residents)."""
         resident = self.fabric.get(rid)
         if resident is not None:
             self.fabric.touch(rid)
@@ -641,7 +1048,12 @@ class Overlay:
                 # never pays a re-download
                 self._repack_budget(resident, tile_budget)
             return resident
-        placement = self._place_with_reclaim(graph, fixed, tile_budget)
+        if reclaim:
+            placement = self._place_with_reclaim(graph, fixed, tile_budget)
+        else:
+            placement = place(graph, self.grid, self.policy, fixed,
+                              occupied=self.fabric.occupied(),
+                              max_tiles=tile_budget)
         program = compile_graph(graph, placement)
         resident = self.fabric.admit(rid, graph.name, graph, placement,
                                      program, tile_budget=tile_budget,
@@ -691,29 +1103,131 @@ class Overlay:
         residents under pressure — admitted as a new resident, and its
         kernel is built (a download) unless the cache already holds it:
         the kernel is placement-free, so a re-admission at another
-        placement reuses it."""
-        graph.validate()
-        avals = graph.input_avals()
-        rid = self._resident_key(graph, avals, fixed)
-        hit = self.fabric.get(rid) is not None
-        resident = self._get_or_admit(graph, rid, fixed, tile_budget)
-        if hit:
-            self._note_demand(rid)
-        self.stats.assemblies += 1
-        key = self._kernel_key(graph, avals)
-        if key in resident.cache_keys and key not in self.cache:
-            # the cache's own LRU dropped a resident's kernel: rebuilding it
-            # is a real re-download — keep the ledger honest
-            resident.cache_keys = tuple(k for k in resident.cache_keys
-                                        if k in self.cache)
-            self.stats.downloads += 1
-        misses = self.cache.stats.misses
-        t0 = time.perf_counter()
-        kernel = self.cache.get_or_compile(key, lambda: interp.build_kernel(graph))
-        if self.cache.stats.misses != misses:
-            self.fabric.record_download_cost(rid, time.perf_counter() - t0)
-        self.fabric.add_cache_key(rid, key)
-        return self._bind_acc(resident, kernel)
+        placement reuses it.  This path is synchronous: the download is paid
+        before it returns (the asynchronous pipeline is
+        :meth:`submit_download`)."""
+        with self._lock:
+            graph.validate()
+            avals = graph.input_avals()
+            rid = self._resident_key(graph, avals, fixed)
+            hit = self.fabric.get(rid) is not None
+            resident = self._get_or_admit(graph, rid, fixed, tile_budget)
+            if hit:
+                self._note_demand(rid)
+            self.stats.assemblies += 1
+            key = self._kernel_key(graph, avals)
+            if key in resident.cache_keys and key not in self.cache:
+                # the cache's own LRU dropped a resident's kernel: rebuilding
+                # it is a real re-download — keep the ledger honest
+                resident.cache_keys = tuple(k for k in resident.cache_keys
+                                            if k in self.cache)
+                self.stats.downloads += 1
+            if key not in self.cache:
+                self._inject_download_fault(key)
+            misses = self.cache.stats.misses
+            t0 = time.perf_counter()
+            kernel = self.cache.get_or_compile(key, lambda: interp.build_kernel(graph))
+            if self.cache.stats.misses != misses:
+                self.fabric.record_download_cost(rid, time.perf_counter() - t0)
+            self.fabric.add_cache_key(rid, key)
+            return self._bind_acc(resident, kernel)
+
+    # -- asynchronous download pipeline ---------------------------------------
+    def submit_download(self, graph: Graph, *,
+                        fixed: dict[int, Coord] | None = None,
+                        tile_budget: int | None = None,
+                        on_done: "Callable[[Any, DownloadHandle], None] | None"
+                        = None,
+                        kind: str = "demand",
+                        reclaim: bool = True,
+                        low: bool = False) -> DownloadHandle:
+        """Begin an asynchronous PR download for ``graph``.
+
+        Foreground (under the overlay lock): place the graph — reclaiming
+        under pressure — and admit it at once, so its PR regions are held
+        while the kernel is in flight and concurrent placements pack around
+        it.  Background (a scheduler worker): the kernel build.  Commit
+        (the worker, back under the lock): publish the kernel, its cache
+        entry and its measured build time, but only if the residency is
+        still the one admitted here (``Fabric.same_residency``); a resident
+        evicted or flushed mid-download stays evicted.  ``on_done``
+        observers receive the routes-bound
+        :class:`~repro_torch.core.interpreter.AssembledAccelerator` (or
+        None).  A kernel already in the cache completes inline with an
+        already-done handle."""
+        with self._lock:
+            graph.validate()
+            avals = graph.input_avals()
+            rid = self._resident_key(graph, avals, fixed)
+            resident = self._get_or_admit(graph, rid, fixed, tile_budget,
+                                          reclaim=reclaim)
+            key = self._kernel_key(graph, avals)
+            if kind == "prefetch":
+                self.stats.prefetches += 1
+                self._prefetched.add(rid)
+            kernel = self.cache.peek(key)
+            if kernel is not None:
+                # the kernel is placement-free: bind this resident's routes
+                # and complete inline
+                self.cache.get_or_compile(key, lambda: kernel)   # count the hit
+                self.fabric.add_cache_key(rid, key)
+                handle = DownloadHandle(key=rid, kind=kind)
+                handle.result = self._bind_acc(resident, kernel)
+                handle.status = "done"
+                handle._event.set()
+                if on_done is not None:
+                    on_done(handle.result, handle)
+                return handle
+            pending = _PendingDownload(rid=rid, generation=resident.generation,
+                                       key=key, graph=graph)
+        return self.scheduler.submit(
+            rid, lambda: self._compile_bitstream(pending),
+            lambda kernel, dt: self._commit_download(pending, kernel, dt),
+            on_done=on_done, kind=kind, low=low,
+            deadline=self.download_deadline)
+
+    def _compile_bitstream(self, pending: _PendingDownload) -> interp.Kernel:
+        """The expensive half of a download, on a scheduler worker with no
+        lock held: the placement-invariant kernel build."""
+        self._inject_download_fault(pending.key)
+        return interp.build_kernel(pending.graph)
+
+    def _commit_download(self, pending: _PendingDownload, kernel: interp.Kernel,
+                         seconds: float) -> interp.AssembledAccelerator | None:
+        """Publish a finished background build (the swap), on the worker
+        under the overlay lock.  A residency evicted or flushed while the
+        kernel built is not resurrected (None: the scheduler counts it
+        stale); one that merely RELOCATED still commits — the kernel is
+        placement-free — bound to the routes as they stand now."""
+        with self._lock:
+            if not self.fabric.same_residency(pending.rid, pending.generation):
+                self.stats.stale_downloads += 1
+                return None
+            self.cache.insert_compiled(pending.key, kernel, seconds)
+            self.fabric.add_cache_key(pending.rid, pending.key)
+            self.fabric.record_download_cost(pending.rid, seconds)
+            return self._bind_acc(self.fabric.get(pending.rid), kernel)
+
+    def prefetch(self, jitted: JitAssembled, *args) -> DownloadHandle | None:
+        """Engine-level prefetch hint, the same as ``jitted.prefetch(*args)``."""
+        if jitted.overlay is not self:
+            raise ValueError("jitted wrapper belongs to a different overlay")
+        return jitted.prefetch(*args)
+
+    def drain(self, timeout: float | None = None) -> bool:
+        """Wait until no background job is queued or running (and every
+        completion swap has been delivered)."""
+        return self.scheduler.drain(timeout)
+
+    def close(self, *, drain_timeout: float | None = None) -> None:
+        """End of life for the download pipeline: cancel outstanding jobs,
+        wait for running ones (``drain_timeout`` overrides the
+        constructor's; a timed-out drain warns with the undrained count)
+        and retire the workers.  The overlay keeps serving: synchronous
+        paths are unaffected, and asynchronous misses serve their fallback
+        for good (no new download starts)."""
+        limit = self.drain_timeout if drain_timeout is None else drain_timeout
+        self.scheduler.shutdown(wait=True, timeout=limit)
 
     def _publish_record(self, entry: _JitEntry) -> None:
         """(Re)derive an entry's dispatch record from its accelerator,
@@ -766,26 +1280,42 @@ class Overlay:
         res = self.fabric.relocate(rid, placement, program, ignore=ignore)
         self._bind_routes_eager(res)
         self.stats.relocations += 1
-        self._rebind_resident(rid)
+        if self.async_downloads and not self.scheduler.closed:
+            gen = res.generation
+            self.scheduler.submit(
+                f"relocate:{rid}", lambda: None,
+                lambda _raw, _dt, rid=rid, gen=gen: self._rebind_resident(rid, gen),
+                kind="relocate", priority=True)
+        else:
+            self._rebind_resident(rid)
         return res
 
-    def _rebind_resident(self, rid: str) -> None:
+    def _rebind_resident(self, rid: str, generation: int | None = None
+                         ) -> interp.AssembledAccelerator | None:
         """Rebind every live jit entry of ``rid`` onto its cached kernel
         with the resident's current routes (cheap: no build), so the first
-        call after a move already takes the fast path.  The reference runs
-        this as a priority job after an asynchronous relocation; the
-        synchronous port runs it inline."""
-        res = self.fabric.get(rid)
-        kernel = self.cache.peek(self._kernel_key(res.graph,
-                                                  res.graph.input_avals()))
-        if kernel is None:
-            return                 # kernel gone: the demand path re-downloads
-        acc = self._bind_acc(res, kernel)
-        for wrapper in list(self._wrappers):
-            for entry in wrapper._entries.values():
-                if entry.acc is not None and entry.acc.resident_id == rid:
-                    entry.acc = acc
-                    self._publish_record(entry)
+        call after a move already takes the fast path.  Inline after a move
+        on a synchronous overlay; the commit of a priority job on an
+        asynchronous one, guarded by ``same_residency`` (back-to-back moves
+        coalesce onto the first job, and the rebind reads the resident's
+        CURRENT routes).  Returns the bound accelerator, None when the
+        resident or its kernel is gone (the demand path re-downloads)."""
+        with self._lock:
+            if generation is not None and \
+                    not self.fabric.same_residency(rid, generation):
+                return None
+            res = self.fabric.get(rid)
+            kernel = self.cache.peek(self._kernel_key(res.graph,
+                                                      res.graph.input_avals()))
+            if kernel is None:
+                return None
+            acc = self._bind_acc(res, kernel)
+            for wrapper in list(self._wrappers):
+                for entry in list(wrapper._entries.values()):
+                    if entry.acc is not None and entry.acc.resident_id == rid:
+                        entry.acc = acc
+                        self._publish_record(entry)
+            return acc
 
     def repack(self, rid: str, tile_budget: int | None) -> bool:
         """Re-place a resident under a changed footprint cap via relocation.
@@ -793,12 +1323,18 @@ class Overlay:
         not resident; True when the resident actually moved."""
         if tile_budget is None:
             return False
+        # lock-free pre-check: this runs on the slow dispatch path, which
+        # must not wait on a worker's commit when nothing changed
         res = self.fabric.get(rid)
         if res is None or res.tile_budget == tile_budget:
             return False
-        gen = res.generation
-        self._repack_budget(res, tile_budget)
-        return self.fabric.get(rid).generation != gen
+        with self._lock:
+            res = self.fabric.get(rid)
+            if res is None or res.tile_budget == tile_budget:
+                return False
+            gen = res.generation
+            self._repack_budget(res, tile_budget)
+            return self.fabric.get(rid).generation != gen
 
     def relocate(self, target: "Graph | str",
                  placement: Placement) -> ResidentAccelerator:
@@ -808,6 +1344,11 @@ class Overlay:
         resident id.  The new tiles must be free of *other* residents, and
         the placement must pass :func:`check_assignment`.  Returns the
         relocated resident."""
+        with self._lock:
+            return self._relocate_target(target, placement)
+
+    def _relocate_target(self, target: "Graph | str",
+                         placement: Placement) -> ResidentAccelerator:
         if isinstance(target, Graph):
             rid = self._resident_key(target, target.input_avals(), None)
         else:
@@ -839,6 +1380,10 @@ class Overlay:
         ``stats.defrag_failures`` counts the aborted pass and a warning
         names the blocking resident.  Returns the number of residents
         moved."""
+        with self._lock:
+            return self._defragment_locked()
+
+    def _defragment_locked(self) -> int:
         def abort(res: ResidentAccelerator, exc: PlacementError) -> bool:
             self.stats.defrag_failures += 1
             logger.warning(
@@ -892,88 +1437,156 @@ class Overlay:
         return plan
 
     # -- tiered route specialization ------------------------------------------
-    def _spec_snapshot(self, entry: _JitEntry, res: ResidentAccelerator,
-                       inputs: tuple | None) -> _PendingSpecialize | None:
+    def _spec_snapshot_locked(self, entry: _JitEntry, res: ResidentAccelerator,
+                              inputs: tuple | None) -> _PendingSpecialize | None:
         """What to specialize (entry, res) from, or None when it is
-        impossible or pointless now: one variant per resident at a time,
-        and a resident whose specialization keeps failing stops being
-        retried at these routes."""
+        impossible or pointless now (the caller holds the lock): one variant
+        per resident at a time, and a resident whose specialization keeps
+        failing stops being retried at these routes."""
         if not res.live or res.tier != "generic" or res.spec_pending \
-                or res.spec_failures >= _MAX_SPEC_FAILURES:
+                or res.spec_failures >= _MAX_DOWNLOAD_FAILURES:
+            return None
+        acc = entry.acc
+        if acc is not None and acc.resident_id != res.rid:
             return None
         graph = entry.lowered.graph
         key = self._kernel_key(graph, graph.input_avals())
         hops = interp.route_hops(graph, res.placement)
         return _PendingSpecialize(
-            rid=res.rid, key=key,
+            rid=res.rid, generation=res.generation, key=key,
             spec_key=cache_lib.spec_key(key, hops), graph=graph, hops=hops,
             inputs=inputs or (None,) * len(graph.input_ids))
 
-    def _specialize_now(self, entry: _JitEntry, res: ResidentAccelerator,
-                        inputs: tuple | None) -> Any:
-        """Build the route-constant tier on the caller and commit it.  A
-        failure is counted on the resident and re-raised: there is no
-        quiet fallback to the generic tier."""
-        pending = self._spec_snapshot(entry, res, inputs)
+    def _request_specialize(self, entry: _JitEntry, res: ResidentAccelerator,
+                            inputs: tuple | None) -> DownloadHandle | None:
+        """The dispatch-path trigger on an asynchronous overlay: queue the
+        route-constant build on the scheduler's low lane."""
+        if self.scheduler.closed:
+            return None
+        with self._lock:
+            return self._submit_specialize_locked(entry, res, inputs)
+
+    def _submit_specialize_locked(self, entry: _JitEntry,
+                                  res: ResidentAccelerator,
+                                  inputs: tuple | None) -> DownloadHandle | None:
+        pending = self._spec_snapshot_locked(entry, res, inputs)
         if pending is None:
             return None
         res.spec_pending = True
         res.spec_job = f"specialize:{pending.spec_key}"
+        return self.scheduler.submit(
+            res.spec_job,
+            lambda: self._compile_specialized_tier(pending),
+            lambda exe, dt: self._commit_specialized(pending, exe, dt),
+            on_done=lambda result, h: self._spec_settled(pending, result, h),
+            kind="specialize", low=True)
+
+    def _spec_settled(self, pending: _PendingSpecialize, result,
+                      handle: DownloadHandle) -> None:
+        """Observer of a background specialization: one that FAILED (or was
+        dropped) must not leave the resident wedged in ``spec_pending``,
+        which every trigger reads.  Failures are counted and capped; the
+        generic tier keeps serving either way."""
+        if result is not None:
+            return                       # committed: state already settled
+        with self._lock:
+            res = self.fabric.get(pending.rid)
+            if res is None or res.generation != pending.generation:
+                return                   # relocated/evicted: already reset
+            res.spec_pending = False
+            res.spec_job = None
+            if handle.error is not None:
+                res.spec_failures += 1
+                if res.spec_failures == 1:
+                    warnings.warn(
+                        f"background specialization for {res.name!r} failed "
+                        f"({handle.error!r}); the generic kernel keeps "
+                        f"serving. Giving up after {_MAX_DOWNLOAD_FAILURES} "
+                        f"attempts.", RuntimeWarning, stacklevel=2)
+
+    def _specialize_now(self, entry: _JitEntry, res: ResidentAccelerator,
+                        inputs: tuple | None) -> Any:
+        """Build the route-constant tier on the caller and commit it (a
+        synchronous overlay, or an explicit request on a closed scheduler).
+        A failure is counted on the resident and re-raised: there is no
+        quiet fallback to the generic tier."""
+        with self._lock:
+            pending = self._spec_snapshot_locked(entry, res, inputs)
+            if pending is None:
+                return None
+            res.spec_pending = True
+            res.spec_job = f"specialize:{pending.spec_key}"
         t0 = time.perf_counter()
         try:
             exe = self._compile_specialized_tier(pending)
         except BaseException:
-            res.spec_pending = False
-            res.spec_job = None
-            res.spec_failures += 1
+            with self._lock:
+                if self.fabric.is_current(pending.rid, pending.generation):
+                    res.spec_pending = False
+                    res.spec_job = None
+                    res.spec_failures += 1
             raise
         return self._commit_specialized(pending, exe, time.perf_counter() - t0)
 
     def _compile_specialized_tier(self, pending: _PendingSpecialize) -> Any:
-        """The route-constant artifact: on the card the walk with its hops
+        """The route-constant artifact, built with no lock held (on a
+        scheduler worker or the caller): on the card the walk with its hops
         baked in, captured as a CUDA graph (an eager warm-up walk, then the
-        capture, on the given inputs or zeros of the signature); on the CPU
-        the walk itself."""
+        capture, on the given inputs or zeros of the signature — see
+        :class:`~repro_torch.core.interpreter.GraphKernel` for how a worker
+        captures while the serving thread runs); on the CPU the walk
+        itself."""
         kernel = interp.specialize_kernel(pending.graph, pending.hops)
         avals = pending.graph.input_avals()
-        if not any(a.device is not None and torch.device(a.device).type == "cuda"
-                   for a in avals):
+        cuda = [torch.device(a.device) for a in avals
+                if a.device is not None and torch.device(a.device).type == "cuda"]
+        if not cuda:
             return kernel
-        inputs = tuple(x if x is not None else
-                       torch.zeros(a.shape, dtype=a.dtype, device=a.device)
-                       for x, a in zip(pending.inputs, avals))
-        return interp.GraphKernel(kernel, inputs)
+        with torch.cuda.device(cuda[0]):
+            inputs = tuple(x if x is not None else
+                           torch.zeros(a.shape, dtype=a.dtype, device=a.device)
+                           for x, a in zip(pending.inputs, avals))
+            return interp.GraphKernel(kernel, inputs)
 
     def _commit_specialized(self, pending: _PendingSpecialize, exe: Any,
                             seconds: float) -> Any:
         """Publish a finished route-constant build and swap every live entry
-        of the resident onto it.  The build ran inline, so the resident is
-        still at the generation it was built for (the reference also drops
-        builds a relocation overtook: ``dropped_stale``, always 0 here)."""
-        res = self.fabric.get(pending.rid)
-        self.cache.insert_specialized(pending.spec_key, exe, seconds)
-        self.fabric.add_cache_key(pending.rid, pending.key)
-        res.tier = "specialized"
-        res.spec_pending = False
-        res.spec_job = None
-        fn = interp.bind_routes(exe, res.routes)
-        res.spec_fn = fn
-        for wrapper in list(self._wrappers):
-            for entry in wrapper._entries.values():
-                acc = entry.acc
-                if acc is None or acc.resident_id != pending.rid \
-                        or acc.generation != res.generation:
-                    continue
-                entry.record = _DispatchRecord(
-                    fn=fn, res=res, generation=res.generation,
-                    tier="specialized")
-        self._autotune()
-        return exe
+        of the resident onto it, against the EXACT generation it was built
+        for: a relocation in flight changed the routes the constants were
+        baked from, so the late build is dropped (``dropped_stale``; the
+        resident already went back to the generic kernel)."""
+        with self._lock:
+            if not self.fabric.is_current(pending.rid, pending.generation):
+                self.cache.spec_stats.dropped_stale += 1
+                cache_lib.release_artifact(exe)
+                return None
+            res = self.fabric.get(pending.rid)
+            self.cache.insert_specialized(pending.spec_key, exe, seconds)
+            self.fabric.add_cache_key(pending.rid, pending.key)
+            res.tier = "specialized"
+            res.spec_pending = False
+            res.spec_job = None
+            fn = interp.bind_routes(exe, res.routes)
+            res.spec_fn = fn
+            for wrapper in list(self._wrappers):
+                for entry in list(wrapper._entries.values()):
+                    acc = entry.acc
+                    if acc is None or acc.resident_id != pending.rid \
+                            or acc.generation != res.generation:
+                        continue
+                    entry.record = _DispatchRecord(
+                        fn=fn, res=res, generation=res.generation,
+                        tier="specialized")
+            self._autotune()
+            return exe
 
     def _despecialize(self, res: ResidentAccelerator) -> None:
-        """Overlay-side half of despecialization (callers follow up with
-        ``Fabric.relocate``, the one tier-reset point): drop the resident's
+        """Overlay-side half of despecialization (the caller holds the lock
+        and follows up with ``Fabric.relocate``, the one tier-reset point):
+        cancel a specialization in flight, drop the resident's
         route-constant artifact and book the despecialization."""
+        if res.spec_job is not None:
+            self.scheduler.cancel(res.spec_job)
         self._drop_spec_artifacts(res)
         if res.tier == "specialized":
             self.cache.spec_stats.despecializations += 1
@@ -987,26 +1600,43 @@ class Overlay:
             self.cache.drop_specialized_exact(cache_lib.spec_key(k, hops))
 
     def _enqueue_contiguous_specializations(self) -> None:
-        """Post-defragment hook: with ``auto_specialize``, residents whose
-        placement became contiguous (pass-through-free) build their
-        route-constant tier, on zeros of their signature."""
+        """Post-defragment hook (the caller holds the lock): with
+        ``auto_specialize``, residents whose placement became contiguous
+        (pass-through-free) build their route-constant tier, on zeros of
+        their signature — on the low lane of an asynchronous overlay,
+        inline on a synchronous one."""
         if not self._auto_specialize:
+            return
+        queue = self.async_downloads
+        if queue and self.scheduler.closed:
             return
         for wrapper in list(self._wrappers):
             for entry in list(wrapper._entries.values()):
                 acc = entry.acc
                 res = self.fabric.get(acc.resident_id) if acc is not None else None
-                if res is not None and res.zero_hop:
+                if res is None or not res.zero_hop:
+                    continue
+                if queue:
+                    self._submit_specialize_locked(entry, res, None)
+                else:
                     self._specialize_now(entry, res, None)
 
     # -- explicit PR-region management ----------------------------------------
     def _evict_resident(self, rid: str) -> int:
-        """THE evict path: release a resident's tiles and drop its
-        specialized artifacts, its route programs and the kernel artifacts
-        no surviving resident shares.  Returns cache entries removed."""
+        """THE evict path (the caller holds the lock): release a resident's
+        tiles, cancel any download, rebind or specialization still in
+        flight for it, and drop its specialized artifacts, its route
+        programs and the kernel artifacts no surviving resident shares.
+        Returns cache entries removed."""
         resident = self.fabric.release(rid)
         if resident is None:
             return 0
+        # a queued job never runs; a running one loses its right to commit
+        # (and the generation guards backstop the race)
+        self.scheduler.cancel(rid)
+        self.scheduler.cancel(f"relocate:{rid}")
+        if resident.spec_job is not None:
+            self.scheduler.cancel(resident.spec_job)
         # the route-constant tier dies with its resident even when the
         # generic kernel key survives via a sharing sibling
         self._drop_spec_artifacts(resident)
@@ -1025,16 +1655,18 @@ class Overlay:
         graph or name — all resident signatures of that name).  Returns the
         number of cache entries removed."""
         name = target.name if isinstance(target, Graph) else str(target)
-        removed = 0
-        for rid in [r.rid for r in self.fabric.residents.values()
-                    if r.name == name]:
-            removed += self._evict_resident(rid)
-        # sweep bitstreams with no residency record so evict-by-name stays
-        # exhaustive
-        return removed + self.cache.evict_prefix(f"{name}:")
+        with self._lock:
+            removed = 0
+            for rid in [r.rid for r in self.fabric.residents.values()
+                        if r.name == name]:
+                removed += self._evict_resident(rid)
+            # sweep bitstreams with no residency record so evict-by-name
+            # stays exhaustive
+            return removed + self.cache.evict_prefix(f"{name}:")
 
     def reconfigure(self, *, policy: PlacementPolicy | None = None,
                     large_fraction: float | None = None,
+                    prefetch: bool = True,
                     relocate: bool = False) -> dict[str, Any]:
         """Full-fabric reconfiguration: flush every resident (tiles AND
         bitstreams; optionally switching placement policy / tile mix), so
@@ -1045,44 +1677,58 @@ class Overlay:
         the new policy/grid via relocation — kernels, the cache and the
         download ledger survive.  Residents that no longer fit are evicted
         (the flush would have dropped them too); pinned residents keep
-        their tiles."""
+        their tiles.
+
+        Downloads in flight belong to flushed generations: queued ones are
+        cancelled and running ones lose their right to commit, so a late
+        kernel cannot resurrect a flushed resident.  On an asynchronous
+        overlay the flush is followed (unless ``prefetch=False``) by
+        downloads for every signature the jit wrappers have seen — the
+        fabric rewarms in the background while the fallbacks serve."""
         if relocate:
             return self._reconfigure_relocating(policy, large_fraction)
-        self._prefetched.clear()
-        if policy is not None:
-            self.policy = policy
-        if large_fraction is not None:
-            self.grid = TileGrid(self.grid.rows, self.grid.cols, large_fraction)
-        # reset() keeps the generation counter monotonic: handles assembled
-        # before the flush never validate against post-flush re-admissions
-        flushed = self.fabric.reset(self.grid)
-        self.stats.evictions += len(flushed)
-        self.cache.clear()
-        self._last_placement = None
-        self.stats.reconfigurations += 1
+        with self._lock:
+            self.scheduler.flush()
+            self._prefetched.clear()
+            if policy is not None:
+                self.policy = policy
+            if large_fraction is not None:
+                self.grid = TileGrid(self.grid.rows, self.grid.cols, large_fraction)
+            # reset() keeps the generation counter monotonic: handles
+            # assembled before the flush never validate against post-flush
+            # re-admissions
+            flushed = self.fabric.reset(self.grid)
+            self.stats.evictions += len(flushed)
+            self.cache.clear()
+            self._last_placement = None
+            self.stats.reconfigurations += 1
+            if self.async_downloads and prefetch:
+                for wrapper in list(self._wrappers):
+                    wrapper._prefetch_known()
         return self.describe()
 
     def _reconfigure_relocating(self, policy: PlacementPolicy | None,
                                 large_fraction: float | None) -> dict[str, Any]:
-        if policy is not None:
-            self.policy = policy
-        if large_fraction is not None:
-            self.grid = TileGrid(self.grid.rows, self.grid.cols, large_fraction)
-            self.fabric.grid = self.grid
+        with self._lock:
+            if policy is not None:
+                self.policy = policy
+            if large_fraction is not None:
+                self.grid = TileGrid(self.grid.rows, self.grid.cols, large_fraction)
+                self.fabric.grid = self.grid
 
-        def evict_and_continue(res: ResidentAccelerator,
-                               exc: PlacementError) -> bool:
-            self._evict_resident(res.rid)
-            return True
+            def evict_and_continue(res: ResidentAccelerator,
+                                   exc: PlacementError) -> bool:
+                self._evict_resident(res.rid)
+                return True
 
-        plan = self._plan_repack(evict_and_continue)
-        plan_rids = tuple(res.rid for res, _ in plan)
-        for res, pl in plan:
-            if pl.assignment != res.placement.assignment \
-                    or pl.policy is not res.placement.policy:
-                self._relocate_resident(res.rid, pl, ignore=plan_rids)
-        self._last_placement = None
-        self.stats.reconfigurations += 1
+            plan = self._plan_repack(evict_and_continue)
+            plan_rids = tuple(res.rid for res, _ in plan)
+            for res, pl in plan:
+                if pl.assignment != res.placement.assignment \
+                        or pl.policy is not res.placement.policy:
+                    self._relocate_resident(res.rid, pl, ignore=plan_rids)
+            self._last_placement = None
+            self.stats.reconfigurations += 1
         return self.describe()
 
     # -- introspection ----------------------------------------------------------
@@ -1114,9 +1760,15 @@ class Overlay:
             "defrags": self.stats.defrags,
             "relocations": self.stats.relocations,
             "defrag_failures": self.stats.defrag_failures,
+            "async_downloads": self.async_downloads,
             "cost_aware_reclaim": self.cost_aware_reclaim,
             "prefetches": self.stats.prefetches,
             "prefetch_hits": self.stats.prefetch_hits,
+            "fallback_calls": self.stats.fallback_calls,
+            "stale_downloads": self.stats.stale_downloads,
+            "scheduler": self.scheduler.describe(),
+            "failures": self.failure_ledger(),
+            "faults": self.faults.describe() if self.faults is not None else None,
             "cost_model_placement": self.cost_model_placement,
             "autotune_thresholds": self.autotune_thresholds,
             "defrag_threshold": round(self.defrag_threshold, 4),

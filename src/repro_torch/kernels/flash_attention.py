@@ -124,6 +124,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       native.DTYPE_CODES[q.dtype], _VARIANT_CODES[kernel],
                       native.raw_stream(q.device.index))
     native.check_launch(rc, f"flash_attention ({kernel})")
-    launches.count += 1
-    launches.by_variant[kernel] += 1
+    launches.add(kernel)
     return out

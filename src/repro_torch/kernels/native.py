@@ -12,16 +12,23 @@ beside each library as ``<name>-<hash>.log``.
 
 Nothing here runs at import: the CPU tests import every module of the port
 on a machine without ``nvcc`` or a card.
+
+Two threads may reach a kernel at once (the serving thread and a scheduler
+worker capturing a CUDA graph): :func:`build` and :func:`libraries` run
+under one process-wide lock, so each library is built and loaded once, and
+a :class:`LaunchCounter` adds under its own lock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -34,22 +41,54 @@ _PKG = Path(__file__).resolve().parent.parent
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# one build and one load of the libraries per process, whatever the threads
+_build_lock = threading.RLock()
+# per thread: where a CUDA-graph capture in progress books its launches
+_capturing = threading.local()
+
 
 class LaunchCounter:
-    """Launches of one CUDA kernel.  Its wrapper adds one where it launches
-    the kernel and nowhere else, so a run can show that the main path went
-    through the kernel (``chip_smoke.py`` resets and reads these).  A kernel
-    built in variants also counts each launch under its variant in
-    :attr:`by_variant`."""
+    """Launches of one CUDA kernel, by variant.  Its wrapper calls
+    :meth:`add` where it launches the kernel and nowhere else, so a run can
+    show that the main path went through the kernel (``chip_smoke.py``
+    resets and reads :attr:`count` and :attr:`by_variant`)."""
 
-    def __init__(self, name: str, variants: "tuple[str, ...]" = ()) -> None:
+    def __init__(self, name: str, variants: "tuple[str, ...]") -> None:
         self.name = name
         self.variants = variants
+        self._lock = threading.Lock()
         self.reset()
 
     def reset(self) -> None:
-        self.count = 0
-        self.by_variant = dict.fromkeys(self.variants, 0)
+        with self._lock:
+            self.count = 0
+            self.by_variant = dict.fromkeys(self.variants, 0)
+
+    def add(self, variant: str, n: int = 1) -> None:
+        """Book ``n`` launches of ``variant``.  On a thread that is
+        capturing a CUDA graph (:func:`recording_launches`) they go to the
+        capture's record instead: a capture records launches and runs none,
+        and its replays add them here."""
+        record = getattr(_capturing, "record", None)
+        if record is not None:
+            record[(self, variant)] = record.get((self, variant), 0) + n
+            return
+        with self._lock:
+            self.count += n
+            self.by_variant[variant] += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Collect the launches the calling thread books while the block runs,
+    as ``{(counter, variant): n}``, instead of adding them to the counters
+    (a CUDA-graph capture).  Other threads keep counting as usual."""
+    outer = getattr(_capturing, "record", None)
+    _capturing.record = record = {}
+    try:
+        yield record
+    finally:
+        _capturing.record = outer
 
 
 def csrc_dir() -> Path:
@@ -79,7 +118,14 @@ def library_path(name: str) -> Path:
 
 def build(names: "tuple[str, ...]" = SOURCES) -> dict[str, Path]:
     """Compile every missing library of ``names``, one ``nvcc`` per source,
-    all started together.  Raises with the compiler's output on failure."""
+    all started together.  Raises with the compiler's output on failure.
+    A second thread waits for the first one's build instead of starting its
+    own ``nvcc`` onto the same output."""
+    with _build_lock:
+        return _build(names)
+
+
+def _build(names: "tuple[str, ...]") -> dict[str, Path]:
     out = {n: library_path(n) for n in names}
     todo = [n for n in names if not out[n].exists()]
     if not todo:
@@ -105,9 +151,14 @@ def build(names: "tuple[str, ...]" = SOURCES) -> dict[str, Path]:
     return out
 
 
-@functools.cache
 def libraries() -> dict[str, ctypes.CDLL]:
     """Every kernel library, built on first use and loaded once per process."""
+    with _build_lock:
+        return _load()
+
+
+@functools.cache
+def _load() -> dict[str, ctypes.CDLL]:
     return {n: ctypes.CDLL(str(p)) for n, p in build().items()}
 
 

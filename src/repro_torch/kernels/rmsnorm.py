@@ -73,6 +73,5 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.T
     rc = _entry()(x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d, eps, xcode,
                   wcode, _VARIANT_CODES[kernel], index, native.raw_stream(index))
     native.check_launch(rc, f"rmsnorm ({kernel})")
-    launches.count += 1
-    launches.by_variant[kernel] += 1
+    launches.add(kernel)
     return out

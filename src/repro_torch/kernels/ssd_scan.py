@@ -152,8 +152,7 @@ def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
                       L, p, n, *(native.DTYPE_CODES[t.dtype] for t in ins),
                       _VARIANT_CODES[kernel], native.raw_stream(x.device.index))
     native.check_launch(rc, f"ssd_chunk ({kernel})")
-    launches.count += 1
-    launches.by_variant[kernel] += 1
+    launches.add(kernel)
     return y, st, a_cum
 
 

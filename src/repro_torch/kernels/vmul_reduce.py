@@ -98,6 +98,5 @@ def vmul_reduce_cuda(a: torch.Tensor, b: torch.Tensor, *,
     rc = _entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(), ws, n,
                   blocks if cluster else 0, blocks, code, index, stream)
     native.check_launch(rc, "vmul_reduce")
-    launches.count += 1
-    launches.by_variant["cluster" if cluster else "grid"] += 1
+    launches.add("cluster" if cluster else "grid")
     return out

@@ -3,7 +3,8 @@ decode.
 
 Port of ``repro/models/model.py`` (``cross_entropy`` :25, ``loss_fn`` :51,
 ``init_cache`` :92, ``prefill`` :96, ``decode_step`` :150,
-``_current_index`` :185) for decoder LMs of dense and mamba layers.
+``prefill_chunk`` :164, ``_current_index`` :185) for decoder LMs of dense
+and mamba layers.
 """
 
 from __future__ import annotations
@@ -90,6 +91,30 @@ def decode_step(params: dict, cfg: ArchConfig, token: torch.Tensor,
     pos0 = _current_index(cfg, caches) if positions is None else positions
     h, caches = tfm.forward(params, cfg, token, pos0=pos0, caches=caches)
     return tfm.unembed(params, h, cfg)[:, 0], caches
+
+
+def prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                  caches: list, last_index: torch.Tensor):
+    """Prefill ONE fixed-size chunk of a prompt into ``caches``.
+
+    ``tokens``: (B, C) — the next C prompt tokens, starting at the cache's
+    current index.  The final chunk of a prompt may be right-padded to a
+    power-of-two bucket; padded positions write garbage K/V beyond the real
+    prompt, which is causally masked here and overwritten position by
+    position by decode before any query can attend to it.  (A mamba layer
+    has no such mask: the padded tokens advance its conv and SSD state,
+    which is why the event-loop engine refuses mamba configs.)
+    ``last_index`` is a 0-d int tensor selecting the in-chunk position
+    whose logits are returned — the chunk length C is the only static
+    shape, so one traced signature serves every prompt sharing a bucket.
+    The reference unembeds the whole chunk and then selects; the port
+    selects the hidden row first and unembeds that one row, the same
+    values per row, as :func:`prefill` does with the last one.
+    Returns (logits (B, V), caches)."""
+    pos0 = _current_index(cfg, caches)
+    h, caches = tfm.forward(params, cfg, tokens, pos0=pos0, caches=caches)
+    sel = torch.index_select(h, 1, last_index.reshape(1).to(torch.int64))
+    return tfm.unembed(params, sel, cfg)[:, 0], caches
 
 
 def _current_index(cfg: ArchConfig, caches: list) -> torch.Tensor:

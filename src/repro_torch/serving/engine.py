@@ -24,10 +24,19 @@ closes holes left by departed co-tenants and :meth:`ServeEngine.resize`
 changes the footprint cap, both by relocation (no re-download), and
 :meth:`ServeEngine.warmup` pays the downloads before traffic arrives.
 
-Port of ``ServeEngine`` in ``repro/serving/engine.py`` (synchronous
-overlays only: the decode prefetch and its eager specialization ride the
-reference's asynchronous scheduler and wait with it, as do the event-loop
-engine and fleets).
+On an overlay with ``async_downloads=True`` the engine also overlaps the
+two downloads: the moment the first prefill starts (the earliest point the
+decode-step shapes are known) it *prefetches* the decode accelerator and
+requests its route-constant specialized tier on the scheduler's low lane,
+so decode's kernel builds (and, on the card, its CUDA graph is captured)
+while the prefill runs.
+
+:class:`repro_torch.serving.loop.EventLoopEngine` extends this engine with
+the serving-under-load path: priority admission with SLO-aware shedding
+and chunked, power-of-two-bucketed prefill interleaved with decode ticks.
+
+Port of ``ServeEngine`` in ``repro/serving/engine.py``; fleets wait for a
+later slice of the port.
 """
 
 from __future__ import annotations
@@ -54,6 +63,12 @@ class Request:
     out: list[int] = dataclasses.field(default_factory=list)
     decode_steps: int = 0     # batched decode ticks this request has taken
     done: bool = False
+    # SLO / event-loop fields (serving/loop.py); inert on the FIFO engine
+    priority: int = 0                     # lower value = served first
+    submit_time: float | None = None      # engine clock at submit()
+    first_token_time: float | None = None
+    shed: bool = False
+    shed_reason: str | None = None
 
 
 def _fused_tick_update(logits, cur_tokens, slot_pos, live):
@@ -100,6 +115,7 @@ class ServeEngine:
         self.tile_budget = tile_budget
         self.cur_tokens = torch.zeros((batch, 1), dtype=torch.int32, device=self.device)
         self._live_mask = torch.zeros((batch,), dtype=torch.int32, device=self.device)
+        self._decode_prefetched = False
 
     # -- fabric management (relocatable bitstreams) --------------------------
     def compact(self) -> int:
@@ -110,6 +126,16 @@ class ServeEngine:
         if self.overlay is None:
             return 0
         return self.overlay.defragment()
+
+    def overlay_failures(self) -> "dict | None":
+        """The backing overlay's failure ledger — retries, breaker states,
+        dispatch fallbacks (``None`` without an overlay).  Failures never
+        surface as dropped tokens on this engine; they surface here (and
+        as latency): an admitted request always completes, served by a
+        retried download or the fallback."""
+        if self.overlay is None:
+            return None
+        return self.overlay.failure_ledger()
 
     def resize(self, tile_budget: int) -> None:
         """Change the engine's per-accelerator footprint cap in place.  The
@@ -123,6 +149,21 @@ class ServeEngine:
         self.tile_budget = tile_budget
         self._decode.tile_budget = tile_budget
         self._prefill.tile_budget = tile_budget
+
+    def _prefetch_decode(self) -> None:
+        """Hide the decode download behind prefill: request it once, as soon
+        as traffic arrives (asynchronous overlays only — on a synchronous
+        overlay the first decode tick pays its download).  Decode is the
+        per-token hot path, so the engine also requests its route-constant
+        *specialized* tier: the low-lane build lands behind the generic
+        download, and later ticks dispatch the specialized artifact."""
+        if self._decode_prefetched or self.overlay is None or \
+                not self.overlay.async_downloads:
+            return
+        self._decode_prefetched = True
+        args = (self.params, self.cur_tokens, self.caches, self.slot_pos)
+        self._decode.prefetch(*args)
+        self._decode.specialize(*args)
 
     def warmup(self, prompt_lens: "tuple[int, ...]" = ()) -> None:
         """Download the engine's kernels before traffic arrives: the ragged
@@ -148,6 +189,10 @@ class ServeEngine:
     def submit(self, req: Request) -> None:
         """Queue a request.  The prompt must fit in ``max_len`` with one
         decode step of headroom (checked here, at the API boundary)."""
+        self._validate_request(req)
+        self.queue.append(req)
+
+    def _validate_request(self, req: Request) -> None:
         n = len(req.prompt)
         if n == 0:
             raise ValueError(f"request {req.rid}: empty prompt")
@@ -156,7 +201,6 @@ class ServeEngine:
                 f"request {req.rid}: prompt of {n} tokens does not fit in "
                 f"max_len={self.max_len} with decode headroom (the engine "
                 f"needs len(prompt) + 1 <= max_len; got {n + 1})")
-        self.queue.append(req)
 
     def _admit(self) -> None:
         for slot in range(self.batch):
@@ -167,6 +211,7 @@ class ServeEngine:
     def _prefill_slot(self, slot: int, req: Request) -> None:
         """Prefill a single slot with a batch-1 cache, then scatter the
         stripe into the pooled cache."""
+        self._prefetch_decode()      # decode downloads during the prefill
         prompt = torch.tensor([req.prompt], dtype=torch.int32, device=self.device)
         c1 = mdl.init_cache(self.cfg, 1, self.max_len, self.device)
         logits, c1 = self._prefill(self.params, prompt, c1)
@@ -221,9 +266,12 @@ class ServeEngine:
                     poss[slot] + 1 >= self.max_len:
                 req.done = True
                 finished.append(req)
-                self.slot_req[slot] = None
-                self._live_mask[slot] = 0
+                self._release_slot(slot)
         return finished
+
+    def _release_slot(self, slot: int) -> None:
+        self.slot_req[slot] = None
+        self._live_mask[slot] = 0
 
     def run_until_drained(self, max_ticks: int = 10_000) -> list[Request]:
         """Tick until every queued and resident request retires.  Raises

@@ -16,9 +16,37 @@ engine.
 
 from __future__ import annotations
 
-__all__ = ["Histogram"]
+__all__ = ["Histogram", "merge_counts"]
 
 _N_BUCKETS = 32
+
+
+def merge_counts(*ledgers: "dict | None") -> dict:
+    """Merge counter ledgers (e.g. ``Overlay.failure_ledger()`` outputs
+    from several members or runs): numeric values sum, list values union
+    (deduplicated, sorted), nested dicts merge recursively, ``None``
+    ledgers are skipped.  Mismatched value types take the later ledger's
+    value — ledger data is observability, not billing."""
+    out: dict = {}
+    for ledger in ledgers:
+        if not ledger:
+            continue
+        for key, value in ledger.items():
+            have = out.get(key)
+            if isinstance(value, bool) or isinstance(have, bool):
+                out[key] = value
+            elif isinstance(have, (int, float)) and \
+                    isinstance(value, (int, float)):
+                out[key] = have + value
+            elif isinstance(have, list) and isinstance(value, list):
+                out[key] = sorted(set(have) | set(value))
+            elif isinstance(have, dict) and isinstance(value, dict):
+                out[key] = merge_counts(have, value)
+            elif isinstance(value, list):
+                out[key] = sorted(set(value))
+            else:
+                out[key] = value
+    return out
 
 
 class Histogram:
@@ -73,6 +101,49 @@ class Histogram:
             "p99": round(self.percentile(0.99), 3),
             "max": round(self.max, 3),
         }
+
+    def state(self) -> dict:
+        """Full JSON-serializable state — lossless, unlike :meth:`summary`.
+
+        The bitstream store's measurement ledger (a later slice of the
+        port) persists it so a warm boot can re-seed dispatch-latency
+        histograms instead of starting blind."""
+        return {
+            "counts": list(self.counts),
+            "count": self.count,
+            "total": self.total,
+            "max": self.max,
+        }
+
+    @classmethod
+    def from_state(cls, state: dict) -> "Histogram":
+        """Rebuild from :meth:`state` output; malformed state (wrong types,
+        wrong bucket count) yields an empty histogram rather than raising —
+        ledger data comes off disk and must never break a boot."""
+        h = cls()
+        try:
+            counts = [int(c) for c in state["counts"]]
+            count = int(state["count"])
+            total = float(state["total"])
+            mx = float(state["max"])
+        except (KeyError, TypeError, ValueError):
+            return h
+        if len(counts) != _N_BUCKETS or count < 0 or any(c < 0 for c in counts):
+            return h
+        h.counts = counts
+        h.count = count
+        h.total = total
+        h.max = mx
+        return h
+
+    def merge(self, other: "Histogram") -> None:
+        """Fold another histogram's observations into this one."""
+        for i, c in enumerate(other.counts):
+            self.counts[i] += c
+        self.count += other.count
+        self.total += other.total
+        if other.max > self.max:
+            self.max = other.max
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         s = self.summary()

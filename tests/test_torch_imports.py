@@ -36,3 +36,12 @@ def test_checker_sees_the_whole_port():
     assert len(FILES) > 20 and ROOT / "chip_smoke.py" in FILES
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")
+
+
+@pytest.mark.parametrize("module", ["core/faults.py", "core/scheduler.py", "serving/loop.py"])
+def test_checker_sees_the_async_runtime(module):
+    """The asynchronous runtime's modules are the port's own copies: the
+    checker above covers them, and they import neither jax nor repro."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]

@@ -682,3 +682,40 @@ def test_ssd_with_state_matches_naive_on_the_card(cuda):
     yn, fn = ref.ssd_naive(x, a, bm, cm, init)
     torch.testing.assert_close(y, yn, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(f, fn, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_concurrent_first_use_builds_each_library_once_on_card(cuda, tmp_path, monkeypatch):
+    """Two threads reach the kernels at once, with nothing built: each
+    library is compiled by one nvcc, once, and loaded once; both threads get
+    the same libraries."""
+    import threading
+
+    popen = native.subprocess.Popen
+    started = []
+
+    def counting(cmd, *args, **kwargs):
+        started.append(cmd[-1])
+        return popen(cmd, *args, **kwargs)
+
+    monkeypatch.setattr(native, "build_dir", lambda: tmp_path / "build")
+    monkeypatch.setattr(native.subprocess, "Popen", counting)
+    native._load.cache_clear()
+    try:
+        got, barrier = [], threading.Barrier(2)
+
+        def first_use():
+            barrier.wait(60)
+            got.append(native.libraries())
+
+        threads = [threading.Thread(target=first_use) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        assert not any(t.is_alive() for t in threads)
+        assert len(got) == 2 and got[0] is got[1] and set(got[0]) == set(native.SOURCES)
+        assert sorted(started) == sorted(str(native.csrc_dir() / f"{n}.cu")
+                                         for n in native.SOURCES)
+    finally:
+        native._load.cache_clear()

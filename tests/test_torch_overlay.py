@@ -284,8 +284,12 @@ def test_overlay_lru_reclaim_under_pressure():
 
 
 def test_overlay_raises_on_deferred_options():
-    with pytest.raises(NotImplementedError, match="asynchronous"):
-        Overlay(3, 3, async_downloads=True)
+    # the asynchronous runtime and the failure model are ported; sharded
+    # assembly, the sanitizer and the store are not yet
+    with pytest.raises(NotImplementedError, match="sharded"):
+        Overlay(3, 3, mesh=object())
+    with pytest.raises(NotImplementedError, match="sanitizer"):
+        Overlay(3, 3, sanitize=True)
     with pytest.raises(NotImplementedError, match="store"):
         Overlay(3, 3, store_path="x")
     with pytest.raises(TypeError):

@@ -574,3 +574,75 @@ def test_graph_tier_dropped_and_freed_on_relocation_on_card(cuda):
             exe(None, *args)
         assert all(torch.equal(u, v) for u, v in zip(f(*args), y0))
     assert after[2] <= after[1] <= after[0]
+
+
+@pytest.mark.cuda
+def test_decode_ticks_concurrent_with_a_low_lane_capture_on_card(cuda):
+    """On an asynchronous overlay the decode step's CUDA graph is captured
+    on a scheduler worker while the serving thread keeps running decode
+    ticks, each ended by a device-to-host copy as the engine's.  Every
+    tick's outputs are bit-identical to the generic walk's on the same
+    inputs, at least one tick ran during the build, and the launch counts
+    are exact: one rmsnorm launch per norm of every tick and of the
+    capture's one warm-up walk, none booked twice."""
+    import sys
+    import threading
+
+    from repro_torch.models import model as tmodel
+
+    cfg = smoke_config("phi3-mini-3.8b").scaled(d_model=256, head_dim=32,
+                                                blocks=((("dense",), 4),))
+    norms = 2 * cfg.num_layers + 1
+    params = tparams.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    ov = Overlay(3, 3, async_downloads=True, auto_specialize=False)
+    dec = ov.jit(lambda p, t, c, pos: tmodel.decode_step(p, cfg, t, c, positions=pos),
+                 name="decode")
+    tok = torch.tensor([[5], [9]], dtype=torch.int32, device=cuda)
+    caches = tmodel.init_cache(cfg, 2, 64, cuda)
+    pos = torch.tensor([3, 7], dtype=torch.int32, device=cuda)
+    dec(params, tok, caches, pos)                     # the fallback; download queued
+    assert ov.drain(60)
+    (entry,) = dec._entries.values()
+    generic = entry.acc.fn
+    res = ov.fabric.get(entry.acc.resident_id)
+    building = threading.Event()
+    build = ov._compile_specialized_tier
+
+    def traced(pending):
+        building.set()
+        return build(pending)
+
+    ov._compile_specialized_tier = traced
+    torch.cuda.synchronize()
+    trn.launches.reset()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-4)
+    ticks, overlapped, after = [], 0, 0
+    try:
+        dec.specialize(params, tok, caches, pos)      # queued on the low lane
+        assert res.spec_pending
+        while after < 3 and len(ticks) < 2000:
+            during = building.is_set() and res.tier == "generic"
+            logits, nxt = dec(params, tok, caches, pos)
+            ticks.append(((tok, caches, pos), (logits, nxt)))
+            overlapped += during
+            after += res.tier == "specialized"
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            tok.tolist()                              # the tick's device-to-host copy
+            caches, pos = nxt, (pos + 1) % 60
+    finally:
+        sys.setswitchinterval(old)
+    assert ov.drain(60)
+    torch.cuda.synchronize()
+    launches = (trn.launches.count, trn.launches.by_variant["warp"])
+    assert res.tier == "specialized" and after == 3 and overlapped >= 1
+    exe = res.spec_fn.func
+    assert isinstance(exe, tinterp.GraphKernel)
+    assert exe.launches_per_replay() == {"rmsnorm": norms}
+    assert ov.scheduler.stats.low_jobs == 1 and ov.cache.spec_stats.specializations == 1
+    assert launches == (norms * (len(ticks) + 1),) * 2
+    for inputs, outputs in ticks:
+        want = generic(*pytree.tree_leaves((params, *inputs)))
+        got = pytree.tree_leaves(outputs)
+        assert all(torch.equal(u, v) for u, v in zip(got, pytree.tree_leaves(want)))
+    ov.close()
