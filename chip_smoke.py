@@ -63,7 +63,24 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 10. runs the serve launcher on mamba2-130m at full width, and the train
     launcher with an injected failure: it restarts from its checkpoint and
     ends with rc 0;
-11. prints the kernels line (time per call, host included, and device time
+11. ``[warm-restart]``: boots the serve launcher in fresh processes on one
+    persistent bitstream store directory — phi3-mini-3.8b at full width
+    (the ``[serve]`` shape) plain, cold (``--store`` on an empty
+    directory), warm (the same directory) and garbled (one entry flipped
+    mid-payload and one truncated, ``REPRO_SANITIZE=1``); then mamba2-130m
+    plain, cold and warm on a second directory (prompts of 37, 500 and
+    4096 tokens).  Streams identical to plain; the cold boot saves every
+    kernel key and writes the ledger; the warm boot loads every key and
+    builds no kernel; the garbled boot warns, rebuilds each bad entry and
+    trips no invariant; the rmsnorm and ssd_chunk launches each boot must
+    make.  Prints first-token seconds (process start plus init, trace,
+    assembly or load, the first call), bytes on disk and load-vs-build ms
+    per entry, the sanitizer's host ms per check, mamba2's downloads cold
+    and warm;
+12. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
+    (lock lint, live checkers under the sanitizer, the store, injected
+    faults) must exit 0;
+13. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
     and ssd_chunk's CUDA-core kernels' times), timings at other shapes
@@ -76,6 +93,10 @@ Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, the overlay-served runs, the relocation
 and specialization rounds, the full-width training runs) and read just
 after; launches made to compare or time a kernel are not counted.  A
+launcher boot of ``[warm-restart]`` is a process of its own: it counts from
+0 and reports its counts in its result line.  Before each phase the script
+prints the card's SM clock, temperature and active throttle reasons, and
+the threads alive when ``[train]`` starts.  A
 CUDA-graph replay runs no wrapper: it adds to the counters the launches its
 capture recorded.  Exits non-zero without a result line when CUDA is
 unavailable or the port's sources are missing.
@@ -92,6 +113,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -234,6 +256,17 @@ def kernels_launched(fn, calls: int = 3) -> list[str]:
         time.sleep(PROFILE_MARGIN_S)
     return [ev.name for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def gpu_state(phase: str) -> str:
+    """The card's SM clock, temperature and active throttle reasons, logged
+    before ``phase``."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,"
+                          "clocks_throttle_reasons.active", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30).stdout.strip()
+    log(f"[gpu] before {phase}: SM clock, temperature, throttle reasons: {out} "
+        f"(allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    return out
 
 
 def reset_counters() -> None:
@@ -1246,6 +1279,8 @@ def phase_train() -> dict:
     in the forward (2 per layer + the final norm) and per layer norm in the
     recompute (the final norm is outside the rematerialized layers)."""
     cfg = get_config("phi3-mini-3.8b")
+    alive = [f"{t.name}{' (daemon)' if t.daemon else ''}" for t in threading.enumerate()]
+    log(f"[train] threads alive at the start: {len(alive)}: {alive}")
     params = pm.init(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
     opt = adamw_init(params)
     step_fn = train_cli.make_step(cfg, cosine(3e-4, warmup=1, total=TRAIN_STEPS))
@@ -1637,6 +1672,178 @@ def phase_launcher() -> None:
           "train launcher did not restart from its checkpoint and finish")
 
 
+BOOT_TIMEOUT_S = 300
+PHI3_BOOT = ["--arch", "phi3-mini-3.8b", "--requests", str(REQUESTS), "--batch", str(BATCH),
+             "--prompt-len", str(PROMPT), "--max-new", str(MAX_NEW), "--max-len", str(MAX_LEN),
+             "--seed", str(SEED)]
+MAMBA_BOOT = ["--arch", MAMBA, "--requests", str(MAMBA_REQUESTS), "--batch", str(MAMBA_BATCH),
+              "--prompt-lens", ",".join(map(str, MAMBA_PROMPTS)), "--max-new", str(MAMBA_NEW),
+              "--max-len", str(MAMBA_MAX_LEN), "--seed", str(SEED)]
+
+
+def _env(**extra) -> dict:
+    path = os.path.join(ROOT, "src")
+    old = os.environ.get("PYTHONPATH")
+    return {**os.environ, "PYTHONPATH": path + (os.pathsep + old if old else ""), **extra}
+
+
+def boot(tag: str, args: list, **env) -> tuple[dict, str]:
+    """One serve-launcher process (``python -m repro_torch.launch.serve``):
+    its result line (the last line of its output) and its standard error."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args],
+                          capture_output=True, text=True, timeout=BOOT_TIMEOUT_S, cwd=ROOT,
+                          env=_env(**env))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        for line in (proc.stdout + proc.stderr).splitlines()[-30:]:
+            log(f"[warm-restart] {tag}: {line[:300]}")
+    check(proc.returncode == 0, f"[warm-restart] {tag} boot exited {proc.returncode}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    result["wall_s"] = wall
+    ttft = result.get("first_token_seconds", {})
+    split = ", ".join(f"{k} {v:.3f}" for k, v in ttft.items())
+    log(f"[warm-restart] {tag}: process {wall:.1f} s; first token (s): {split}; calls "
+        f"{result['calls']}; kernels {result['kernels_built']}; downloads "
+        f"{result.get('downloads')}; store hits {result.get('store_hits')}")
+    return result, proc.stderr
+
+
+def _garble(directory: str) -> list[str]:
+    """Flip one byte mid-payload of the first ``.bits`` entry and truncate
+    the second to half its length."""
+    names = sorted(n for n in os.listdir(directory) if n.endswith(".bits"))
+    check(len(names) >= 2, f"[warm-restart] {len(names)} entries to garble in {directory}")
+    flip, cut = (os.path.join(directory, n) for n in names[:2])
+    with open(flip, "rb") as fh:
+        data = bytearray(fh.read())
+    header_end = 12 + int.from_bytes(data[8:12], "little")
+    data[(header_end + len(data)) // 2] ^= 0xFF
+    with open(flip, "wb") as fh:
+        fh.write(bytes(data))
+    with open(cut, "rb") as fh:
+        data = fh.read()
+    with open(cut, "wb") as fh:
+        fh.write(data[: len(data) // 2])
+    return names[:2]
+
+
+def _check_launches(tag: str, r: dict, norms: int, ssd_layers: int = 0) -> None:
+    calls, n = r["calls"], r["launches"]
+    want = norms * (calls["prefill"] + calls["decode"])
+    check(n["rmsnorm"] == want and n["rmsnorm/warp"] == want,
+          f"[warm-restart] {tag}: rmsnorm launches {n['rmsnorm']} != {norms} x {calls}")
+    want = ssd_layers * calls["prefill"]
+    check(n["ssd_chunk"] == want and n["ssd_chunk/mma"] == want,
+          f"[warm-restart] {tag}: ssd_chunk launches {n['ssd_chunk']} (mma "
+          f"{n['ssd_chunk/mma']}) != {ssd_layers} x {calls['prefill']}")
+
+
+def _check_warm(tag: str, warm: dict, keys: int) -> None:
+    """A warm boot loads every kernel key from disk and builds none: every
+    download is a store hit (a key the fabric reclaimed and admitted again
+    loads again, so hits may exceed the keys), with no load failure."""
+    check(warm["store_hits"] == warm["downloads"] and warm["store_hits"] >= keys
+          and warm["store"]["entries"] == keys and not warm["kernels_built"].get("Kernel")
+          and warm["store"]["stats"]["load_failures"] == 0,
+          f"[warm-restart] {tag} warm boot: {warm['store_hits']} store hits, "
+          f"{warm['downloads']} downloads, {keys} keys, kernels {warm['kernels_built']}, "
+          f"store {warm['store']}")
+
+
+def _per_entry(cold: dict, warm: dict) -> tuple[float, float]:
+    """Build ms per kernel (cold boot) and load ms per kernel (warm boot)."""
+    c, w = cold["cache"], warm["cache"]
+    builds = c["misses"] - c["store_hits"]          # a store load is booked as a miss too
+    return ((c["compile_seconds"] - c["store_load_seconds"]) / max(1, builds) * 1e3,
+            w["store_load_seconds"] / max(1, w["store_hits"]) * 1e3)
+
+
+def phase_warm_restart() -> dict:
+    """[warm-restart]: the persistent bitstream store across real processes
+    (module docstring, item 11).  Returns the launches of each boot."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="warm-phi3-") as d1, \
+            tempfile.TemporaryDirectory(prefix="warm-mamba-") as d2:
+        norms = 2 * get_config("phi3-mini-3.8b").num_layers + 1
+        plain, _ = boot("phi3 plain", PHI3_BOOT)
+        cold, _ = boot("phi3 cold", PHI3_BOOT + ["--store", d1])
+        sizes = {n: os.path.getsize(os.path.join(d1, n)) for n in sorted(os.listdir(d1))}
+        warm, _ = boot("phi3 warm", PHI3_BOOT + ["--store", d1])
+        bad = _garble(d1)
+        garbled, err = boot("phi3 garbled", PHI3_BOOT + ["--store", d1], REPRO_SANITIZE="1")
+        for tag, r in (("plain", plain), ("cold", cold), ("warm", warm), ("garbled", garbled)):
+            check(r["streams"] == plain["streams"],
+                  f"[warm-restart] phi3 {tag} streams differ from plain:\n{r['streams']}\n"
+                  f"{plain['streams']}")
+            _check_launches(f"phi3 {tag}", r, norms)
+            out[f"boot_phi3_{tag}"] = r["launches"]
+        keys = cold["store"]["entries"]
+        check(keys >= 2 and cold["store"]["stats"]["saves"] >= keys
+              and os.path.exists(os.path.join(d1, "ledger.json")),
+              f"[warm-restart] cold boot: {keys} keys, store {cold['store']}")
+        _check_warm("phi3", warm, keys)
+        gstats = garbled["store"]["stats"]
+        check(gstats["load_failures"] >= 2 and "unusable" in err and garbled["sanitize"]
+              and garbled["kernels_built"].get("Kernel", 0) >= 2 and gstats["saves"] >= 2
+              and garbled["sanitizer_checks"] > 0,
+              f"[warm-restart] garbled boot: store {garbled['store']}, kernels "
+              f"{garbled['kernels_built']}, sanitizer {garbled['sanitizer_checks']} checks")
+        build_ms, load_ms = _per_entry(cold, warm)
+        san_ms = garbled["sanitizer_seconds"] / garbled["sanitizer_checks"] * 1e3
+        log(f"[warm-restart] phi3 store: {keys} entries, bytes on disk {sizes}; build "
+            f"{build_ms:.2f} ms a kernel (cold) vs load {load_ms:.2f} ms (warm); garbled "
+            f"{bad}: {gstats['load_failures']} load failures, rebuilt and saved again "
+            f"{gstats['saves']}; sanitizer {garbled['sanitizer_checks']} checks, "
+            f"{san_ms:.3f} ms host a check (an admission, evict or relocation edge)")
+        for line in err.splitlines():
+            if "unusable" in line or "deserialize" in line:
+                log(f"[warm-restart] garbled boot warned: {line[:240]}")
+        ttft = {t: r["first_token_seconds"] for t, r in
+                (("plain", plain), ("cold", cold), ("warm", warm), ("garbled", garbled))}
+        log(f"[warm-restart] phi3 first token from process start: "
+            + ", ".join(f"{t} {v['from_process_start']:.2f} s" for t, v in ttft.items())
+            + f"; warm - cold {ttft['warm']['from_process_start'] - ttft['cold']['from_process_start']:+.2f} s")
+
+        m_plain, _ = boot("mamba2 plain", MAMBA_BOOT)
+        m_cold, _ = boot("mamba2 cold", MAMBA_BOOT + ["--store", d2])
+        m_warm, _ = boot("mamba2 warm", MAMBA_BOOT + ["--store", d2])
+        m_cfg = get_config(MAMBA)
+        for tag, r in (("plain", m_plain), ("cold", m_cold), ("warm", m_warm)):
+            check(r["streams"] == m_plain["streams"],
+                  f"[warm-restart] mamba2 {tag} streams differ from plain")
+            _check_launches(f"mamba2 {tag}", r, m_cfg.num_layers + 1, m_cfg.num_layers)
+            out[f"boot_mamba_{tag}"] = r["launches"]
+        m_keys = m_cold["store"]["entries"]
+        _check_warm("mamba2", m_warm, m_keys)
+        build_ms, load_ms = _per_entry(m_cold, m_warm)
+        log(f"[warm-restart] mamba2 store: {m_keys} entries, {m_cold['store']['payload_bytes']}"
+            f" payload bytes; build {build_ms:.2f} ms a kernel vs load {load_ms:.2f} ms; "
+            f"downloads cold {m_cold['downloads']} vs warm {m_warm['downloads']} (the planner "
+            f"with the seeded ledger; measured, not required); first token from process "
+            f"start cold {m_cold['first_token_seconds']['from_process_start']:.2f} s, warm "
+            f"{m_warm['first_token_seconds']['from_process_start']:.2f} s")
+    return out
+
+
+def phase_analysis() -> dict:
+    """[analysis]: ``python -m repro_torch.analysis report`` on the card."""
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "report"],
+                          capture_output=True, text=True, timeout=BOOT_TIMEOUT_S, cwd=ROOT,
+                          env=_env())
+    for line in proc.stdout.splitlines():
+        log(f"[analysis] {line[:300]}")
+    if proc.returncode != 0:
+        for line in proc.stderr.splitlines()[-20:]:
+            log(f"[analysis] stderr: {line[:300]}")
+    check(proc.returncode == 0 and proc.stdout.rstrip().endswith("PASS"),
+          f"[analysis] report exited {proc.returncode}")
+    line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("kernel launches "))
+    return json.loads(line.removeprefix("kernel launches "))
+
+
 def phase_small_reference() -> None:
     """A small float32 phi3 (d_model 128, 2 layers) on the card (CUDA
     kernels) against the same model on the CPU (plain versions).
@@ -1947,19 +2154,34 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    gpu_state("[kernels]")
     errs = phase_kernel_checks(gen)
     phase_one_launch(gen)
+    gpu_state("[overlay]")
     paper = phase_overlay_paper(gen)
+    gpu_state("[async-fig3]")
     async_fig3 = phase_async_fig3(gen)
+    gpu_state("[serve]")
     served = phase_serve(gen)
+    gpu_state("[train]")
     trained = phase_train()
+    gpu_state("[train-overlay]")
     phase_train_overlay()
+    gpu_state("[serve-mamba]")
     served_mamba = phase_serve_mamba(gen)
+    gpu_state("[train-mamba]")
     trained_mamba = phase_train_mamba()
+    gpu_state("[reference]")
     phase_small_reference()
     phase_small_train_reference()
     phase_small_mamba_reference()
+    gpu_state("[launcher]")
     phase_launcher()
+    gpu_state("[warm-restart]")
+    booted = phase_warm_restart()
+    gpu_state("[analysis]")
+    analysis = phase_analysis()
+    gpu_state("[timing]")
     by_path = {"fig3": paper["launches"], "async_fig3": async_fig3,
                "serve": served["launches"],
                "relocate": served["relocate"], "specialize": served["specialize"],
@@ -1967,7 +2189,7 @@ def main() -> int:
                "serve_loop_sync_overlay": served["serve_loop"]["sync_overlay_launches"],
                "train": trained["launches"], "serve_mamba": served_mamba["launches"],
                "serve_mamba_cost_model": served_mamba["launches_cost_model"],
-               "train_mamba": trained_mamba["launches"]}
+               "train_mamba": trained_mamba["launches"], **booted, "analysis": analysis}
     launches = {name: sum(p[name] for p in by_path.values()) for name in counts()}
     for path, n in by_path.items():
         check(n["rmsnorm/warp"] == n["rmsnorm"],

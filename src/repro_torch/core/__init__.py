@@ -22,6 +22,8 @@ Public API (frontend first — the paper's programming model):
       PR-download pipeline (priority, FIFO and low lanes)
   faults.FaultPlan / FaultError            — seeded, replayable fault
       injection for the failure model
+  store.BitstreamStore / StoreStats        — the persistent bitstream store
+      (kernels in a serial form that names their operators; warm restarts)
 """
 
 from repro_torch.core.cache import (BitstreamCache, SpecializationStats,
@@ -49,15 +51,17 @@ from repro_torch.core.placement import (Placement, PlacementError,
                                         placement_crowding,
                                         placement_footprint, score_placement)
 from repro_torch.core.scheduler import DownloadHandle, DownloadScheduler
+from repro_torch.core.store import BitstreamStore, StoreStats
 from repro_torch.core.trace import Lowered, TraceError, trace_to_graph
 
 __all__ = [
-    "AssembledAccelerator", "BitstreamCache", "DownloadHandle",
+    "AssembledAccelerator", "BitstreamCache", "BitstreamStore", "DownloadHandle",
     "DownloadScheduler", "Fabric", "FabricError", "FaultError", "FaultPlan",
     "Graph", "GraphKernel", "JitAssembled", "Kernel", "LIBRARY", "Lowered",
     "NodeRef", "Opcode", "Operator", "Overlay", "OverlayStats", "Placement",
     "PlacementError", "PlacementPolicy", "Program", "ResidentAccelerator",
-    "SpecializationStats", "SpecializedKernel", "TensorSpec", "TileClass",
+    "SpecializationStats", "SpecializedKernel", "StoreStats", "TensorSpec",
+    "TileClass",
     "TileGrid", "TraceError", "assemble", "bind_routes", "branchy_graph",
     "build_kernel", "candidate_placements", "check_assignment",
     "compile_compute", "compile_graph", "compile_routes", "kernel_key",

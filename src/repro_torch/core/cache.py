@@ -27,8 +27,12 @@ a kernel key plus the exact hop vector baked into the artifact.  On the
 card such an artifact is a captured CUDA graph of the route-constant walk,
 and dropping it releases the graph and its private memory pool.
 
-Port of ``repro/core/cache.py`` without the persistent store, which waits
-for a later slice.
+Below the in-memory levels sits the persistent
+:class:`~repro_torch.core.store.BitstreamStore`: a miss it satisfies is
+booked by :meth:`BitstreamCache.insert_loaded` (a miss whose download was a
+disk load, counted in ``store_hits`` / ``store_load_seconds``).
+
+Port of ``repro/core/cache.py``.
 """
 
 from __future__ import annotations
@@ -97,6 +101,12 @@ class CacheStats:
     insertions: int = 0            # entries ever stored
     evictions: int = 0
     compile_seconds: float = 0.0   # total "PR download" time paid
+    # persistent-store tier: misses satisfied by a disk load instead of a
+    # kernel build, and the time those loads took.  A store hit still counts
+    # as a `miss` above (the in-memory cache did miss), so hits keep meaning
+    # "served without any download".
+    store_hits: int = 0
+    store_load_seconds: float = 0.0
 
 
 @dataclasses.dataclass
@@ -169,6 +179,18 @@ class BitstreamCache:
         still a download."""
         self.stats.misses += 1
         self.stats.compile_seconds += compile_seconds
+        self.put(key, exe)
+
+    def insert_loaded(self, key: str, exe: Any, load_seconds: float) -> None:
+        """Store a kernel rebuilt from the persistent bitstream store.
+        Booked as a miss (the in-memory cache did miss) whose download cost
+        is the load time, which is what teaches the download-cost EWMA that
+        this artifact is cheap to bring back (the planner prices reclaims
+        off that)."""
+        self.stats.misses += 1
+        self.stats.compile_seconds += load_seconds
+        self.stats.store_hits += 1
+        self.stats.store_load_seconds += load_seconds
         self.put(key, exe)
 
     def put(self, key: str, exe: Any) -> None:

@@ -23,9 +23,13 @@ single source of truth for which tile belongs to which resident:
 cache keys it owns so tile release and bitstream eviction travel through
 one path (``Overlay.evict``).
 
-Port of ``repro/core/fabric.py``: framework-free and nearly verbatim.  The
-persisted measurement ledger (``export_ledger``/``seed_ledger``) waits for
-the store's slice.
+The measurement ledger — download-cost EWMA, download counts and per-rid
+dispatch-latency histograms — outlives residencies (a release stashes the
+histogram, a re-admission re-seeds it) and the process:
+:meth:`Fabric.export_ledger` is what the bitstream store persists and
+:meth:`Fabric.seed_ledger` what a warm boot reads back.
+
+Port of ``repro/core/fabric.py``: framework-free and nearly verbatim.
 """
 
 from __future__ import annotations
@@ -112,6 +116,10 @@ class Fabric:
         self._generation = 0
         self._download_counts: dict[str, int] = {}   # per-rid, survives evict
         self._download_costs: dict[str, float] = {}  # rid -> measured build s
+        # per-rid dispatch-latency history, stashed at release and re-seeded
+        # at admit: like the cost EWMA, latency measurements price the
+        # accelerator, not one residency, so eviction must not erase them
+        self._dispatch_states: dict[str, dict] = {}
 
     def reset(self, grid: TileGrid | None = None) -> list[ResidentAccelerator]:
         """Flush every resident (optionally swapping the grid) while keeping
@@ -253,6 +261,9 @@ class Fabric:
             download_cost=self._download_costs.get(rid, 0.0),
             admit_generation=self._generation,
             dispatch_hist=Histogram())
+        state = self._dispatch_states.get(rid)
+        if state is not None:
+            res.dispatch_hist = Histogram.from_state(state)
         self._residents[rid] = res
         return res
 
@@ -275,14 +286,80 @@ class Fabric:
         res = self._residents.pop(rid, None)
         if res is not None:
             res.live = False          # dispatch records invalidate instantly
+            self._stash_dispatch(res)
         return res
 
     def release_all(self) -> list[ResidentAccelerator]:
         out = list(self._residents.values())
         for res in out:
             res.live = False
+            self._stash_dispatch(res)
         self._residents.clear()
         return out
+
+    def _stash_dispatch(self, res: ResidentAccelerator) -> None:
+        if res.dispatch_hist is not None and res.dispatch_hist.count:
+            self._dispatch_states[res.rid] = res.dispatch_hist.state()
+
+    # -- measurement ledger ---------------------------------------------------
+    def export_ledger(self) -> dict[str, Any]:
+        """Snapshot every cross-residency measurement — the download-cost
+        EWMA, download counts and per-rid dispatch-latency histogram states
+        (live residents included) — in the JSON shape the bitstream store
+        persists (``BitstreamStore.save_ledger``)."""
+        dispatch = dict(self._dispatch_states)
+        for res in self._residents.values():
+            if res.dispatch_hist is not None and res.dispatch_hist.count:
+                dispatch[res.rid] = res.dispatch_hist.state()
+        return {
+            "download_costs": dict(self._download_costs),
+            "download_counts": dict(self._download_counts),
+            "dispatch": dispatch,
+        }
+
+    def seed_ledger(self, ledger: dict[str, Any]) -> int:
+        """Re-seed measurements from a persisted ledger (warm boot).
+
+        In-process measurements win: a rid that already has a live EWMA or
+        histogram keeps it.  Malformed rows are skipped — ledger data comes
+        off disk and must never break a boot.  Returns rows applied."""
+        applied = 0
+        costs = ledger.get("download_costs")
+        if isinstance(costs, dict):
+            for rid, cost in costs.items():
+                try:
+                    cost = float(cost)
+                except (TypeError, ValueError):
+                    continue
+                if cost >= 0.0 and rid not in self._download_costs:
+                    self._download_costs[rid] = cost
+                    res = self._residents.get(rid)
+                    if res is not None and res.download_cost == 0.0:
+                        res.download_cost = cost
+                    applied += 1
+        counts = ledger.get("download_counts")
+        if isinstance(counts, dict):
+            for rid, n in counts.items():
+                try:
+                    n = int(n)
+                except (TypeError, ValueError):
+                    continue
+                if n > self._download_counts.get(rid, 0):
+                    self._download_counts[rid] = n
+        dispatch = ledger.get("dispatch")
+        if isinstance(dispatch, dict):
+            for rid, state in dispatch.items():
+                if rid in self._dispatch_states or not isinstance(state, dict):
+                    continue
+                hist = Histogram.from_state(state)
+                if hist.count:
+                    self._dispatch_states[rid] = state
+                    res = self._residents.get(rid)
+                    if res is not None and res.dispatch_hist is not None \
+                            and not res.dispatch_hist.count:
+                        res.dispatch_hist = hist
+                    applied += 1
+        return applied
 
     def add_cache_key(self, rid: str, key: str) -> None:
         res = self._residents.get(rid)

@@ -29,6 +29,12 @@ it on every dispatch: the port's form of the reference's compiled
 route-constant executable.  Each walk issues its aten ops one at a time
 from Python; a replay issues them all in one graph launch.
 
+A kernel has a serial form (:meth:`Kernel.serial_form` /
+:meth:`Kernel.from_serial`): its step list with each operator named by its
+descriptor, which the bitstream store writes and a later process rebuilds
+without running anything it reads.  :func:`kernel_builds` counts the
+kernels a process built and loaded.
+
 Port of the local mode and both tiers of ``repro/core/interpreter.py``; the
 sharded mode (``assemble_sharded``) waits for a later slice.
 """
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import threading
 import weakref
 from functools import partial
@@ -188,6 +195,7 @@ class _Step:
     fn: Callable[..., Any] | None        # None: select
     srcs: tuple[tuple[int, int], ...]    # (source slot, edge index)
     frees: tuple[int, ...] = ()          # slots no later step reads
+    desc: Any = None                     # the operator's serial form
 
 
 class Kernel:
@@ -217,7 +225,8 @@ class Kernel:
         self.consts = tuple((n.node_id, n.payload) for n in graph.nodes
                             if n.kind == "const")
         steps = [_Step(n.node_id, n.op.fn if n.kind == "op" else None,
-                       tuple((s, eidx[(s, n.node_id)]) for s in n.inputs))
+                       tuple((s, eidx[(s, n.node_id)]) for s in n.inputs),
+                       desc=n.op.desc if n.kind == "op" else None)
                  for n in graph.toposorted() if n.kind in ("op", "select")]
         last = {step.node_id: i for i, step in enumerate(steps)}
         for i, step in enumerate(steps):
@@ -229,6 +238,91 @@ class Kernel:
                 frees[i].append(slot)
         self.steps = tuple(dataclasses.replace(step, frees=tuple(f))
                            for step, f in zip(steps, frees))
+        _count_build(type(self).__name__)
+
+    # -- serial form (the bitstream store's payload) -------------------------
+    def serial_form(self) -> "tuple[dict, list]":
+        """The kernel as a JSON-ready step list, plus its const payloads (in
+        ``program["consts"]`` order) for ``torch.save``.  Every operator is
+        named by its descriptor (:attr:`~repro_torch.core.patterns.Operator.desc`)
+        in the program's ``ops`` table, which steps index; raises :class:`~repro_torch.core.trace.SerialError` when one has
+        none."""
+        from repro_torch.core.trace import SerialError
+
+        # each distinct operator once (a 32-layer step repeats each of its
+        # few dozen operators once a layer); a step names it by index
+        ops: dict[str, int] = {}
+        steps = []
+        for st in self.steps:
+            if st.fn is not None and st.desc is None:
+                raise SerialError(f"kernel {self.name!r}: node {st.node_id} "
+                                  f"has an operator with no serial form")
+            op = None
+            if st.desc is not None:
+                op = ops.setdefault(json.dumps(st.desc, sort_keys=True), len(ops))
+            steps.append([st.node_id, op, [list(s) for s in st.srcs],
+                          list(st.frees)])
+        program = {"name": self.name, "num_edges": self.num_edges,
+                   "num_slots": self.num_slots,
+                   "input_ids": list(self.input_ids),
+                   "output_ids": list(self.output_ids),
+                   "ops": [json.loads(text) for text in ops],
+                   "consts": [nid for nid, _ in self.consts], "steps": steps,
+                   "hops": list(self.hops) if isinstance(self, SpecializedKernel)
+                   else None}
+        return program, [payload for _, payload in self.consts]
+
+    @staticmethod
+    def from_serial(program: dict, consts: list) -> "Kernel":
+        """Rebuild a kernel (a :class:`SpecializedKernel` when the program
+        carries hops) from :meth:`serial_form`'s output, resolving each
+        operator by name.  Raises :class:`~repro_torch.core.trace.SerialError`
+        on anything malformed or unresolvable; runs no code it reads."""
+        from repro_torch.core.trace import SerialError, operator_from_desc
+
+        try:
+            hops = program["hops"]
+            kernel = Kernel.__new__(SpecializedKernel if hops is not None else Kernel)
+            kernel.name = str(program["name"])
+            kernel.num_edges = _nat(program["num_edges"])
+            kernel.num_slots = _nat(program["num_slots"])
+            kernel.input_ids = _indices(program["input_ids"], kernel.num_slots)
+            kernel.output_ids = _indices(program["output_ids"], kernel.num_slots)
+            const_ids = _indices(program["consts"], kernel.num_slots)
+            if len(const_ids) != len(consts):
+                raise SerialError("const table and payloads disagree")
+            kernel.consts = tuple(zip(const_ids, consts))
+            descs = list(program["ops"])
+            fns = [operator_from_desc(d).fn for d in descs]
+            # the step table: indices checked in bulk, not one by one
+            raw = program["steps"]
+            ops = _indices([op for _, op, _, _ in raw if op is not None], len(fns))
+            srcs = [tuple(map(tuple, s)) for _, _, s, _ in raw]
+            pairs = [pair for s in srcs for pair in s]
+            if any(len(pair) != 2 for pair in pairs):
+                raise SerialError("a step source is not a (slot, edge) pair")
+            _indices([nid for nid, _, _, _ in raw] + [sl for sl, _ in pairs]
+                     + [f for _, _, _, fr in raw for f in fr], kernel.num_slots)
+            _indices([e for _, e in pairs], kernel.num_edges)
+            ops = iter(ops)
+            steps = []
+            for (nid, op, _, frees), src in zip(raw, srcs):
+                if op is None:
+                    steps.append(_Step(nid, None, src, tuple(frees)))
+                else:
+                    op = next(ops)
+                    steps.append(_Step(nid, fns[op], src, tuple(frees), desc=descs[op]))
+            kernel.steps = tuple(steps)
+            if hops is not None:
+                kernel.hops = tuple(_nat(h) for h in hops)
+                if len(kernel.hops) != kernel.num_edges:
+                    raise SerialError("hop vector and edge count disagree")
+        except SerialError:
+            raise
+        except (KeyError, TypeError, ValueError) as exc:
+            raise SerialError(f"malformed kernel program: {exc!r}") from None
+        _count_build("loaded")
+        return kernel
 
     def __call__(self, routes: torch.Tensor, *inputs):
         hops = routes.tolist()
@@ -260,6 +354,42 @@ class Kernel:
                 vals[slot] = None
         outs = tuple(vals[i] for i in self.output_ids)
         return outs[0] if len(outs) == 1 else outs
+
+
+def _nat(v, bound: "int | None" = None) -> int:
+    """A non-negative int from a serial program (below ``bound`` if given)."""
+    if isinstance(v, bool) or not isinstance(v, int) or v < 0 \
+            or (bound is not None and v >= bound):
+        raise ValueError(f"bad index {v!r}")
+    return v
+
+
+def _indices(values: list, bound: int) -> tuple:
+    """``values`` as a tuple, each an int in ``[0, bound)``, or ValueError."""
+    values = tuple(values)
+    if not set(map(type, values)) <= {int} \
+            or values and (min(values) < 0 or max(values) >= bound):
+        raise ValueError(f"bad index among {len(values)} (bound {bound})")
+    return values
+
+
+# Kernels made in this process, by how: "Kernel" (built from a graph: a
+# download), "SpecializedKernel" (a route-constant build) and "loaded"
+# (rebuilt from the bitstream store).  A warm boot builds none.
+_builds: dict[str, int] = {}
+_builds_lock = threading.Lock()
+
+
+def _count_build(how: str) -> None:
+    with _builds_lock:
+        _builds[how] = _builds.get(how, 0) + 1
+
+
+def kernel_builds() -> dict[str, int]:
+    """How many kernels this process built from graphs (``"Kernel"``,
+    ``"SpecializedKernel"``) and rebuilt from the store (``"loaded"``)."""
+    with _builds_lock:
+        return dict(_builds)
 
 
 def build_kernel(graph: Graph) -> Kernel:
@@ -361,6 +491,7 @@ class GraphKernel:
             raise ValueError(f"{kernel.name!r}: a CUDA graph needs every input on "
                              f"the card")
         self.name = kernel.name
+        self.kernel = kernel          # the walk captured (what a store writes)
         device = inputs[0].device
         with torch.cuda.device(device), _capture_lock:
             self._seen = [(weakref.ref(x), x._version) for x in inputs]

@@ -47,6 +47,16 @@ Also provided, mirroring the paper's runtime controls:
   generic kernel,
 * ``Overlay(cost_model_placement=True)`` — candidate placements scored in
   seconds-equivalent cost instead of first-fit, and priced reclaims,
+* ``Overlay(store_path=dir)`` — the persistent bitstream store: built
+  kernels are written to disk on the scheduler's low lane (the kernel's
+  serial form, :class:`~repro_torch.core.store.BitstreamStore`), a later
+  process pointed at the same directory loads them instead of building,
+  and the measurement ledger the planner prices with survives restarts,
+* the sanitizer — ``Overlay(sanitize=True)`` or ``REPRO_SANITIZE=1`` runs
+  :mod:`repro_torch.analysis.check` at every mutation edge (admit, evict,
+  relocate, specialization commit, flush) and raises
+  :class:`~repro_torch.analysis.check.InvariantError` on the first
+  violation; off, it adds no work,
 * ``Overlay.assemble(graph)`` — the low-level IR path (hand-built Graphs),
   idempotent and cached.
 
@@ -59,17 +69,19 @@ cache mutation, foreground or a worker's commit, holds it.
 Port of ``repro/core/overlay.py``.  Where the reference queues work on its
 scheduler on a synchronous overlay too (an auto-specialization, a rebind
 after a relocation), the port does it inline there and queues it only on an
-asynchronous overlay.  The trace stays on the caller, as in the reference:
-the asynchronous pipeline hides the assembly, not the trace.  Sharded
-assembly (``mesh``), the persistent store, donation and the sanitizer wait
-for later slices: the port's :class:`Overlay` raises on the keyword
-arguments that ask for them instead of ignoring them.
+asynchronous overlay; persists ride the low lane on both, as in the
+reference.  The trace stays on the caller, as in the reference: the
+asynchronous pipeline hides the assembly, and the store the kernel build,
+not the trace.  Sharded assembly (``mesh``) and donation wait for later
+slices: the port's :class:`Overlay` raises on the keyword arguments that ask
+for them instead of ignoring them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import threading
 import time
 import warnings
@@ -92,6 +104,8 @@ from repro_torch.core.placement import (Coord, Placement, PlacementError,
                                         candidate_placements, check_assignment,
                                         place, score_placement)
 from repro_torch.core.scheduler import DownloadHandle, DownloadScheduler
+from repro_torch.core.store import BitstreamStore
+from repro_torch.core.trace import SerialError
 from repro_torch.serving.metrics import Histogram
 
 logger = logging.getLogger(__name__)
@@ -107,9 +121,6 @@ _MAX_DOWNLOAD_FAILURES = 3
 _DEFERRED = {
     "mesh": "sharded assembly across devices",
     "tile_axis": "sharded assembly across devices",
-    "sanitize": "the invariant sanitizer",
-    "store": "the persistent bitstream store",
-    "store_path": "the persistent bitstream store",
 }
 
 
@@ -401,6 +412,11 @@ class JitAssembled:
             except (PlacementError, FabricError):
                 raise                      # structural — must propagate
             except Exception as exc:
+                if self.overlay.sanitize:
+                    from repro_torch.analysis.check import InvariantError
+                    if isinstance(exc, InvariantError):
+                        raise              # a sanitizer verdict is a bug, not
+                                           # an outage: never degrade it
                 # a failed download (injected or real): serve from the
                 # fallback and retry later on the backoff clock
                 self._note_download_failure(entry, exc)
@@ -674,13 +690,25 @@ class Overlay:
         synchronous one.  Defaults to following ``async_downloads``;
         ``jitted.specialize(*args)`` works either way.
       specialize_after: dispatch-stability threshold for that trigger.
+      sanitize: run the :mod:`repro_torch.analysis.check` invariant suite
+        at every mutation edge and raise on the first violation.  Defaults
+        to the ``REPRO_SANITIZE`` environment variable (on unless empty or
+        ``0``).
+      store / store_path: attach a persistent
+        :class:`~repro_torch.core.store.BitstreamStore` — built kernels are
+        serialized to disk on the scheduler's low lane, and a later overlay
+        pointed at the same directory loads them instead of building (warm
+        restarts).  Pass an existing ``store`` instance to share it, or
+        ``store_path`` to open or create one; not both.
       cost_model_placement: replace first-fit packing with the cost-model
         planner — candidate placements at several footprint budgets scored
         in seconds-equivalent cost (measured per-hop dispatch latency,
         co-location crowding, tile scarcity), and pressure reclaims priced
-        by modeled re-download cost.  Off by default.
+        by modeled re-download cost (near zero for store-backed residents).
+        Defaults to on iff a store is attached.
       autotune_thresholds: re-derive ``specialize_after`` and the
-        auto-defragment trigger from live measurements.  Off by default.
+        auto-defragment trigger from live measurements.  Defaults to on iff
+        a store is attached.
       faults: a :class:`~repro_torch.core.faults.FaultPlan` to inject
         download, slow-download, dispatch and resident-loss faults.
       breaker_threshold: consecutive failed downloads of an entry that open
@@ -704,6 +732,9 @@ class Overlay:
                  cost_aware_reclaim: bool | None = None,
                  auto_specialize: bool | None = None,
                  specialize_after: int = 32,
+                 sanitize: bool | None = None,
+                 store: "BitstreamStore | None" = None,
+                 store_path: "str | None" = None,
                  cost_model_placement: bool | None = None,
                  autotune_thresholds: bool | None = None,
                  faults: FaultPlan | None = None,
@@ -726,6 +757,8 @@ class Overlay:
         if breaker_threshold < 1 or retry_backoff < 1 or breaker_probe_after < 1:
             raise ValueError("breaker_threshold, retry_backoff and "
                              "breaker_probe_after must be >= 1")
+        if store is not None and store_path is not None:
+            raise ValueError("pass store= or store_path=, not both")
         self.grid = TileGrid(rows, cols, large_fraction)
         self.policy = policy
         self.cache = BitstreamCache(cache_capacity)
@@ -733,8 +766,7 @@ class Overlay:
         self.stats = OverlayStats()
         self.auto_defragment = auto_defragment
         self.async_downloads = bool(async_downloads)
-        # None follows async_downloads, as in the reference (whose store,
-        # absent here, would also turn on the planner and the autotuner)
+        # None follows async_downloads, as in the reference
         self.cost_aware_reclaim = (self.async_downloads if cost_aware_reclaim is None
                                    else bool(cost_aware_reclaim))
         self._auto_specialize = (self.async_downloads if auto_specialize is None
@@ -755,8 +787,23 @@ class Overlay:
         # one lock for every fabric and cache mutation: foreground
         # assemblies and the workers' commits serialize on it
         self._lock = threading.RLock()
-        self.cost_model_placement = bool(cost_model_placement)
-        self.autotune_thresholds = bool(autotune_thresholds)
+        # persistent bitstream store; it turns the cost-model planner and the
+        # autotuner on unless the caller says otherwise
+        if store is None and store_path is not None:
+            store = BitstreamStore(store_path, faults=faults)
+        self.store = store
+        self.cost_model_placement = ((store is not None)
+                                     if cost_model_placement is None
+                                     else bool(cost_model_placement))
+        self.autotune_thresholds = ((store is not None)
+                                    if autotune_thresholds is None
+                                    else bool(autotune_thresholds))
+        # sanitizer: the analysis.check suite at every mutation edge; the
+        # dispatch fast path does no extra work either way (the hooks sit on
+        # admit / evict / relocate / spec commit / flush, behind this flag)
+        if sanitize is None:
+            sanitize = os.environ.get("REPRO_SANITIZE", "") not in ("", "0")
+        self.sanitize = bool(sanitize)
         # adaptive auto-defragment gate (only consulted when autotuning):
         # fragmentation below which a post-reclaim defrag is skipped
         self.defrag_threshold = 0.25
@@ -770,6 +817,21 @@ class Overlay:
         # total route hops per admitted or relocated placement
         self.dispatch_hist = Histogram()
         self.route_cost_hist = Histogram()
+        if self.store is not None:
+            # warm boot: re-seed the fabric's measurement ledger so the
+            # planner prices reclaims from history instead of starting blind
+            ledger = self.store.load_ledger()
+            if ledger:
+                with self._lock:
+                    self.fabric.seed_ledger(ledger)
+
+    def _sanity_check(self) -> None:
+        """Sanitizer hook: run the full invariant suite (the caller holds
+        the overlay lock).  Reached only when ``self.sanitize`` is on: the
+        import stays out of every default-mode code path."""
+        from repro_torch.analysis import check as _check
+
+        _check.ensure(_check.check_overlay(self))
 
     def _note_demand(self, rid: str) -> None:
         """First demand access of a prefetched resident = one prefetch hit."""
@@ -915,7 +977,9 @@ class Overlay:
                 self._maybe_defragment()
 
     # -- cost-model placement planner -----------------------------------------
-    _RECLAIM_PRIOR_S = 0.05       # price of a re-download not yet measured
+    # price priors (seconds) for quantities not yet measured in this process
+    _RECLAIM_PRIOR_S = 0.05       # a re-download (kernel build)
+    _STORE_LOAD_PRIOR_S = 0.005   # a store load
 
     def _reclaim_prior(self) -> float:
         """Neutral re-download price: the mean measured cost, else a prior."""
@@ -933,8 +997,16 @@ class Overlay:
 
     def _victim_price(self, res: ResidentAccelerator) -> float:
         """Modeled cost of reclaiming ``res`` now: what the next admission
-        would pay to bring its kernel back (its measured download cost,
-        else the neutral prior)."""
+        would pay to bring its kernels back.  The mean measured store load
+        (else a prior) when every kernel it owns is store-backed — the load
+        replaces the build — otherwise its measured download cost, else
+        the neutral prior."""
+        if self.store is not None and res.cache_keys \
+                and all(k in self.store for k in res.cache_keys):
+            st = self.cache.stats
+            if st.store_hits:
+                return st.store_load_seconds / st.store_hits
+            return self._STORE_LOAD_PRIOR_S
         cost = self.fabric.download_cost(res.rid) or res.download_cost
         return cost if cost > 0.0 else self._reclaim_prior()
 
@@ -1065,6 +1137,8 @@ class Overlay:
                 placement.assignment != self._last_placement.assignment:
             self.stats.reconfigurations += 1
         self._last_placement = placement
+        if self.sanitize:
+            self._sanity_check()
         return resident
 
     def _bind_routes_eager(self, resident: ResidentAccelerator) -> None:
@@ -1122,15 +1196,29 @@ class Overlay:
                 resident.cache_keys = tuple(k for k in resident.cache_keys
                                             if k in self.cache)
                 self.stats.downloads += 1
-            if key not in self.cache:
-                self._inject_download_fault(key)
-            misses = self.cache.stats.misses
-            t0 = time.perf_counter()
-            kernel = self.cache.get_or_compile(key, lambda: interp.build_kernel(graph))
-            if self.cache.stats.misses != misses:
-                self.fabric.record_download_cost(rid, time.perf_counter() - t0)
-            self.fabric.add_cache_key(rid, key)
-            return self._bind_acc(resident, kernel)
+            if key in self.cache:
+                # pure hit: the kernel is placement-free, so it serves this
+                # resident's current routes
+                kernel = self.cache.get_or_compile(key, lambda: None)
+                self.fabric.add_cache_key(rid, key)
+                return self._bind_acc(resident, kernel)
+            generation = resident.generation
+        # miss: load or build OUTSIDE the lock, as the reference compiles —
+        # neither may stall concurrent requests or background commits
+        kernel, dt, loaded = self._load_or_build(key, graph)
+        with self._lock:
+            if self.fabric.same_residency(rid, generation):
+                self._book_kernel_locked(rid, key, kernel, dt, loaded)
+                # relocated meanwhile? the kernel is placement-free: bind it
+                # to the routes as they stand now
+                return self._bind_acc(self.fabric.get(rid), kernel)
+        # reclaimed while building: publish nothing; the kernel is still a
+        # correct pure function, so the caller gets it at the old routes
+        # (a stale generation: the next call re-assembles)
+        acc = interp.assemble(resident.graph, resident.placement,
+                              program=resident.program, routes=resident.routes,
+                              kernel=kernel)
+        return dataclasses.replace(acc, resident_id=rid, generation=generation)
 
     # -- asynchronous download pipeline ---------------------------------------
     def submit_download(self, graph: Graph, *,
@@ -1182,17 +1270,47 @@ class Overlay:
                                        key=key, graph=graph)
         return self.scheduler.submit(
             rid, lambda: self._compile_bitstream(pending),
-            lambda kernel, dt: self._commit_download(pending, kernel, dt),
+            lambda built, dt: self._commit_download(pending, built, dt),
             on_done=on_done, kind=kind, low=low,
             deadline=self.download_deadline)
 
-    def _compile_bitstream(self, pending: _PendingDownload) -> interp.Kernel:
+    def _compile_bitstream(self, pending: _PendingDownload
+                           ) -> "tuple[interp.Kernel, float, bool]":
         """The expensive half of a download, on a scheduler worker with no
-        lock held: the placement-invariant kernel build."""
-        self._inject_download_fault(pending.key)
-        return interp.build_kernel(pending.graph)
+        lock held: the placement-invariant kernel, off the store or built."""
+        return self._load_or_build(pending.key, pending.graph)
 
-    def _commit_download(self, pending: _PendingDownload, kernel: interp.Kernel,
+    def _load_or_build(self, key: str, graph: Graph
+                       ) -> "tuple[interp.Kernel, float, bool]":
+        """A missing kernel, with no lock held: loaded from the bitstream
+        store when it holds a usable entry, else built (the download, and
+        the fault plan's choke point).  Returns ``(kernel, seconds,
+        loaded)``."""
+        t0 = time.perf_counter()
+        kernel = self._store_load(key)
+        if kernel is not None:
+            return kernel, time.perf_counter() - t0, True
+        self._inject_download_fault(key)
+        t0 = time.perf_counter()
+        kernel = interp.build_kernel(graph)
+        return kernel, time.perf_counter() - t0, False
+
+    def _book_kernel_locked(self, rid: str, key: str, kernel: interp.Kernel,
+                            seconds: float, loaded: bool) -> None:
+        """Publish a loaded or built kernel for a resident (the caller holds
+        the lock): the cache entry (a store hit is a miss that paid a load,
+        not a build), the measured cost the planner prices with, the
+        resident's key, and a persist of a built kernel."""
+        if loaded:
+            self.cache.insert_loaded(key, kernel, seconds)
+        else:
+            self.cache.insert_compiled(key, kernel, seconds)
+            self._persist_artifact_locked(key, kernel)
+        self.fabric.record_download_cost(rid, seconds)
+        self.fabric.add_cache_key(rid, key)
+
+    def _commit_download(self, pending: _PendingDownload,
+                         built: "tuple[interp.Kernel, float, bool]",
                          seconds: float) -> interp.AssembledAccelerator | None:
         """Publish a finished background build (the swap), on the worker
         under the overlay lock.  A residency evicted or flushed while the
@@ -1203,9 +1321,11 @@ class Overlay:
             if not self.fabric.same_residency(pending.rid, pending.generation):
                 self.stats.stale_downloads += 1
                 return None
-            self.cache.insert_compiled(pending.key, kernel, seconds)
-            self.fabric.add_cache_key(pending.rid, pending.key)
-            self.fabric.record_download_cost(pending.rid, seconds)
+            # the worker's measured time (a load, or a build with any
+            # injected slowness) is what the planner should price
+            kernel, _, loaded = built
+            self._book_kernel_locked(pending.rid, pending.key, kernel, seconds,
+                                     loaded)
             return self._bind_acc(self.fabric.get(pending.rid), kernel)
 
     def prefetch(self, jitted: JitAssembled, *args) -> DownloadHandle | None:
@@ -1225,9 +1345,102 @@ class Overlay:
         constructor's; a timed-out drain warns with the undrained count)
         and retire the workers.  The overlay keeps serving: synchronous
         paths are unaffected, and asynchronous misses serve their fallback
-        for good (no new download starts)."""
+        for good (no new download starts).
+
+        With a store attached, queued persists drain FIRST (shutdown
+        cancels what is queued) and the measurement ledger gets a final
+        save: a clean close is what lets the next boot find everything on
+        disk."""
         limit = self.drain_timeout if drain_timeout is None else drain_timeout
+        if self.store is not None and not self.scheduler.closed:
+            if not self.scheduler.drain(timeout=limit):
+                logger.warning(
+                    "overlay close: %d background job(s) still undrained "
+                    "after %.1fs; persisting the ledger anyway",
+                    self.scheduler.outstanding(), limit)
+            self.store.save_ledger(self.fabric.export_ledger())
         self.scheduler.shutdown(wait=True, timeout=limit)
+
+    # -- persistent bitstream store -------------------------------------------
+    def _store_load(self, key: str) -> "interp.Kernel | None":
+        """A cache miss satisfied from the bitstream store (no lock held;
+        the caller books it), or None — a plain miss, an entry that fails
+        validation, or a payload that does not rebuild — and the caller
+        builds cold.  A payload that passes the checksum but does not
+        rebuild (an operator or a tag this build cannot resolve) is
+        expunged so the next boot does not trip over it again."""
+        if self.store is None:
+            return None
+        blob = self.store.load_blob(key)
+        if blob is None:
+            return None
+        try:
+            return BitstreamStore.unpack_kernel(blob)
+        except Exception as exc:  # noqa: BLE001 — any failure = cold build
+            self.store.note_unusable(key)
+            logger.warning("bitstream store: entry for %r failed to "
+                           "deserialize (%s); cold compiling", key, exc)
+            return None
+
+    def _persist_artifact_locked(self, key: str, kernel: interp.Kernel) -> None:
+        """Queue ``kernel`` for persistence on the scheduler's LOW lane (the
+        caller holds the lock): a persist never delays a download.
+        Serialization runs on a worker with no lock held; the disk write
+        commits back under the lock only if the kernel is still cached."""
+        if self.store is None or self.scheduler.closed or key in self.store:
+            return
+        self.scheduler.submit(
+            f"persist:{key}", lambda: self._pack(key, kernel),
+            lambda blob, dt: self._commit_persist(key, blob, "kernel"),
+            kind="persist", low=True)
+
+    def _pack(self, key: str, kernel: Any) -> "bytes | None":
+        """Worker half of a persist (no lock held): the kernel's serial form,
+        or None when it has none (an operator built from an arbitrary
+        callable, a const that is not a tensor or a number).  Such a kernel
+        still serves; it is only not written, and the store counts it."""
+        try:
+            return BitstreamStore.pack_kernel(kernel)
+        except SerialError as exc:
+            self.store.note_unpersistable(key, exc)
+            return None
+
+    def _commit_persist(self, key: str, blob: "bytes | None", store_kind: str):
+        """Write a serialized artifact to the store (a worker, under the
+        lock).  Guarded like a download commit: it persists only entries
+        the cache still serves, so an evict that raced the serialization
+        wins and the disk never holds a resurrected key."""
+        with self._lock:
+            if self.store is None or blob is None:
+                return None
+            if store_kind == "specialized":
+                alive = self.cache.specialized(key) is not None
+            else:
+                alive = key in self.cache
+            if not alive:
+                return None
+            ok = self.store.save(key, blob, kind=store_kind)
+            if ok:
+                # the measurement ledger rides every successful persist:
+                # restarts re-seed the EWMA costs and latency histograms
+                self.store.save_ledger(self.fabric.export_ledger())
+            return ok or None
+
+    def _persist_spec_locked(self, pending: "_PendingSpecialize", exe: Any) -> None:
+        """Queue the route-constant tier for persistence (the caller holds
+        the lock).  A CUDA graph does not serialize: what is written is the
+        walk it captured (the hop vector plus the step list), from which a
+        warm boot captures again."""
+        if self.store is None or self.scheduler.closed \
+                or pending.spec_key in self.store:
+            return
+        kernel = getattr(exe, "kernel", exe)
+        self.scheduler.submit(
+            f"persist:{pending.spec_key}",
+            lambda: self._pack(pending.spec_key, kernel),
+            lambda blob, dt: self._commit_persist(pending.spec_key, blob,
+                                                  "specialized"),
+            kind="persist", low=True)
 
     def _publish_record(self, entry: _JitEntry) -> None:
         """(Re)derive an entry's dispatch record from its accelerator,
@@ -1288,6 +1501,10 @@ class Overlay:
                 kind="relocate", priority=True)
         else:
             self._rebind_resident(rid)
+        # a planned repack (ignore non-empty) passes through legal transient
+        # overlap between movers: the plan's caller checks once at the end
+        if self.sanitize and not ignore:
+            self._sanity_check()
         return res
 
     def _rebind_resident(self, rid: str, generation: int | None = None
@@ -1407,6 +1624,8 @@ class Overlay:
             # compaction's point is the contiguous steady state: build the
             # zero-hop tier for residents that reached it
             self._enqueue_contiguous_specializations()
+        if self.sanitize:
+            self._sanity_check()
         return moved
 
     def _plan_repack(self, on_failure: "Callable[[ResidentAccelerator, PlacementError], bool]"
@@ -1536,7 +1755,9 @@ class Overlay:
         :class:`~repro_torch.core.interpreter.GraphKernel` for how a worker
         captures while the serving thread runs); on the CPU the walk
         itself."""
-        kernel = interp.specialize_kernel(pending.graph, pending.hops)
+        kernel = self._store_load_spec(pending)
+        if kernel is None:
+            kernel = interp.specialize_kernel(pending.graph, pending.hops)
         avals = pending.graph.input_avals()
         cuda = [torch.device(a.device) for a in avals
                 if a.device is not None and torch.device(a.device).type == "cuda"]
@@ -1547,6 +1768,33 @@ class Overlay:
                            torch.zeros(a.shape, dtype=a.dtype, device=a.device)
                            for x, a in zip(pending.inputs, avals))
             return interp.GraphKernel(kernel, inputs)
+
+    def _store_load_spec(self, pending: _PendingSpecialize
+                         ) -> "interp.SpecializedKernel | None":
+        """The route-constant walk off disk, if the store holds it for these
+        exact hops (a warm boot then skips the build and captures again)."""
+        if self.store is None:
+            return None
+        blob = self.store.load_blob(pending.spec_key)
+        if blob is None:
+            return None
+        t0 = time.perf_counter()
+        try:
+            kernel = BitstreamStore.unpack_kernel(blob)
+            if not isinstance(kernel, interp.SpecializedKernel) \
+                    or kernel.hops != tuple(pending.hops):
+                raise SerialError("not the route-constant walk of these hops")
+        except Exception as exc:  # noqa: BLE001 — any failure = cold build
+            self.store.note_unusable(pending.spec_key)
+            logger.warning("bitstream store: specialized entry for %r failed "
+                           "to deserialize (%s); cold compiling",
+                           pending.spec_key, exc)
+            return None
+        dt = time.perf_counter() - t0
+        with self._lock:
+            self.cache.stats.store_hits += 1
+            self.cache.stats.store_load_seconds += dt
+        return kernel
 
     def _commit_specialized(self, pending: _PendingSpecialize, exe: Any,
                             seconds: float) -> Any:
@@ -1577,7 +1825,10 @@ class Overlay:
                     entry.record = _DispatchRecord(
                         fn=fn, res=res, generation=res.generation,
                         tier="specialized")
+            self._persist_spec_locked(pending, exe)
             self._autotune()
+            if self.sanitize:
+                self._sanity_check()
             return exe
 
     def _despecialize(self, res: ResidentAccelerator) -> None:
@@ -1622,12 +1873,17 @@ class Overlay:
                     self._specialize_now(entry, res, None)
 
     # -- explicit PR-region management ----------------------------------------
-    def _evict_resident(self, rid: str) -> int:
+    def _evict_resident(self, rid: str, *, drop_store: bool = False) -> int:
         """THE evict path (the caller holds the lock): release a resident's
-        tiles, cancel any download, rebind or specialization still in
-        flight for it, and drop its specialized artifacts, its route
+        tiles, cancel any download, rebind, specialization or persist still
+        in flight for it, and drop its specialized artifacts, its route
         programs and the kernel artifacts no surviving resident shares.
-        Returns cache entries removed."""
+        Returns cache entries removed.
+
+        ``drop_store`` also deletes those kernels' store entries: a pressure
+        reclaim keeps them (a reclaimed accelerator re-downloading off disk
+        is the store's point), an explicit :meth:`evict` means gone, disk
+        included."""
         resident = self.fabric.release(rid)
         if resident is None:
             return 0
@@ -1637,6 +1893,13 @@ class Overlay:
         self.scheduler.cancel(f"relocate:{rid}")
         if resident.spec_job is not None:
             self.scheduler.cancel(resident.spec_job)
+        if self.store is not None and resident.cache_keys:
+            # in-flight persists must not resurrect the evictee on disk
+            # (the _commit_persist liveness guard backstops the race)
+            hops = interp.route_hops(resident.graph, resident.placement)
+            for k in resident.cache_keys:
+                self.scheduler.cancel(f"persist:{k}")
+                self.scheduler.cancel(f"persist:{cache_lib.spec_key(k, hops)}")
         # the route-constant tier dies with its resident even when the
         # generic kernel key survives via a sharing sibling
         self._drop_spec_artifacts(resident)
@@ -1647,8 +1910,16 @@ class Overlay:
         self.cache.evict_routes(rid)
         live_keys = {k for r in self.fabric.residents.values()
                      for k in r.cache_keys}
-        return self.cache.evict_keys(
+        removed = self.cache.evict_keys(
             [k for k in resident.cache_keys if k not in live_keys])
+        if drop_store and self.store is not None:
+            for k in resident.cache_keys:
+                if k not in live_keys:
+                    self.store.delete(k)
+                    self.store.delete_prefix(f"{k}|spec|")
+        if self.sanitize:
+            self._sanity_check()
+        return removed
 
     def evict(self, target: "Graph | str") -> int:
         """Free one accelerator's PR regions AND its cached bitstreams (by
@@ -1659,10 +1930,13 @@ class Overlay:
             removed = 0
             for rid in [r.rid for r in self.fabric.residents.values()
                         if r.name == name]:
-                removed += self._evict_resident(rid)
+                removed += self._evict_resident(rid, drop_store=True)
             # sweep bitstreams with no residency record so evict-by-name
             # stays exhaustive
-            return removed + self.cache.evict_prefix(f"{name}:")
+            removed += self.cache.evict_prefix(f"{name}:")
+            if self.store is not None:
+                self.store.delete_prefix(f"{name}:")
+            return removed
 
     def reconfigure(self, *, policy: PlacementPolicy | None = None,
                     large_fraction: float | None = None,
@@ -1700,11 +1974,19 @@ class Overlay:
             flushed = self.fabric.reset(self.grid)
             self.stats.evictions += len(flushed)
             self.cache.clear()
+            if self.store is not None:
+                # a reconfigure drops what these kernels were placed for:
+                # their store entries must not serve a later boot
+                for k in {k for r in flushed for k in r.cache_keys}:
+                    self.store.delete(k)
+                    self.store.delete_prefix(f"{k}|spec|")
             self._last_placement = None
             self.stats.reconfigurations += 1
             if self.async_downloads and prefetch:
                 for wrapper in list(self._wrappers):
                     wrapper._prefetch_known()
+            if self.sanitize:
+                self._sanity_check()
         return self.describe()
 
     def _reconfigure_relocating(self, policy: PlacementPolicy | None,
@@ -1729,6 +2011,8 @@ class Overlay:
                     self._relocate_resident(res.rid, pl, ignore=plan_rids)
             self._last_placement = None
             self.stats.reconfigurations += 1
+            if self.sanitize:
+                self._sanity_check()
         return self.describe()
 
     # -- introspection ----------------------------------------------------------
@@ -1769,6 +2053,7 @@ class Overlay:
             "scheduler": self.scheduler.describe(),
             "failures": self.failure_ledger(),
             "faults": self.faults.describe() if self.faults is not None else None,
+            "store": self.store.describe() if self.store is not None else None,
             "cost_model_placement": self.cost_model_placement,
             "autotune_thresholds": self.autotune_thresholds,
             "defrag_threshold": round(self.defrag_threshold, 4),

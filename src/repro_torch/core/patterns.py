@@ -48,6 +48,13 @@ class Operator:
       signature: disambiguator for operators whose behaviour is not fully
         captured by ``name`` (residue ops parameterized by their constant
         arguments) — feeds :meth:`Graph.fingerprint`.
+      desc: the operator's serial form — a JSON-ready descriptor that names
+        it (a library entry, a pattern over one, a cast, an aten overload or
+        a registered call with its constant arguments) so a kernel built
+        from it can be written to the bitstream store and rebuilt in
+        another process (:func:`repro_torch.core.trace.fn_from_desc`).
+        None for an operator built from an arbitrary callable: a kernel
+        holding one is not persisted.
     """
 
     name: str
@@ -56,6 +63,8 @@ class Operator:
     tile_class: TileClass = TileClass.SMALL
     flops_per_elem: float = 1.0
     signature: str = ""
+    desc: Any = dataclasses.field(default=None, compare=False, hash=False,
+                                  repr=False)
 
     def __call__(self, *args):
         if len(args) != self.arity:
@@ -96,7 +105,7 @@ LIBRARY = OperatorLibrary()
 def _reg(name: str, arity: int, fn, tile_class=TileClass.SMALL, flops=1.0) -> Operator:
     return LIBRARY.register(
         Operator(name=name, arity=arity, fn=fn, tile_class=tile_class,
-                 flops_per_elem=flops))
+                 flops_per_elem=flops, desc={"k": "lib", "name": name}))
 
 
 def _gelu(x):
@@ -142,7 +151,8 @@ def make_map(op: Operator) -> Operator:
     if op.arity != 1:
         raise ValueError(f"map needs a unary operator, got {op.name!r} (arity {op.arity})")
     return Operator(name=f"map[{op.name}]", arity=1, fn=op.fn,
-                    tile_class=op.tile_class, flops_per_elem=op.flops_per_elem)
+                    tile_class=op.tile_class, flops_per_elem=op.flops_per_elem,
+                    desc=None if op.desc is None else {"k": "map", "op": op.desc})
 
 
 def make_zip_with(op: Operator) -> Operator:
@@ -150,7 +160,8 @@ def make_zip_with(op: Operator) -> Operator:
     if op.arity != 2:
         raise ValueError(f"zip_with needs a binary operator, got {op.name!r}")
     return Operator(name=f"zip[{op.name}]", arity=2, fn=op.fn,
-                    tile_class=op.tile_class, flops_per_elem=op.flops_per_elem)
+                    tile_class=op.tile_class, flops_per_elem=op.flops_per_elem,
+                    desc=None if op.desc is None else {"k": "zip", "op": op.desc})
 
 
 _REDUCERS = {"add": torch.sum, "mul": torch.prod, "max": torch.amax,
@@ -190,9 +201,12 @@ def make_reduce(op: Operator, axis: "int | tuple[int, ...] | None" = None) -> Op
     else:
         def fn(x, _r=reducer, _axis=axis):
             return _r(x) if _axis is None else _r(x, dim=_axis)
+    desc = None if op.desc is None else {
+        "k": "reduce", "op": op.desc,
+        "axis": list(axis) if isinstance(axis, tuple) else axis}
     return Operator(name=f"reduce[{op.name},axis={axis}]", arity=1, fn=fn,
                     tile_class=TileClass.LARGE,  # accumulator-equipped tiles
-                    flops_per_elem=op.flops_per_elem)
+                    flops_per_elem=op.flops_per_elem, desc=desc)
 
 
 def make_filter(pred: Callable[[Any], Any], name: str) -> Operator:
@@ -208,7 +222,8 @@ def make_filter(pred: Callable[[Any], Any], name: str) -> Operator:
 MATMUL = LIBRARY.register(
     Operator(name="matmul", arity=2,
              fn=lambda a, b: torch.matmul(a.float(), b.float()),
-             tile_class=TileClass.LARGE, flops_per_elem=2.0))
+             tile_class=TileClass.LARGE, flops_per_elem=2.0,
+             desc={"k": "lib", "name": "matmul"}))
 
 
 # -----------------------------------------------------------------------------
@@ -273,6 +288,7 @@ def register_call(name: str, op: Operator, *, override: bool = False) -> Operato
     pre-synthesized bitstream — instead of being decomposed."""
     if not override and name in _CALL_TABLE:
         raise ValueError(f"call {name!r} already registered")
+    op = dataclasses.replace(op, desc={"k": "callop", "call": name})
     _CALL_TABLE[name] = op
     return op
 
@@ -339,6 +355,12 @@ def _lower_cast(args, kwargs, specs):
     if set(kwargs) != {"dtype"}:    # a device/layout move is not a cast
         return None
     dt = kwargs["dtype"]
-    return Operator(f"cast[{str(dt).removeprefix('torch.')}]", 1,
-                    lambda x, _d=dt: x.to(_d), TileClass.SMALL,
-                    flops_per_elem=0.0)
+    return make_cast(dt)
+
+
+def make_cast(dtype: torch.dtype) -> Operator:
+    """A dtype cast (``aten._to_copy`` with only ``dtype=``)."""
+    name = str(dtype).removeprefix("torch.")
+    return Operator(f"cast[{name}]", 1, lambda x, _d=dtype: x.to(_d),
+                    TileClass.SMALL, flops_per_elem=0.0,
+                    desc={"k": "cast", "dtype": name})

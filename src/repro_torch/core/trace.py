@@ -33,6 +33,14 @@ Multi-result residue ops (``aten.split``, ``aten.max.dim``, ...) lower to one
 tuple-valued node plus per-result ``proj[i]`` nodes (fx's ``getitem``), so
 each Graph edge carries one value.
 
+Every operator the lowering makes carries its serial form
+(:attr:`~repro_torch.core.patterns.Operator.desc`): a residue or a custom
+call names its aten overload and its constant arguments in a tagged form
+(:func:`encode_value`), a projection its index.  A residue's computation is
+built from an argument template (:class:`_In` placeholders where the fx
+nodes stood), so the traced operator and the one the bitstream store
+rebuilds (:func:`operator_from_desc`) run the same code.
+
 Traced functions must not mutate their inputs or views of intermediate
 values in place: route copies on an edge would break that aliasing.  The
 port's model code is functional.
@@ -91,18 +99,72 @@ def _node_leaves(obj) -> list:
     return []
 
 
-def _binder(obj, counter: list) -> Callable[[tuple], Any]:
-    """A function rebuilding ``obj`` with its i-th fx node replaced by the
-    i-th input — built once at trace time, cheap on every call."""
+class _In:
+    """Placeholder for an operator's i-th input inside a residue's argument
+    template (where the fx node stood)."""
+
+    __slots__ = ("i",)
+
+    def __init__(self, i: int) -> None:
+        self.i = i
+
+
+def _template(obj, counter: list) -> Any:
+    """``obj`` with each fx node replaced by an :class:`_In` placeholder,
+    numbered in :func:`_node_leaves` order."""
     if isinstance(obj, fx.Node):
-        i = counter[0]
         counter[0] += 1
-        return lambda xs: xs[i]
+        return _In(counter[0] - 1)
     if isinstance(obj, (list, tuple)) and _node_leaves(obj):
-        parts = [_binder(o, counter) for o in obj]
+        kind = list if isinstance(obj, list) else tuple
+        return kind(_template(o, counter) for o in obj)
+    return obj
+
+
+def _has_input(obj) -> bool:
+    if isinstance(obj, _In):
+        return True
+    return isinstance(obj, (list, tuple)) and any(_has_input(o) for o in obj)
+
+
+def _binder(obj) -> Callable[[tuple], Any]:
+    """A function rebuilding a template with its i-th placeholder replaced
+    by the i-th input — built once, cheap on every call."""
+    if isinstance(obj, _In):
+        i = obj.i
+        return lambda xs: xs[i]
+    if isinstance(obj, (list, tuple)) and _has_input(obj):
+        parts = [_binder(o) for o in obj]
         kind = list if isinstance(obj, list) else tuple
         return lambda xs: kind(p(xs) for p in parts)
     return lambda xs: obj
+
+
+def _template_fn(target, targs: tuple, tkwargs: dict) -> Callable[..., Any]:
+    """The computation of a residue or custom-call node: ``target`` called
+    with its constant arguments baked in and its inputs bound in order."""
+    bind_args = [_binder(a) for a in targs]
+    bind_kwargs = {k: _binder(v) for k, v in tkwargs.items()}
+
+    def fn(*xs, _t=target):
+        out = _t(*(b(xs) for b in bind_args),
+                 **{k: b(xs) for k, b in bind_kwargs.items()})
+        return tuple(out) if isinstance(out, list) else out
+
+    return fn
+
+
+def _template_desc(target, targs: tuple, tkwargs: dict):
+    """The serial form of a residue, or None when a constant argument has
+    no tagged form (a kernel holding it is then not persisted)."""
+    if not isinstance(target, torch._ops.OpOverload):
+        return None
+    try:
+        return {"k": "aten", "target": str(target),
+                "args": [encode_value(a) for a in targs],
+                "kwargs": {k: encode_value(v) for k, v in tkwargs.items()}}
+    except SerialError:
+        return None
 
 
 def _residue_operator(target, args, kwargs) -> Operator:
@@ -110,21 +172,17 @@ def _residue_operator(target, args, kwargs) -> Operator:
     become the operator's inputs (:func:`_node_leaves` order), everything
     else is baked in."""
     counter = [0]
-    bind_args = [_binder(a, counter) for a in args]
-    bind_kwargs = {k: _binder(v, counter) for k, v in kwargs.items()}
-
-    def fn(*xs, _t=target):
-        out = _t(*(b(xs) for b in bind_args),
-                 **{k: b(xs) for k, b in bind_kwargs.items()})
-        return tuple(out) if isinstance(out, list) else out
-
+    targs = tuple(_template(a, counter) for a in args)
+    tkwargs = {k: _template(v, counter) for k, v in kwargs.items()}
     # two residues of one op with different constant args must not alias in
     # the bitstream cache
     consts = [("node" if isinstance(a, fx.Node) else repr(a))
               for a in pytree.tree_leaves((args, kwargs))]
     sig = hashlib.sha256(repr((list(kwargs), consts)).encode()).hexdigest()[:12]
     return Operator(name=f"{RESIDUE_PREFIX}{_op_name(target)}]", arity=counter[0],
-                    fn=fn, tile_class=TileClass.SMALL, signature=sig)
+                    fn=_template_fn(target, targs, tkwargs),
+                    tile_class=TileClass.SMALL, signature=sig,
+                    desc=_template_desc(target, targs, tkwargs))
 
 
 def _op_name(target) -> str:
@@ -134,7 +192,8 @@ def _op_name(target) -> str:
 
 def _projection(i: int) -> Operator:
     return Operator(name=f"proj[{i}]", arity=1, fn=lambda t, _i=i: t[_i],
-                    tile_class=TileClass.SMALL, flops_per_elem=0.0)
+                    tile_class=TileClass.SMALL, flops_per_elem=0.0,
+                    desc={"k": "proj", "i": i})
 
 
 def _custom_call_operator(target, args, kwargs, op: Operator) -> Operator:
@@ -142,8 +201,166 @@ def _custom_call_operator(target, args, kwargs, op: Operator) -> Operator:
     class come from the registration; the computation re-calls the op with
     this call's own constant arguments (e.g. rmsnorm's eps)."""
     res = _residue_operator(target, args, kwargs)
+    desc = res.desc and {**res.desc, "k": "call",
+                         "call": target._schema.name}
     return dataclasses.replace(res, name=op.name, tile_class=op.tile_class,
-                               flops_per_elem=op.flops_per_elem)
+                               flops_per_elem=op.flops_per_elem, desc=desc)
+
+
+# --------------------------------------------------------------------------
+# serial form of operators (what the bitstream store writes for a kernel)
+# --------------------------------------------------------------------------
+class SerialError(ValueError):
+    """A value or operator descriptor has no serial form, or names
+    something this process cannot resolve."""
+
+
+_ENUMS = {"dtype": torch.dtype, "layout": torch.layout,
+          "memory_format": torch.memory_format}
+
+
+def encode_value(v) -> list:
+    """A constant argument in tagged JSON form: int, float, bool, None, str,
+    ``torch.dtype`` / ``device`` / ``layout`` / ``memory_format``, input
+    placeholders, and lists and tuples of these.  Raises
+    :class:`SerialError` on anything else."""
+    if isinstance(v, _In):
+        return ["in", v.i]
+    if v is None:
+        return ["none"]
+    if isinstance(v, bool):
+        return ["bool", v]
+    if isinstance(v, int):
+        return ["int", v]
+    if isinstance(v, float):
+        return ["float", repr(v)]          # repr round-trips, inf and nan too
+    if isinstance(v, str):
+        return ["str", v]
+    if isinstance(v, torch.device):
+        return ["device", str(v)]
+    for tag, cls in _ENUMS.items():
+        if isinstance(v, cls):
+            return [tag, str(v).removeprefix("torch.")]
+    if isinstance(v, (list, tuple)):
+        return ["list" if isinstance(v, list) else "tuple",
+                [encode_value(x) for x in v]]
+    raise SerialError(f"no serial form for a constant of type {type(v).__name__}")
+
+
+def decode_value(t):
+    """Inverse of :func:`encode_value`; raises :class:`SerialError` on a tag
+    or a name it cannot resolve."""
+    if not isinstance(t, list) or not t or not isinstance(t[0], str):
+        raise SerialError(f"malformed tagged value {t!r}")
+    tag, body = t[0], t[1:]
+    try:
+        if tag == "none":
+            return None
+        (val,) = body
+        if tag == "in":
+            return _In(_typed(val, int))
+        if tag == "bool":
+            return _typed(val, bool)
+        if tag == "int":
+            return _typed(val, int)
+        if tag == "float":
+            return float(_typed(val, str))
+        if tag == "str":
+            return _typed(val, str)
+        if tag == "device":
+            return torch.device(_typed(val, str))
+        if tag in _ENUMS:
+            out = getattr(torch, _typed(val, str), None)
+            if not isinstance(out, _ENUMS[tag]):
+                raise SerialError(f"unknown {tag} {val!r}")
+            return out
+        if tag in ("list", "tuple"):
+            items = [decode_value(x) for x in _typed(val, list)]
+            return items if tag == "list" else tuple(items)
+    except (TypeError, ValueError, RuntimeError) as exc:
+        if isinstance(exc, SerialError):
+            raise
+        raise SerialError(f"bad tagged value {t!r}: {exc}") from None
+    raise SerialError(f"unknown tag {tag!r}")
+
+
+def _typed(v, cls):
+    if cls is int and isinstance(v, bool) or not isinstance(v, cls):
+        raise SerialError(f"expected {cls.__name__}, got {v!r}")
+    return v
+
+
+def _resolve_target(name) -> "torch._ops.OpOverload":
+    """An op overload by its qualified name (``"aten.mul.Tensor"``,
+    ``"repro_torch.rmsnorm.default"``), looked up, never imported or run."""
+    parts = name.split(".") if isinstance(name, str) else ()
+    if len(parts) != 3 or not all(p.isidentifier() for p in parts):
+        raise SerialError(f"malformed op overload name {name!r}")
+    if parts[0] == "repro_torch":
+        import repro_torch.kernels.ops  # noqa: F401  (registers the custom ops)
+    try:
+        target = getattr(getattr(getattr(torch.ops, parts[0]), parts[1]), parts[2])
+    except (AttributeError, RuntimeError):
+        target = None
+    if not isinstance(target, torch._ops.OpOverload):
+        raise SerialError(f"unknown op overload {name!r}")
+    return target
+
+
+def operator_from_desc(desc) -> Operator:
+    """Rebuild an operator from its serial form (:attr:`Operator.desc`).
+    Library entries, patterns, casts and registered calls resolve by name;
+    residues by their aten overload and tagged constants.  Raises
+    :class:`SerialError` on anything it cannot resolve."""
+    if not isinstance(desc, dict):
+        raise SerialError(f"malformed operator descriptor {desc!r}")
+    kind = desc.get("k")
+    try:
+        if kind == "lib":
+            name = desc["name"]
+            if not isinstance(name, str) or name not in patterns.LIBRARY:
+                raise SerialError(f"unknown library operator {name!r}")
+            return patterns.LIBRARY[name]
+        if kind == "map":
+            return patterns.make_map(operator_from_desc(desc["op"]))
+        if kind == "zip":
+            return patterns.make_zip_with(operator_from_desc(desc["op"]))
+        if kind == "reduce":
+            axis = desc["axis"]
+            if isinstance(axis, list):
+                axis = tuple(_typed(a, int) for a in axis)
+            elif axis is not None:
+                axis = _typed(axis, int)
+            return patterns.make_reduce(operator_from_desc(desc["op"]), axis)
+        if kind == "cast":
+            return patterns.make_cast(decode_value(["dtype", desc["dtype"]]))
+        if kind == "proj":
+            return _projection(_typed(desc["i"], int))
+        if kind == "callop":
+            if _typed(desc["call"], str).startswith("repro_torch::"):
+                import repro_torch.kernels.ops  # noqa: F401
+            op = patterns.lookup_call(desc["call"])
+            if op is None:
+                raise SerialError(f"unknown registered call {desc['call']!r}")
+            return op
+        if kind in ("aten", "call"):
+            target = _resolve_target(desc["target"])
+            targs = tuple(decode_value(a) for a in _typed(desc["args"], list))
+            tkwargs = {k: decode_value(v)
+                       for k, v in _typed(desc["kwargs"], dict).items()}
+            fn = _template_fn(target, targs, tkwargs)
+            if kind == "aten":
+                arity = sum(1 for a in pytree.tree_leaves((targs, tkwargs))
+                            if isinstance(a, _In))
+                return Operator(name=f"{RESIDUE_PREFIX}{_op_name(target)}]",
+                                arity=arity, fn=fn, desc=desc)
+            op = patterns.lookup_call(desc["call"])
+            if op is None or target._schema.name != desc["call"]:
+                raise SerialError(f"unknown registered call {desc['call']!r}")
+            return dataclasses.replace(op, fn=fn, desc=desc)
+    except (KeyError, TypeError, AttributeError) as exc:
+        raise SerialError(f"malformed operator descriptor {desc!r}: {exc}") from None
+    raise SerialError(f"unknown operator kind {kind!r}")
 
 
 class _Lowering:

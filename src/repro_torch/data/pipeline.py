@@ -77,7 +77,7 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, step: int = 0,
     if cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend's stub inputs are not "
-            f"ported yet (ROADMAP queue 1 item 12)")
+            f"ported yet (ROADMAP queue 1, \"Other archs\")")
     return SyntheticLM(cfg.vocab_size, seq, batch, seed, device=device).batch(step)
 
 

@@ -15,24 +15,81 @@ the queue depth, and ``--max-queue-delay`` (seconds) sheds requests that
 would miss their delay budget.  Shed requests and the engine's latency
 histograms are reported after the drain.
 
-Mirrors ``repro/launch/serve.py``; its fleet and store flags belong to
-later slices of the port.
+``--store DIR`` attaches a persistent bitstream store (implies
+``--overlay``): the engine's ``warmup`` pays every download before traffic,
+kernels are written to ``DIR`` on the overlay's low lane and the close
+saves the measurement ledger; a second run on the same ``DIR`` loads the
+kernels instead of building them (a warm restart).  ``REPRO_SANITIZE=1``
+runs the invariant checkers at every overlay mutation.
+
+The last line of standard output is one JSON object: the token streams by
+request id, the seconds to the first token (from process start and from
+overlay construction, and their split into init, trace, assembly or load,
+and the first call), the overlay's downloads and ``describe()["store"]``,
+the cache's ``store_hits``, the kernels this process built or loaded, the
+kernel launches by name and variant, and (with the sanitizer on) how many
+checks it ran and their seconds.
+
+Mirrors ``repro/launch/serve.py``; its fleet flag belongs to a later slice
+of the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.core import interpreter as interp
 from repro_torch.core.overlay import Overlay
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import params as pm
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.loop import EventLoopEngine
+
+
+def process_seconds() -> float:
+    """Seconds since this process started (Linux ``/proc``; else since this
+    module was imported)."""
+    try:
+        with open("/proc/self/stat") as fh:
+            start_ticks = int(fh.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as fh:
+            uptime = float(fh.read().split()[0])
+        return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        return time.perf_counter() - _IMPORTED
+
+
+_IMPORTED = time.perf_counter()
+
+
+class _Counted:
+    """A serving step that counts its calls (the launcher's ``calls``)."""
+
+    def __init__(self, fn) -> None:
+        self.fn = fn
+        self.calls = 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.fn(*args)
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+
+def _launches() -> dict[str, int]:
+    out = {c.name: c.count for c in ops.LAUNCH_COUNTERS}
+    for c in ops.LAUNCH_COUNTERS:
+        out.update({f"{c.name}/{v}": n for v, n in c.by_variant.items()})
+    return out
 
 
 def main(argv=None) -> int:
@@ -42,11 +99,18 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--prompt-lens", default=None, metavar="N,N,...",
+                    help="prompt lengths the requests cycle through "
+                         "(overrides --prompt-len)")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--overlay", action="store_true",
                     help="serve through the JIT-assembled overlay path")
+    ap.add_argument("--store", default=None, metavar="DIR",
+                    help="persistent bitstream store directory: built overlay "
+                         "kernels are written there and a restarted server "
+                         "loads them instead of building (implies --overlay)")
     ap.add_argument("--event-loop", action="store_true",
                     help="serve through the EventLoopEngine (chunked "
                          "bucketed prefill + SLO-aware admission)")
@@ -61,10 +125,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    lens = ([int(n) for n in args.prompt_lens.split(",")] if args.prompt_lens
+            else [args.prompt_len])
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = pm.init(cfg, gen, device)
-    overlay = Overlay(3, 3) if args.overlay else None
+    t_overlay = time.perf_counter()
+    overlay = (Overlay(3, 3, store_path=args.store)
+               if args.overlay or args.store is not None else None)
     if args.event_loop:
         engine = EventLoopEngine(params, cfg, batch=args.batch, max_len=args.max_len,
                                  overlay=overlay, chunk=args.chunk,
@@ -74,11 +142,56 @@ def main(argv=None) -> int:
         engine = ServeEngine(params, cfg, batch=args.batch, max_len=args.max_len,
                              overlay=overlay, device=device)
 
+    sanity = [0, 0.0]         # sanitizer checks run, and their seconds
+    if overlay is not None and overlay.sanitize:
+        check_overlay = overlay._sanity_check
+
+        def timed_check():
+            t = time.perf_counter()
+            try:
+                check_overlay()
+            finally:
+                sanity[0] += 1
+                sanity[1] += time.perf_counter() - t
+
+        overlay._sanity_check = timed_check
+    t_init = process_seconds()
+    t_warm = time.perf_counter()
+    if args.store is not None:
+        # the warm-restart entry point: every download (or store load)
+        # before traffic
+        engine.warmup(() if args.event_loop else tuple(sorted(set(lens))))
+    steps = {"decode": _Counted(engine._decode)}
+    engine._decode = steps["decode"]
+    if args.event_loop:
+        steps["prefill"] = engine._prefill_chunk = _Counted(engine._prefill_chunk)
+    else:
+        steps["prefill"] = engine._prefill = _Counted(engine._prefill)
+
     rng = np.random.default_rng(args.seed)
-    t0 = time.perf_counter()
+    reqs = []
     for rid in range(args.requests):
-        prompt = rng.integers(0, cfg.vocab_size, size=(args.prompt_len,)).tolist()
-        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=args.max_new))
+        prompt = rng.integers(0, cfg.vocab_size, size=(lens[rid % len(lens)],)).tolist()
+        reqs.append(Request(rid=rid, prompt=prompt, max_new_tokens=args.max_new))
+    # the first token: the first prefill's stripe install (its argmax has
+    # already been read on the host)
+    first: list[float] = []
+    install = engine._install_stripe
+
+    def timed_install(*args):
+        install(*args)
+        if not first:
+            first.append(time.perf_counter())
+            first.append(process_seconds())
+            if overlay is not None:
+                first.append(overlay.stats.trace_seconds)
+                first.append(sum(e.assemble_seconds for w in list(overlay._wrappers)
+                                 for e in list(w._entries.values())))
+
+    engine._install_stripe = timed_install
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
     done = engine.run_until_drained()
     dt = time.perf_counter() - t0
 
@@ -95,7 +208,34 @@ def main(argv=None) -> int:
     for r in done[:3]:
         print(f"  req {r.rid}: {r.out[:8]}...")
     if overlay is not None:
+        # drains queued persists and saves the measurement ledger when a
+        # --store directory is attached
         overlay.close()
+    result = {
+        "arch": cfg.name, "device": str(device),
+        "streams": {r.rid: r.out for r in sorted(done, key=lambda r: r.rid)},
+        "calls": {k: c.calls for k, c in steps.items()},
+        "launches": _launches(),
+        "kernels_built": interp.kernel_builds(),
+    }
+    if first:
+        ttft = {"from_process_start": first[1],
+                "from_overlay_construction": first[0] - t_overlay,
+                "init": t_init}
+        if overlay is not None:
+            trace_s, assemble_s = first[2], first[3]
+            ttft.update(trace=trace_s, assemble_or_load=assemble_s,
+                        first_call=first[0] - t_warm - trace_s - assemble_s)
+        else:
+            ttft["first_call"] = first[0] - t_warm
+        result["first_token_seconds"] = ttft
+    if overlay is not None:
+        desc = overlay.describe()
+        result.update(downloads=desc["downloads"], store=desc["store"],
+                      store_hits=desc["cache"]["store_hits"],
+                      cache=desc["cache"], sanitize=overlay.sanitize,
+                      sanitizer_checks=sanity[0], sanitizer_seconds=sanity[1])
+    print(json.dumps(result))
     return 0
 
 

@@ -46,7 +46,8 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
     if cfg.is_encdec or cfg.frontend or cfg.mtp_depth:
         raise NotImplementedError(
             f"{cfg.name}: the loss of the enc-dec, vlm and multi-token-"
-            f"prediction families is not ported yet (ROADMAP queue 1 item 12)")
+            f"prediction families is not ported yet (ROADMAP queue 1, "
+            f"\"Training's leftovers\")")
     h, _ = tfm.forward(params, cfg, batch["tokens"])
     logits = tfm.unembed(params, h, cfg)
     ce, acc = cross_entropy(logits, batch["labels"], batch.get("mask"))

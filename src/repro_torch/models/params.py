@@ -58,8 +58,8 @@ def layer_kinds(cfg: ArchConfig) -> list[str]:
         raise NotImplementedError(
             f"{cfg.name}: the port serves decoder layers of kinds "
             f"{list(SERVED_KINDS)} only (got kinds {sorted(set(kinds))}); "
-            f"shared_attn, MoE, MLA and encoder-decoder models are ROADMAP "
-            f"queue 1 item 11")
+            f"shared_attn, MoE, MLA and encoder-decoder models wait for "
+            f"ROADMAP queue 1, \"Other archs\"")
     return kinds
 
 

@@ -91,5 +91,5 @@ def _remat(cfg: ArchConfig) -> bool:
     if cfg.remat == "dots":
         raise NotImplementedError(
             "remat='dots' (save only the matrix products) is not ported yet "
-            "(ROADMAP queue 1 item 12); use 'full' or 'none'")
+            "(ROADMAP queue 1, \"Training's leftovers\"); use 'full' or 'none'")
     return cfg.remat == "full"

@@ -14,7 +14,7 @@ The policies are real, the failure source is injected:
 
 The reference's elastic re-mesh hook and its slow-step and repeated-failure
 injection are left to the slice that brings a multi-device mesh (ROADMAP
-queue 1 item 13): the port trains on one device.
+queue 1, "Multi-device, last"): the port trains on one device.
 """
 
 from __future__ import annotations

@@ -105,9 +105,8 @@ class Histogram:
     def state(self) -> dict:
         """Full JSON-serializable state — lossless, unlike :meth:`summary`.
 
-        The bitstream store's measurement ledger (a later slice of the
-        port) persists it so a warm boot can re-seed dispatch-latency
-        histograms instead of starting blind."""
+        Used by the bitstream store's measurement ledger so a warm boot can
+        re-seed dispatch-latency histograms instead of starting blind."""
         return {
             "counts": list(self.counts),
             "count": self.count,

@@ -45,3 +45,15 @@ def test_checker_sees_the_async_runtime(module):
     path = ROOT / "src" / "repro_torch" / module
     assert path in FILES
     assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
+@pytest.mark.parametrize("module", ["core/store.py", "analysis/__init__.py",
+                                    "analysis/__main__.py", "analysis/check.py",
+                                    "analysis/locklint.py"])
+def test_checker_sees_the_store_and_the_verifier(module):
+    """The store and the verifier are the port's own copies (the lock lint
+    too, though the reference's is stdlib-only): the checker above covers
+    them, and they import neither jax nor repro."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]

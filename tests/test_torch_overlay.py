@@ -283,15 +283,14 @@ def test_overlay_lru_reclaim_under_pressure():
     assert fns[-1].accelerator(a).resident_id in ov.fabric.residents
 
 
-def test_overlay_raises_on_deferred_options():
-    # the asynchronous runtime and the failure model are ported; sharded
-    # assembly, the sanitizer and the store are not yet
+def test_overlay_raises_on_deferred_options(tmp_path):
+    # the store and the sanitizer are ported; sharded assembly is not yet
     with pytest.raises(NotImplementedError, match="sharded"):
         Overlay(3, 3, mesh=object())
-    with pytest.raises(NotImplementedError, match="sanitizer"):
-        Overlay(3, 3, sanitize=True)
-    with pytest.raises(NotImplementedError, match="store"):
-        Overlay(3, 3, store_path="x")
+    with pytest.raises(NotImplementedError, match="sharded"):
+        Overlay(3, 3, tile_axis="tiles")
+    assert Overlay(3, 3, sanitize=True).sanitize is True
+    assert Overlay(3, 3, store_path=str(tmp_path)).store is not None
     with pytest.raises(TypeError):
         Overlay(3, 3, not_an_option=1)
 
