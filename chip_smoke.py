@@ -37,15 +37,26 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
    it (it despecializes and frees the graph), serves, specializes again and
    serves: every decode call of a specialized round on the graph, streams
    identical to plain, outputs bit-identical to the generic walk, host ms
-   per decode call for generic, specialized and plain;
+   per decode call for generic, specialized and plain; ``[serve-loop]``
+   serves them through ``EventLoopEngine`` plainly, on asynchronous
+   overlays (with and without faults) and on a synchronous one; ``[fleet]``
+   serves them through a two-member ``FleetOverlay`` sharing the card:
+   ``ServeEngine`` (streams identical to plain, replications, routed calls
+   and rmsnorm launches per member), the same with a member killed by
+   ``FaultPlan(member_deaths=)`` (its sole copy evacuated), and
+   ``EventLoopEngine`` on asynchronous members (a replica downloaded on a
+   low lane); each fleet leaves under 1 GiB allocated after ``close()``;
 5. trains phi3-mini-3.8b at full width (32 layers, batch 1, seq 4096) for 4
    eager steps of ``launch.train.make_step`` on the synthetic stream:
    finite losses, and the flash_attention and rmsnorm launches each step
    must make (forward plus the remat recompute), every flash_attention
    launch on the tensor-core kernel;
-6. trains 4 full-width layers at seq 1024 for 2 steps through
-   ``Overlay(3, 3)`` and eagerly from the same state: equal losses and
-   parameters;
+6. ``[train-overlay]`` trains full-width phi3 (all 32 layers) at seq 1024
+   for 2 steps through ``Overlay(3, 3).jit(train_step,
+   donate_argnums=(0,))`` and eagerly in place from the same seed: equal
+   losses and every state leaf bit-identical, every returned state leaf in
+   its donated storage, the traced peak memory below the eager one plus
+   half a state, one flash_attention and rmsnorm launch a step per node;
 7. serves mamba2-130m at full width (24 layers) with prompts of 37, 500 and
    4096 tokens through ``Overlay(3, 3)`` and plainly: identical streams,
    one ``kernels/ssd`` node per layer in each traced prefill, and the
@@ -78,8 +89,8 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     per entry, the sanitizer's host ms per check, mamba2's downloads cold
     and warm;
 12. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
-    (lock lint, live checkers under the sanitizer, the store, injected
-    faults) must exit 0;
+    (lock lint, live checkers under the sanitizer, a two-member fleet's
+    records and ``describe()``, the store, injected faults) must exit 0;
 13. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
@@ -91,7 +102,8 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 
 Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, the overlay-served runs, the relocation
-and specialization rounds, the full-width training runs) and read just
+and specialization rounds, the fleet runs, the full-width training runs)
+and read just
 after; launches made to compare or time a kernel are not counted.  A
 launcher boot of ``[warm-restart]`` is a process of its own: it counts from
 0 and reports its counts in its result line.  Before each phase the script
@@ -131,7 +143,8 @@ if not torch.cuda.is_available():
 from torch.utils import _pytree as pytree  # noqa: E402
 
 from repro_torch.configs import PAPER_VECTOR_LEN, get_config, smoke_config  # noqa: E402
-from repro_torch.core import FaultPlan, Overlay, PlacementPolicy, place  # noqa: E402
+from repro_torch.core import (FaultPlan, FleetOverlay, Overlay, PlacementPolicy,  # noqa: E402
+                              place)
 from repro_torch.core import interpreter as interp  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
@@ -155,7 +168,7 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM float32 peak outside the tensor core
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 peak in the tensor cores
 BATCH, PROMPT, MAX_NEW, MAX_LEN, REQUESTS = 2, 16, 8, 128, 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 4        # the reference's train_4k shape
-OVERLAY_LAYERS, OVERLAY_SEQ, OVERLAY_STEPS = 4, 1024, 2
+OVERLAY_LAYERS, OVERLAY_SEQ, OVERLAY_STEPS = 32, 1024, 2
 MAMBA = "mamba2-130m"
 MAMBA_BATCH, MAMBA_REQUESTS, MAMBA_NEW = 4, 6, 16
 MAMBA_PROMPTS = (37, 500, 4096)       # one ragged chunk, a padded tail, 64 full chunks
@@ -770,11 +783,13 @@ def phase_serve(gen: torch.Generator) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     looped = phase_serve_loop(params, cfg)
+    gpu_state("[fleet]")
+    fleet = phase_fleet(params, cfg, s_pl, looped.pop("plain_streams"))
     del params
     torch.cuda.empty_cache()
     return {"launches": l_ov, "calls": calls, "tok_s_overlay": tokens / dt_ov,
             "tok_s_plain": tokens / dt_pl, "relocate": relocated,
-            "specialize": specialized, "serve_loop": looped}
+            "specialize": specialized, "serve_loop": looped, "fleet": fleet}
 
 
 class TimedOverlay(Overlay):
@@ -1038,18 +1053,18 @@ def phase_async_fig3(gen: torch.Generator) -> dict:
     return launches
 
 
-def count_spec_builds(ov: Overlay) -> list:
-    """Count the overlay's route-constant builds (through its
-    ``_compile_specialized_tier`` seam): on the card each one makes one eager
-    warm-up walk, whose launches are real, before its capture."""
+def count_spec_builds(ov) -> list:
+    """Count the route-constant builds of an overlay, or of a fleet's
+    members (through the ``_compile_specialized_tier`` seam): on the card
+    each one makes one eager warm-up walk, whose launches are real, before
+    its capture."""
     n = [0]
-    build = ov._compile_specialized_tier
+    for member in getattr(ov, "members", [ov]):
+        def counted(pending, build=member._compile_specialized_tier):
+            n[0] += 1
+            return build(pending)
 
-    def counted(pending):
-        n[0] += 1
-        return build(pending)
-
-    ov._compile_specialized_tier = counted
+        member._compile_specialized_tier = counted
     return n
 
 
@@ -1080,7 +1095,8 @@ class TickClock:
         return out
 
     def _in_flight(self) -> bool:
-        return self.overlay is not None and self.overlay.scheduler.outstanding() > 0
+        return self.overlay is not None and any(
+            m.scheduler.outstanding() > 0 for m in getattr(self.overlay, "members", [self.overlay]))
 
     def detach(self) -> None:
         self.step = self.overlay = None
@@ -1259,7 +1275,197 @@ def phase_serve_loop(params, cfg) -> dict:
     for name in ("plain", "async", "async+faults"):
         for k, v in runs[name]["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    return {"launches": launches, "sync_overlay_launches": runs["sync-overlay"]["launches"]}
+    return {"launches": launches, "sync_overlay_launches": runs["sync-overlay"]["launches"],
+            "plain_streams": runs["plain"]["streams"]}
+
+
+def member_launches(fleet) -> list:
+    """rmsnorm launches made inside each member's calls, counted at the seam
+    the fleet dispatches through (``JitAssembled._invoke`` of the member
+    wrappers, made by ``Overlay.jit``).  Valid while no background work
+    launches kernels (synchronous members)."""
+    per = [0] * len(fleet.members)
+    rms = next(c for c in ops.LAUNCH_COUNTERS if c.name == "rmsnorm")
+    for i, member in enumerate(fleet.members):
+        def jit(*args, _jit=member.jit, _i=i, **kwargs):
+            wrapper = _jit(*args, **kwargs)
+
+            def invoke(call_args, writeback=True, _invoke=wrapper._invoke):
+                n0 = rms.count
+                try:
+                    return _invoke(call_args, writeback)
+                finally:
+                    per[_i] += rms.count - n0
+
+            wrapper._invoke = invoke
+            return wrapper
+
+        member.jit = jit
+    return per
+
+
+def fleet_summary(fleet) -> str:
+    fl = fleet.describe()["fleet"]
+    return (f"placements {fl['placements']}, replications {fl['replications']}, "
+            f"replica_teardowns {fl['replica_teardowns']}, replicas_lost "
+            f"{fl['replicas_lost']}, failovers {fl['failovers']}, evacuations "
+            f"{fl['evacuations']}, member_deaths {fl['member_deaths']}, rebalances "
+            f"{fl['rebalances']}; health {[h['state'] for h in fl['health']]}; scores "
+            f"{fl['scores']}; routed per member {fl['routed_per_member']}; dispatch p50 us "
+            f"{fl['dispatch_p50_us']}")
+
+
+def fleet_homes(fleet) -> dict:
+    """Each record's copies as (member, downloaded)."""
+    out = {}
+    for wrapper in list(fleet._wrappers):
+        for rec in wrapper._records.values():
+            out[rec.label] = [(rep.member_index,
+                               getattr(rep.wrapper._entries.get(rec.sig_key), "acc", None)
+                               is not None) for rep in rec.replicas]
+    return out
+
+
+def serve_fleet(params, cfg, fleet) -> dict:
+    """The [serve] requests through ``ServeEngine`` on ``fleet``."""
+    per = member_launches(fleet)
+    engine = ServeEngine(params, cfg, batch=BATCH, max_len=MAX_LEN, overlay=fleet, device=DEV)
+    engine._prefill, engine._decode = Counted(engine._prefill), Counted(engine._decode)
+    first = []
+    install = engine._install_stripe
+
+    def timed_install(*args):
+        install(*args)
+        if not first:
+            first.append(time.perf_counter())
+
+    engine._install_stripe = timed_install
+    rng = np.random.default_rng(SEED)
+    for rid in range(REQUESTS):
+        prompt = rng.integers(0, cfg.vocab_size, size=(PROMPT,)).tolist()
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MAX_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()                           # the driven path starts here
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"streams": [r.out for r in sorted(done, key=lambda r: r.rid)],
+            "launches": counts(), "seconds": dt, "ttft": first[0] - t0,
+            "calls": {"prefill": engine._prefill.calls, "decode": engine._decode.calls},
+            "per_member": per, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_fleet(params, cfg, want: list, loop_want: dict) -> dict:
+    """[fleet] phi3-mini-3.8b at full width (the [serve] weights) through a
+    two-member ``FleetOverlay`` sharing the card (each member a 3x3 fabric
+    with its own scheduler; the weights are call arguments, so no member
+    holds a copy).  A window of 4 dispatches and ``replicate_after=2`` make
+    the hot signatures replicate while the requests run.
+
+    * ``sync``: ``ServeEngine`` with the [serve] requests: streams equal to
+      plain; rmsnorm launches 65 a routed call, counted per member;
+    * ``member death``: the same with ``FaultPlan(member_deaths={0: 3})``:
+      member 0 dies before the third dispatch, its sole copy (prefill) is
+      evacuated to member 1 (at least one evacuation), nothing is dropped,
+      streams equal to plain;
+    * ``async event loop``: ``EventLoopEngine`` with the [serve-loop]
+      requests on a fleet of ``async_downloads=True`` members: admitted
+      streams equal to plain's, at least one replica downloaded on a member
+      scheduler's low lane.
+
+    Each run leaves less than 1 GiB allocated after ``close()``."""
+    norms = 2 * cfg.num_layers + 1
+    kw = dict(rows=3, cols=3, window=4, replicate_after=2, drain_below=1)
+    out = {}
+    for name, make in (("sync", lambda: FleetOverlay(2, **kw)),
+                       ("member death", lambda: FleetOverlay(
+                           2, faults=FaultPlan(SEED, member_deaths={0: 3}), **kw))):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        fleet = make()
+        run = serve_fleet(params, cfg, fleet)
+        calls = run["calls"]["prefill"] + run["calls"]["decode"]
+        routed = fleet.describe()["fleet"]["routed_per_member"]
+        l = run["launches"]
+        check(run["streams"] == want, f"[fleet] {name} streams differ from plain:\n"
+                                      f"{run['streams']}\n{want}")
+        check(l["rmsnorm"] == norms * calls and l["rmsnorm/warp"] == l["rmsnorm"],
+              f"[fleet] {name}: rmsnorm launches {l} != {norms} x {calls} calls")
+        check(run["per_member"] == [norms * n for n in routed],
+              f"[fleet] {name}: rmsnorm launches per member {run['per_member']} != {norms} x "
+              f"routed calls {routed}")
+        check(sum(routed) == calls, f"[fleet] {name}: routed {routed} for {calls} calls")
+        if name == "sync":
+            check(fleet.stats.replications >= 1 and min(routed) > 0,
+                  f"[fleet] sync: no replication or an idle member: {fleet_summary(fleet)}")
+        else:
+            check(fleet.stats.member_deaths == 1 and fleet.stats.evacuations >= 1
+                  and fleet._health[0].state == "dead",
+                  f"[fleet] member death: {fleet_summary(fleet)}")
+        tokens = sum(len(x) for x in run["streams"])
+        log(f"[fleet] {name}: {tokens} tokens in {run['seconds']:.2f} s "
+            f"({tokens / run['seconds']:.1f} tok/s); request 0's time to first token "
+            f"{run['ttft']:.3f} s; calls {run['calls']}; {fleet_summary(fleet)}; "
+            f"max_memory_allocated {run['peak_gib']:.2f} GiB")
+        log(f"[fleet] {name}: homes (member, downloaded) {fleet_homes(fleet)}; rmsnorm "
+            f"launches per member {run['per_member']} ({norms} x routed calls); members' "
+            f"traces {[m.stats.traces for m in fleet.members]}, downloads "
+            f"{[m.stats.downloads for m in fleet.members]}; failure ledger "
+            f"{fleet.failure_ledger()}")
+        fleet.close()
+        del fleet
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = (torch.cuda.memory_allocated() - mem0) / 2**30
+        check(left < 1.0, f"[fleet] {name}: {left:.2f} GiB still allocated after close")
+        log(f"[fleet] {name}: {left:.3f} GiB left allocated after close")
+        out["fleet_sync" if name == "sync" else "fleet_member_death"] = l
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    fleet = FleetOverlay(2, async_downloads=True, **kw)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        run = serve_loop(params, cfg, fleet)
+    eng = run.pop("engine")
+    shed = {r.rid for r in eng.shed}
+    check(run["streams"] == loop_want and shed == {6, 7},
+          f"[fleet] async event loop: streams differ from plain or shed {shed}:\n"
+          f"{run['streams']}\n{loop_want}")
+    calls = eng._prefill_chunk.calls + eng._decode.calls
+    l = run["launches"]
+    check(l["rmsnorm"] == norms * (calls + run["builds"]) and l["rmsnorm/warp"] == l["rmsnorm"],
+          f"[fleet] async event loop: rmsnorm launches {l} != {norms} x ({calls} calls + "
+          f"{run['builds']} warm-up walks)")
+    homes = fleet_homes(fleet)
+    replicas = [(label, copy) for label, copies in homes.items() for copy in copies[1:]]
+    low = [m.scheduler.stats.low_jobs for m in fleet.members]
+    check(fleet.stats.replications >= 1 and any(done for _, (_, done) in replicas)
+          and sum(low) >= 1,
+          f"[fleet] async event loop: no replica downloaded on a low lane: homes {homes}, "
+          f"low-lane jobs {low}, {fleet_summary(fleet)}")
+    first = next(r for r in run["done"] if r.rid == 0)
+    tokens = sum(len(x) for x in run["streams"].values())
+    log(f"[fleet] async event loop: {tokens} tokens in {run['seconds']:.2f} s "
+        f"({tokens / run['seconds']:.1f} tok/s); request 0's time to first token "
+        f"{first.first_token_time - first.submit_time:.3f} s; calls {{'prefill_chunk': "
+        f"{eng._prefill_chunk.calls}, 'decode': {eng._decode.calls}}}; {fleet_summary(fleet)}; "
+        f"max_memory_allocated {run['peak_gib']:.2f} GiB")
+    log(f"[fleet] async event loop: homes (member, downloaded) {homes}; low-lane jobs per "
+        f"member {low}; capture warm-up walks {run['builds']}; {run['ticks'].summary()}; "
+        f"RuntimeWarnings {len(caught)}; failure ledger {fleet.failure_ledger()}")
+    run["ticks"].detach()
+    fleet.close()
+    del fleet, eng, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = (torch.cuda.memory_allocated() - mem0) / 2**30
+    check(left < 1.0, f"[fleet] async event loop: {left:.2f} GiB still allocated after close")
+    log(f"[fleet] async event loop: {left:.3f} GiB left allocated after close")
+    out["fleet_async_loop"] = l
+    return out
 
 
 def _sync_ms(fn) -> tuple:
@@ -1381,45 +1587,112 @@ def profile_step(fn, tag: str = "train") -> None:
         f"{parts}")
 
 
-def phase_train_overlay() -> None:
-    """The train step through ``Overlay(3, 3)`` (functional: forward, the
-    backward and the optimizer traced into one accelerator) against the
-    eager in-place step from the same state, at the published widths with
-    4 layers, batch 1 x seq 1024, 2 steps.  The traced graph replays the
-    eager run's aten ops, so losses and parameters must be bit-identical."""
+def phase_train_overlay() -> dict:
+    """The train step through ``Overlay(3, 3).jit(train_step,
+    donate_argnums=(0,))`` (functional: forward, the backward and the
+    optimizer traced into one accelerator, the state donated) against the
+    eager in-place step from the same state, at phi3-mini's published
+    widths and all 32 layers, batch 1 x seq 1024, 2 steps.  Two full states
+    do not fit on the card, so the traced run goes first, its final state
+    goes to the host, and the eager run starts again from the seed.  The
+    traced graph replays the eager run's aten ops, so losses and every state
+    leaf must be bit-identical; every state leaf the traced step returns
+    must be the tensor donated to it (the same storage); the traced step's
+    peak memory must stay below the eager step's plus half a state (a second
+    copy of the state would add a whole one); flash_attention and rmsnorm
+    launch once a step per node of the graph, every flash launch on the
+    tensor-core kernel."""
     cfg = get_config("phi3-mini-3.8b").scaled(blocks=((("dense",), OVERLAY_LAYERS),))
-    params = pm.init(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
     sched = cosine(3e-4, warmup=1, total=OVERLAY_STEPS)
+    batches = [make_batch(cfg, 1, OVERLAY_SEQ, step=i, seed=SEED, device=DEV)
+               for i in range(OVERLAY_STEPS)]
+
+    def fresh_state():
+        params = pm.init(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+        return params, adamw_init(params)
+
     ov = Overlay(3, 3)
     traced = train_cli.make_step(cfg, sched, overlay=ov)
-    eager = train_cli.make_step(cfg, sched)
-    s_ov = (params, adamw_init(params))
-    s_eg = (pytree.tree_map(torch.clone, params), adamw_init(params))
-    ms_ov, ms_eg = [], []
-    for i in range(OVERLAY_STEPS):
-        batch = make_batch(cfg, 1, OVERLAY_SEQ, step=i, seed=SEED, device=DEV)
-        ms, (s_ov, m_ov) = _sync_ms(lambda: traced(s_ov, batch))
+    state = fresh_state()
+    leaves = pytree.tree_leaves(state)
+    state_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    ptrs = [x.data_ptr() for x in leaves]
+    del leaves
+    ms_ov, loss_ov, peak_ov, moved = [], [], [], []
+    torch.cuda.synchronize()
+    reset_counters()                           # the driven path starts here
+    for batch in batches:
+        torch.cuda.reset_peak_memory_stats()
+        ms, (state, m) = _sync_ms(lambda: traced(state, batch))
         ms_ov.append(ms)
-        ms, (s_eg, m_eg) = _sync_ms(lambda: eager(s_eg, batch))
-        ms_eg.append(ms)
-        check(torch.equal(m_ov["loss"], m_eg["loss"]),
-              f"overlay step {i + 1} loss {m_ov['loss'].item()} != eager {m_eg['loss'].item()}")
-        log(f"[train-overlay] step {i + 1}: loss overlay {m_ov['loss'].item():.6f} "
-            f"eager {m_eg['loss'].item():.6f}; ms overlay {ms_ov[-1]:.1f} eager {ms_eg[-1]:.1f}")
-    mismatched = [i for i, (a, b) in enumerate(zip(pytree.tree_leaves(s_ov),
-                                                   pytree.tree_leaves(s_eg)))
-                  if not torch.equal(a, b)]
-    check(not mismatched, f"overlay and eager states differ in leaves {mismatched}")
+        peak_ov.append(torch.cuda.max_memory_allocated())
+        loss_ov.append(m["loss"].cpu())
+        out = pytree.tree_leaves(state)
+        moved.append(sum(x.data_ptr() != p for x, p in zip(out, ptrs)))
+        del out, m
+    launches = counts()
     (entry,) = traced._entries.values()
     names = [n.name for n in entry.lowered.graph.op_nodes()]
-    log(f"[train-overlay] {OVERLAY_LAYERS} layers, seq {OVERLAY_SEQ}: states bit-identical "
-        f"after {OVERLAY_STEPS} steps; trace {entry.trace_seconds:.2f} s, assembly "
-        f"{entry.assemble_seconds:.2f} s; graph {len(names)} op nodes "
-        f"({len(entry.lowered.unmapped)} residue, {names.count('kernels/attention')} "
-        f"attention, {names.count('kernels/rmsnorm')} rmsnorm), "
-        f"{entry.acc.placement.total_passthrough} pass-through hops")
-    del params, s_ov, s_eg
+    t0 = time.perf_counter()
+    host = [x.cpu() for x in pytree.tree_leaves(state)]
+    to_host_s = time.perf_counter() - t0
+    n_leaves, n_donated = len(host), len(entry.aliases)
+    info = (f"trace {entry.trace_seconds:.2f} s, assembly {entry.assemble_seconds:.2f} s; "
+            f"graph {len(names)} op nodes ({len(entry.lowered.unmapped)} residue, "
+            f"{names.count('kernels/attention')} attention, {names.count('kernels/rmsnorm')} "
+            f"rmsnorm), {entry.acc.placement.total_passthrough} pass-through hops")
+    ov.close()
+    del state, traced, entry, ov
+    gc.collect()
     torch.cuda.empty_cache()
+
+    eager = train_cli.make_step(cfg, sched)
+    state = fresh_state()
+    ms_eg, loss_eg, peak_eg = [], [], []
+    for batch in batches:
+        torch.cuda.reset_peak_memory_stats()
+        ms, (state, m) = _sync_ms(lambda: eager(state, batch))
+        ms_eg.append(ms)
+        peak_eg.append(torch.cuda.max_memory_allocated())
+        loss_eg.append(m["loss"].cpu())
+        del m
+    for i in range(OVERLAY_STEPS):
+        log(f"[train-overlay] step {i + 1}: loss overlay {loss_ov[i].item():.6f} eager "
+            f"{loss_eg[i].item():.6f}; ms overlay {ms_ov[i]:.1f} eager {ms_eg[i]:.1f}; "
+            f"max_memory_allocated overlay {peak_ov[i] / 2**30:.2f} GiB eager "
+            f"{peak_eg[i] / 2**30:.2f} GiB; returned state leaves not in their donated "
+            f"storage {moved[i]}")
+    check(all(torch.equal(a, b) for a, b in zip(loss_ov, loss_eg)),
+          f"[train-overlay] losses differ: overlay {loss_ov} eager {loss_eg}")
+    mismatched = [i for i, (a, b) in enumerate(zip(host, pytree.tree_leaves(state)))
+                  if not torch.equal(a.to(DEV), b)]
+    check(not mismatched, f"[train-overlay] overlay and eager states differ in leaves "
+                          f"{mismatched[:20]} ({len(mismatched)} of {len(host)})")
+    check(not any(moved), f"[train-overlay] returned state leaves outside their donated "
+                          f"storage, by step: {moved}")
+    check(n_donated == n_leaves, f"[train-overlay] {n_donated} donated outputs for "
+                                 f"{n_leaves} state leaves")
+    worst = max(p - e for p, e in zip(peak_ov, peak_eg))
+    check(worst < state_bytes / 2,
+          f"[train-overlay] traced peak exceeds eager by {worst / 2**30:.2f} GiB, over half "
+          f"a state ({state_bytes / 2**30:.2f} GiB): the step holds two copies")
+    want = {"flash_attention": OVERLAY_STEPS * names.count("kernels/attention"),
+            "rmsnorm": OVERLAY_STEPS * names.count("kernels/rmsnorm")}
+    for name, n in want.items():
+        check(launches[name] == n, f"[train-overlay] {name} launches {launches[name]} != {n}")
+    check(launches["flash_attention/wgmma"] == want["flash_attention"],
+          f"[train-overlay] flash_attention launches by variant: {launches}")
+    log(f"[train-overlay] {OVERLAY_LAYERS} layers, seq {OVERLAY_SEQ}: losses and all "
+        f"{n_leaves} state leaves bit-identical after {OVERLAY_STEPS} steps; every returned "
+        f"state leaf is its donated tensor ({n_donated} donated outputs); {info}; "
+        f"state {state_bytes / 2**30:.2f} GiB; max_memory_allocated traced "
+        f"{max(peak_ov) / 2**30:.2f} GiB ({max(peak_ov) / 1e9:.2f} GB) vs eager in place "
+        f"{max(peak_eg) / 2**30:.2f} GiB ({max(peak_eg) / 1e9:.2f} GB); step ms traced "
+        f"{ms_ov} eager {ms_eg}; final state to host {to_host_s:.1f} s; launches {launches}")
+    del state, host, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def serve_mamba(params, cfg, overlay) -> tuple[list, dict, float, ServeEngine]:
@@ -1840,6 +2113,9 @@ def phase_analysis() -> dict:
             log(f"[analysis] stderr: {line[:300]}")
     check(proc.returncode == 0 and proc.stdout.rstrip().endswith("PASS"),
           f"[analysis] report exited {proc.returncode}")
+    check("fleet records: 0 violation(s)" in proc.stdout
+          and "fleet describe(): 0 violation(s)" in proc.stdout,
+          "[analysis] the report's fleet half did not run clean")
     line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("kernel launches "))
     return json.loads(line.removeprefix("kernel launches "))
 
@@ -2166,7 +2442,7 @@ def main() -> int:
     gpu_state("[train]")
     trained = phase_train()
     gpu_state("[train-overlay]")
-    phase_train_overlay()
+    train_overlay = phase_train_overlay()
     gpu_state("[serve-mamba]")
     served_mamba = phase_serve_mamba(gen)
     gpu_state("[train-mamba]")
@@ -2187,7 +2463,9 @@ def main() -> int:
                "relocate": served["relocate"], "specialize": served["specialize"],
                "serve_loop": served["serve_loop"]["launches"],
                "serve_loop_sync_overlay": served["serve_loop"]["sync_overlay_launches"],
-               "train": trained["launches"], "serve_mamba": served_mamba["launches"],
+               **served["fleet"],
+               "train": trained["launches"], "train_overlay": train_overlay,
+               "serve_mamba": served_mamba["launches"],
                "serve_mamba_cost_model": served_mamba["launches_cost_model"],
                "train_mamba": trained_mamba["launches"], **booted, "analysis": analysis}
     launches = {name: sum(p[name] for p in by_path.values()) for name in counts()}

@@ -7,7 +7,8 @@ Three parts:
   ``src/repro_torch``.
 * :mod:`repro_torch.analysis.check` — pure invariant checkers for the
   fabric ledger, the residents' routes and tiers, the cache's side tables,
-  the circuit breakers and the ``describe()`` schema.
+  the circuit breakers, a fleet's replica records and member health, and
+  the ``describe()`` schemas of an overlay and a fleet.
 * the sanitizer — ``Overlay(sanitize=True)`` / ``REPRO_SANITIZE=1`` runs
   the checkers at every mutation edge and raises
   :class:`repro_torch.analysis.check.InvariantError` on the first
@@ -17,7 +18,7 @@ Three parts:
 import-light on purpose: ``locklint`` is stdlib-only, and ``check`` only
 touches runtime objects handed to it.  Submodules load lazily.
 
-Port of ``repro/analysis/`` without the fleet checkers.
+Port of ``repro/analysis/``.
 """
 
 from __future__ import annotations

@@ -3,13 +3,12 @@
 Runs the concurrency lint over ``src/repro_torch`` and prints the
 lock-order graph, then spins up small live overlays on the device
 (``cuda`` unless ``--device cpu``): one exercised through admit, dispatch,
-defragment, relocating reconfigure and evict under the sanitizer; the
+defragment, relocating reconfigure and evict under the sanitizer; a
+two-member fleet under the sanitizer, hot enough to replicate; the
 bitstream store through a cold boot, a warm boot and a garbled entry; and
 a seeded fault plan that fails every download.  Prints per-rule pass/fail
 counts and the kernel launches the live sections made; the exit status is
-non-zero on any failure.  The reference's fleet
-half of the live section waits for the fleet's slice of the port, and the
-report says so.
+non-zero on any failure.
 
 The accelerator audited is the paper's ``sum(a * b)`` as the LARGE
 ``vmul_reduce`` bitstream (``kernels.ops.vmul_reduce``): on the card it
@@ -84,6 +83,7 @@ def _report(violations_by_section) -> int:
 
 
 def _live_section(device) -> int:
+    from repro_torch.core.fleet import FleetOverlay
     from repro_torch.core.overlay import Overlay
 
     from . import check
@@ -105,12 +105,29 @@ def _live_section(device) -> int:
     ov.evict("audit")
     sections.append(("post-evict", check.check_overlay(ov)))
     ov.close()
+
+    # a window of 4 and replicate_after 2: the hot signature gains a replica
+    # at the first rebalance, and every rebalance runs the fleet checkers
+    fleet = FleetOverlay(2, rows=3, cols=3, window=4, replicate_after=2,
+                         drain_below=1, sanitize=True)
+    g = fleet.jit(_dot, name="audit_fleet")
+    outs = [g(a, b) for _ in range(12)]
+    with fleet._lock:
+        sections.append(("fleet records", check.check_fleet(fleet)))
+    sections.append(("fleet describe()", check.check_fleet_describe(fleet)))
+    stats = fleet.stats
+    routed = fleet.describe()["fleet"]["routed_per_member"]
+    fleet.close()
     failures = _report(sections)
     ok = _same(want, got)
     failures += 0 if ok else 1
     print(f"  {'ok  ' if ok else 'FAIL'}  bit-identical across the moves")
-    print("  skipped: fleet records and fleet describe() (the fleet is not "
-          "ported yet)")
+    ok = (stats.replications >= 1 and min(routed) > 0
+          and all(_same(o, want) for o in outs))
+    failures += 0 if ok else 1
+    print(f"  {'ok  ' if ok else 'FAIL'}  fleet: {stats.replications} replication(s), "
+          f"routed per member {routed}, {stats.rebalances} sanitized rebalance(s), "
+          f"bit-identical={all(_same(o, want) for o in outs)}")
     return failures
 
 

@@ -45,15 +45,30 @@ Bitstream cache side tables (``check_cache``):
 * ``cache/spec-orphan``       — a specialized executable whose generic
   kernel artifact is gone from the store
 
-``describe()`` schema (``check_overlay_describe``): ``describe/*`` — the
-JSON key structure dashboards and the planner consume drifted.  The frozen
-key sets are the reference's: ``mesh`` adds no key to ``describe()`` there
-(it changes kernel keys, not the report), so the port's sets equal them
+Fleet replica records (``check_fleet``):
+
+* ``fleet/replica-empty``     — a record with no replicas
+* ``fleet/replica-index``     — replica names a member outside the fleet
+* ``fleet/replica-dup``       — two replicas of one record on one member
+* ``fleet/replica-count``     — more replicas than ``max_replicas``
+* ``fleet/dead-replica``      — (``pruned=True`` only) a dead copy that
+  pruning should have dropped — dead *sole primaries* are legal (they
+  re-download on demand)
+* ``fleet/home-index``        — a graph-home entry naming no member
+* ``fleet/health-size``       — health ledger out of step with the member
+  list, or a member in an unknown health state
+* ``fleet/quarantined-primary`` — a record's primary sits on a quarantined
+  (or dead) member while a live copy exists on a healthy one — demotion
+  should have moved the primary slot
+
+``describe()`` schema (``check_overlay_describe`` /
+``check_fleet_describe``): ``describe/*`` — the JSON key structure
+dashboards and the planner consume drifted.  The frozen key sets are the
+reference's: ``mesh`` adds no key to ``describe()`` there (it changes
+kernel keys, not the report), so the port's sets equal them
 (``tests/test_torch_analysis.py`` compares them).
 
-Port of ``repro/analysis/check.py`` without the fleet checkers
-(``check_fleet``, ``check_fleet_describe``), which wait for the fleet's
-slice of the port.
+Port of ``repro/analysis/check.py``.
 """
 
 from __future__ import annotations
@@ -64,7 +79,8 @@ from typing import Any
 __all__ = [
     "InvariantError", "Violation", "ensure",
     "check_fabric", "check_residency", "check_cache", "check_breakers",
-    "check_overlay", "check_overlay_describe",
+    "check_overlay", "check_fleet", "check_overlay_describe",
+    "check_fleet_describe",
 ]
 
 
@@ -260,6 +276,93 @@ def check_overlay(overlay: Any) -> list[Violation]:
 
 
 # ---------------------------------------------------------------------------
+# fleet replica records
+# ---------------------------------------------------------------------------
+def check_fleet(fleet: Any, *, pruned: bool = False) -> list[Violation]:
+    """Fleet-level invariants; the caller holds ``fleet._lock``.  With
+    ``pruned=True`` (valid right after a rebalance) dead non-primary copies
+    are violations too."""
+    out: list[Violation] = []
+    n = len(fleet.members)
+    for wrapper in list(fleet._wrappers):
+        for rec in wrapper._records.values():
+            if not rec.replicas:
+                out.append(Violation("fleet/replica-empty", f"{rec.label}: no replicas"))
+                continue
+            if len(rec.replicas) > fleet.max_replicas:
+                out.append(Violation(
+                    "fleet/replica-count",
+                    f"{rec.label}: {len(rec.replicas)} replicas > "
+                    f"max_replicas={fleet.max_replicas}"))
+            seen: set[int] = set()
+            for i, rep in enumerate(rec.replicas):
+                if not 0 <= rep.member_index < n:
+                    out.append(Violation(
+                        "fleet/replica-index",
+                        f"{rec.label}: replica on member {rep.member_index} "
+                        f"of a {n}-member fleet"))
+                    continue
+                if rep.member_index in seen:
+                    out.append(Violation(
+                        "fleet/replica-dup",
+                        f"{rec.label}: two replicas on member {rep.member_index}"))
+                seen.add(rep.member_index)
+                if pruned and fleet._copy_state(rec, rep) == "dead" \
+                        and (i > 0 or len(rec.replicas) > 1):
+                    out.append(Violation(
+                        "fleet/dead-replica",
+                        f"{rec.label}: dead copy on member {rep.member_index} "
+                        f"survived pruning"))
+    for rid, home in fleet._graph_homes.items():
+        if not 0 <= home < n:
+            out.append(Violation(
+                "fleet/home-index",
+                f"graph home for {rid!r} names member {home} of a {n}-member fleet"))
+    out += _check_fleet_health(fleet)
+    return out
+
+
+_HEALTH_STATES = frozenset({"healthy", "probation", "quarantined", "dead"})
+
+
+def _check_fleet_health(fleet: Any) -> list[Violation]:
+    out: list[Violation] = []
+    n = len(fleet.members)
+    health = fleet._health
+    if len(health) != n:
+        out.append(Violation("fleet/health-size",
+                             f"{len(health)} health entries for {n} members"))
+        return out
+    for i, h in enumerate(health):
+        if h.state not in _HEALTH_STATES:
+            out.append(Violation("fleet/health-size",
+                                 f"member {i}: unknown health state {h.state!r}"))
+    for wrapper in list(fleet._wrappers):
+        for rec in wrapper._records.values():
+            if not rec.replicas:
+                continue                   # fleet/replica-empty covers it
+            primary = rec.replicas[0]
+            if not 0 <= primary.member_index < n:
+                continue                   # fleet/replica-index covers it
+            if health[primary.member_index].state not in ("quarantined", "dead"):
+                continue
+            for rep in rec.replicas[1:]:
+                if not 0 <= rep.member_index < n:
+                    continue
+                if health[rep.member_index].state in ("quarantined", "dead"):
+                    continue
+                if fleet._copy_state(rec, rep) == "live":
+                    out.append(Violation(
+                        "fleet/quarantined-primary",
+                        f"{rec.label}: primary on "
+                        f"{health[primary.member_index].state} member "
+                        f"{primary.member_index} while member "
+                        f"{rep.member_index} holds a live copy"))
+                    break
+    return out
+
+
+# ---------------------------------------------------------------------------
 # describe() schema stability
 # ---------------------------------------------------------------------------
 _OVERLAY_DESCRIBE_KEYS = frozenset({
@@ -283,6 +386,15 @@ _RESIDENT_DESCRIBE_KEYS = frozenset({
 })
 _SPEC_EXTRA_KEYS = frozenset({"specialized_artifacts", "auto",
                               "specialize_after"})
+_FLEET_DESCRIBE_KEYS = frozenset({
+    "size", "health", "window", "replicate_after", "drain_below",
+    "max_replicas", "replicas", "routed_per_member", "scores",
+    "dispatch_p50_us", "dispatch_p99_us", "records",
+})
+_FLEET_COPY_KEYS = frozenset({"member", "rid", "primary", "state",
+                              "routed", "inflight"})
+
+
 def _key_diff(rule: str, where: str, got: set, want: frozenset
               ) -> list[Violation]:
     missing, extra = sorted(want - got), sorted(got - want)
@@ -318,4 +430,25 @@ def check_overlay_describe(overlay: Any) -> list[Violation]:
     if not isinstance(d.get("scheduler"), dict):
         out.append(Violation("describe/overlay-schema",
                              "describe()['scheduler'] is not a dict"))
+    return out
+
+
+def check_fleet_describe(fleet: Any) -> list[Violation]:
+    """``FleetOverlay.describe()`` keeps its schema too."""
+    d = fleet.describe()
+    out = _key_diff("describe/fleet-schema", "describe()",
+                    set(d), frozenset({"members", "fleet", "store"}))
+    want = _FLEET_DESCRIBE_KEYS | frozenset(dataclasses.asdict(fleet.stats))
+    flt = d.get("fleet") if isinstance(d.get("fleet"), dict) else {}
+    out += _key_diff("describe/fleet-schema", "describe()['fleet']", set(flt), want)
+    for label, rec in flt.get("records", {}).items():
+        out += _key_diff("describe/fleet-record-schema", f"fleet record {label!r}",
+                         set(rec), frozenset({"name", "hits", "window_hits", "copies"}))
+        for copy in rec["copies"]:
+            out += _key_diff("describe/fleet-copy-schema", f"fleet record {label!r} copy",
+                             set(copy), _FLEET_COPY_KEYS)
+    if len(d.get("members", ())) != len(fleet.members):
+        out.append(Violation(
+            "describe/fleet-schema",
+            f"{len(d['members'])} member reports for {len(fleet.members)} members"))
     return out

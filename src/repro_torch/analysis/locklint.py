@@ -1,14 +1,15 @@
 """Concurrency lint for the port's overlay runtime — stdlib ``ast`` only.
 
 The runtime's locking discipline is a handful of prose invariants:
-fabric/cache mutation happens under ``Overlay._lock`` (an RLock),
+fabric/cache mutation happens under ``Overlay._lock`` (an RLock), a
+fleet's routing records under ``FleetOverlay._lock``,
 scheduler queues mutate under ``DownloadScheduler._cond``, the bitstream
 store's index under ``BitstreamStore._lock``, a fault plan's ledger under
 ``FaultPlan._lock``, a launch counter under ``LaunchCounter._lock``; the
 kernel libraries build under the module lock ``native._build_lock`` and one
 CUDA-graph capture runs at a time under ``interpreter._capture_lock``.
-Locks are acquired in the fixed order overlay → {scheduler, store, fault
-plan}, and nothing slow (nvcc, a capture, a synchronize, a device-to-host
+Locks are acquired in the fixed order fleet → overlay → {scheduler, store,
+fault plan}, and nothing slow (nvcc, a capture, a synchronize, a device-to-host
 read, a sleep, a join) runs while a lock is held, except where audited.
 This module makes those invariants *executable*: it parses the source tree,
 reconstructs which locks are guaranteed held at every statement, and
@@ -58,13 +59,22 @@ The analysis is deliberately modest but honest about it:
 The lock-order graph of ``src/repro_torch`` (``lock_graph_summary()``,
 held by ``tests/test_torch_analysis.py``)::
 
+    FleetOverlay._lock -> BitstreamStore._lock
+    FleetOverlay._lock -> DownloadScheduler._cond
+    FleetOverlay._lock -> FaultPlan._lock
+    FleetOverlay._lock -> Overlay._lock
     Overlay._lock -> BitstreamStore._lock
     Overlay._lock -> DownloadScheduler._cond
 
-Every other lock (``FaultPlan._lock``, ``LaunchCounter._lock``,
-``interpreter._capture_lock``, ``interpreter._builds_lock``,
-``native._build_lock``) is taken with no other lock of the tree held and
-takes none itself; no edge leaves a leaf, so there is no cycle.
+The fleet lock is held while a rebalance or a member's death downloads
+through a member (a replica on the low lane, an evacuation), which takes
+that member's lock and, below it, the scheduler's, the store's and the
+fault plan's.  Nothing under a member's lock takes the fleet lock (a
+member's ``reclaim_prefer`` reads the fleet's records without it).  Every
+other lock (``LaunchCounter._lock``, ``interpreter._capture_lock``,
+``interpreter._builds_lock``, ``native._build_lock``) is taken with no
+other lock of the tree held and takes none itself; no edge leaves a leaf,
+so there is no cycle.
 
 Audited, deliberate exceptions live in an allowlist file of exact
 fingerprints (``rule:path:Class.method:detail``; the file may hold fnmatch
@@ -146,6 +156,16 @@ SHARED_ATTRS: dict[str, dict[str, str]] = {
         "_finishing": "DownloadScheduler._cond",
         "_shutdown": "DownloadScheduler._cond",
         "_threads": "DownloadScheduler._cond",
+    },
+    "FleetOverlay": {
+        "_window_routed": "FleetOverlay._lock",
+        "_graph_homes": "FleetOverlay._lock",
+    },
+    "FleetJitAssembled": {
+        "_records": "FleetOverlay._lock",
+    },
+    "_FleetRecord": {
+        "replicas": "FleetOverlay._lock",
     },
     "FaultPlan": {
         "_counts": "FaultPlan._lock",

@@ -3,6 +3,10 @@
 Public API (frontend first — the paper's programming model):
   overlay.Overlay                          — trace-based frontend: plain
       PyTorch functions -> placed, ISA-compiled, cached accelerators
+      (``jit(donate_argnums=)`` donates the state a step rewrites)
+  fleet.FleetOverlay / FleetJitAssembled / FleetStats — many member
+      fabrics behind the Overlay surface: placement, replication, routing,
+      cross-fabric reclaim, member health
   trace.trace_to_graph / Lowered / TraceError — aten graph -> Graph lowering
   patterns.LIBRARY / Operator / TileClass  — operator ("bitstream") library
   patterns.register_op / register_call     — aten-op -> Operator registry
@@ -30,6 +34,7 @@ from repro_torch.core.cache import (BitstreamCache, SpecializationStats,
                                     kernel_key, signature_of, spec_key)
 from repro_torch.core.fabric import Fabric, FabricError, ResidentAccelerator
 from repro_torch.core.faults import FaultError, FaultPlan
+from repro_torch.core.fleet import FleetJitAssembled, FleetOverlay, FleetStats
 from repro_torch.core.graph import (Graph, NodeRef, TensorSpec, branchy_graph,
                                     saxpy_graph, vmul_reduce_graph)
 from repro_torch.core.interpreter import (AssembledAccelerator, GraphKernel,
@@ -57,6 +62,7 @@ from repro_torch.core.trace import Lowered, TraceError, trace_to_graph
 __all__ = [
     "AssembledAccelerator", "BitstreamCache", "BitstreamStore", "DownloadHandle",
     "DownloadScheduler", "Fabric", "FabricError", "FaultError", "FaultPlan",
+    "FleetJitAssembled", "FleetOverlay", "FleetStats",
     "Graph", "GraphKernel", "JitAssembled", "Kernel", "LIBRARY", "Lowered",
     "NodeRef", "Opcode", "Operator", "Overlay", "OverlayStats", "Placement",
     "PlacementError", "PlacementPolicy", "Program", "ResidentAccelerator",

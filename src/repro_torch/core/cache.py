@@ -69,13 +69,39 @@ def cache_key(name: str, signature: tuple, placement_desc: str = "",
     return f"{name}:{h}"
 
 
-def kernel_key(name: str, signature: tuple, fingerprint: str = "") -> str:
+def kernel_key(name: str, signature: tuple, fingerprint: str = "",
+               extra: str = "") -> str:
     """Placement-free identity of a kernel artifact: (graph name, input
-    signature, graph content fingerprint).  Two placements of one graph
-    share ONE kernel."""
-    h = hashlib.sha256(
-        repr((name, signature, fingerprint)).encode()).hexdigest()[:16]
+    signature, graph content fingerprint, ``extra`` — the jit kwargs the
+    kernel honors, such as its donated inputs).  Two placements of one
+    graph share ONE kernel."""
+    # no extra: the key of a kernel without jit kwargs stays what it was
+    # before donation existed, so existing store entries keep loading
+    key = (name, signature, fingerprint, extra) if extra else \
+        (name, signature, fingerprint)
+    h = hashlib.sha256(repr(key).encode()).hexdigest()[:16]
     return f"{name}:{h}"
+
+
+def kernel_jit_kwargs(jit_kwargs: "dict[str, Any] | None") -> dict[str, Any]:
+    """User-level jit kwargs in the kernel's calling convention: argument 0
+    of ``kernel(routes, *inputs)`` is the routes vector, so positional
+    argnums (``donate_argnums`` / ``static_argnums``) shift by one — routes
+    are never donated or static.  Takes an int or an iterable, as the
+    reference does; the name-based ``*_argnames`` forms cannot map onto the
+    kernel's signature and are refused."""
+    kw = dict(jit_kwargs or {})
+    for field in ("donate_argnums", "static_argnums"):
+        v = kw.get(field)
+        if v is not None:
+            if isinstance(v, int):
+                v = (v,)
+            kw[field] = tuple(i + 1 for i in v)
+    if kw.get("donate_argnames") or kw.get("static_argnames"):
+        raise ValueError(
+            "jit_kwargs *_argnames are not supported on kernel artifacts — "
+            "use positional *_argnums")
+    return kw
 
 
 def spec_key(kernel_key: str, hops: "tuple[int, ...]") -> str:

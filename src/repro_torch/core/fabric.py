@@ -87,6 +87,7 @@ class ResidentAccelerator:
     spec_pending: bool = False
     spec_job: str | None = None
     spec_fn: Any = None            # bound specialized artifact (dispatch)
+    spec_jit_kwargs: Any = None    # the jit kwargs (donation) spec_fn honors
     spec_failures: int = 0         # failed specializations at these routes
     live: bool = True
     # dispatch observability: per-resident end-to-end call latency (us) and
@@ -187,6 +188,8 @@ class Fabric:
         return sum(known) / len(known) if known else 0.0
 
     def reclaim_victim(self, *, cost_aware: bool = False,
+                       prefer: "Callable[[ResidentAccelerator], bool] | None"
+                       = None,
                        price: "Callable[[ResidentAccelerator], float] | None"
                        = None) -> ResidentAccelerator | None:
         """The resident to reclaim under placement pressure.
@@ -198,10 +201,19 @@ class Fabric:
         yet is priced at the mean of the measured costs; with no
         measurements anywhere the choice is exactly LRU.  ``price``
         overrides a resident's re-download price (seconds) — the cost-model
-        planner passes its own pricer here."""
+        planner passes its own pricer here.
+
+        ``prefer`` narrows the pool BEFORE the LRU or cost scoring: when any
+        resident satisfies it, only those are candidates (a fleet member
+        sacrifices copies that also live on another member before any sole
+        copy); when none does, the whole pool is scored."""
         if not self._residents:
             return None
         pool = list(self._residents.values())
+        if prefer is not None:
+            preferred = [r for r in pool if prefer(r)]
+            if preferred:
+                pool = preferred
         if not cost_aware:
             return min(pool, key=lambda r: r.last_used)
         now = self._tick + 1

@@ -23,9 +23,8 @@ maps member index -> fleet dispatch count after which the member dies, so a
 
 A copy of ``repro/core/faults.py`` (the port imports nothing of ``repro``):
 the same hash of the same string decides, so a plan fires exactly what the
-reference's plan fires on the same key sequences.  The store and the fleet
-that read the ``store_*`` channels and ``member_deaths`` wait for later
-slices of the port.
+reference's plan fires on the same key sequences.  The bitstream store
+reads the ``store_*`` channels and the fleet reads ``member_deaths``.
 """
 
 from __future__ import annotations

@@ -29,6 +29,14 @@ it on every dispatch: the port's form of the reference's compiled
 route-constant executable.  Each walk issues its aten ops one at a time
 from Python; a replay issues them all in one graph launch.
 
+Donation: a kernel built with ``donate_argnums`` (the kernel's calling
+convention, argument 0 being the routes vector) may write each output into
+the storage of a donated input of the same shape and dtype (the pairing
+:func:`donation_aliases` derives, JAX's rule) and returns that input in its
+place — the reference's ``jax.jit(donate_argnums=)`` lets XLA do the same.
+The walk writes an output back as soon as its input has been read for the
+last time, so a traced train step holds one copy of its state, not two.
+
 A kernel has a serial form (:meth:`Kernel.serial_form` /
 :meth:`Kernel.from_serial`): its step list with each operator named by its
 descriptor, which the bitstream store writes and a later process rebuilds
@@ -189,6 +197,66 @@ def copy_passes(v: Any, passes: int) -> Any:
     return v
 
 
+def _aval_key(aval: Any) -> "tuple | None":
+    """What a donated input and an output must share to alias: shape and
+    dtype (a traced graph records no device on op outputs)."""
+    if hasattr(aval, "shape") and hasattr(aval, "dtype"):
+        return (tuple(aval.shape), aval.dtype)
+    return None
+
+
+def donation_aliases(graph: Graph, donated: "tuple[int, ...]"
+                     ) -> "tuple[tuple[int, int], ...]":
+    """``(output position, input position)`` pairs for the donated input
+    positions ``donated``: each output, in order, takes the first donated
+    input of its shape and dtype not yet taken (the rule JAX applies to
+    ``donate_argnums``).  A donated input that the graph also returns as an
+    output keeps its storage and aliases nothing."""
+    outs = set(graph.output_ids)
+    pool: dict[Any, list[int]] = {}
+    for pos in sorted(set(donated)):
+        nid = graph.input_ids[pos]
+        key = _aval_key(graph.nodes[nid].aval)
+        if nid not in outs and key is not None:
+            pool.setdefault(key, []).append(pos)
+    pairs = []
+    for o, nid in enumerate(graph.output_ids):
+        free = pool.get(_aval_key(graph.nodes[nid].aval))
+        if free:
+            pairs.append((o, free.pop(0)))
+    return tuple(pairs)
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def donation_targets(inputs: tuple, aliases) -> "list[tuple[int, int]]":
+    """The pairs of ``aliases`` this call can honor: the donated input is a
+    tensor with data whose storage no other input shares (a tensor passed
+    twice, or viewed by another argument, is read after the write)."""
+    if not aliases:
+        return []
+    seen: dict[int, int] = {}
+    for x in inputs:
+        if isinstance(x, torch.Tensor) and x.numel():
+            ptr = _storage(x)
+            seen[ptr] = seen.get(ptr, 0) + 1
+    return [(o, i) for o, i in aliases
+            if isinstance(inputs[i], torch.Tensor) and inputs[i].numel()
+            and seen[_storage(inputs[i])] == 1]
+
+
+def write_back(x: torch.Tensor, y: Any) -> torch.Tensor:
+    """Land output ``y`` in donated input ``x``'s storage; returns ``x``."""
+    if y is not x:
+        if isinstance(y, torch.Tensor) and y.numel() and _storage(y) == _storage(x):
+            y = y.clone()                  # a view of x: read it before the write
+        with torch.no_grad():
+            x.copy_(y)
+    return x
+
+
 @dataclasses.dataclass(frozen=True)
 class _Step:
     node_id: int
@@ -212,7 +280,7 @@ class Kernel:
     train step's activations and optimizer temporaries would not fit on the
     card otherwise."""
 
-    def __init__(self, graph: Graph) -> None:
+    def __init__(self, graph: Graph, donate_argnums: "tuple[int, ...]" = ()) -> None:
         order = edge_order(graph)
         # an op reading one value twice (x * x) has the edge twice; both
         # entries carry the same hop count, so either index serves
@@ -238,6 +306,11 @@ class Kernel:
                 frees[i].append(slot)
         self.steps = tuple(dataclasses.replace(step, frees=tuple(f))
                            for step, f in zip(steps, frees))
+        self.donate_argnums = tuple(sorted(set(donate_argnums)))
+        if any(not 1 <= a <= len(self.input_ids) for a in self.donate_argnums):
+            raise ValueError(f"kernel {self.name!r}: donate_argnums "
+                             f"{self.donate_argnums} outside inputs 1..{len(self.input_ids)}")
+        self.aliases = donation_aliases(graph, tuple(a - 1 for a in self.donate_argnums))
         _count_build(type(self).__name__)
 
     # -- serial form (the bitstream store's payload) -------------------------
@@ -269,7 +342,9 @@ class Kernel:
                    "ops": [json.loads(text) for text in ops],
                    "consts": [nid for nid, _ in self.consts], "steps": steps,
                    "hops": list(self.hops) if isinstance(self, SpecializedKernel)
-                   else None}
+                   else None,
+                   "donate_argnums": list(self.donate_argnums),
+                   "aliases": [list(pair) for pair in self.aliases]}
         return program, [payload for _, payload in self.consts]
 
     @staticmethod
@@ -317,6 +392,21 @@ class Kernel:
                 kernel.hops = tuple(_nat(h) for h in hops)
                 if len(kernel.hops) != kernel.num_edges:
                     raise SerialError("hop vector and edge count disagree")
+            n_in = len(kernel.input_ids)
+            # a program written before donation existed has neither key
+            kernel.donate_argnums = _indices(program.get("donate_argnums", []), n_in + 1)
+            if 0 in kernel.donate_argnums:
+                raise SerialError("the routes argument is never donated")
+            pairs = [tuple(p) for p in program.get("aliases", [])]
+            if any(len(p) != 2 for p in pairs):
+                raise SerialError("an alias is not an (output, input) pair")
+            outs = _indices([o for o, _ in pairs], len(kernel.output_ids))
+            ins = _indices([i for _, i in pairs], n_in)
+            if len(set(outs)) != len(pairs) or len(set(ins)) != len(pairs) \
+                    or not {i + 1 for i in ins} <= set(kernel.donate_argnums):
+                raise SerialError("aliases must pair distinct outputs with "
+                                  "distinct donated inputs")
+            kernel.aliases = tuple(pairs)
         except SerialError:
             raise
         except (KeyError, TypeError, ValueError) as exc:
@@ -332,13 +422,14 @@ class Kernel:
                 f"{len(self.input_ids)} inputs, got {len(hops)} and {len(inputs)}")
         return self._walk(hops, inputs)
 
-    def _walk(self, hops, inputs):
+    def _walk(self, hops, inputs, donate: bool = True):
         vals: list[Any] = [None] * self.num_slots
         for nid, x in zip(self.input_ids, inputs):
             vals[nid] = x
         for nid, payload in self.consts:
             vals[nid] = payload
-        for step in self.steps:
+        landing = _Landing(self, inputs, vals) if donate and self.aliases else None
+        for n, step in enumerate(self.steps):
             args = []
             for src, e in step.srcs:
                 v = vals[src]
@@ -350,10 +441,75 @@ class Kernel:
             else:
                 p, t, f = args
                 vals[step.node_id] = torch.where(p, t, f)
+            if landing is not None:
+                landing.after(n, step.node_id)
             for slot in step.frees:
                 vals[slot] = None
         outs = tuple(vals[i] for i in self.output_ids)
         return outs[0] if len(outs) == 1 else outs
+
+    @functools.cached_property
+    def _donation_plan(self) -> "tuple[dict[int, int], dict[int, int]]":
+        """Per slot, the index of the step that reads it last and of the
+        step that produces it (-1: an input or a const)."""
+        last: dict[int, int] = {}
+        made: dict[int, int] = {}
+        for i, step in enumerate(self.steps):
+            made[step.node_id] = i
+            for src, _ in step.srcs:
+                last[src] = i
+        return last, made
+
+
+class _Landing:
+    """One donated walk's write-backs: each aliased output lands in its
+    donated input's storage as soon as nothing reads that input any more —
+    after the input slot's last reader, after the last reader of every
+    value found to view its storage (a view op's result), and never while
+    an output views it (that pair is then not honored).  The inputs the
+    call cannot donate are left alone (:func:`donation_targets`)."""
+
+    def __init__(self, kernel: Kernel, inputs: tuple, vals: list) -> None:
+        self.last, self.made = kernel._donation_plan
+        self.end = len(kernel.steps)
+        self.outputs = set(kernel.output_ids)
+        self.output_ids = kernel.output_ids
+        self.inputs, self.vals = inputs, vals
+        self.pairs = donation_targets(inputs, kernel.aliases)
+        self.owner = {_storage(inputs[i]): k for k, (_, i) in enumerate(self.pairs)}
+        self.ready = [self.free_after(kernel.input_ids[i]) for _, i in self.pairs]
+        self.pending: dict[int, list[int]] = {}
+        for k in range(len(self.pairs)):
+            self.pending.setdefault(self.due(k), []).append(k)
+        self.land(-1)
+
+    def free_after(self, slot: int) -> int:
+        return self.end if slot in self.outputs else self.last.get(slot, -1)
+
+    def due(self, k: int) -> int:
+        return max(self.ready[k], self.made.get(self.output_ids[self.pairs[k][0]], -1))
+
+    def after(self, n: int, slot: int) -> None:
+        """Step ``n`` produced ``slot``: note a view of a donated input,
+        then land what is due."""
+        if self.owner:
+            out = self.vals[slot]
+            for t in (out if isinstance(out, tuple) else (out,)):
+                if isinstance(t, torch.Tensor) and t.numel():
+                    k = self.owner.get(_storage(t))
+                    if k is not None:
+                        self.ready[k] = max(self.ready[k], self.free_after(slot))
+        self.land(n)
+
+    def land(self, at: int) -> None:
+        for k in self.pending.pop(at, ()):
+            if self.due(k) != at:              # a view found meanwhile moved it
+                self.pending.setdefault(self.due(k), []).append(k)
+                continue
+            o, i = self.pairs[k]
+            slot = self.output_ids[o]
+            self.vals[slot] = write_back(self.inputs[i], self.vals[slot])
+            self.owner.pop(_storage(self.inputs[i]), None)
 
 
 def _nat(v, bound: "int | None" = None) -> int:
@@ -392,10 +548,12 @@ def kernel_builds() -> dict[str, int]:
         return dict(_builds)
 
 
-def build_kernel(graph: Graph) -> Kernel:
-    """The placement-invariant compute body of ``graph`` (a download)."""
+def build_kernel(graph: Graph, donate_argnums: "tuple[int, ...]" = ()) -> Kernel:
+    """The placement-invariant compute body of ``graph`` (a download);
+    ``donate_argnums`` in the kernel's calling convention
+    (:func:`~repro_torch.core.cache.kernel_jit_kwargs`)."""
     graph.validate()
-    return Kernel(graph)
+    return Kernel(graph, donate_argnums)
 
 
 class SpecializedKernel(Kernel):
@@ -405,8 +563,9 @@ class SpecializedKernel(Kernel):
     argument (the generic walk's ``routes.tolist()`` is gone), so the walk
     reads nothing on the host and can be captured as a CUDA graph."""
 
-    def __init__(self, graph: Graph, hops: "tuple[int, ...]") -> None:
-        super().__init__(graph)
+    def __init__(self, graph: Graph, hops: "tuple[int, ...]",
+                 donate_argnums: "tuple[int, ...]" = ()) -> None:
+        super().__init__(graph, donate_argnums)
         if len(hops) != self.num_edges:
             raise ValueError(
                 f"hop vector has {len(hops)} entries for {self.num_edges} edges")
@@ -419,7 +578,8 @@ class SpecializedKernel(Kernel):
         return self._walk(self.hops, inputs)
 
 
-def specialize_kernel(graph: Graph, hops: "tuple[int, ...]") -> SpecializedKernel:
+def specialize_kernel(graph: Graph, hops: "tuple[int, ...]",
+                      donate_argnums: "tuple[int, ...]" = ()) -> SpecializedKernel:
     """The route-constant body of ``graph`` for one hop vector
     (:func:`route_hops`) — the specialized artifact tier.  Edges with
     ``h >= 2`` keep their ``h - 1`` copy passes (the pass-through cost
@@ -430,7 +590,7 @@ def specialize_kernel(graph: Graph, hops: "tuple[int, ...]") -> SpecializedKerne
     Eager PyTorch runs each op on its own and fuses nothing, so the port
     needs no guard."""
     graph.validate()
-    return SpecializedKernel(graph, hops)
+    return SpecializedKernel(graph, hops, donate_argnums)
 
 
 @functools.cache
@@ -481,7 +641,10 @@ class GraphKernel:
     returned by one call must not change after the next.  Each replay adds
     the launches its capture recorded to the kernels' counters.  A failed
     capture or replay raises; :meth:`release` frees the graph and its
-    memory pool.
+    memory pool.  With donation (``kernel.aliases``) the capture is of the
+    walk without it, and a call lands each aliased output in the caller's
+    donated input after the replay and returns that input: the graph's
+    addresses are fixed, the caller's state is written where it lies.
     """
 
     def __init__(self, kernel: SpecializedKernel, inputs: "tuple[torch.Tensor, ...]") -> None:
@@ -500,12 +663,15 @@ class GraphKernel:
             stream = _capture_stream(device.index)
             stream.wait_stream(default)
             self._graph = torch.cuda.CUDAGraph()
+            # the walk without donation: the graph keeps private outputs,
+            # which a call lands in the caller's donated inputs after replay
             with torch.cuda.stream(stream):
-                kernel(None, *self._static_in)
+                kernel._walk(kernel.hops, self._static_in, donate=False)
                 with recording_launches() as record:
                     self._graph.capture_begin(capture_error_mode="thread_local")
                     try:
-                        self._static_out = kernel(None, *self._static_in)
+                        self._static_out = kernel._walk(kernel.hops, self._static_in,
+                                                        donate=False)
                     finally:
                         self._graph.capture_end()
             default.wait_stream(stream)
@@ -534,7 +700,18 @@ class GraphKernel:
         self.replays += 1
         for c, variant, n in self._launches:
             c.add(variant, n)
-        return pytree.tree_map(_copy_pass, self._static_out)
+        if not self.kernel.aliases:
+            return pytree.tree_map(_copy_pass, self._static_out)
+        static = self._static_out if isinstance(self._static_out, tuple) \
+            else (self._static_out,)
+        outs = list(static)
+        landed = set()
+        for o, i in donation_targets(inputs, self.kernel.aliases):
+            outs[o] = write_back(inputs[i], static[o])
+            landed.add(o)
+        outs = [y if o in landed else pytree.tree_map(_copy_pass, y)
+                for o, y in enumerate(outs)]
+        return outs[0] if len(outs) == 1 else tuple(outs)
 
     def release(self) -> None:
         """Drop the graph, its static buffers and its private memory pool."""

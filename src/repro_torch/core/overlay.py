@@ -57,6 +57,11 @@ Also provided, mirroring the paper's runtime controls:
   relocate, specialization commit, flush) and raises
   :class:`~repro_torch.analysis.check.InvariantError` on the first
   violation; off, it adds no work,
+* ``Overlay.jit(fn, donate_argnums=(0,))`` — buffer donation: the kernel
+  writes each output into the storage of a donated input of its shape and
+  dtype and returns that input (a traced train step then holds one copy of
+  its state); donated and undonated kernels of one function have distinct
+  cache and store keys,
 * ``Overlay.assemble(graph)`` — the low-level IR path (hand-built Graphs),
   idempotent and cached.
 
@@ -72,9 +77,9 @@ after a relocation), the port does it inline there and queues it only on an
 asynchronous overlay; persists ride the low lane on both, as in the
 reference.  The trace stays on the caller, as in the reference: the
 asynchronous pipeline hides the assembly, and the store the kernel build,
-not the trace.  Sharded assembly (``mesh``) and donation wait for later
-slices: the port's :class:`Overlay` raises on the keyword arguments that ask
-for them instead of ignoring them.
+not the trace.  Sharded assembly (``mesh``) waits for a later slice: the
+port's :class:`Overlay` raises on the keyword arguments that ask for it
+instead of ignoring them.
 """
 
 from __future__ import annotations
@@ -176,6 +181,10 @@ class _JitEntry:
     pending: DownloadHandle | None = None     # in-flight background download
     download_failures: int = 0                # consecutive failed downloads
     record: _DispatchRecord | None = None
+    # donation: {"donate_argnums": flat leaf indices} (the kernel key
+    # includes it) and the (output, input) leaf pairs a fallback lands
+    jit_kwargs: dict[str, Any] | None = None
+    aliases: tuple = ()
     # deterministic retry/backoff clock: `calls` ticks once per slow-path
     # call and every retry decision keys on it, never on wall-clock, so a
     # failure schedule replays exactly.  The breaker pins a repeatedly
@@ -198,6 +207,8 @@ class _PendingDownload:
     generation: int
     key: str
     graph: Graph
+    jit_kwargs: dict[str, Any] | None = None   # the key includes these, so
+                                               # the kernel must honor them
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,6 +225,7 @@ class _PendingSpecialize:
     graph: Graph
     hops: tuple
     inputs: tuple                      # example leaves (tensor or None)
+    jit_kwargs: dict[str, Any] | None = None
 
 
 class JitAssembled:
@@ -222,13 +234,19 @@ class JitAssembled:
     Per input signature (flat shapes/dtypes/devices + static argument
     values) the wrapper traces once, assembles once, then dispatches
     straight to the cached accelerator.  Pytree arguments/results are
-    supported; the graph sees one input per flat leaf.
+    supported; the graph sees one input per flat leaf.  The leaves of the
+    ``donate_argnums`` arguments are donated: an output lands in the
+    storage of a donated leaf of its shape and dtype, on every path that
+    serves a call (the kernel walk, its CUDA graph, the eager fallback).
+    A dispatch that fails before its walk has written anything is served
+    from the fallback.
     """
 
     def __init__(self, overlay: "Overlay", fn: Callable[..., Any], *,
                  strict: bool = False, name: str | None = None,
                  fixed: dict[int, Coord] | None = None,
                  static_argnums: tuple[int, ...] = (),
+                 donate_argnums: tuple[int, ...] = (),
                  tile_budget: int | None = None) -> None:
         self.overlay = overlay
         self.fn = fn
@@ -236,6 +254,10 @@ class JitAssembled:
         self.name = name or getattr(fn, "__name__", None) or "jit"
         self.fixed = fixed
         self.static_argnums = tuple(static_argnums)
+        self.donate_argnums = tuple(donate_argnums)
+        overlap = set(self.static_argnums) & set(self.donate_argnums)
+        if overlap:
+            raise ValueError(f"arguments {sorted(overlap)} are both static and donated")
         self.tile_budget = tile_budget
         self._entries: dict[Any, _JitEntry] = {}
         self.__name__ = self.name
@@ -266,7 +288,27 @@ class JitAssembled:
         closed.__name__ = self.name
         return dyn, closed, repr(sorted(static.items()))
 
-    def _traced(self, key, closed: Callable[..., Any], dyn: tuple) -> _JitEntry:
+    def _donate_leaf_indices(self, args: tuple) -> tuple[int, ...]:
+        """The user-level ``donate_argnums`` as flat-leaf indices of the
+        dynamic arguments (the graph's input positions)."""
+        if not self.donate_argnums:
+            return ()
+        out, offset = [], 0
+        for i, a in enumerate(args):
+            if i in self.static_argnums:
+                continue
+            n = len(pytree.tree_leaves(a))
+            if i in self.donate_argnums:
+                out.extend(range(offset, offset + n))
+            offset += n
+        return tuple(out)
+
+    def _jit_kwargs(self, args: tuple) -> dict[str, Any] | None:
+        donate = self._donate_leaf_indices(args)
+        return {"donate_argnums": donate} if donate else None
+
+    def _traced(self, key, closed: Callable[..., Any], dyn: tuple,
+                args: tuple) -> _JitEntry:
         """The (possibly assembly-less) entry for a signature, tracing at
         most once: ``lower()`` and ``__call__`` share the memo."""
         entry = self._entries.get(key)
@@ -277,10 +319,26 @@ class JitAssembled:
             dt = time.perf_counter() - t0
             self.overlay.stats.traces += 1
             self.overlay.stats.trace_seconds += dt
+            jit_kwargs = self._jit_kwargs(args)
             entry = _JitEntry(lowered=lowered, acc=None, trace_seconds=dt,
-                              closed=closed)
+                              closed=closed, jit_kwargs=jit_kwargs)
+            if jit_kwargs:
+                entry.aliases = interp.donation_aliases(
+                    lowered.graph, jit_kwargs["donate_argnums"])
             self._entries[key] = entry
         return entry
+
+    @staticmethod
+    def _land(entry: _JitEntry, dyn: tuple, out: Any) -> Any:
+        """A fallback's answer, with each aliased output landed in its
+        donated input leaf (the kernel walk does this as it goes)."""
+        if not entry.aliases:
+            return out
+        ins = pytree.tree_leaves(dyn)
+        outs, spec = pytree.tree_flatten(out)
+        for o, i in interp.donation_targets(tuple(ins), entry.aliases):
+            outs[o] = interp.write_back(ins[i], outs[o])
+        return pytree.tree_unflatten(outs, spec)
 
     def _swap(self, entry: _JitEntry, acc, t0: float,
               handle: DownloadHandle | None) -> None:
@@ -381,7 +439,7 @@ class JitAssembled:
         entry.pending = None
         handle = self.overlay.submit_download(
             entry.lowered.graph, fixed=self.fixed, tile_budget=self.tile_budget,
-            kind=kind, reclaim=reclaim, low=low,
+            jit_kwargs=entry.jit_kwargs, kind=kind, reclaim=reclaim, low=low,
             on_done=lambda acc, h: self._swap(entry, acc, t0, h))
         entry.pending = handle
         return handle
@@ -389,7 +447,7 @@ class JitAssembled:
     def _entry(self, args: tuple, *, aot: bool = False,
                _presplit=None) -> _JitEntry:
         dyn, closed, static_repr = _presplit or self._split(args)
-        entry = self._traced(self._sig_key(dyn, static_repr), closed, dyn)
+        entry = self._traced(self._sig_key(dyn, static_repr), closed, dyn, args)
         ov = self.overlay
         acc = entry.acc
         if acc is not None and ov.resident_current(acc):
@@ -408,7 +466,8 @@ class JitAssembled:
             t0 = time.perf_counter()
             try:
                 entry.acc = ov.assemble(entry.lowered.graph, fixed=self.fixed,
-                                        tile_budget=self.tile_budget)
+                                        tile_budget=self.tile_budget,
+                                        jit_kwargs=entry.jit_kwargs)
             except (PlacementError, FabricError):
                 raise                      # structural — must propagate
             except Exception as exc:
@@ -450,7 +509,7 @@ class JitAssembled:
     def lower(self, *args) -> trace_lib.Lowered:
         """The lowered IR for this signature (traced at most once)."""
         dyn, closed, static_repr = self._split(args)
-        return self._traced(self._sig_key(dyn, static_repr), closed, dyn).lowered
+        return self._traced(self._sig_key(dyn, static_repr), closed, dyn, args).lowered
 
     def accelerator(self, *args) -> interp.AssembledAccelerator | None:
         """The assembled accelerator for this signature (traces if needed;
@@ -475,7 +534,7 @@ class JitAssembled:
         population).  An already-resident signature is a no-op."""
         presplit = self._split(args)
         dyn, closed, static_repr = presplit
-        entry = self._traced(self._sig_key(dyn, static_repr), closed, dyn)
+        entry = self._traced(self._sig_key(dyn, static_repr), closed, dyn, args)
         ov = self.overlay
         acc = entry.acc
         if acc is not None and ov.resident_current(acc):
@@ -526,7 +585,7 @@ class JitAssembled:
         ov = self.overlay
         presplit = self._split(args)
         dyn, closed, static_repr = presplit
-        entry = self._traced(self._sig_key(dyn, static_repr), closed, dyn)
+        entry = self._traced(self._sig_key(dyn, static_repr), closed, dyn, args)
         acc = entry.acc
         if acc is None or not ov.resident_current(acc):
             if ov.async_downloads:
@@ -546,6 +605,13 @@ class JitAssembled:
         return None
 
     def __call__(self, *args):
+        return self._invoke(args)[0]
+
+    def _invoke(self, args: tuple, writeback: bool = True) -> tuple[Any, bool]:
+        """Serve one call: ``(outputs, whether a resident dispatch failed
+        and the fallback answered)``.  ``writeback=False`` leaves the
+        donated inputs of a failed dispatch untouched, so a fleet can retry
+        the call on another copy from the same state."""
         presplit = self._split(args)
         entry = self._entries.get(self._sig_key(presplit[0], presplit[2]))
         rec = entry.record if entry is not None else None
@@ -555,11 +621,11 @@ class JitAssembled:
                 rec.res.generation == rec.generation and \
                 (self.tile_budget is None
                  or rec.res.tile_budget == self.tile_budget):
-            return self._dispatch_fast(args, entry, rec, presplit)
-        return self._call_slow(args, presplit)
+            return self._dispatch_fast(args, entry, rec, presplit, writeback)
+        return self._call_slow(args, presplit, writeback)
 
     def _dispatch_fast(self, args, entry: _JitEntry, rec: _DispatchRecord,
-                       presplit):
+                       presplit, writeback: bool = True):
         """Resident-hit dispatch without the overlay lock, and the fault
         plan's choke points: an injected resident loss degrades this call to
         the slow path (fallback + re-download), an injected dispatch failure
@@ -568,11 +634,12 @@ class JitAssembled:
         plan = ov.faults
         if plan is not None and plan.fires("resident_loss", rec.res.rid):
             ov._lose_resident(rec.res.rid)
-            return self._call_slow(args, presplit)
-        return self._dispatch(entry, rec, args, presplit, plan)
+            return self._call_slow(args, presplit, writeback)
+        return self._dispatch(entry, rec, args, presplit, plan, writeback)
 
     def _dispatch(self, entry: _JitEntry, rec: _DispatchRecord, args,
-                  presplit, plan: FaultPlan | None = None):
+                  presplit, plan: FaultPlan | None = None,
+                  writeback: bool = True):
         """Run a resident's dispatch record: recency, tier bookkeeping, the
         call.  Also the specialization trigger point — a contiguous
         (zero-hop) or dispatch-stable generic resident builds its
@@ -597,6 +664,8 @@ class JitAssembled:
                 else:
                     ov._specialize_now(entry, res, tuple(flat))
         t0 = time.perf_counter()
+        donated = [flat[i] for _, i in entry.aliases]
+        versions = [x._version for x in donated]
         try:
             if plan is not None and plan.fires("dispatch", res.rid):
                 raise FaultError(f"injected dispatch failure on {res.rid!r}")
@@ -604,20 +673,24 @@ class JitAssembled:
         except (PlacementError, FabricError):
             raise
         except Exception as exc:
-            return self._dispatch_failed(entry, res, exc, presplit)
+            if any(x._version != v for x, v in zip(donated, versions)):
+                raise          # the walk wrote into donated inputs: the
+                               # fallback would read half-updated state
+            return self._dispatch_failed(entry, res, exc, presplit, writeback)
         us = (time.perf_counter() - t0) * 1e6
         res.dispatch_hist.record(us)
         ov.dispatch_hist.record(us)
         leaves = list(out) if len(entry.lowered.graph.output_ids) > 1 else [out]
-        return pytree.tree_unflatten(leaves, entry.lowered.out_tree)
+        return pytree.tree_unflatten(leaves, entry.lowered.out_tree), False
 
     def _dispatch_failed(self, entry: _JitEntry, res: ResidentAccelerator,
-                         exc: BaseException, presplit):
+                         exc: BaseException, presplit, writeback: bool = True):
         """A resident dispatch raised: evict the suspect resident (its state
         is unknown), serve THIS call from the fallback — the traced function
         run eagerly, which launches the same kernels — and re-request the
         download.  An admitted call never surfaces the failure; it shows up
-        as latency and in the failure ledger."""
+        as latency and in the failure ledger.  The fallback lands its
+        answer in the donated inputs unless ``writeback`` is off."""
         ov = self.overlay
         ov.stats.dispatch_failures += 1
         logger.warning("dispatch on %r (%s) failed: %r — serving the "
@@ -630,10 +703,12 @@ class JitAssembled:
         ov.stats.dispatch_fallbacks += 1
         ov.stats.fallback_calls += 1
         out = entry.closed(*presplit[0])
+        if writeback:
+            out = self._land(entry, presplit[0], out)
         self._ensure_download(entry)
-        return out
+        return out, True
 
-    def _call_slow(self, args, presplit):
+    def _call_slow(self, args, presplit, writeback: bool = True):
         entry = self._entry(args, _presplit=presplit)
         entry.calls += 1               # the deterministic retry clock
         ov = self.overlay
@@ -644,9 +719,9 @@ class JitAssembled:
             # bitstream downloads"); the download is requested after the
             # response is computed and the accelerator swaps in underneath
             ov.stats.fallback_calls += 1
-            out = entry.closed(*presplit[0])
+            out = self._land(entry, presplit[0], entry.closed(*presplit[0]))
             self._ensure_download(entry)
-            return out
+            return out, False
         if not ov.resident_current(acc):
             # mid-re-download: the prior generation's accelerator lost its
             # PR regions but is still a correct pure function — it serves
@@ -655,12 +730,13 @@ class JitAssembled:
             out = acc.fn(*pytree.tree_leaves(presplit[0]))
             self._ensure_download(entry)
             leaves = list(out) if len(entry.lowered.graph.output_ids) > 1 else [out]
-            return pytree.tree_unflatten(leaves, entry.lowered.out_tree)
+            return pytree.tree_unflatten(leaves, entry.lowered.out_tree), False
         # a resident hit that missed the fast path (first dispatch, or a
         # just-invalidated record): republish, then dispatch through the
         # record so this call already serves the best live tier
         ov._publish_record(entry)
-        return self._dispatch(entry, entry.record, args, presplit)
+        return self._dispatch(entry, entry.record, args, presplit,
+                              writeback=writeback)
 
 
 class Overlay:
@@ -810,6 +886,10 @@ class Overlay:
         # consecutive admissions that each paid >= 1 reclaim — the
         # planner's churn detector (flips victim selection to MRU)
         self._reclaim_streak = 0
+        # optional narrowing of the reclaim victim pool: residents it
+        # accepts go first (a FleetOverlay installs one per member, so that
+        # copies living on another member go before sole copies)
+        self.reclaim_prefer: "Callable[[ResidentAccelerator], bool] | None" = None
         self._last_placement: Placement | None = None
         self._wrappers: "weakref.WeakSet[JitAssembled]" = weakref.WeakSet()
         self._prefetched: set[str] = set()   # rids downloaded ahead of demand
@@ -885,18 +965,23 @@ class Overlay:
             strict: bool = False, name: str | None = None,
             fixed: dict[int, Coord] | None = None,
             static_argnums: tuple[int, ...] = (),
+            donate_argnums: tuple[int, ...] = (),
             tile_budget: int | None = None) -> Callable[..., Any]:
         """Compile a plain PyTorch function into an overlay accelerator.
 
         Usable directly (``acc = overlay.jit(fn)``) or as a decorator.
         ``strict=True`` errors on aten ops without a library lowering.
         ``fixed`` pins graph nodes to tiles (static-placement experiments).
-        ``tile_budget`` caps this accelerator's fabric footprint so it can
-        co-reside with others.
+        ``donate_argnums`` donates those arguments' tensors: each output
+        lands in the storage of a donated tensor of its shape and dtype and
+        is returned as that tensor, so the caller must use the outputs, not
+        the donated inputs' old values.  ``tile_budget`` caps this
+        accelerator's fabric footprint so it can co-reside with others.
         """
         def wrap(f: Callable[..., Any]) -> JitAssembled:
             return JitAssembled(self, f, strict=strict, name=name, fixed=fixed,
                                 static_argnums=static_argnums,
+                                donate_argnums=donate_argnums,
                                 tile_budget=tile_budget)
         return wrap if fn is None else wrap(fn)
 
@@ -935,11 +1020,16 @@ class Overlay:
                                    placement_desc=pins,
                                    extra="resident:" + graph.fingerprint())
 
-    def _kernel_key(self, graph: Graph, avals: tuple) -> str:
+    def _kernel_key(self, graph: Graph, avals: tuple,
+                    jit_kwargs: dict[str, Any] | None = None) -> str:
         """Placement-FREE identity of the kernel artifact: one kernel serves
-        every placement of this graph (routes are a runtime argument)."""
+        every placement of this graph (routes are a runtime argument).  The
+        jit kwargs (donation) are part of it: a donated and an undonated
+        kernel of one graph never share a cache or store entry."""
         return cache_lib.kernel_key(graph.name, cache_lib.signature_of(avals),
-                                    fingerprint=graph.fingerprint())
+                                    fingerprint=graph.fingerprint(),
+                                    extra=repr(sorted((jit_kwargs or {}).items()))
+                                    if jit_kwargs else "")
 
     def resident_current(self, acc: interp.AssembledAccelerator) -> bool:
         """Whether an assembled accelerator still holds its PR regions."""
@@ -965,7 +1055,8 @@ class Overlay:
                              max_tiles=tile_budget)
             except PlacementError:
                 victim = self.fabric.reclaim_victim(
-                    cost_aware=self.cost_aware_reclaim)
+                    cost_aware=self.cost_aware_reclaim,
+                    prefer=self.reclaim_prefer)
                 if victim is None:
                     raise
                 if not probed:
@@ -1060,6 +1151,10 @@ class Overlay:
         pool = list(self.fabric.residents.values())
         if not pool:
             return None
+        if self.reclaim_prefer is not None:
+            preferred = [r for r in pool if self.reclaim_prefer(r)]
+            if preferred:
+                pool = preferred
         if self._reclaim_streak >= len(pool):
             prices = {r.rid: self._victim_price(r) for r in pool}
             cheapest = min(prices.values())
@@ -1067,6 +1162,7 @@ class Overlay:
                         if prices[r.rid] <= 2.0 * cheapest + 1e-9]
             return max(mru_pool, key=lambda r: r.last_used)
         return self.fabric.reclaim_victim(cost_aware=True,
+                                          prefer=self.reclaim_prefer,
                                           price=self._victim_price)
 
     def _maybe_defragment(self) -> None:
@@ -1168,7 +1264,9 @@ class Overlay:
 
     def assemble(self, graph: Graph, *,
                  fixed: dict[int, Coord] | None = None,
-                 tile_budget: int | None = None) -> interp.AssembledAccelerator:
+                 tile_budget: int | None = None,
+                 jit_kwargs: dict[str, Any] | None = None
+                 ) -> interp.AssembledAccelerator:
         """JIT-assemble ``graph`` into a fabric-resident accelerator (cached).
 
         If the same graph+signature is already resident this is a pure hit:
@@ -1189,7 +1287,7 @@ class Overlay:
             if hit:
                 self._note_demand(rid)
             self.stats.assemblies += 1
-            key = self._kernel_key(graph, avals)
+            key = self._kernel_key(graph, avals, jit_kwargs)
             if key in resident.cache_keys and key not in self.cache:
                 # the cache's own LRU dropped a resident's kernel: rebuilding
                 # it is a real re-download — keep the ledger honest
@@ -1205,7 +1303,7 @@ class Overlay:
             generation = resident.generation
         # miss: load or build OUTSIDE the lock, as the reference compiles —
         # neither may stall concurrent requests or background commits
-        kernel, dt, loaded = self._load_or_build(key, graph)
+        kernel, dt, loaded = self._load_or_build(key, graph, jit_kwargs)
         with self._lock:
             if self.fabric.same_residency(rid, generation):
                 self._book_kernel_locked(rid, key, kernel, dt, loaded)
@@ -1228,7 +1326,9 @@ class Overlay:
                         = None,
                         kind: str = "demand",
                         reclaim: bool = True,
-                        low: bool = False) -> DownloadHandle:
+                        low: bool = False,
+                        jit_kwargs: dict[str, Any] | None = None
+                        ) -> DownloadHandle:
         """Begin an asynchronous PR download for ``graph``.
 
         Foreground (under the overlay lock): place the graph — reclaiming
@@ -1249,7 +1349,7 @@ class Overlay:
             rid = self._resident_key(graph, avals, fixed)
             resident = self._get_or_admit(graph, rid, fixed, tile_budget,
                                           reclaim=reclaim)
-            key = self._kernel_key(graph, avals)
+            key = self._kernel_key(graph, avals, jit_kwargs)
             if kind == "prefetch":
                 self.stats.prefetches += 1
                 self._prefetched.add(rid)
@@ -1267,7 +1367,7 @@ class Overlay:
                     on_done(handle.result, handle)
                 return handle
             pending = _PendingDownload(rid=rid, generation=resident.generation,
-                                       key=key, graph=graph)
+                                       key=key, graph=graph, jit_kwargs=jit_kwargs)
         return self.scheduler.submit(
             rid, lambda: self._compile_bitstream(pending),
             lambda built, dt: self._commit_download(pending, built, dt),
@@ -1278,9 +1378,10 @@ class Overlay:
                            ) -> "tuple[interp.Kernel, float, bool]":
         """The expensive half of a download, on a scheduler worker with no
         lock held: the placement-invariant kernel, off the store or built."""
-        return self._load_or_build(pending.key, pending.graph)
+        return self._load_or_build(pending.key, pending.graph, pending.jit_kwargs)
 
-    def _load_or_build(self, key: str, graph: Graph
+    def _load_or_build(self, key: str, graph: Graph,
+                       jit_kwargs: dict[str, Any] | None = None
                        ) -> "tuple[interp.Kernel, float, bool]":
         """A missing kernel, with no lock held: loaded from the bitstream
         store when it holds a usable entry, else built (the download, and
@@ -1292,7 +1393,8 @@ class Overlay:
             return kernel, time.perf_counter() - t0, True
         self._inject_download_fault(key)
         t0 = time.perf_counter()
-        kernel = interp.build_kernel(graph)
+        kernel = interp.build_kernel(
+            graph, cache_lib.kernel_jit_kwargs(jit_kwargs).get("donate_argnums", ()))
         return kernel, time.perf_counter() - t0, False
 
     def _book_kernel_locked(self, rid: str, key: str, kernel: interp.Kernel,
@@ -1452,7 +1554,8 @@ class Overlay:
         res = self.fabric.get(acc.resident_id) if acc is not None else None
         if res is not None and res.generation == acc.generation:
             fn, tier = acc.fn, "generic"
-            if res.tier == "specialized" and res.spec_fn is not None:
+            if res.tier == "specialized" and res.spec_fn is not None \
+                    and entry.jit_kwargs == res.spec_jit_kwargs:
                 fn, tier = res.spec_fn, "specialized"
             rec = _DispatchRecord(fn=fn, res=res, generation=res.generation,
                                   tier=tier)
@@ -1522,16 +1625,20 @@ class Overlay:
                     not self.fabric.same_residency(rid, generation):
                 return None
             res = self.fabric.get(rid)
-            kernel = self.cache.peek(self._kernel_key(res.graph,
-                                                      res.graph.input_avals()))
-            if kernel is None:
-                return None
-            acc = self._bind_acc(res, kernel)
+            avals = res.graph.input_avals()
+            acc = None
             for wrapper in list(self._wrappers):
                 for entry in list(wrapper._entries.values()):
-                    if entry.acc is not None and entry.acc.resident_id == rid:
-                        entry.acc = acc
-                        self._publish_record(entry)
+                    if entry.acc is None or entry.acc.resident_id != rid:
+                        continue
+                    # each entry keeps its own kernel (a donated one and an
+                    # undonated one may share the resident)
+                    kernel = self.cache.peek(self._kernel_key(res.graph, avals,
+                                                              entry.jit_kwargs))
+                    if kernel is None:
+                        continue
+                    entry.acc = acc = self._bind_acc(res, kernel)
+                    self._publish_record(entry)
             return acc
 
     def repack(self, rid: str, tile_budget: int | None) -> bool:
@@ -1669,12 +1776,13 @@ class Overlay:
         if acc is not None and acc.resident_id != res.rid:
             return None
         graph = entry.lowered.graph
-        key = self._kernel_key(graph, graph.input_avals())
+        key = self._kernel_key(graph, graph.input_avals(), entry.jit_kwargs)
         hops = interp.route_hops(graph, res.placement)
         return _PendingSpecialize(
             rid=res.rid, generation=res.generation, key=key,
             spec_key=cache_lib.spec_key(key, hops), graph=graph, hops=hops,
-            inputs=inputs or (None,) * len(graph.input_ids))
+            inputs=inputs or (None,) * len(graph.input_ids),
+            jit_kwargs=entry.jit_kwargs)
 
     def _request_specialize(self, entry: _JitEntry, res: ResidentAccelerator,
                             inputs: tuple | None) -> DownloadHandle | None:
@@ -1757,7 +1865,9 @@ class Overlay:
         itself."""
         kernel = self._store_load_spec(pending)
         if kernel is None:
-            kernel = interp.specialize_kernel(pending.graph, pending.hops)
+            kernel = interp.specialize_kernel(
+                pending.graph, pending.hops,
+                cache_lib.kernel_jit_kwargs(pending.jit_kwargs).get("donate_argnums", ()))
         avals = pending.graph.input_avals()
         cuda = [torch.device(a.device) for a in avals
                 if a.device is not None and torch.device(a.device).type == "cuda"]
@@ -1816,11 +1926,13 @@ class Overlay:
             res.spec_job = None
             fn = interp.bind_routes(exe, res.routes)
             res.spec_fn = fn
+            res.spec_jit_kwargs = pending.jit_kwargs
             for wrapper in list(self._wrappers):
                 for entry in list(wrapper._entries.values()):
                     acc = entry.acc
                     if acc is None or acc.resident_id != pending.rid \
-                            or acc.generation != res.generation:
+                            or acc.generation != res.generation \
+                            or entry.jit_kwargs != pending.jit_kwargs:
                         continue
                     entry.record = _DispatchRecord(
                         fn=fn, res=res, generation=res.generation,

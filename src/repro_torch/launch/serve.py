@@ -15,8 +15,13 @@ the queue depth, and ``--max-queue-delay`` (seconds) sheds requests that
 would miss their delay budget.  Shed requests and the engine's latency
 histograms are reported after the drain.
 
+``--fleet N`` serves through a :class:`FleetOverlay` of N member fabrics
+(implies ``--overlay``): prefill and decode are placed across members by the
+fleet's score, hot ones replicate, and each dispatch goes to the least
+loaded live copy.  The members share the one device.
+
 ``--store DIR`` attaches a persistent bitstream store (implies
-``--overlay``): the engine's ``warmup`` pays every download before traffic,
+``--overlay``; with ``--fleet`` the members share it): the engine's ``warmup`` pays every download before traffic,
 kernels are written to ``DIR`` on the overlay's low lane and the close
 saves the measurement ledger; a second run on the same ``DIR`` loads the
 kernels instead of building them (a warm restart).  ``REPRO_SANITIZE=1``
@@ -28,10 +33,10 @@ overlay construction, and their split into init, trace, assembly or load,
 and the first call), the overlay's downloads and ``describe()["store"]``,
 the cache's ``store_hits``, the kernels this process built or loaded, the
 kernel launches by name and variant, and (with the sanitizer on) how many
-checks it ran and their seconds.
+checks it ran and their seconds.  Overlay counters are summed over a
+fleet's members.
 
-Mirrors ``repro/launch/serve.py``; its fleet flag belongs to a later slice
-of the port.
+Mirrors ``repro/launch/serve.py``.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import interpreter as interp
+from repro_torch.core.fleet import FleetOverlay
 from repro_torch.core.overlay import Overlay
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -107,6 +113,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--overlay", action="store_true",
                     help="serve through the JIT-assembled overlay path")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="serve through a FleetOverlay of N member fabrics "
+                         "(implies --overlay)")
     ap.add_argument("--store", default=None, metavar="DIR",
                     help="persistent bitstream store directory: built overlay "
                          "kernels are written there and a restarted server "
@@ -131,8 +140,14 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = pm.init(cfg, gen, device)
     t_overlay = time.perf_counter()
-    overlay = (Overlay(3, 3, store_path=args.store)
-               if args.overlay or args.store is not None else None)
+    if args.fleet > 0:
+        overlay = FleetOverlay(args.fleet, rows=3, cols=3, store_path=args.store)
+    elif args.overlay or args.store is not None:
+        overlay = Overlay(3, 3, store_path=args.store)
+    else:
+        overlay = None
+    members = (overlay.members if isinstance(overlay, FleetOverlay)
+               else [overlay] if overlay is not None else [])
     if args.event_loop:
         engine = EventLoopEngine(params, cfg, batch=args.batch, max_len=args.max_len,
                                  overlay=overlay, chunk=args.chunk,
@@ -143,18 +158,17 @@ def main(argv=None) -> int:
                              overlay=overlay, device=device)
 
     sanity = [0, 0.0]         # sanitizer checks run, and their seconds
-    if overlay is not None and overlay.sanitize:
-        check_overlay = overlay._sanity_check
+    for member in members:
+        if member.sanitize:
+            def timed_check(check_overlay=member._sanity_check):
+                t = time.perf_counter()
+                try:
+                    check_overlay()
+                finally:
+                    sanity[0] += 1
+                    sanity[1] += time.perf_counter() - t
 
-        def timed_check():
-            t = time.perf_counter()
-            try:
-                check_overlay()
-            finally:
-                sanity[0] += 1
-                sanity[1] += time.perf_counter() - t
-
-        overlay._sanity_check = timed_check
+            member._sanity_check = timed_check
     t_init = process_seconds()
     t_warm = time.perf_counter()
     if args.store is not None:
@@ -184,8 +198,9 @@ def main(argv=None) -> int:
             first.append(time.perf_counter())
             first.append(process_seconds())
             if overlay is not None:
-                first.append(overlay.stats.trace_seconds)
-                first.append(sum(e.assemble_seconds for w in list(overlay._wrappers)
+                first.append(sum(m.stats.trace_seconds for m in members))
+                first.append(sum(e.assemble_seconds for m in members
+                                 for w in list(m._wrappers)
                                  for e in list(w._entries.values())))
 
     engine._install_stripe = timed_install
@@ -230,10 +245,12 @@ def main(argv=None) -> int:
             ttft["first_call"] = first[0] - t_warm
         result["first_token_seconds"] = ttft
     if overlay is not None:
-        desc = overlay.describe()
-        result.update(downloads=desc["downloads"], store=desc["store"],
-                      store_hits=desc["cache"]["store_hits"],
-                      cache=desc["cache"], sanitize=overlay.sanitize,
+        descs = [m.describe() for m in members]
+        cache = {k: sum(d["cache"][k] for d in descs) for k in descs[0]["cache"]}
+        store = overlay.store.describe() if overlay.store is not None else None
+        result.update(downloads=sum(d["downloads"] for d in descs), store=store,
+                      store_hits=cache["store_hits"], cache=cache,
+                      sanitize=any(m.sanitize for m in members),
                       sanitizer_checks=sanity[0], sanitizer_seconds=sanity[1])
     print(json.dumps(result))
     return 0

@@ -49,13 +49,17 @@ def make_step(cfg, schedule, *, overlay=None):
     ``(params, opt_state)``.
 
     Without ``overlay`` the step runs eagerly and updates the state IN
-    PLACE (:func:`adamw_update_`) — the port's counterpart of the
-    reference's ``donate_argnums=(0,)``: a functional step would hold two
-    copies of the f32 moments.  With ``overlay`` the step is functional and
-    JIT-assembled instead: traced by the overlay frontend (forward, the
-    backward autograd runs, and the optimizer), lowered onto the operator
-    library (kernels as LARGE nodes, everything else residue) and cached as
-    a bitstream — the same aten ops, so the same numbers."""
+    PLACE (:func:`adamw_update_`): a functional step would hold two copies
+    of the f32 moments.  With ``overlay`` the step is functional and
+    JIT-assembled instead, as ``overlay.jit(train_step,
+    donate_argnums=(0,))`` (the reference's form): traced by the overlay
+    frontend (forward, the backward autograd runs, and the optimizer),
+    lowered onto the operator library (kernels as LARGE nodes, everything
+    else residue) and cached as a bitstream — the same aten ops, so the
+    same numbers.  The state is donated: each new state leaf lands in the
+    storage of the leaf it replaces once the walk has read that leaf for
+    the last time, so the step holds one copy of the state, and the
+    returned state is the caller's tensors."""
     def train_step(state, batch):
         params, opt_state = state
         loss, metrics, grads, spec = _loss_and_grads(cfg, params, batch)
@@ -65,7 +69,8 @@ def make_step(cfg, schedule, *, overlay=None):
         return (params, opt_state), {"loss": loss, "lr": lr, **metrics, **om}
 
     if overlay is not None:
-        return overlay.jit(train_step, strict=False, name=f"{cfg.name}.train_step")
+        return overlay.jit(train_step, strict=False, name=f"{cfg.name}.train_step",
+                           donate_argnums=(0,))
 
     def train_step_inplace(state, batch):
         params, opt_state = state

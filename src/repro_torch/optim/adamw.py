@@ -10,10 +10,11 @@ Two forms of one step, with the same arithmetic per leaf:
 * :func:`adamw_update` is functional: it returns new parameters and a new
   state (the reference's form; the overlay traces it).
 * :func:`adamw_update_` updates parameters and moments in place, leaf by
-  leaf, after taking the global-norm clip scale.  It is the port's
-  counterpart of the reference donating the train state (``jit(...,
-  donate_argnums=(0,))``): at phi3-mini's 3.8 B parameters the f32 moments
-  are 30.6 GB, and a second copy of them does not fit on one 80 GB card.
+  leaf, after taking the global-norm clip scale: the eager train step's
+  form.  At phi3-mini's 3.8 B parameters the f32 moments are 30.6 GB, and
+  a second copy of them does not fit on one 80 GB card; the traced step
+  gets the same by donating its state (``Overlay.jit(...,
+  donate_argnums=(0,))``).
 """
 
 from __future__ import annotations

@@ -31,12 +31,18 @@ requests its route-constant specialized tier on the scheduler's low lane,
 so decode's kernel builds (and, on the card, its CUDA graph is captured)
 while the prefill runs.
 
+``overlay=`` also accepts a :class:`~repro_torch.core.fleet.FleetOverlay`:
+the two accelerators are then placed across member fabrics by the fleet's
+score, prompt-length prefill variants spread over members instead of
+fighting for one fabric's tiles, and a hot decode accelerator is
+replicated and routed to its least-loaded copy.  The engine code is the
+same: the fleet exposes the single-overlay surface.
+
 :class:`repro_torch.serving.loop.EventLoopEngine` extends this engine with
 the serving-under-load path: priority admission with SLO-aware shedding
 and chunked, power-of-two-bucketed prefill interleaved with decode ticks.
 
-Port of ``ServeEngine`` in ``repro/serving/engine.py``; fleets wait for a
-later slice of the port.
+Port of ``ServeEngine`` in ``repro/serving/engine.py``.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.fleet import FleetOverlay
 from repro_torch.core.graph import TensorSpec
 from repro_torch.core.overlay import Overlay
 from repro_torch.device import resolve_device
@@ -85,7 +92,7 @@ def _fused_tick_update(logits, cur_tokens, slot_pos, live):
 
 class ServeEngine:
     def __init__(self, params: Any, cfg: ArchConfig, *, batch: int,
-                 max_len: int, overlay: Overlay | None = None,
+                 max_len: int, overlay: "Overlay | FleetOverlay | None" = None,
                  tile_budget: int | None = None,
                  device: "str | torch.device | None" = None):
         self.params = params

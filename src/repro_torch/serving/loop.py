@@ -25,7 +25,9 @@ the serving-under-load path:
 * **Feedback from measurement** — per-tick latency, time to first token
   and queue delay are recorded into fixed-bucket histograms
   (:mod:`repro_torch.serving.metrics`); the tick histogram drives the
-  predicted-delay shed above.
+  predicted-delay shed above, as the overlays' dispatch-latency histograms
+  feed a :class:`~repro_torch.core.fleet.FleetOverlay`'s placement score
+  when ``overlay=`` is a fleet.
 
 Token streams of admitted requests equal the synchronous engine's for
 models of attention layers: chunking changes only *when* KV entries are
@@ -51,6 +53,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.fleet import FleetOverlay
 from repro_torch.core.overlay import Overlay
 from repro_torch.models import model as mdl
 from repro_torch.models.params import layer_kinds
@@ -64,7 +67,7 @@ class EventLoopEngine(ServeEngine):
     policy."""
 
     def __init__(self, params: Any, cfg: ArchConfig, *, batch: int,
-                 max_len: int, overlay: Overlay | None = None,
+                 max_len: int, overlay: "Overlay | FleetOverlay | None" = None,
                  tile_budget: int | None = None, chunk: int = 64,
                  max_queue: int | None = None,
                  max_queue_delay: float | None = None,

@@ -27,9 +27,13 @@ SRC = os.path.join(REPO, "src", "repro_torch")
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "locklint_bad.py")
 
 LOCKS = ["BitstreamStore._lock", "DownloadScheduler._cond", "FaultPlan._lock",
-         "LaunchCounter._lock", "Overlay._lock", "interpreter._builds_lock",
-         "interpreter._capture_lock", "native._build_lock"]
-EDGES = ["Overlay._lock -> BitstreamStore._lock",
+         "FleetOverlay._lock", "LaunchCounter._lock", "Overlay._lock",
+         "interpreter._builds_lock", "interpreter._capture_lock", "native._build_lock"]
+EDGES = ["FleetOverlay._lock -> BitstreamStore._lock",
+         "FleetOverlay._lock -> DownloadScheduler._cond",
+         "FleetOverlay._lock -> FaultPlan._lock",
+         "FleetOverlay._lock -> Overlay._lock",
+         "Overlay._lock -> BitstreamStore._lock",
          "Overlay._lock -> DownloadScheduler._cond"]
 
 
@@ -56,8 +60,8 @@ def test_lock_order_graph_is_the_documented_one(real_tree):
     _kept, _waived, lint = real_tree
     graph = lint.lock_graph_summary()
     assert graph["locks"] == LOCKS
-    # overlay -> {scheduler, store}; nothing points backwards, every other
-    # lock is a leaf: no cycle
+    # fleet -> overlay -> {scheduler, store}; nothing points backwards,
+    # every other lock is a leaf: no cycle
     assert graph["edges"] == EDGES
     assert not [f for f in lint.findings if f.rule == "lock-order-cycle"]
     doc = locklint.__doc__
@@ -73,7 +77,7 @@ def test_every_allowlist_entry_is_load_bearing_and_exact(real_tree):
     patterns = locklint._load_allowlist(locklint.DEFAULT_ALLOWLIST)
     fingerprints = {f.fingerprint for f in waived}
     assert sorted(patterns) == sorted(fingerprints)
-    assert len(fingerprints) == len(patterns) == 8
+    assert len(fingerprints) == len(patterns) == 9
     for pat in patterns:
         assert not set(pat) & set("*?["), f"not an exact fingerprint: {pat}"
         rule, path, qual, detail = pat.split(":", 3)
@@ -523,7 +527,9 @@ def test_report_on_the_cpu_exits_zero(capsys, monkeypatch):
     for section in ("== locklint ==", "== live checkers (cpu) ==",
                     "== bitstream store ==", "== chaos (injected faults) =="):
         assert section in out
-    assert "fleet" in out and "not ported" in out
+    assert "fleet records: 0 violation(s)" in out
+    assert "fleet describe(): 0 violation(s)" in out
+    assert "replication(s)" in out and "not ported" not in out
     assert out.rstrip().endswith("PASS") and "FAIL" not in out
 
 

@@ -57,3 +57,19 @@ def test_checker_sees_the_store_and_the_verifier(module):
     path = ROOT / "src" / "repro_torch" / module
     assert path in FILES
     assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
+@pytest.mark.parametrize("module", ["core/fleet.py", "core/__init__.py",
+                                    "serving/engine.py", "launch/serve.py"])
+def test_checker_sees_the_fleet(module):
+    """The fleet overlay and what serves through it are the port's own
+    copies: the checker above covers them, and they import neither jax nor
+    repro."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    if module == "core/fleet.py":
+        import repro_torch.core.fleet as fleet
+
+        assert {"FleetOverlay", "FleetJitAssembled", "FleetStats"} <= set(fleet.__all__)
+

@@ -646,3 +646,40 @@ def test_decode_ticks_concurrent_with_a_low_lane_capture_on_card(cuda):
         got = pytree.tree_leaves(outputs)
         assert all(torch.equal(u, v) for u, v in zip(got, pytree.tree_leaves(want)))
     ov.close()
+
+
+@pytest.mark.cuda
+def test_graph_tier_writes_donated_state_into_the_callers_tensors_on_card(cuda):
+    """With ``donate_argnums`` the captured graph keeps its private buffers
+    and each call lands the new state in the caller's donated tensors after
+    the replay: the returned leaves are the caller's, their values the
+    eager function's, and a relocation still despecializes."""
+    def step(state, x):
+        m2 = 0.9 * state["m"] + x
+        return {"w": state["w"] - 0.1 * m2, "m": m2}, (state["w"] * state["m"]).sum()
+
+    gen = torch.Generator().manual_seed(0)
+    rand = lambda: torch.randn(4, 8, generator=gen).to(cuda)
+    ov = Overlay(3, 3)
+    f = ov.jit(step, name="donated_step", donate_argnums=(0,))
+    s = {"w": rand(), "m": rand()}
+    ref = {k: v.clone() for k, v in s.items()}
+    f.specialize({k: v.clone() for k, v in s.items()}, rand())
+    (res,) = ov.fabric.residents.values()
+    assert isinstance(res.spec_fn.func, tinterp.GraphKernel)
+    ptrs = {k: v.data_ptr() for k, v in s.items()}
+    for _ in range(3):
+        x = rand()
+        s, metric = f(s, x)
+        ref, want = step(ref, x)
+        assert {k: v.data_ptr() for k, v in s.items()} == ptrs
+        assert all(torch.equal(s[k], ref[k]) for k in s)
+        assert torch.equal(metric, want)
+    assert ov.cache.spec_stats.specialized_hits == 3
+    ov.reconfigure(relocate=True, policy=PlacementPolicy.STATIC)
+    assert ov.cache.spec_stats.despecializations == 1
+    s, _ = f(s, x)
+    ref, _ = step(ref, x)
+    assert all(torch.equal(s[k], ref[k]) for k in s)
+    ov.close()
+
