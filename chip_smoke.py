@@ -68,19 +68,39 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
    finite losses and 48 ssd_chunk and 49 rmsnorm launches a step, every
    ssd_chunk launch on the tensor-core kernel; the aten ops the host issues
    a step;
-9. checks the models' outputs: finite full-width logits, small float32 phi3
-   and mamba2 models on the card (kernels) against the same models on the
-   CPU (plain versions), serving and one train step;
-10. runs the serve launcher on mamba2-130m at full width, and the train
+9. ``[serve-gemma2]``: serves gemma2-27b at full width and depth (46
+   layers of local and global attention, softcaps, post norms, tied
+   embeddings; random bf16 weights from the seed, 54.46 GB) at batch 2,
+   max_len 4608: four (16, 8) requests and one (4352, 16), whose prompt
+   reaches past the 4096 window, through ``Overlay(3, 3)`` and plainly:
+   the logits of every call bit-identical (digest), identical streams
+   (with random weights they repeat one token, so the digests carry the
+   check), 185 rmsnorm launches a call, every one on the block kernel
+   (d 4608); a plain prefill of the long prompt and the decode after it,
+   again with no window, must give other logits; under 1 GiB left;
+10. ``[serve-archs]``: the same for minicpm-2b (40 layers, 81 warp
+    launches a call) and mistral-large-123b cut to 8 of its 88 layers
+    (17 block launches a call), four (16, 8) requests each;
+11. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
+    assembled on an all-LARGE ``Overlay(3, 3)``: logits bit-identical to
+    ``forward`` + ``unembed``, 65 rmsnorm and 32 flash_attention launches;
+12. checks the models' outputs: finite full-width logits, small float32
+    phi3, mamba2 and gemma2 (window 8: prefill, three decodes and a
+    cache-free forward through the flash kernel) models on the card
+    (kernels) against the same models on the CPU (plain versions), serving
+    and one train step;
+13. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
+    the event loop, gemma2 (smoke) through the overlay, and the train
     launcher with an injected failure: it restarts from its checkpoint and
     ends with rc 0;
-11. ``[warm-restart]``: boots the serve launcher in fresh processes on one
+14. ``[warm-restart]``: boots the serve launcher in fresh processes on one
     persistent bitstream store directory — phi3-mini-3.8b at full width
     (the ``[serve]`` shape) plain, cold (``--store`` on an empty
     directory), warm (the same directory) and garbled (one entry flipped
     mid-payload and one truncated, ``REPRO_SANITIZE=1``); then mamba2-130m
     plain, cold and warm on a second directory (prompts of 37, 500 and
-    4096 tokens).  Streams identical to plain; the cold boot saves every
+    4096 tokens); a two-member fleet (``--fleet 2 --store D``) cold and
+    warm on a third.  Streams identical to plain; the cold boot saves every
     kernel key and writes the ledger; the warm boot loads every key and
     builds no kernel; the garbled boot warns, rebuilds each bad entry and
     trips no invariant; the rmsnorm and ssd_chunk launches each boot must
@@ -88,10 +108,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     assembly or load, the first call), bytes on disk and load-vs-build ms
     per entry, the sanitizer's host ms per check, mamba2's downloads cold
     and warm;
-12. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
+15. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
     (lock lint, live checkers under the sanitizer, a two-member fleet's
     records and ``describe()``, the store, injected faults) must exit 0;
-13. prints the kernels line (time per call, host included, and device time
+16. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
     and ssd_chunk's CUDA-core kernels' times), timings at other shapes
@@ -102,13 +122,15 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 
 Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, the overlay-served runs, the relocation
-and specialization rounds, the fleet runs, the full-width training runs)
+and specialization rounds, the fleet runs, the full-width training runs,
+the dense family's runs and the step graph's call)
 and read just
 after; launches made to compare or time a kernel are not counted.  A
 launcher boot of ``[warm-restart]`` is a process of its own: it counts from
 0 and reports its counts in its result line.  Before each phase the script
 prints the card's SM clock, temperature and active throttle reasons, and
-the threads alive when ``[train]`` starts.  A
+the threads alive when ``[train]`` starts, and after it the phase's
+seconds (``[phase]``).  A
 CUDA-graph replay runs no wrapper: it adds to the counters the launches its
 capture recorded.  Exits non-zero without a result line when CUDA is
 unavailable or the port's sources are missing.
@@ -118,6 +140,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import io
 import json
 import math
@@ -142,7 +165,8 @@ if not torch.cuda.is_available():
 
 from torch.utils import _pytree as pytree  # noqa: E402
 
-from repro_torch.configs import PAPER_VECTOR_LEN, get_config, smoke_config  # noqa: E402
+from repro_torch.configs import (PAPER_VECTOR_LEN, cut_layers, get_config,  # noqa: E402
+                                 smoke_config)
 from repro_torch.core import (FaultPlan, FleetOverlay, Overlay, PlacementPolicy,  # noqa: E402
                               place)
 from repro_torch.core import interpreter as interp  # noqa: E402
@@ -157,6 +181,7 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.models import params as pm  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.optim import adamw_init, constant, cosine  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serving.loop import EventLoopEngine  # noqa: E402
@@ -186,9 +211,22 @@ LOOP_FAULTS = dict(download_failure_rate=0.3, dispatch_failure_rate=0.02,
 # decode rows, its event loop's full prefill chunk and its training x (d
 # 3072); mamba2's prefills, one request at a time, its training x and its
 # decode rows (d 768)
+# the dense family: gemma2-27b at full width and depth (batch 2, max_len
+# 4608: four (16, 8) requests and one (4352, 16), whose prompt reaches past
+# the 4096 window of the local layers), minicpm-2b at full depth and
+# mistral-large-123b cut to 8 of its 88 layers (245 GB in bf16), each with
+# four (16, 8) requests
+GEMMA = "gemma2-27b"
+GEMMA_MAX_LEN, GEMMA_LONG, GEMMA_LONG_NEW = 4608, 4352, 16
+GEMMA_REQUESTS = ((PROMPT, MAX_NEW),) * REQUESTS + ((GEMMA_LONG, GEMMA_LONG_NEW),)
+GEMMA_D = 4608
+DENSE_ARCHS = (("minicpm-2b", None), ("mistral-large-123b", 8))   # (arch, layers kept)
 RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOOP_CHUNK, 3072),
                   (TRAIN_BATCH, TRAIN_SEQ, 3072),
-                  *((1, s, MAMBA_D) for s in MAMBA_PROMPTS), (MAMBA_BATCH, 1, MAMBA_D))
+                  *((1, s, MAMBA_D) for s in MAMBA_PROMPTS), (MAMBA_BATCH, 1, MAMBA_D),
+                  # gemma2's decode rows, its long prefill (the block kernel:
+                  # d > MAX_WARP_D), minicpm's decode rows, mistral's
+                  (BATCH, GEMMA_D), (GEMMA_LONG, GEMMA_D), (BATCH, 2304), (BATCH, 12288))
 
 
 def log(msg: str) -> None:
@@ -416,6 +454,9 @@ FLASH_CASES = [   # (B, Hq, Hkv, S, D, dtype, options)
     (1, 4, 2, 200, 16, torch.bfloat16, dict(causal=False)),
     (1, 4, 4, 1, 64, torch.bfloat16, {}),
     (1, 4, 2, 256, 40, torch.bfloat16, {}),                     # bf16 on the CUDA cores
+    # gemma2-27b's local and global layers at seq 6144 (the window acts)
+    (1, 32, 16, 6144, 128, torch.bfloat16, dict(window=4096, softcap=50.0, scale=144 ** -0.5)),
+    (1, 32, 16, 6144, 128, torch.bfloat16, dict(softcap=50.0, scale=144 ** -0.5)),
 ]
 
 
@@ -1909,10 +1950,276 @@ def phase_small_train_reference() -> None:
         f"{lg:.6f} vs {lc:.6f}, grad norm {gg:.6f} vs {gc:.6f}, params max err {perr:.3g}")
 
 
+def logits_digest(logits: torch.Tensor) -> str:
+    """A digest of a serving call's logits, bit for bit."""
+    return hashlib.sha256(logits.detach().float().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+class Digested(Counted):
+    """``Counted`` that also keeps a digest of every call's logits, taken
+    after the call's time is read."""
+
+    def __init__(self, fn):
+        super().__init__(fn)
+        self.digests: list[str] = []
+
+    def __call__(self, *args):
+        out = super().__call__(*args)
+        self.digests.append(logits_digest(out[0]))
+        return out
+
+
+def serve_dense(params, cfg, overlay, requests, max_len: int) -> dict:
+    """``requests`` ((prompt tokens, new tokens), ...) through a
+    ``ServeEngine`` at batch ``BATCH``: streams, launches, seconds, peak
+    memory and the engine."""
+    rng = np.random.default_rng(SEED)
+    engine = ServeEngine(params, cfg, batch=BATCH, max_len=max_len, overlay=overlay,
+                         device=DEV)
+    engine._prefill, engine._decode = Digested(engine._prefill), Digested(engine._decode)
+    for rid, (n, new) in enumerate(requests):
+        prompt = rng.integers(0, cfg.vocab_size, size=(n,)).tolist()
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()                           # the driven path starts here
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"streams": [r.out for r in sorted(done, key=lambda r: r.rid)],
+            "launches": counts(), "seconds": dt, "engine": engine,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def serve_arch(tag: str, cfg, requests, max_len: int, gen: torch.Generator,
+               window_check: bool = False) -> dict:
+    """One arch of the dense family at full width, random bf16 weights from
+    the seed, served through ``Overlay(3, 3)`` and plainly: the logits of
+    every call bit-identical (digest), identical streams, rmsnorm launched
+    once per norm a call (ln1 and ln2, gemma2's two post norms, the final
+    norm) on the variant its width takes, under 1 GiB left allocated after
+    the phase.  Prints tok/s, host ms per call, trace and assembly seconds
+    per signature, the peak memory and the distinct tokens of each stream.
+    With ``window_check``: a plain prefill of the long prompt and the decode
+    step after it, once more with ``sliding_window=None``, must give other
+    logits (the window acts).  Returns the overlay run's launches."""
+    t0 = time.perf_counter()
+    params = pm.init(cfg, gen, DEV)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(params)) / 1e9
+    log(f"[{tag}] {cfg.name}: {pm.count(params) / 1e9:.3f} B params (d_model {cfg.d_model}, "
+        f"{cfg.num_layers} layers, bf16, {gb:.2f} GB) initialized in "
+        f"{time.perf_counter() - t0:.1f}s; requests (prompt, new) {tuple(requests)}, batch "
+        f"{BATCH}, max_len {max_len}")
+    norms = (4 if cfg.post_norms else 2) * cfg.num_layers + 1
+    kind = "warp" if cfg.d_model <= rn_mod.MAX_WARP_D else "block"
+    runs = {}
+    for name, overlay in (("overlay", Overlay(3, 3)), ("plain", None)):
+        r = serve_dense(params, cfg, overlay, requests, max_len)
+        eng = r["engine"]
+        calls = {"prefill": eng._prefill.calls, "decode": eng._decode.calls}
+        n = r["launches"]
+        want = norms * (calls["prefill"] + calls["decode"])
+        check(n["rmsnorm"] == want and n[f"rmsnorm/{kind}"] == want,
+              f"[{tag}] {cfg.name} {name}: rmsnorm launches {n} != {norms} x {calls} on {kind}")
+        tokens = sum(len(st) for st in r["streams"])
+        log(f"[{tag}] {cfg.name} {name}: {tokens} tokens in {r['seconds']:.2f}s "
+            f"({tokens / r['seconds']:.2f} tok/s), calls {calls}, launches "
+            f"{ {k: v for k, v in n.items() if v} }; host ms per call: prefill "
+            f"{eng._prefill.by_length_ms()}; decode {eng._decode.by_length_ms()}")
+        if overlay is not None:
+            desc = overlay.describe()
+            log(f"[{tag}] {cfg.name} overlay: traces {desc['traces']} "
+                f"({desc['trace_seconds']:.1f}s), downloads {desc['downloads']}")
+            for step in ("prefill", "decode"):
+                for entry in getattr(eng, f"_{step}").fn._entries.values():
+                    graph = entry.lowered.graph
+                    toks = next(a.shape for a in graph.input_avals()
+                                if a.dtype == torch.int32 and len(a.shape) == 2)
+                    log(f"[{tag}] {cfg.name} {step} signature tokens {toks}: trace "
+                        f"{entry.trace_seconds:.2f} s, assemble {entry.assemble_seconds:.2f} s; "
+                        f"{len(graph.op_nodes())} op nodes ({len(entry.lowered.unmapped)} "
+                        f"residue), {entry.acc.placement.total_passthrough} pass-through hops")
+            overlay.close()
+        runs[name] = dict(r, calls=calls, tokens=tokens,
+                          digests=eng._prefill.digests + eng._decode.digests)
+        del r, eng
+        runs[name].pop("engine")
+        gc.collect()
+        torch.cuda.empty_cache()
+    ov, pl = runs["overlay"], runs["plain"]
+    check(ov["streams"] == pl["streams"],
+          f"[{tag}] {cfg.name}: overlay and plain streams differ:\n{ov['streams']}\n{pl['streams']}")
+    check(len(ov["digests"]) == len(pl["digests"]) and ov["digests"] == pl["digests"],
+          f"[{tag}] {cfg.name}: overlay and plain logits differ on calls "
+          f"{[i for i, (a, b) in enumerate(zip(ov['digests'], pl['digests'])) if a != b]}")
+    check(all(len(st) == 1 + new and all(0 <= t < cfg.vocab_size for t in st)
+              for st, (_, new) in zip(ov["streams"], requests)),
+          f"[{tag}] {cfg.name}: unexpected token stream shape/range")
+    log(f"[{tag}] {cfg.name} overlay / plain tok/s "
+        f"{(ov['tokens'] / ov['seconds']) / (pl['tokens'] / pl['seconds']):.3f}; logits "
+        f"bit-identical (digest) on all {len(ov['digests'])} calls")
+    log(f"[{tag}] {cfg.name} max_memory_allocated overlay {ov['peak'] / 2**30:.2f} GiB "
+        f"({ov['peak'] / 1e9:.2f} GB), plain {pl['peak'] / 2**30:.2f} GiB "
+        f"({pl['peak'] / 1e9:.2f} GB); streams {[st[:6] for st in ov['streams']]}...; "
+        f"distinct tokens per stream {[len(set(st)) for st in ov['streams']]}")
+    if window_check:
+        n = GEMMA_LONG
+        prompt = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+            0, cfg.vocab_size, size=(1, n)).astype(np.int32)).to(DEV)
+        out = {}
+        with torch.no_grad():
+            for name, c in (("window", cfg), ("none", cfg.scaled(sliding_window=None))):
+                lp, caches = mdl.prefill(params, c, prompt, mdl.init_cache(c, 1, max_len, DEV))
+                ld = mdl.decode_step(params, c, prompt[:, -1:], caches)[0]
+                out[name] = (lp.float(), ld.float())
+                del lp, ld, caches
+                gc.collect()
+        dp, dd = ((a - b).abs().max().item() for a, b in zip(out["window"], out["none"]))
+        check(all(bool(torch.isfinite(t).all()) for t in (*out["window"], *out["none"])),
+              f"[{tag}] long-prompt logits not finite")
+        check(dp > 1e-2 and dd > 1e-2,
+              f"[{tag}] the window does not act: a {n}-token prefill and the decode after it "
+              f"differ from no-window logits by {dp} and {dd}")
+        log(f"[{tag}] the window acts: logits of a {n}-token prefill and the decode step after "
+            f"it differ from no-window logits by max {dp:.4g} and {dd:.4g}")
+        del out
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    check(left < 1.0, f"[{tag}] {cfg.name}: {left:.2f} GiB still allocated after the phase")
+    log(f"[{tag}] {cfg.name}: {left:.3f} GiB allocated after the phase")
+    return {"launches": ov["launches"], "tok_s_overlay": ov["tokens"] / ov["seconds"],
+            "tok_s_plain": pl["tokens"] / pl["seconds"]}
+
+
+def phase_serve_gemma2(gen: torch.Generator) -> dict:
+    """[serve-gemma2]: gemma2-27b at full width and all 46 layers (local and
+    global attention, softcaps 50 / 30, post norms, tied embeddings): every
+    norm on the block kernel (d 4608 > ``MAX_WARP_D``), 185 launches a
+    call, and the window acts on the 4352-token prompt."""
+    cfg = get_config(GEMMA)
+    check(cfg.d_model == GEMMA_D and cfg.num_layers == 46 and cfg.sliding_window == 4096
+          and GEMMA_LONG > cfg.sliding_window, f"{GEMMA} config {cfg}")
+    return serve_arch("serve-gemma2", cfg, GEMMA_REQUESTS, GEMMA_MAX_LEN, gen,
+                      window_check=True)
+
+
+def phase_serve_archs(gen: torch.Generator) -> dict:
+    """[serve-archs]: minicpm-2b at full width and depth (40 layers, d 2304:
+    the warp kernel, 81 launches a call) and mistral-large-123b at full
+    width cut to 8 of its 88 layers (d 12288: the block kernel, 17 a
+    call), four (16, 8) requests each."""
+    out = {}
+    for arch, layers in DENSE_ARCHS:
+        cfg = get_config(arch)
+        if layers is not None:
+            full = sum(math.prod(sp.shape) * sp.dtype.itemsize
+                       for sp in pytree.tree_leaves(pm.model_spec(cfg)))
+            log(f"[serve-archs] {arch}: cut to {layers} of {cfg.num_layers} layers "
+                f"(the full depth is {full / 1e9:.0f} GB in bf16)")
+            cfg = cut_layers(cfg, layers)
+        out[arch] = serve_arch("serve-archs", cfg, ((PROMPT, MAX_NEW),) * REQUESTS, MAX_LEN, gen)
+    return out
+
+
+def phase_step_graph(gen: torch.Generator) -> dict:
+    """[step-graph]: ``build_step_graph(phi3-mini-3.8b, (2, 16))`` at full
+    width assembled on an all-LARGE ``Overlay(3, 3)``: its logits are
+    bit-identical to ``forward`` + ``unembed``, and one call launches
+    rmsnorm 65 times (warp) and flash_attention 32 times (wgmma)."""
+    cfg = get_config("phi3-mini-3.8b")
+    params = pm.init(cfg, gen, DEV)
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=DEV,
+                         dtype=torch.int64).to(torch.int32)
+    g = mdl.build_step_graph(cfg, (BATCH, PROMPT), DEV)
+    ov = Overlay(3, 3, large_fraction=1.0)
+    t0 = time.perf_counter()
+    acc = ov.assemble(g)
+    assemble_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_counters()                           # the driven path starts here
+    got = acc(params, toks)
+    torch.cuda.synchronize()
+    launches = counts()
+    with torch.no_grad():
+        h, _ = tfm.forward(params, cfg, toks)
+        want = tfm.unembed(params, h, cfg)
+    check(tuple(got.shape) == (BATCH, PROMPT, cfg.vocab_size) and torch.equal(got, want),
+          f"[step-graph] logits differ from forward + unembed by "
+          f"{(got - want).abs().max().item()}")
+    n = cfg.num_layers
+    check(launches["rmsnorm"] == 2 * n + 1 and launches["rmsnorm/warp"] == 2 * n + 1
+          and launches["flash_attention"] == n and launches["flash_attention/wgmma"] == n,
+          f"[step-graph] launches {launches}")
+    ms = time_ms(lambda: acc(params, toks), 5, warmup=1)
+    tiles = {nd.name: acc.placement.assignment[nd.node_id] for nd in g.op_nodes()}
+    log(f"[step-graph] {cfg.name} build_step_graph {(BATCH, PROMPT)}: stages "
+        f"{[nd.name for nd in g.op_nodes()]} on tiles {tiles}, "
+        f"{acc.placement.total_passthrough} pass-through; assembled in {assemble_s:.2f} s, "
+        f"{ms:.1f} ms a call; logits bit-identical to forward + unembed; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    del params, acc, ov, got, want, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_small_gemma2_reference() -> None:
+    """A small float32 gemma2 (d_model 128, 4 layers: local, global, local,
+    global, window 8, 4 heads over 2 kv heads) on the card (CUDA kernels)
+    against the same model on the CPU (plain versions): a 20-token prefill
+    and three decodes past the window (tolerance 1e-2 * (1 + |logit|), the
+    bf16 KV cache, as for phi3), and a cache-free forward of 24 tokens,
+    which runs the flash kernel with the window and the softcap once per
+    layer (f32 throughout: 1e-3 * (1 + |logit|))."""
+    cfg = smoke_config(GEMMA).scaled(d_model=128, head_dim=32, num_kv_heads=2,
+                                     query_pre_attn_scalar=128 / 4, sliding_window=8,
+                                     dtype="float32")
+    cpu = _to(pm.init(cfg, torch.Generator().manual_seed(SEED), "cpu"), "cpu", torch.float32)
+    cuda = _to(cpu, DEV)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 20)).astype(np.int32))
+    errs = {}
+    lc, cc = mdl.prefill(cpu, cfg, toks, mdl.init_cache(cfg, 2, 32, "cpu"))
+    lg, cg = mdl.prefill(cuda, cfg, toks.to(DEV), mdl.init_cache(cfg, 2, 32, DEV))
+    pairs = [("prefill", lc, lg)]
+    for i in range(3):
+        nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 1)).astype(np.int32))
+        dc, cc = mdl.decode_step(cpu, cfg, nxt, cc)
+        dg, cg = mdl.decode_step(cuda, cfg, nxt.to(DEV), cg)
+        pairs.append((f"decode {i + 1}", dc, dg))
+    for name, want, got in pairs:
+        got = got.cpu()
+        errs[name] = (got - want).abs().max().item()
+        check(bool((got - want).abs().le(1e-2 * (1 + want.abs())).all()),
+              f"small gemma2 {name}: card vs CPU max err {errs[name]}")
+    free = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 24)).astype(np.int32))
+    with torch.no_grad():
+        hc, _ = tfm.forward(cpu, cfg, free)
+        want = tfm.unembed(cpu, hc, cfg)
+        reset_counters()
+        hg, _ = tfm.forward(cuda, cfg, free.to(DEV))
+        torch.cuda.synchronize()
+        flash = counts()["flash_attention"]
+        got = tfm.unembed(cuda, hg, cfg).cpu()
+    errs["cache-free forward of 24 tokens"] = (got - want).abs().max().item()
+    check(flash == cfg.num_layers, f"small gemma2 cache-free forward: {flash} flash launches")
+    check(bool((got - want).abs().le(1e-3 * (1 + want.abs())).all()),
+          f"small gemma2 cache-free forward: card vs CPU max err {errs['cache-free forward of 24 tokens']}")
+    log(f"[reference] small f32 gemma2-27b ({cfg.num_layers} layers, window 8, softcaps "
+        f"{cfg.attn_softcap}/{cfg.final_softcap}) logits card (kernels) vs CPU (plain) max err: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; {flash} flash_attention launches in the cache-free forward")
+
+
 def phase_launcher() -> None:
-    """``launch.serve.main`` serving mamba2-130m at full width, then
-    ``launch.train.main`` on the card with a failure injected at step 3:
-    it restores the step-2 checkpoint, replays and ends with rc 0."""
+    """``launch.serve.main`` serving mamba2-130m at full width, phi3-mini
+    (smoke) on the event loop and gemma2-27b (smoke) through the overlay,
+    then ``launch.train.main`` on the card with a failure injected at step
+    3: it restores the step-2 checkpoint, replays and ends with rc 0."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = serve_cli.main(["--arch", MAMBA, "--requests", "4", "--batch", "2",
@@ -1931,6 +2238,14 @@ def phase_launcher() -> None:
         log(f"[launcher] {line[:400]}")
     check(rc == 0 and "8/8 requests" in text and "on cuda" in text and "metrics" in text,
           "the event-loop serve launcher did not serve phi3-mini (smoke) on the card")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(["--arch", GEMMA, "--smoke", "--overlay"])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[launcher] {line[:400]}")
+    check(rc == 0 and "8/8 requests" in text and "on cuda" in text and "'downloads': " in text,
+          "the serve launcher did not serve gemma2-27b (smoke) through the overlay on the card")
     with tempfile.TemporaryDirectory() as ckpt:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -2024,6 +2339,13 @@ def _check_warm(tag: str, warm: dict, keys: int) -> None:
           f"store {warm['store']}")
 
 
+def _read_ms(warm: dict) -> float:
+    """The part of a warm boot's load ms per kernel that reads the entry's
+    file (the store's ``load_seconds``); the rest of the load rebuilds the
+    kernel from its serial form."""
+    return warm["store"]["stats"]["load_seconds"] / max(1, warm["store_hits"]) * 1e3
+
+
 def _per_entry(cold: dict, warm: dict) -> tuple[float, float]:
     """Build ms per kernel (cold boot) and load ms per kernel (warm boot)."""
     c, w = cold["cache"], warm["cache"]
@@ -2039,7 +2361,8 @@ def phase_warm_restart() -> dict:
     torch.cuda.empty_cache()
     out = {}
     with tempfile.TemporaryDirectory(prefix="warm-phi3-") as d1, \
-            tempfile.TemporaryDirectory(prefix="warm-mamba-") as d2:
+            tempfile.TemporaryDirectory(prefix="warm-mamba-") as d2, \
+            tempfile.TemporaryDirectory(prefix="warm-fleet-") as d3:
         norms = 2 * get_config("phi3-mini-3.8b").num_layers + 1
         plain, _ = boot("phi3 plain", PHI3_BOOT)
         cold, _ = boot("phi3 cold", PHI3_BOOT + ["--store", d1])
@@ -2067,7 +2390,8 @@ def phase_warm_restart() -> dict:
         build_ms, load_ms = _per_entry(cold, warm)
         san_ms = garbled["sanitizer_seconds"] / garbled["sanitizer_checks"] * 1e3
         log(f"[warm-restart] phi3 store: {keys} entries, bytes on disk {sizes}; build "
-            f"{build_ms:.2f} ms a kernel (cold) vs load {load_ms:.2f} ms (warm); garbled "
+            f"{build_ms:.2f} ms a kernel (cold) vs load {load_ms:.2f} ms (warm; of it the file "
+            f"read {_read_ms(warm):.2f} ms); garbled "
             f"{bad}: {gstats['load_failures']} load failures, rebuilt and saved again "
             f"{gstats['saves']}; sanitizer {garbled['sanitizer_checks']} checks, "
             f"{san_ms:.3f} ms host a check (an admission, evict or relocation edge)")
@@ -2079,6 +2403,32 @@ def phase_warm_restart() -> dict:
         log(f"[warm-restart] phi3 first token from process start: "
             + ", ".join(f"{t} {v['from_process_start']:.2f} s" for t, v in ttft.items())
             + f"; warm - cold {ttft['warm']['from_process_start'] - ttft['cold']['from_process_start']:+.2f} s")
+
+        # a two-member fleet persisting into one directory, cold then warm
+        f_cold, _ = boot("phi3 fleet cold", PHI3_BOOT + ["--fleet", "2", "--store", d3])
+        f_warm, _ = boot("phi3 fleet warm", PHI3_BOOT + ["--fleet", "2", "--store", d3])
+        for tag, r in (("cold", f_cold), ("warm", f_warm)):
+            check(r["streams"] == plain["streams"],
+                  f"[warm-restart] phi3 fleet {tag} streams differ from plain:\n{r['streams']}")
+            _check_launches(f"phi3 fleet {tag}", r, norms)
+            out[f"boot_phi3_fleet_{tag}"] = r["launches"]
+        f_keys = f_cold["store"]["entries"]
+        check(f_keys >= 2 and f_cold["store"]["stats"]["saves"] >= f_keys
+              and f_cold["kernels_built"].get("Kernel", 0) >= f_keys
+              and f_cold["store_hits"] == 0 and os.path.exists(os.path.join(d3, "ledger.json")),
+              f"[warm-restart] fleet cold boot: {f_keys} keys, kernels {f_cold['kernels_built']}, "
+              f"store {f_cold['store']}")
+        _check_warm("phi3 fleet", f_warm, f_keys)
+        check(set(f_warm["kernels_built"]) == {"loaded"},
+              f"[warm-restart] fleet warm boot built kernels: {f_warm['kernels_built']}")
+        build_ms, load_ms = _per_entry(f_cold, f_warm)
+        log(f"[warm-restart] phi3 fleet (2 members, one store): {f_keys} entries saved by the "
+            f"cold boot ({f_cold['store']['stats']['saves']} saves), all loaded by the warm boot "
+            f"({f_warm['store_hits']} store hits, kernels {f_warm['kernels_built']}); build "
+            f"{build_ms:.2f} ms a kernel vs load {load_ms:.2f} ms (of it the file read "
+            f"{_read_ms(f_warm):.2f} ms); first token from process "
+            f"start cold {f_cold['first_token_seconds']['from_process_start']:.2f} s, warm "
+            f"{f_warm['first_token_seconds']['from_process_start']:.2f} s")
 
         m_plain, _ = boot("mamba2 plain", MAMBA_BOOT)
         m_cold, _ = boot("mamba2 cold", MAMBA_BOOT + ["--store", d2])
@@ -2156,12 +2506,16 @@ def _to(tree, dev, dtype=None):
     return {k: _to(v, dev, dtype) for k, v in tree.items()}
 
 
-def flash_bound_ms(b: int, hq: int, hkv: int, s: int, d: int) -> tuple[float, str]:
+def flash_bound_ms(b: int, hq: int, hkv: int, s: int, d: int,
+                   window: int | None = None) -> tuple[float, str]:
     """The least time of causal attention on the card, bf16: q, k, v read
-    once and o written once against QK^T and PV over the causal half on the
-    tensor cores."""
+    once and o written once against QK^T and PV over the (query, key) pairs
+    the mask keeps on the tensor cores — the causal half, or with a window
+    each query's last ``window`` keys."""
     bytes_ = (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2
-    flops = 4 * b * hq * d * s * (s + 1) // 2
+    w = s if window is None else min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    flops = 4 * b * hq * d * pairs
     by = "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S else "operations"
     return max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3, by
 
@@ -2169,7 +2523,9 @@ def flash_bound_ms(b: int, hq: int, hkv: int, s: int, d: int) -> tuple[float, st
 VMUL_SWEEP = tuple(1 << k for k in range(12, 19))
 RMSNORM_TIMED = ((BATCH, 3072), (PROMPT, 3072), (BATCH * PROMPT, 3072), (LOOP_CHUNK, 3072),
                  (TRAIN_SEQ, 3072),
-                 (8192, 3072), (TRAIN_SEQ, MAMBA_D), (MAMBA_BATCH, MAMBA_D))
+                 (8192, 3072), (TRAIN_SEQ, MAMBA_D), (MAMBA_BATCH, MAMBA_D),
+                 (BATCH, GEMMA_D), (PROMPT, GEMMA_D), (GEMMA_LONG, GEMMA_D), (BATCH, 2304),
+                 (PROMPT, 2304), (BATCH, 12288), (PROMPT, 12288))
 
 
 def vmul_bound_ms(n: int) -> tuple[float, str]:
@@ -2371,6 +2727,26 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
             f"{fa_mod.variant(q.dtype, hd)} {ms:.4f} ms ({bound / ms:.0%} of the bound "
             f"{bound:.4f} ms, by {by}), simt {simt:.4f} ms, SDPA {sdpa:.4f} ms")
         del q, k, v
+    # flash_attention at gemma2-27b's shape: local layers (window 4096) and
+    # global ones, softcap 50, scale 144^-0.5; SDPA has no softcap, so its
+    # time is the causal product at the same shape, the nearest library call
+    b, hq, hkv, s, hd = 1, 32, 16, 6144, 128
+    q = torch.randn(b, hq, s, hd, generator=gen, device=DEV).bfloat16()
+    k, v = (torch.randn(b, hkv, s, hd, generator=gen, device=DEV).bfloat16() for _ in range(2))
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                          enable_gqa=True), 20, warmup=3)
+    for window in (4096, None):
+        kw = dict(window=window, softcap=50.0, scale=144 ** -0.5)
+        bound, by = flash_bound_ms(b, hq, hkv, s, hd, window)
+        ms = time_ms(lambda: fa_mod.flash_attention(q, k, v, **kw), 20, warmup=3)
+        dev_ms = device_ms(lambda: fa_mod.flash_attention(q, k, v, **kw), calls=10, replays=3)
+        plain = time_ms(lambda: fa_mod.plain(q, k, v, **kw), 3, warmup=1)
+        log(f"[timing] flash_attention q ({b}, {hq}, {s}, {hd}) kv heads {hkv} bf16 causal, "
+            f"window {window}, softcap 50: {fa_mod.variant(q.dtype, hd)} {ms:.4f} ms per call, "
+            f"device {dev_ms:.4f} ms ({bound / dev_ms:.0%} of the bound {bound:.4f} ms, by "
+            f"{by}); plain {plain:.4f} ms; SDPA (causal, no window, no softcap) {sdpa:.4f} ms")
+    del q, k, v
+    torch.cuda.empty_cache()
     # vmul_reduce: the two launch variants against each other (device time
     # alone), which sets vr_mod.CLUSTER_MAX_N, then the size that shows the
     # bandwidth
@@ -2421,6 +2797,24 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
     return out
 
 
+PHASE_SECONDS: dict[str, float] = {}
+
+
+def run_phase(tag: str, fn, *args):
+    """``gpu_state`` before the phase, its seconds after."""
+    gpu_state(tag)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[tag] = time.perf_counter() - t0
+    log(f"[phase] {tag} {PHASE_SECONDS[tag]:.1f} s")
+    return out
+
+
+# paths whose every rmsnorm launch is on the block kernel (d > MAX_WARP_D);
+# every other path's are on the warp kernel
+BLOCK_PATHS = ("serve_gemma2", "serve_mistral")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -2430,33 +2824,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    gpu_state("[kernels]")
-    errs = phase_kernel_checks(gen)
+    errs = run_phase("[kernels]", phase_kernel_checks, gen)
     phase_one_launch(gen)
-    gpu_state("[overlay]")
-    paper = phase_overlay_paper(gen)
-    gpu_state("[async-fig3]")
-    async_fig3 = phase_async_fig3(gen)
-    gpu_state("[serve]")
-    served = phase_serve(gen)
-    gpu_state("[train]")
-    trained = phase_train()
-    gpu_state("[train-overlay]")
-    train_overlay = phase_train_overlay()
-    gpu_state("[serve-mamba]")
-    served_mamba = phase_serve_mamba(gen)
-    gpu_state("[train-mamba]")
-    trained_mamba = phase_train_mamba()
-    gpu_state("[reference]")
-    phase_small_reference()
-    phase_small_train_reference()
-    phase_small_mamba_reference()
-    gpu_state("[launcher]")
-    phase_launcher()
-    gpu_state("[warm-restart]")
-    booted = phase_warm_restart()
-    gpu_state("[analysis]")
-    analysis = phase_analysis()
+    paper = run_phase("[overlay]", phase_overlay_paper, gen)
+    async_fig3 = run_phase("[async-fig3]", phase_async_fig3, gen)
+    served = run_phase("[serve]", phase_serve, gen)
+    trained = run_phase("[train]", phase_train)
+    train_overlay = run_phase("[train-overlay]", phase_train_overlay)
+    served_mamba = run_phase("[serve-mamba]", phase_serve_mamba, gen)
+    trained_mamba = run_phase("[train-mamba]", phase_train_mamba)
+    gemma2 = run_phase("[serve-gemma2]", phase_serve_gemma2, gen)
+    archs = run_phase("[serve-archs]", phase_serve_archs, gen)
+    step_graph = run_phase("[step-graph]", phase_step_graph, gen)
+    run_phase("[reference]", lambda: (phase_small_reference(), phase_small_train_reference(),
+                                      phase_small_mamba_reference(),
+                                      phase_small_gemma2_reference()))
+    run_phase("[launcher]", phase_launcher)
+    booted = run_phase("[warm-restart]", phase_warm_restart)
+    analysis = run_phase("[analysis]", phase_analysis)
     gpu_state("[timing]")
     by_path = {"fig3": paper["launches"], "async_fig3": async_fig3,
                "serve": served["launches"],
@@ -2467,18 +2852,24 @@ def main() -> int:
                "train": trained["launches"], "train_overlay": train_overlay,
                "serve_mamba": served_mamba["launches"],
                "serve_mamba_cost_model": served_mamba["launches_cost_model"],
-               "train_mamba": trained_mamba["launches"], **booted, "analysis": analysis}
+               "train_mamba": trained_mamba["launches"],
+               "serve_gemma2": gemma2["launches"],
+               "serve_minicpm": archs["minicpm-2b"]["launches"],
+               "serve_mistral": archs["mistral-large-123b"]["launches"],
+               "step_graph": step_graph, **booted, "analysis": analysis}
     launches = {name: sum(p[name] for p in by_path.values()) for name in counts()}
     for path, n in by_path.items():
-        check(n["rmsnorm/warp"] == n["rmsnorm"],
-              f"{path}: rmsnorm launches by variant {n} (every one must be on the warp kernel)")
+        kind = "block" if path in BLOCK_PATHS else "warp"
+        check(n[f"rmsnorm/{kind}"] == n["rmsnorm"],
+              f"{path}: rmsnorm launches by variant {n} (every one must be on the {kind} kernel)")
     kernels = phase_kernel_line(gen, errs, launches)
     for entry in kernels:
         entry["launches_by_path"] = {path: n[entry["name"]] for path, n in by_path.items()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase "
+        + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

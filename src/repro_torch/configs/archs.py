@@ -2,12 +2,16 @@
 VMUL&Reduce workload constants, and the smoke-test reduction helper.
 
 A copy of ``repro/configs/archs.py`` restricted to what the port serves:
-phi3-mini-3.8b and mamba2-130m are registered.
+phi3-mini-3.8b, mamba2-130m and the dense family (gemma2-27b, minicpm-2b,
+mistral-large-123b) are registered.  :func:`cut_layers` is the port's own:
+a full-width config cut to fewer layers, for a model whose full depth does
+not fit one card.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import mamba2_130m, phi3_mini_3_8b  # noqa: F401  (registers)
+from repro_torch.configs import (  # noqa: F401  (registers)
+    gemma2_27b, mamba2_130m, minicpm_2b, mistral_large_123b, phi3_mini_3_8b)
 from repro_torch.configs.base import ArchConfig, get_config
 
 # ---------------------------------------------------------------------------
@@ -54,3 +58,20 @@ def smoke_config(name: str) -> ArchConfig:
     if cfg.frontend_dim:
         over["frontend_dim"] = 32
     return cfg.scaled(**over)
+
+
+def cut_layers(cfg: ArchConfig, layers: int) -> ArchConfig:
+    """``cfg`` at full width with only its first ``layers`` decoder layers:
+    each group keeps as many whole repeats of its unit as fit.  ``layers``
+    must be a whole number of units (gemma2's unit is two layers)."""
+    blocks, left = [], layers
+    for unit, rep in cfg.blocks:
+        keep = min(rep, left // len(unit))
+        if keep:
+            blocks.append((unit, keep))
+        left -= keep * len(unit)
+    if left or not blocks:
+        raise ValueError(f"{cfg.name}: {layers} layers is not a whole number "
+                         f"of its units {[u for u, _ in cfg.blocks]} (at most "
+                         f"{cfg.num_layers})")
+    return cfg.scaled(blocks=tuple(blocks))

@@ -1,9 +1,10 @@
 """Core library: the paper's dynamic overlay + JIT assembly, in PyTorch.
 
 Public API (frontend first — the paper's programming model):
-  overlay.Overlay                          — trace-based frontend: plain
-      PyTorch functions -> placed, ISA-compiled, cached accelerators
-      (``jit(donate_argnums=)`` donates the state a step rewrites)
+  overlay.Overlay / jit / jit_assemble / default_overlay — trace-based
+      frontend: plain PyTorch functions -> placed, ISA-compiled, cached
+      accelerators (``jit(donate_argnums=)`` donates the state a step
+      rewrites); the module-level forms use one process-wide 3x3 fabric
   fleet.FleetOverlay / FleetJitAssembled / FleetStats — many member
       fabrics behind the Overlay surface: placement, replication, routing,
       cross-fabric reclaim, member health
@@ -12,14 +13,15 @@ Public API (frontend first — the paper's programming model):
   patterns.register_op / register_call     — aten-op -> Operator registry
   graph.Graph / TensorSpec / vmul_reduce_graph — low-level symbolic DFG IR
   placement.TileGrid / PlacementPolicy     — static vs dynamic placement
-  isa.compile_graph / Program / Opcode     — 42-instruction controller ISA
+  isa.compile_graph / Program / Opcode / Instruction — 42-instruction
+      controller ISA
   interpreter.run_program / assemble       — eager ISA + JIT assembly
   interpreter.specialize_kernel / GraphKernel — the route-constant tier
       (on the card: a CUDA-graph replay of the walk)
   placement.score_placement / check_assignment — the cost-model planner's
       pure pieces and the relocation guard
-  cache.BitstreamCache / spec_key          — kernel-artifact (PR) cache and
-      its specialized tier
+  cache.BitstreamCache / cache_key / spec_key — kernel-artifact (PR) cache
+      and its specialized tier
   fabric.Fabric / ResidentAccelerator      — shared-fabric tile residency,
       relocation
   scheduler.DownloadScheduler / DownloadHandle — the asynchronous
@@ -31,7 +33,8 @@ Public API (frontend first — the paper's programming model):
 """
 
 from repro_torch.core.cache import (BitstreamCache, SpecializationStats,
-                                    kernel_key, signature_of, spec_key)
+                                    cache_key, kernel_key, signature_of,
+                                    spec_key)
 from repro_torch.core.fabric import Fabric, FabricError, ResidentAccelerator
 from repro_torch.core.faults import FaultError, FaultPlan
 from repro_torch.core.fleet import FleetJitAssembled, FleetOverlay, FleetStats
@@ -42,9 +45,11 @@ from repro_torch.core.interpreter import (AssembledAccelerator, GraphKernel,
                                           bind_routes, build_kernel,
                                           route_hops, route_vector, run_program,
                                           specialize_kernel, zero_hop)
-from repro_torch.core.isa import (Opcode, Program, compile_compute,
-                                  compile_graph, compile_routes)
-from repro_torch.core.overlay import JitAssembled, Overlay, OverlayStats
+from repro_torch.core.isa import (Instruction, Opcode, Program,
+                                  compile_compute, compile_graph,
+                                  compile_routes)
+from repro_torch.core.overlay import (JitAssembled, Overlay, OverlayStats,
+                                      default_overlay, jit, jit_assemble)
 from repro_torch.core.patterns import (LIBRARY, Operator, TileClass,
                                        make_filter, make_map, make_reduce,
                                        make_zip_with, register_call,
@@ -63,14 +68,16 @@ __all__ = [
     "AssembledAccelerator", "BitstreamCache", "BitstreamStore", "DownloadHandle",
     "DownloadScheduler", "Fabric", "FabricError", "FaultError", "FaultPlan",
     "FleetJitAssembled", "FleetOverlay", "FleetStats",
-    "Graph", "GraphKernel", "JitAssembled", "Kernel", "LIBRARY", "Lowered",
+    "Graph", "GraphKernel", "Instruction", "JitAssembled", "Kernel", "LIBRARY",
+    "Lowered",
     "NodeRef", "Opcode", "Operator", "Overlay", "OverlayStats", "Placement",
     "PlacementError", "PlacementPolicy", "Program", "ResidentAccelerator",
     "SpecializationStats", "SpecializedKernel", "StoreStats", "TensorSpec",
     "TileClass",
     "TileGrid", "TraceError", "assemble", "bind_routes", "branchy_graph",
-    "build_kernel", "candidate_placements", "check_assignment",
-    "compile_compute", "compile_graph", "compile_routes", "kernel_key",
+    "build_kernel", "cache_key", "candidate_placements", "check_assignment",
+    "compile_compute", "compile_graph", "compile_routes", "default_overlay",
+    "jit", "jit_assemble", "kernel_key",
     "make_filter", "make_map", "make_reduce", "make_zip_with", "place",
     "place_dynamic", "place_static", "placement_crowding",
     "placement_footprint", "register_call", "register_op", "route_hops",

@@ -46,8 +46,10 @@ def _to_meta(v: Any) -> Any:
         return v.meta()
     if isinstance(v, torch.Tensor):
         return torch.empty_like(v, device="meta")
-    if isinstance(v, tuple):
-        return tuple(_to_meta(x) for x in v)
+    if isinstance(v, (tuple, list)):
+        return type(v)(_to_meta(x) for x in v)
+    if isinstance(v, dict):
+        return {k: _to_meta(x) for k, x in v.items()}
     return v
 
 
@@ -121,6 +123,15 @@ class Graph:
               device: "torch.device | None" = None) -> NodeRef:
         ref = self._add("input", None, (), name)
         self.nodes[ref.node_id].aval = TensorSpec(tuple(shape), dtype, device)
+        self.input_ids.append(ref.node_id)
+        return ref
+
+    def input_tree(self, name: str, aval_tree: Any) -> NodeRef:
+        """Pytree-valued input (e.g. a parameter dict feeding stage
+        operators): ``aval_tree`` is nested dicts and lists of
+        :class:`TensorSpec`."""
+        ref = self._add("input", None, (), name)
+        self.nodes[ref.node_id].aval = aval_tree
         self.input_ids.append(ref.node_id)
         return ref
 

@@ -2170,3 +2170,39 @@ class Overlay:
             "autotune_thresholds": self.autotune_thresholds,
             "defrag_threshold": round(self.defrag_threshold, 4),
         }
+
+
+# -----------------------------------------------------------------------------
+# Module-level frontend against a process-wide default fabric
+# -----------------------------------------------------------------------------
+_DEFAULT_OVERLAY: Overlay | None = None
+
+
+def default_overlay() -> Overlay:
+    """The process-wide 3×3 dynamic overlay behind :func:`jit` and
+    :func:`jit_assemble` (``repro/core/overlay.py:2302``), made on first use."""
+    global _DEFAULT_OVERLAY
+    if _DEFAULT_OVERLAY is None:
+        _DEFAULT_OVERLAY = Overlay()
+    return _DEFAULT_OVERLAY
+
+
+def jit(fn: Callable[..., Any] | None = None, *,
+        overlay: Overlay | None = None, **kwargs) -> Callable[..., Any]:
+    """``overlay.jit`` against ``overlay`` or the process default fabric."""
+    ov = overlay if overlay is not None else default_overlay()
+    if fn is None:
+        return lambda f: ov.jit(f, **kwargs)
+    return ov.jit(fn, **kwargs)
+
+
+def jit_assemble(fn: Callable[..., Any] | None = None, **kwargs):
+    """Decorator form of the trace frontend::
+
+        @jit_assemble
+        def dot(a, b): return torch.sum(a * b)
+
+        @jit_assemble(strict=True, overlay=my_overlay)
+        def f(x): ...
+    """
+    return jit(fn, **kwargs)

@@ -3,6 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch phi3-mini-3.8b --overlay --requests 4 --batch 2 --max-new 8
 
+``--arch`` takes any registered config: phi3-mini-3.8b, mamba2-130m and the
+dense family gemma2-27b (sliding-window and global layers, softcaps, post
+norms), minicpm-2b and mistral-large-123b.  ``--smoke`` serves the tiny
+same-family config; ``--layers N`` keeps the full width and cuts the depth
+to the first N layers (mistral-large-123b's 88 layers are 245 GB in bf16,
+more than one card holds).
+
 ``--overlay`` serves through the JIT-assembled accelerator path: prefill and
 decode are traced by the overlay frontend, placed on a 3x3 tile grid and
 cached as bitstreams instead of running as plain PyTorch calls.  Weights are
@@ -49,7 +56,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import cut_layers, get_config, smoke_config
 from repro_torch.core import interpreter as interp
 from repro_torch.core.fleet import FleetOverlay
 from repro_torch.core.overlay import Overlay
@@ -102,6 +109,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None, metavar="N",
+                    help="serve only the first N decoder layers (a whole "
+                         "number of the config's units), at full width")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -137,6 +147,8 @@ def main(argv=None) -> int:
     lens = ([int(n) for n in args.prompt_lens.split(",")] if args.prompt_lens
             else [args.prompt_len])
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        cfg = cut_layers(cfg, args.layers)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = pm.init(cfg, gen, device)
     t_overlay = time.perf_counter()

@@ -1,4 +1,6 @@
-"""Transformer layers: RoPE, RMSNorm, attention over a KV cache, SwiGLU MLP.
+"""Transformer layers: RoPE, RMSNorm, attention over a KV cache (full or
+sliding-window, with gemma2's logit softcap and query scaling), the
+SwiGLU / GeGLU MLP.
 
 Every layer is a plain function of a parameter dict and tensors.  The
 functions are functional (no in-place updates), so the overlay's tracer can
@@ -99,14 +101,17 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor, idx, *, axis: int):
 # ---------------------------------------------------------------------------
 # Attention (GQA family) over a KV cache
 # ---------------------------------------------------------------------------
-def _attention(q, k, v, *, softcap, scale, q_offset, kv_len):
+def _attention(q, k, v, *, window, softcap, scale, q_offset, kv_len):
     """Causal masked attention (B,H,Sq,D)x(B,Hkv,Sk,D), scores in f32.
 
     ``q_offset`` positions queries within the kv sequence (decode);
     ``kv_len`` masks out unwritten cache slots.  Either may also be a (B,)
-    tensor — ragged decode, every batch row at its own position.  Mirrors
-    ``repro/models/layers.py::_attention_xla``, including the rounding of
-    the probabilities to the cache dtype before the value product."""
+    tensor — ragged decode, every batch row at its own position.  ``window``
+    (None for full attention) keeps only the keys less than ``window``
+    positions behind each query, the row's own position on the ragged
+    branch.  Mirrors ``repro/models/layers.py::_attention_xla``, including
+    the rounding of the probabilities to the cache dtype before the value
+    product."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     group = hq // hkv
@@ -124,11 +129,15 @@ def _attention(q, k, v, *, softcap, scale, q_offset, kv_len):
         qpos = qo[:, None, None] + torch.arange(sq, device=dev)[None, :, None]
         kpos = torch.arange(sk, device=dev)[None, None, :]
         mask = (qpos >= kpos) & (kpos < kl[:, None, None])
+        if window is not None:
+            mask = mask & ((qpos - kpos) < window)
         s = torch.where(mask[:, None, None], s, -1e30)
     else:
         qpos = q_offset + torch.arange(sq, device=dev)[:, None]
         kpos = torch.arange(sk, device=dev)[None, :]
         mask = (qpos >= kpos) & (kpos < kv_len)
+        if window is not None:
+            mask = mask & ((qpos - kpos) < window)
         s = torch.where(mask[None, None, None], s, -1e30)
     p = torch.softmax(s, dim=-1)
     pf = p.to(v.dtype).float().reshape(b * hkv, group * sq, sk)
@@ -136,14 +145,16 @@ def _attention(q, k, v, *, softcap, scale, q_offset, kv_len):
     return o.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
 
 
-def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
              positions: torch.Tensor, cache: dict | None):
     """Self-attention, over a KV cache or (``cache=None``) over the whole
     sequence.
 
-    x: (B, S, D). cache: None or {"k": (B, Hkv, Smax, hd), "v": ...,
-    "index": ()}.  ``positions`` is (S,) for a uniform batch, or (B, S) for
-    ragged decode, where every row writes its KV entry at its own position.
+    x: (B, S, D). kind: dense | local | global; a ``local`` layer attends
+    within ``cfg.sliding_window`` positions (gemma2), on every branch.
+    cache: None or {"k": (B, Hkv, Smax, hd), "v": ..., "index": ()}.
+    ``positions`` is (S,) for a uniform batch, or (B, S) for ragged decode,
+    where every row writes its KV entry at its own position.
     Returns (out, updated_cache); the cache is None without one.
     """
     b, s, _ = x.shape
@@ -152,6 +163,7 @@ def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     q = linear(x, p["wq"]).reshape(b, s, hq, hd)
     k = linear(x, p["wk"]).reshape(b, s, hkv, hd)
     v = linear(x, p["wv"]).reshape(b, s, hkv, hd)
+    window = cfg.sliding_window if kind == "local" else None
     if cfg.query_pre_attn_scalar is not None:
         scale = cfg.query_pre_attn_scalar ** -0.5
     else:
@@ -167,8 +179,8 @@ def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         # ragged tiles itself, so the reference's gate to plain code where S
         # is not a multiple of its 128 blocks (repro/models/layers.py:237-255)
         # has nothing to route around here
-        o = kops.attention(qt, kt, vt, causal=True, softcap=cfg.attn_softcap,
-                           scale=scale)
+        o = kops.attention(qt, kt, vt, causal=True, window=window,
+                           softcap=cfg.attn_softcap, scale=scale)
         o = o.transpose(1, 2).reshape(b, s, hq * hd)
         return linear(o, p["wo"]), None
 
@@ -181,12 +193,12 @@ def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             == pos_b[:, None]
         ck = torch.where(sel[:, None, :, None], kt.to(cache["k"].dtype), cache["k"])
         cv = torch.where(sel[:, None, :, None], vt.to(cache["v"].dtype), cache["v"])
-        o = _attention(qt, ck, cv, softcap=cfg.attn_softcap, scale=scale,
-                       q_offset=pos_b, kv_len=pos_b + s)
+        o = _attention(qt, ck, cv, window=window, softcap=cfg.attn_softcap,
+                       scale=scale, q_offset=pos_b, kv_len=pos_b + s)
     else:
         ck = cache_update(cache["k"], kt, idx, axis=2)
         cv = cache_update(cache["v"], vt, idx, axis=2)
-        o = _attention(qt, ck, cv, softcap=cfg.attn_softcap, scale=scale,
-                       q_offset=idx, kv_len=idx + s)
+        o = _attention(qt, ck, cv, window=window, softcap=cfg.attn_softcap,
+                       scale=scale, q_offset=idx, kv_len=idx + s)
     o = o.transpose(1, 2).reshape(b, s, hq * hd)
     return linear(o, p["wo"]), {"k": ck, "v": cv, "index": idx + s}

@@ -1,10 +1,10 @@
 """Top-level model API: the training loss, KV-cache allocation, prefill,
-decode.
+decode, and the model step as an overlay graph.
 
 Port of ``repro/models/model.py`` (``cross_entropy`` :25, ``loss_fn`` :51,
 ``init_cache`` :92, ``prefill`` :96, ``decode_step`` :150,
-``prefill_chunk`` :164, ``_current_index`` :185) for decoder LMs of dense
-and mamba layers.
+``prefill_chunk`` :164, ``_current_index`` :185, ``build_step_graph``
+:203) for decoder LMs of dense (full or sliding-window) and mamba layers.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import params as pm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.params import layer_kinds
 from repro_torch.models.ssm import ssm_cache
@@ -125,3 +126,55 @@ def _current_index(cfg: ArchConfig, caches: list) -> torch.Tensor:
         if kind != "mamba":
             return c["index"]
     return torch.zeros((), dtype=torch.int32, device=caches[0]["ssm"].device)
+
+
+# ---------------------------------------------------------------------------
+# Overlay integration: the model step as an assembled DFG
+# ---------------------------------------------------------------------------
+def build_step_graph(cfg: ArchConfig, batch_shape: tuple[int, int],
+                     device: "str | torch.device | None" = None):
+    """The model's cache-free forward as a :class:`~repro_torch.core.graph.
+    Graph` of LARGE stage operators: embed -> g0 -> g1 ... -> head, each
+    taking (params, x).  The params input node fans out to every stage (the
+    controller's LD_CONST of per-tile configuration).  Stage ``g<i>`` runs
+    the layers of ``cfg.blocks[i]``; the head is the final norm and the
+    unembedding, so the graph's output is the logits (B, S, V) of
+    :func:`~repro_torch.models.transformer.forward` + ``unembed``.  The
+    avals of the inputs live on ``device`` (default ``cuda``)."""
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.patterns import Operator, TileClass
+
+    dev = resolve_device(device)
+    b, s = batch_shape
+    abstract_params = pm.abstract(pm.model_spec(cfg), dev)
+    kinds = layer_kinds(cfg)
+
+    g = Graph(f"{cfg.name}.fwd")
+    p_in = g.input_tree("params", abstract_params)
+    tok = g.input("tokens", (b, s), torch.int32, dev)
+
+    embed_op = Operator(f"{cfg.name}/embed", 2,
+                        lambda p, t: tfm.embed_tokens(p, t, cfg), TileClass.LARGE)
+    h = g.apply(embed_op, p_in, tok)
+
+    first = 0
+    for gi, (unit, rep) in enumerate(cfg.blocks):
+        span = range(first, first + len(unit) * rep)
+        first = span.stop
+
+        def stage_fn(p, x, _span=span):
+            positions = torch.arange(x.shape[1], device=x.device)
+            for li in _span:
+                x = tfm.layer_fwd(p["layers"][li], x, kinds[li], cfg,
+                                  positions=positions, cache=None)[0]
+            return x
+
+        op = Operator(f"{cfg.name}/g{gi}", 2, stage_fn, TileClass.LARGE)
+        h = g.apply(op, p_in, h)
+
+    head_op = Operator(
+        f"{cfg.name}/head", 2,
+        lambda p, x: tfm.unembed(p, tfm.rmsnorm_fwd(p["final_norm"], x, cfg.norm_eps), cfg),
+        TileClass.LARGE)
+    g.output(g.apply(head_op, p_in, h))
+    return g

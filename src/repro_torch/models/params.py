@@ -6,8 +6,11 @@ whose leaves are :class:`ParamSpec` (shape + init + dtype).  Matrices are
 bf16 and norm scales f32, as in ``repro/models/params.py:32,52``.  The
 reference stacks each block's layers for ``lax.scan``; the port keeps one
 dict per layer in ``spec["layers"]`` and loops over them.  A layer's spec
-depends on its kind: ``dense`` (attention + MLP) or ``mamba`` (the Mamba-2
-mixer of :mod:`repro_torch.models.ssm`).
+depends on its kind: ``dense``, ``local`` or ``global`` (attention + MLP;
+gemma2's sliding-window and full-attention layers share the dense spec) or
+``mamba`` (the Mamba-2 mixer of :mod:`repro_torch.models.ssm`).  With
+``cfg.post_norms`` an attention layer also has the post-sublayer norms
+``post_ln1`` and ``post_ln2`` (``repro/models/transformer.py:51-53``).
 
 * :func:`init` materializes parameters from an explicit ``torch.Generator``
   on an explicit device;
@@ -27,7 +30,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
-SERVED_KINDS = ("dense", "mamba")
+SERVED_KINDS = ("dense", "local", "global", "mamba")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +57,7 @@ def layer_kinds(cfg: ArchConfig) -> list[str]:
     """The decoder's layer kinds in execution order (blocks unrolled)."""
     kinds = [k for unit, rep in cfg.blocks for _ in range(rep) for k in unit]
     unsupported = sorted(set(kinds) - set(SERVED_KINDS))
-    if unsupported or cfg.is_encdec or cfg.post_norms or cfg.frontend:
+    if unsupported or cfg.is_encdec or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: the port serves decoder layers of kinds "
             f"{list(SERVED_KINDS)} only (got kinds {sorted(set(kinds))}); "
@@ -68,7 +71,7 @@ def layer_spec(cfg: ArchConfig, kind: str) -> dict:
     if kind == "mamba":
         from repro_torch.models.ssm import ssm_spec   # ssm imports this module
         return {"ln1": norm_scale(d), "mixer": ssm_spec(cfg)}
-    return {
+    spec = {
         "ln1": norm_scale(d),
         "attn": {"wq": dense(d, cfg.num_heads * hd),
                  "wk": dense(d, cfg.num_kv_heads * hd),
@@ -78,6 +81,10 @@ def layer_spec(cfg: ArchConfig, kind: str) -> dict:
         "ffn": {"w_gate": dense(d, f), "w_up": dense(d, f),
                 "w_down": dense(f, d)},
     }
+    if cfg.post_norms:
+        spec["post_ln1"] = norm_scale(d)
+        spec["post_ln2"] = norm_scale(d)
+    return spec
 
 
 def model_spec(cfg: ArchConfig) -> dict:
@@ -89,6 +96,15 @@ def model_spec(cfg: ArchConfig) -> dict:
     if not cfg.tie_embeddings:
         spec["lm_head"] = dense(cfg.d_model, cfg.vocab_size)
     return spec
+
+
+def abstract(spec: Any, device: "str | torch.device | None" = None) -> Any:
+    """The spec tree's leaves as :class:`~repro_torch.core.graph.TensorSpec`
+    on ``device`` (default ``cuda``): the avals of a graph input that takes
+    the parameters (``repro/models/params.py::abstract``)."""
+    from repro_torch.core.graph import TensorSpec
+    dev = resolve_device(device)
+    return _map_spec(spec, lambda s: TensorSpec(s.shape, s.dtype, dev))
 
 
 def _map_spec(spec: Any, fn) -> Any:
@@ -131,9 +147,11 @@ def from_jax_numpy(tree: dict, cfg: ArchConfig,
     """The JAX package's parameter tree (``repro.models.params.init`` of
     ``model_spec(cfg)``), passed as numpy arrays, as the port's parameters.
 
-    The scanned ``g<i>["layers"]["<j>:<kind>"]`` stacks (``dense`` and
-    ``mamba``) are unstacked into one dict per layer
-    (``repro/models/transformer.py:57-72``).  bf16 leaves
+    The scanned ``g<i>["layers"]["<j>:<kind>"]`` stacks are unstacked into
+    one dict per layer in execution order (``repro/models/transformer.py:
+    57-72``): repeat ``r`` of a unit runs its kinds in order, so gemma2's
+    ``"0:local"`` and ``"1:global"`` stacks interleave as (local, global) x
+    23.  The post norms ride along with their layer.  bf16 leaves
     arrive as float32 numpy (numpy has no bf16) and are cast back to each
     leaf's own dtype — an exact round trip.  ``dtype`` casts every leaf to
     one dtype instead (the float32 parity tests)."""

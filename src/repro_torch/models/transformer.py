@@ -1,6 +1,7 @@
 """The decoder stack: embedding, a Python loop over the layers, the head.
 
-Port of the dense and Mamba-2 paths of ``repro/models/transformer.py``.
+Port of the dense (with gemma2's local/global layers and post-sublayer
+norms) and Mamba-2 paths of ``repro/models/transformer.py``.
 The reference scans each block of stacked layers
 (``transformer.py:179-222``); the port loops over a list of per-layer
 parameter dicts beside the list of their kinds (``params.layer_kinds``).
@@ -22,19 +23,27 @@ from repro_torch.models.params import layer_kinds
 from repro_torch.models.ssm import ssm_fwd
 
 
+def _maybe_post(cfg: ArchConfig, p: dict, key: str, x: torch.Tensor) -> torch.Tensor:
+    """gemma2's post-sublayer norm on a sublayer's output, before the
+    residual add (``repro/models/transformer.py:129-130``)."""
+    return rmsnorm_fwd(p[key], x, cfg.norm_eps) if cfg.post_norms else x
+
+
 def layer_fwd(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig, *,
               positions: torch.Tensor, cache: dict | None):
-    """One layer of kind ``dense`` or ``mamba``. Returns (x, new_cache)."""
+    """One layer of kind ``dense``, ``local``, ``global`` or ``mamba``.
+    Returns (x, new_cache)."""
     rs = cfg.residual_scale
     h = rmsnorm_fwd(p["ln1"], x, cfg.norm_eps)
     if kind == "mamba":
         h, new_cache = ssm_fwd(p["mixer"], h, cfg, cache=cache)
         return x + rs * h, new_cache
-    h, new_cache = attn_fwd(p["attn"], h, cfg, positions=positions, cache=cache)
-    x = x + rs * h
+    h, new_cache = attn_fwd(p["attn"], h, cfg, kind=kind, positions=positions,
+                            cache=cache)
+    x = x + rs * _maybe_post(cfg, p, "post_ln1", h)
     h = rmsnorm_fwd(p["ln2"], x, cfg.norm_eps)
     h = mlp_fwd(p["ffn"], h, cfg)
-    return x + rs * h, new_cache
+    return x + rs * _maybe_post(cfg, p, "post_ln2", h), new_cache
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

@@ -175,7 +175,8 @@ def test_cache_free_attn_fwd_takes_the_kernel_at_any_length(s):
         (1, s, cfg.d_model), np.float32)).to(torch.bfloat16)
 
     def fn(x):
-        return layers.attn_fwd(p, x, cfg, positions=torch.arange(s), cache=None)[0]
+        return layers.attn_fwd(p, x, cfg, kind="dense", positions=torch.arange(s),
+                               cache=None)[0]
 
     jitted = Overlay(3, 3).jit(fn)
     names = [n.name for n in jitted.lower(x).graph.op_nodes()]

@@ -73,3 +73,22 @@ def test_checker_sees_the_fleet(module):
 
         assert {"FleetOverlay", "FleetJitAssembled", "FleetStats"} <= set(fleet.__all__)
 
+
+
+@pytest.mark.parametrize("module", ["configs/gemma2_27b.py", "configs/minicpm_2b.py",
+                                    "configs/mistral_large_123b.py", "configs/archs.py",
+                                    "models/layers.py", "models/transformer.py",
+                                    "models/model.py", "models/params.py",
+                                    "core/graph.py", "core/overlay.py"])
+def test_checker_sees_the_dense_family_and_the_frontend(module):
+    """The dense family's configs and the modules that serve it, and the
+    module-level frontend, are the port's own copies: the checker above
+    covers them, and they import neither jax nor repro."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    if module == "core/overlay.py":
+        import repro_torch.core as core
+
+        assert {"default_overlay", "jit", "jit_assemble", "Instruction",
+                "cache_key"} <= set(core.__all__)

@@ -864,6 +864,38 @@ def test_kernel_keys_are_stable_across_processes():
     assert a == b
 
 
+def _boot(args: list) -> dict:
+    """One serve-launcher process on the CPU: its result line."""
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args,
+                        "--device", "cpu"], capture_output=True, text=True, timeout=300,
+                       cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "1",
+                                      "PYTHONPATH": os.path.join(ROOT, "src")})
+    assert r.returncode == 0, r.stderr[-2000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def test_fleet_warm_boot_across_processes_loads_every_key(tmp_path):
+    """``--fleet 2 --store D`` in two processes, cold then warm: the two
+    members of the cold boot save every kernel key into one directory; the
+    warm boot's members load them all and build none; both boots' streams
+    equal a plain boot's.  gemma2's smoke config: the operators of its
+    local and global layers, softcaps and post norms persist too."""
+    d = str(tmp_path / "store")
+    args = ["--arch", "gemma2-27b", "--smoke", "--requests", "3", "--batch", "2",
+            "--max-new", "4", "--prompt-lens", "5,20"]
+    plain = _boot(args)
+    cold = _boot(args + ["--fleet", "2", "--store", d])
+    warm = _boot(args + ["--fleet", "2", "--store", d])
+    keys = cold["store"]["entries"]
+    assert keys >= 3 and cold["store"]["stats"]["saves"] >= keys
+    assert cold["kernels_built"] == {"Kernel": keys} and cold["store_hits"] == 0
+    assert os.path.exists(os.path.join(d, "ledger.json"))
+    assert warm["kernels_built"] == {"loaded": warm["store_hits"]}
+    assert warm["store_hits"] == warm["downloads"] >= keys
+    assert warm["store"]["stats"]["load_failures"] == 0 and warm["store"]["entries"] == keys
+    assert cold["streams"] == warm["streams"] == plain["streams"]
+
+
 # ---------------------------------------------------------------------------
 # against the JAX package, through Overlay.assemble on hand-built graphs
 # ---------------------------------------------------------------------------
