@@ -81,19 +81,31 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 10. ``[serve-archs]``: the same for minicpm-2b (40 layers, 81 warp
     launches a call) and mistral-large-123b cut to 8 of its 88 layers
     (17 block launches a call), four (16, 8) requests each;
-11. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
+11. ``[serve-zamba2]``: serves the hybrid zamba2-7b at full width and
+    depth (81 layers: 68 mamba layers at state 64 and 13 occurrences of ONE
+    shared attention+MLP weight set, each with its own KV cache; random
+    bf16 weights from the seed, 11.25 GB) at batch 2, max_len 4128: four
+    (16, 8) requests and one (4096, 16) through ``Overlay(3, 3)`` and
+    plainly: the logits of every call bit-identical (digest) and finite,
+    identical streams, 95 rmsnorm launches a call on the warp kernel (d
+    3584), ssd_chunk 68 times a prefill on the CUDA-core kernel (state 64)
+    and never in decode; under 1 GiB left;
+12. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
     assembled on an all-LARGE ``Overlay(3, 3)``: logits bit-identical to
     ``forward`` + ``unembed``, 65 rmsnorm and 32 flash_attention launches;
-12. checks the models' outputs: finite full-width logits, small float32
-    phi3, mamba2 and gemma2 (window 8: prefill, three decodes and a
-    cache-free forward through the flash kernel) models on the card
-    (kernels) against the same models on the CPU (plain versions), serving
-    and one train step;
-13. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
+    then zamba2-7b's at (1, 4096): bit-identical, 95 rmsnorm (warp), 68
+    ssd_chunk (CUDA-core) and 13 flash_attention launches (tensor-core, at
+    head dim 112);
+13. checks the models' outputs: finite full-width logits, small float32
+    phi3, mamba2, gemma2 (window 8: prefill, three decodes and a
+    cache-free forward through the flash kernel) and zamba2 (state 64:
+    the same) models on the card (kernels) against the same models on the
+    CPU (plain versions), serving and one train step;
+14. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
     the event loop, gemma2 (smoke) through the overlay, and the train
     launcher with an injected failure: it restarts from its checkpoint and
     ends with rc 0;
-14. ``[warm-restart]``: boots the serve launcher in fresh processes on one
+15. ``[warm-restart]``: boots the serve launcher in fresh processes on one
     persistent bitstream store directory — phi3-mini-3.8b at full width
     (the ``[serve]`` shape) plain, cold (``--store`` on an empty
     directory), warm (the same directory) and garbled (one entry flipped
@@ -108,10 +120,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     assembly or load, the first call), bytes on disk and load-vs-build ms
     per entry, the sanitizer's host ms per check, mamba2's downloads cold
     and warm;
-15. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
+16. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
     (lock lint, live checkers under the sanitizer, a two-member fleet's
     records and ``describe()``, the store, injected faults) must exit 0;
-16. prints the kernels line (time per call, host included, and device time
+17. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
     and ssd_chunk's CUDA-core kernels' times), timings at other shapes
@@ -123,7 +135,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, the overlay-served runs, the relocation
 and specialization rounds, the fleet runs, the full-width training runs,
-the dense family's runs and the step graph's call)
+the dense family's and zamba2's runs and the step graphs' calls)
 and read just
 after; launches made to compare or time a kernel are not counted.  A
 launcher boot of ``[warm-restart]`` is a process of its own: it counts from
@@ -221,12 +233,24 @@ GEMMA_MAX_LEN, GEMMA_LONG, GEMMA_LONG_NEW = 4608, 4352, 16
 GEMMA_REQUESTS = ((PROMPT, MAX_NEW),) * REQUESTS + ((GEMMA_LONG, GEMMA_LONG_NEW),)
 GEMMA_D = 4608
 DENSE_ARCHS = (("minicpm-2b", None), ("mistral-large-123b", 8))   # (arch, layers kept)
+# the hybrid zamba2-7b at full width and depth: four (16, 8) requests and
+# one (4096, 16), whose prefill launches ssd_chunk at the full chunked shape
+# (112 heads, 64 chunks of 64, head dim 64, state 64); its step graph at
+# (1, 4096)
+ZAMBA = "zamba2-7b"
+ZAMBA_MAX_LEN, ZAMBA_LONG, ZAMBA_LONG_NEW = 4128, 4096, 16
+ZAMBA_REQUESTS = ((PROMPT, MAX_NEW),) * REQUESTS + ((ZAMBA_LONG, ZAMBA_LONG_NEW),)
+ZAMBA_D = 3584
+ZAMBA_SSD = (112, ZAMBA_LONG // 64, 64, 64, 64)   # (batch*heads, chunks, L, p, n) of its prefill
+ZAMBA_FLASH = (1, 32, ZAMBA_LONG, 112)           # q (B, H, S, D) of its cache-free forward
 RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOOP_CHUNK, 3072),
                   (TRAIN_BATCH, TRAIN_SEQ, 3072),
                   *((1, s, MAMBA_D) for s in MAMBA_PROMPTS), (MAMBA_BATCH, 1, MAMBA_D),
                   # gemma2's decode rows, its long prefill (the block kernel:
                   # d > MAX_WARP_D), minicpm's decode rows, mistral's
-                  (BATCH, GEMMA_D), (GEMMA_LONG, GEMMA_D), (BATCH, 2304), (BATCH, 12288))
+                  (BATCH, GEMMA_D), (GEMMA_LONG, GEMMA_D), (BATCH, 2304), (BATCH, 12288),
+                  # zamba2's decode rows, short prompts and long prefill
+                  (BATCH, ZAMBA_D), (1, PROMPT, ZAMBA_D), (1, ZAMBA_LONG, ZAMBA_D))
 
 
 def log(msg: str) -> None:
@@ -457,6 +481,9 @@ FLASH_CASES = [   # (B, Hq, Hkv, S, D, dtype, options)
     # gemma2-27b's local and global layers at seq 6144 (the window acts)
     (1, 32, 16, 6144, 128, torch.bfloat16, dict(window=4096, softcap=50.0, scale=144 ** -0.5)),
     (1, 32, 16, 6144, 128, torch.bfloat16, dict(softcap=50.0, scale=144 ** -0.5)),
+    # zamba2-7b's shared_attn occurrences in its 4096-token cache-free forward
+    (ZAMBA_FLASH[0], ZAMBA_FLASH[1], ZAMBA_FLASH[1], ZAMBA_FLASH[2], ZAMBA_FLASH[3],
+     torch.bfloat16, {}),
 ]
 
 
@@ -502,6 +529,8 @@ SSD_CASES = [   # (bh, nc, L, p, n, dtype of x/b/c, a_cum span per chunk)
     (24, 8, 64, 64, 128, torch.float32, 2.0),
     (16, 3, 8, 16, 16, torch.float32, 2.0),     # the smoke configs' shape
     (24, 4, 64, 64, 128, torch.bfloat16, 60.0), # a_cum spans -60..0: the masked exp
+    (*ZAMBA_SSD, torch.bfloat16, 2.0),          # zamba2's 4096-token prefill (state 64: simt)
+    (112, 1, 16, 64, 64, torch.bfloat16, 2.0),  # zamba2's 16-token prompt: one short chunk
 ]
 
 
@@ -1956,17 +1985,39 @@ def logits_digest(logits: torch.Tensor) -> str:
 
 
 class Digested(Counted):
-    """``Counted`` that also keeps a digest of every call's logits, taken
-    after the call's time is read."""
+    """``Counted`` that also keeps a digest of every call's logits, whether
+    they are all finite, and the call's rmsnorm and ssd_chunk launches,
+    each taken after the call's time is read."""
 
     def __init__(self, fn):
         super().__init__(fn)
         self.digests: list[str] = []
+        self.finite: list[bool] = []
+        self.launches: list[tuple[int, int]] = []   # (rmsnorm, ssd_chunk) of each call
 
     def __call__(self, *args):
+        before = counts()
         out = super().__call__(*args)
+        after = counts()
         self.digests.append(logits_digest(out[0]))
+        self.finite.append(bool(torch.isfinite(out[0]).all()))
+        self.launches.append(tuple(after[k] - before[k] for k in ("rmsnorm", "ssd_chunk")))
         return out
+
+
+def norms_per_call(cfg) -> int:
+    """rmsnorm launches a full forward makes: ln1 of a mamba layer; ln1 and
+    ln2 of an attention layer (and gemma2's two post norms); the final
+    norm."""
+    attn = 4 if cfg.post_norms else 2
+    return 1 + sum(1 if kind == "mamba" else attn for kind in pm.layer_kinds(cfg))
+
+
+def ssd_variant(cfg) -> str:
+    """The ssd_chunk variant a mamba layer of ``cfg`` launches in bf16: the
+    tensor-core kernel takes only p 64 and n 128."""
+    return ("mma" if (cfg.ssm_head_dim, cfg.ssm_state) == (ssd_mod.MMA_HEAD_DIM,
+                                                           ssd_mod.MMA_STATE) else "simt")
 
 
 def serve_dense(params, cfg, overlay, requests, max_len: int) -> dict:
@@ -1994,11 +2045,14 @@ def serve_dense(params, cfg, overlay, requests, max_len: int) -> dict:
 
 def serve_arch(tag: str, cfg, requests, max_len: int, gen: torch.Generator,
                window_check: bool = False) -> dict:
-    """One arch of the dense family at full width, random bf16 weights from
-    the seed, served through ``Overlay(3, 3)`` and plainly: the logits of
-    every call bit-identical (digest), identical streams, rmsnorm launched
-    once per norm a call (ln1 and ln2, gemma2's two post norms, the final
-    norm) on the variant its width takes, under 1 GiB left allocated after
+    """One arch of the dense family or zamba2 at full width, random bf16
+    weights from the seed, served through ``Overlay(3, 3)`` and plainly:
+    the logits of every call bit-identical (digest) and finite, identical
+    streams, rmsnorm launched once per norm every call
+    (:func:`norms_per_call`) on the variant its width takes, ssd_chunk once
+    per mamba layer every prefill call and never in decode, on the variant
+    its state takes (:func:`ssd_variant`), one ``kernels/ssd`` node per
+    mamba layer in each traced prefill, under 1 GiB left allocated after
     the phase.  Prints tok/s, host ms per call, trace and assembly seconds
     per signature, the peak memory and the distinct tokens of each stream.
     With ``window_check``: a plain prefill of the long prompt and the decode
@@ -2012,8 +2066,10 @@ def serve_arch(tag: str, cfg, requests, max_len: int, gen: torch.Generator,
         f"{cfg.num_layers} layers, bf16, {gb:.2f} GB) initialized in "
         f"{time.perf_counter() - t0:.1f}s; requests (prompt, new) {tuple(requests)}, batch "
         f"{BATCH}, max_len {max_len}")
-    norms = (4 if cfg.post_norms else 2) * cfg.num_layers + 1
+    norms = norms_per_call(cfg)
+    mamba = pm.layer_kinds(cfg).count("mamba")
     kind = "warp" if cfg.d_model <= rn_mod.MAX_WARP_D else "block"
+    ssd_kind = ssd_variant(cfg)
     runs = {}
     for name, overlay in (("overlay", Overlay(3, 3)), ("plain", None)):
         r = serve_dense(params, cfg, overlay, requests, max_len)
@@ -2023,6 +2079,15 @@ def serve_arch(tag: str, cfg, requests, max_len: int, gen: torch.Generator,
         want = norms * (calls["prefill"] + calls["decode"])
         check(n["rmsnorm"] == want and n[f"rmsnorm/{kind}"] == want,
               f"[{tag}] {cfg.name} {name}: rmsnorm launches {n} != {norms} x {calls} on {kind}")
+        per_call = {step: getattr(eng, f"_{step}").launches for step in calls}
+        check(all(lc == (norms, mamba) for lc in per_call["prefill"])
+              and all(lc == (norms, 0) for lc in per_call["decode"]),
+              f"[{tag}] {cfg.name} {name}: (rmsnorm, ssd_chunk) launches by call {per_call}, "
+              f"not ({norms}, {mamba}) a prefill and ({norms}, 0) a decode")
+        check(n[f"ssd_chunk/{ssd_kind}"] == n["ssd_chunk"],
+              f"[{tag}] {cfg.name} {name}: ssd_chunk launches {n}, not all on {ssd_kind}")
+        check(all(eng._prefill.finite + eng._decode.finite),
+              f"[{tag}] {cfg.name} {name}: non-finite logits")
         tokens = sum(len(st) for st in r["streams"])
         log(f"[{tag}] {cfg.name} {name}: {tokens} tokens in {r['seconds']:.2f}s "
             f"({tokens / r['seconds']:.2f} tok/s), calls {calls}, launches "
@@ -2037,10 +2102,14 @@ def serve_arch(tag: str, cfg, requests, max_len: int, gen: torch.Generator,
                     graph = entry.lowered.graph
                     toks = next(a.shape for a in graph.input_avals()
                                 if a.dtype == torch.int32 and len(a.shape) == 2)
+                    ssd = [nd.name for nd in graph.op_nodes()].count("kernels/ssd")
+                    check(ssd == (mamba if step == "prefill" else 0),
+                          f"[{tag}] a traced {cfg.name} {step} holds {ssd} kernels/ssd nodes")
                     log(f"[{tag}] {cfg.name} {step} signature tokens {toks}: trace "
                         f"{entry.trace_seconds:.2f} s, assemble {entry.assemble_seconds:.2f} s; "
                         f"{len(graph.op_nodes())} op nodes ({len(entry.lowered.unmapped)} "
-                        f"residue), {entry.acc.placement.total_passthrough} pass-through hops")
+                        f"residue, {ssd} kernels/ssd), "
+                        f"{entry.acc.placement.total_passthrough} pass-through hops")
             overlay.close()
         runs[name] = dict(r, calls=calls, tokens=tokens,
                           digests=eng._prefill.digests + eng._decode.digests)
@@ -2059,7 +2128,7 @@ def serve_arch(tag: str, cfg, requests, max_len: int, gen: torch.Generator,
           f"[{tag}] {cfg.name}: unexpected token stream shape/range")
     log(f"[{tag}] {cfg.name} overlay / plain tok/s "
         f"{(ov['tokens'] / ov['seconds']) / (pl['tokens'] / pl['seconds']):.3f}; logits "
-        f"bit-identical (digest) on all {len(ov['digests'])} calls")
+        f"bit-identical (digest) and finite on all {len(ov['digests'])} calls")
     log(f"[{tag}] {cfg.name} max_memory_allocated overlay {ov['peak'] / 2**30:.2f} GiB "
         f"({ov['peak'] / 1e9:.2f} GB), plain {pl['peak'] / 2**30:.2f} GiB "
         f"({pl['peak'] / 1e9:.2f} GB); streams {[st[:6] for st in ov['streams']]}...; "
@@ -2125,16 +2194,35 @@ def phase_serve_archs(gen: torch.Generator) -> dict:
     return out
 
 
-def phase_step_graph(gen: torch.Generator) -> dict:
-    """[step-graph]: ``build_step_graph(phi3-mini-3.8b, (2, 16))`` at full
-    width assembled on an all-LARGE ``Overlay(3, 3)``: its logits are
-    bit-identical to ``forward`` + ``unembed``, and one call launches
-    rmsnorm 65 times (warp) and flash_attention 32 times (wgmma)."""
-    cfg = get_config("phi3-mini-3.8b")
+def phase_serve_zamba2(gen: torch.Generator) -> dict:
+    """[serve-zamba2]: zamba2-7b at full width and all 81 layers (68 mamba
+    layers at state 64, 13 occurrences of one shared attention+MLP set,
+    each with its own KV cache): 95 rmsnorm launches a call on the warp
+    kernel (d 3584), 68 ssd_chunk launches a prefill on the CUDA-core
+    kernel and none a decode."""
+    cfg = get_config(ZAMBA)
+    kinds = pm.layer_kinds(cfg)
+    check(cfg.d_model == ZAMBA_D and len(kinds) == 81 and kinds.count("mamba") == 68
+          and kinds.count("shared_attn") == 13 and norms_per_call(cfg) == 95
+          and ssd_variant(cfg) == "simt", f"{ZAMBA} config {cfg}")
+    spec = pm.model_spec(cfg)
+    log(f"[serve-zamba2] {ZAMBA}: {len(spec['layers'])} per-layer weight sets and "
+        f"{len(spec['shared'])} shared set ({list(spec['shared'])}) read by "
+        f"{kinds.count('shared_attn')} occurrences")
+    return serve_arch("serve-zamba2", cfg, ZAMBA_REQUESTS, ZAMBA_MAX_LEN, gen)
+
+
+def step_graph(cfg, shape: tuple[int, int], gen: torch.Generator, want_launches: dict) -> dict:
+    """``build_step_graph(cfg, shape)`` at full width assembled on an
+    all-LARGE ``Overlay(3, 3)``: its logits are bit-identical to
+    ``forward`` + ``unembed``, and one call makes the launches
+    ``want_launches`` ({"<kernel>/<variant>": n}, every launch of each
+    kernel named)."""
+    b, s = shape
     params = pm.init(cfg, gen, DEV)
-    toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=DEV,
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=DEV,
                          dtype=torch.int64).to(torch.int32)
-    g = mdl.build_step_graph(cfg, (BATCH, PROMPT), DEV)
+    g = mdl.build_step_graph(cfg, (b, s), DEV)
     ov = Overlay(3, 3, large_fraction=1.0)
     t0 = time.perf_counter()
     acc = ov.assemble(g)
@@ -2147,16 +2235,15 @@ def phase_step_graph(gen: torch.Generator) -> dict:
     with torch.no_grad():
         h, _ = tfm.forward(params, cfg, toks)
         want = tfm.unembed(params, h, cfg)
-    check(tuple(got.shape) == (BATCH, PROMPT, cfg.vocab_size) and torch.equal(got, want),
-          f"[step-graph] logits differ from forward + unembed by "
+    check(tuple(got.shape) == (b, s, cfg.vocab_size) and torch.equal(got, want),
+          f"[step-graph] {cfg.name} logits differ from forward + unembed by "
           f"{(got - want).abs().max().item()}")
-    n = cfg.num_layers
-    check(launches["rmsnorm"] == 2 * n + 1 and launches["rmsnorm/warp"] == 2 * n + 1
-          and launches["flash_attention"] == n and launches["flash_attention/wgmma"] == n,
-          f"[step-graph] launches {launches}")
+    for key, n in want_launches.items():
+        check(launches[key] == launches[key.split("/")[0]] == n,
+              f"[step-graph] {cfg.name} launches {launches}, not {want_launches}")
     ms = time_ms(lambda: acc(params, toks), 5, warmup=1)
     tiles = {nd.name: acc.placement.assignment[nd.node_id] for nd in g.op_nodes()}
-    log(f"[step-graph] {cfg.name} build_step_graph {(BATCH, PROMPT)}: stages "
+    log(f"[step-graph] {cfg.name} build_step_graph {(b, s)}: stages "
         f"{[nd.name for nd in g.op_nodes()]} on tiles {tiles}, "
         f"{acc.placement.total_passthrough} pass-through; assembled in {assemble_s:.2f} s, "
         f"{ms:.1f} ms a call; logits bit-identical to forward + unembed; launches "
@@ -2165,6 +2252,25 @@ def phase_step_graph(gen: torch.Generator) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_step_graph(gen: torch.Generator) -> dict:
+    """[step-graph]: ``build_step_graph`` of phi3-mini-3.8b at (2, 16):
+    rmsnorm 65 times (warp) and flash_attention 32 times (wgmma) a call;
+    then of zamba2-7b at (1, 4096): rmsnorm 95 times (warp), ssd_chunk 68
+    times (simt, state 64) and flash_attention 13 times (wgmma, head dim
+    112: the 13 occurrences of the shared set)."""
+    phi3 = get_config("phi3-mini-3.8b")
+    out = {"step_graph": step_graph(phi3, (BATCH, PROMPT), gen, {
+        "rmsnorm/warp": 2 * phi3.num_layers + 1,
+        "flash_attention/wgmma": phi3.num_layers})}
+    zamba = get_config(ZAMBA)
+    check(ZAMBA_FLASH[3] == zamba.resolved_head_dim and ZAMBA_SSD[0] ==
+          zamba.ssm_expand * zamba.d_model // zamba.ssm_head_dim, f"{ZAMBA} shapes")
+    out["step_graph_zamba2"] = step_graph(zamba, (1, ZAMBA_LONG), gen, {
+        "rmsnorm/warp": norms_per_call(zamba), "ssd_chunk/simt": 68,
+        "flash_attention/wgmma": 13})
+    return out
 
 
 def phase_small_gemma2_reference() -> None:
@@ -2213,6 +2319,57 @@ def phase_small_gemma2_reference() -> None:
         f"{cfg.attn_softcap}/{cfg.final_softcap}) logits card (kernels) vs CPU (plain) max err: "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; {flash} flash_attention launches in the cache-free forward")
+
+
+def phase_small_zamba2_reference() -> None:
+    """A small float32 zamba2 (its smoke config at d_model 128 with the full
+    config's state 64 and head dim 64: 15 layers, two occurrences of the
+    shared set) on the card (CUDA kernels) against the same model on the
+    CPU (plain versions): a 20-token prefill and three decodes (tolerance
+    1e-2 * (1 + |logit|), the bf16 KV and conv caches, as for phi3), and a
+    cache-free forward of 24 tokens, which runs ssd_chunk (simt) once per
+    mamba layer and the flash kernel once per occurrence (f32 throughout:
+    1e-3 * (1 + |logit|))."""
+    cfg = smoke_config(ZAMBA).scaled(d_model=128, ssm_state=64, ssm_head_dim=64,
+                                     dtype="float32")
+    cpu = _to(pm.init(cfg, torch.Generator().manual_seed(SEED), "cpu"), "cpu", torch.float32)
+    cuda = _to(cpu, DEV)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 20)).astype(np.int32))
+    errs = {}
+    lc, cc = mdl.prefill(cpu, cfg, toks, mdl.init_cache(cfg, 2, 32, "cpu"))
+    lg, cg = mdl.prefill(cuda, cfg, toks.to(DEV), mdl.init_cache(cfg, 2, 32, DEV))
+    pairs = [("prefill", lc, lg)]
+    for i in range(3):
+        nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 1)).astype(np.int32))
+        dc, cc = mdl.decode_step(cpu, cfg, nxt, cc)
+        dg, cg = mdl.decode_step(cuda, cfg, nxt.to(DEV), cg)
+        pairs.append((f"decode {i + 1}", dc, dg))
+    for name, want, got in pairs:
+        got = got.cpu()
+        errs[name] = (got - want).abs().max().item()
+        check(bool((got - want).abs().le(1e-2 * (1 + want.abs())).all()),
+              f"small zamba2 {name}: card vs CPU max err {errs[name]}")
+    free = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 24)).astype(np.int32))
+    with torch.no_grad():
+        hc, _ = tfm.forward(cpu, cfg, free)
+        want = tfm.unembed(cpu, hc, cfg)
+        reset_counters()
+        hg, _ = tfm.forward(cuda, cfg, free.to(DEV))
+        torch.cuda.synchronize()
+        n = counts()
+        got = tfm.unembed(cuda, hg, cfg).cpu()
+    errs["cache-free forward of 24 tokens"] = (got - want).abs().max().item()
+    check(n["flash_attention"] == 2 and n["ssd_chunk"] == n["ssd_chunk/simt"] == 13,
+          f"small zamba2 cache-free forward: launches {n}")
+    check(bool((got - want).abs().le(1e-3 * (1 + want.abs())).all()),
+          f"small zamba2 cache-free forward: card vs CPU max err "
+          f"{errs['cache-free forward of 24 tokens']}")
+    log(f"[reference] small f32 zamba2-7b ({cfg.num_layers} layers, 2 shared_attn "
+        f"occurrences, state {cfg.ssm_state}) logits card (kernels) vs CPU (plain) max err: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; the cache-free forward launched flash_attention {n['flash_attention']} and "
+        f"ssd_chunk {n['ssd_chunk']} times (simt)")
 
 
 def phase_launcher() -> None:
@@ -2520,12 +2677,27 @@ def flash_bound_ms(b: int, hq: int, hkv: int, s: int, d: int,
     return max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3, by
 
 
+def ssd_bound_ms(bh: int, nc: int, L: int, p: int, n: int) -> tuple[float, str]:
+    """bf16 x, b, c and f32 a read once, f32 y_diag, states and a_cum
+    written once, against the chunk's products on the tensor cores: C B^T
+    and S x over the causal half, and the chunk state."""
+    rows = bh * nc
+    bytes_ = (rows * L * (p + 2 * n) * 2 + rows * L * 4            # x, b, c bf16 and a f32 read
+              + rows * (L * p + n * p + L) * 4)                    # y_diag, states, a_cum f32 written
+    flops = rows * (2 * n * L * (L + 1) // 2        # C B^T over the causal half
+                    + 2 * p * L * (L + 1) // 2      # S x over the causal half
+                    + 2 * n * p * L)                # the chunk state
+    by = "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S else "operations"
+    return max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3, by
+
+
 VMUL_SWEEP = tuple(1 << k for k in range(12, 19))
 RMSNORM_TIMED = ((BATCH, 3072), (PROMPT, 3072), (BATCH * PROMPT, 3072), (LOOP_CHUNK, 3072),
                  (TRAIN_SEQ, 3072),
                  (8192, 3072), (TRAIN_SEQ, MAMBA_D), (MAMBA_BATCH, MAMBA_D),
                  (BATCH, GEMMA_D), (PROMPT, GEMMA_D), (GEMMA_LONG, GEMMA_D), (BATCH, 2304),
-                 (PROMPT, 2304), (BATCH, 12288), (PROMPT, 12288))
+                 (PROMPT, 2304), (BATCH, 12288), (PROMPT, 12288), (BATCH, ZAMBA_D),
+                 (ZAMBA_LONG, ZAMBA_D))
 
 
 def vmul_bound_ms(n: int) -> tuple[float, str]:
@@ -2679,16 +2851,27 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), calls=20, replays=3),
         "shape": f"q, k, v: ({b}, {h}, {sq}, {hd}) bfloat16, causal"})
     del q, k, v
+    b, h, sq, hd = ZAMBA_FLASH                 # zamba2's cache-free forward, head dim 112
+    q, k, v = (torch.randn(b, h, sq, hd, generator=gen, device=DEV).bfloat16()
+               for _ in range(3))
+    bound, by = flash_bound_ms(b, h, h, sq, hd)
+    out[-1]["zamba2_shape"] = {
+        "shape": f"q, k, v: ({b}, {h}, {sq}, {hd}) bfloat16, causal",
+        "variant": fa_mod.variant(q.dtype, hd),
+        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 50, warmup=5),
+        "device_ms": device_ms(lambda: fa_mod.flash_attention(q, k, v), calls=20, replays=3),
+        "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v), 3, warmup=1),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                              50, warmup=5),
+        "library_device_ms": device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), calls=20, replays=3)}
+    del q, k, v
     bh, nc, L, p, n = SSD_PATH                          # a 4096-token mamba2 prefill or train row
     x = torch.randn(bh, nc, L, p, generator=gen, device=DEV).bfloat16()
     b, c = (torch.randn(bh, nc, L, n, generator=gen, device=DEV).bfloat16() for _ in range(2))
     a = -torch.rand(bh, nc, L, generator=gen, device=DEV) * (4.0 / L)
-    rows = bh * nc
-    bytes_ = (rows * L * (p + 2 * n) * 2 + rows * L * 4            # x, b, c bf16 and a f32 read
-              + rows * (L * p + n * p + L) * 4)                    # y_diag, states, a_cum f32 written
-    flops = rows * (2 * n * L * (L + 1) // 2        # C B^T over the causal half
-                    + 2 * p * L * (L + 1) // 2      # S x over the causal half
-                    + 2 * n * p * L)                # the chunk state
+    bound, by = ssd_bound_ms(bh, nc, L, p, n)
     out.append({
         "name": "ssd_chunk", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_chunk.cu",
@@ -2703,13 +2886,28 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
         "simt_device_ms": device_ms(lambda: ssd_mod.ssd_chunk(x, a, b, c, chunk=L, kernel="simt"),
                                     calls=20, replays=3),
         "plain_ms": time_ms(lambda: ssd_mod.plain(x, a, b, c, chunk=L), 20),
-        "bound_ms": max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3,
-        "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
-        else "operations",
+        "bound_ms": bound,
+        "bound_by": by,
         "library_ms": None,
         "library_device_ms": None,
         "library_note": "no single PyTorch call computes the chunk-local SSD terms",
         "shape": f"x ({bh}, {nc}, {L}, {p}), b/c n {n} bfloat16, a float32"})
+    del x, a, b, c
+    bh, nc, L, p, n = ZAMBA_SSD                        # zamba2's 4096-token prefill, state 64
+    x = torch.randn(bh, nc, L, p, generator=gen, device=DEV).bfloat16()
+    b, c = (torch.randn(bh, nc, L, n, generator=gen, device=DEV).bfloat16() for _ in range(2))
+    a = -torch.rand(bh, nc, L, generator=gen, device=DEV) * (4.0 / L)
+    bound, by = ssd_bound_ms(bh, nc, L, p, n)
+    out[-1]["zamba2_shape"] = {
+        "shape": f"x ({bh}, {nc}, {L}, {p}), b/c n {n} bfloat16, a float32",
+        "variant": ssd_mod.variant(x, a, b, c),
+        "smem_bytes_a_block": ssd_mod.smem_bytes(L, p, n),
+        "ms": time_ms(lambda: ssd_mod.ssd_chunk(x, a, b, c, chunk=L), 20),
+        "device_ms": device_ms(lambda: ssd_mod.ssd_chunk(x, a, b, c, chunk=L), calls=20,
+                               replays=3),
+        "plain_ms": time_ms(lambda: ssd_mod.plain(x, a, b, c, chunk=L), 20),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": None, "library_device_ms": None}
     del x, a, b, c
     torch.cuda.empty_cache()
     time_ssd_cases(gen)
@@ -2813,6 +3011,9 @@ def run_phase(tag: str, fn, *args):
 # paths whose every rmsnorm launch is on the block kernel (d > MAX_WARP_D);
 # every other path's are on the warp kernel
 BLOCK_PATHS = ("serve_gemma2", "serve_mistral")
+# paths whose every ssd_chunk launch is on the CUDA-core kernel (zamba2's
+# state 64); every other path's (mamba2's) are on the tensor-core kernel
+SIMT_SSD_PATHS = ("serve_zamba2", "step_graph_zamba2")
 
 
 def main() -> int:
@@ -2835,10 +3036,12 @@ def main() -> int:
     trained_mamba = run_phase("[train-mamba]", phase_train_mamba)
     gemma2 = run_phase("[serve-gemma2]", phase_serve_gemma2, gen)
     archs = run_phase("[serve-archs]", phase_serve_archs, gen)
-    step_graph = run_phase("[step-graph]", phase_step_graph, gen)
+    zamba2 = run_phase("[serve-zamba2]", phase_serve_zamba2, gen)
+    step_graphs = run_phase("[step-graph]", phase_step_graph, gen)
     run_phase("[reference]", lambda: (phase_small_reference(), phase_small_train_reference(),
                                       phase_small_mamba_reference(),
-                                      phase_small_gemma2_reference()))
+                                      phase_small_gemma2_reference(),
+                                      phase_small_zamba2_reference()))
     run_phase("[launcher]", phase_launcher)
     booted = run_phase("[warm-restart]", phase_warm_restart)
     analysis = run_phase("[analysis]", phase_analysis)
@@ -2856,12 +3059,16 @@ def main() -> int:
                "serve_gemma2": gemma2["launches"],
                "serve_minicpm": archs["minicpm-2b"]["launches"],
                "serve_mistral": archs["mistral-large-123b"]["launches"],
-               "step_graph": step_graph, **booted, "analysis": analysis}
+               "serve_zamba2": zamba2["launches"],
+               **step_graphs, **booted, "analysis": analysis}
     launches = {name: sum(p[name] for p in by_path.values()) for name in counts()}
     for path, n in by_path.items():
         kind = "block" if path in BLOCK_PATHS else "warp"
         check(n[f"rmsnorm/{kind}"] == n["rmsnorm"],
               f"{path}: rmsnorm launches by variant {n} (every one must be on the {kind} kernel)")
+        kind = "simt" if path in SIMT_SSD_PATHS else "mma"
+        check(n[f"ssd_chunk/{kind}"] == n["ssd_chunk"],
+              f"{path}: ssd_chunk launches by variant {n} (every one must be on the {kind} kernel)")
     kernels = phase_kernel_line(gen, errs, launches)
     for entry in kernels:
         entry["launches_by_path"] = {path: n[entry["name"]] for path, n in by_path.items()}

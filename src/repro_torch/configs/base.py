@@ -7,8 +7,9 @@ Heterogeneous layer stacks are expressed as ``blocks``: a list of
 ``repeat`` times (e.g. gemma-2's local:global alternation is
 ``(("local", "global"), 23)``).  The reference scans each unit; the port
 loops over the layers in Python.  The port serves ``dense``, ``local``,
-``global`` and ``mamba`` layers (``models/params.py::SERVED_KINDS``); the
-schema keeps every field so configs copy verbatim.
+``global``, ``mamba`` and ``shared_attn`` layers
+(``models/params.py::SERVED_KINDS``); the schema keeps every field so
+configs copy verbatim.
 
 Layer kinds:
   dense        — full attention + dense MLP

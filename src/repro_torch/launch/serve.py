@@ -3,9 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch phi3-mini-3.8b --overlay --requests 4 --batch 2 --max-new 8
 
-``--arch`` takes any registered config: phi3-mini-3.8b, mamba2-130m and the
+``--arch`` takes any registered config: phi3-mini-3.8b, mamba2-130m, the
 dense family gemma2-27b (sliding-window and global layers, softcaps, post
-norms), minicpm-2b and mistral-large-123b.  ``--smoke`` serves the tiny
+norms), minicpm-2b and mistral-large-123b, and the hybrid zamba2-7b (68
+mamba layers and 13 occurrences of one shared attention+MLP weight set,
+each with its own KV cache; not with ``--event-loop``, which refuses
+every config with mamba layers).  ``--smoke`` serves the tiny
 same-family config; ``--layers N`` keeps the full width and cuts the depth
 to the first N layers (mistral-large-123b's 88 layers are 245 GB in bf16,
 more than one card holds).

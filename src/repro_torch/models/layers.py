@@ -150,8 +150,10 @@ def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
     """Self-attention, over a KV cache or (``cache=None``) over the whole
     sequence.
 
-    x: (B, S, D). kind: dense | local | global; a ``local`` layer attends
-    within ``cfg.sliding_window`` positions (gemma2), on every branch.
+    x: (B, S, D). kind: dense | local | global | shared_attn; a ``local``
+    layer attends within ``cfg.sliding_window`` positions (gemma2), on every
+    branch; the others attend causally with no window (a ``shared_attn``
+    occurrence, zamba2's, as the reference's ``layers.py:279-281``).
     cache: None or {"k": (B, Hkv, Smax, hd), "v": ..., "index": ()}.
     ``positions`` is (S,) for a uniform batch, or (B, S) for ragged decode,
     where every row writes its KV entry at its own position.

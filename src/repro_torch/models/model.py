@@ -4,7 +4,8 @@ decode, and the model step as an overlay graph.
 Port of ``repro/models/model.py`` (``cross_entropy`` :25, ``loss_fn`` :51,
 ``init_cache`` :92, ``prefill`` :96, ``decode_step`` :150,
 ``prefill_chunk`` :164, ``_current_index`` :185, ``build_step_graph``
-:203) for decoder LMs of dense (full or sliding-window) and mamba layers.
+:203) for decoder LMs of dense (full or sliding-window), mamba and
+shared-attention (zamba2) layers.
 """
 
 from __future__ import annotations
@@ -61,9 +62,12 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: "str | torch.device | None" = None) -> list[dict]:
     """Zeroed caches, one dict per layer: a bf16 KV cache
-    ``{"k", "v", "index"}`` for a dense layer (the reference's cache is bf16
-    whatever the parameter dtype), the conv windows and SSD state
-    (:func:`~repro_torch.models.ssm.ssm_cache`) for a mamba layer."""
+    ``{"k", "v", "index"}`` for an attention layer (the reference's cache is
+    bf16 whatever the parameter dtype), the conv windows and SSD state
+    (:func:`~repro_torch.models.ssm.ssm_cache`) for a mamba layer.  Every
+    ``shared_attn`` occurrence gets a cache of its own, though all of them
+    read one weight set (the reference's ``cache_spec``,
+    ``repro/models/transformer.py:115-123``)."""
     dev = resolve_device(device)
     shape = (batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
 
@@ -121,7 +125,8 @@ def prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 def _current_index(cfg: ArchConfig, caches: list) -> torch.Tensor:
     """The shared decode position: the first attention layer's cache index
-    (mamba layers keep none; a pure-SSM model has no position, so 0)."""
+    (mamba layers keep none; a pure-SSM model has no position, so 0).  In
+    zamba2 that is layer 8, the first ``shared_attn`` occurrence."""
     for kind, c in zip(layer_kinds(cfg), caches):
         if kind != "mamba":
             return c["index"]
@@ -147,7 +152,7 @@ def build_step_graph(cfg: ArchConfig, batch_shape: tuple[int, int],
     dev = resolve_device(device)
     b, s = batch_shape
     abstract_params = pm.abstract(pm.model_spec(cfg), dev)
-    kinds = layer_kinds(cfg)
+    plan = pm.layer_plan(cfg)
 
     g = Graph(f"{cfg.name}.fwd")
     p_in = g.input_tree("params", abstract_params)
@@ -165,7 +170,8 @@ def build_step_graph(cfg: ArchConfig, batch_shape: tuple[int, int],
         def stage_fn(p, x, _span=span):
             positions = torch.arange(x.shape[1], device=x.device)
             for li in _span:
-                x = tfm.layer_fwd(p["layers"][li], x, kinds[li], cfg,
+                kind, where = plan[li]
+                x = tfm.layer_fwd(pm.layer_params(p, where), x, kind, cfg,
                                   positions=positions, cache=None)[0]
             return x
 

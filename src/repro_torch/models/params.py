@@ -6,11 +6,21 @@ whose leaves are :class:`ParamSpec` (shape + init + dtype).  Matrices are
 bf16 and norm scales f32, as in ``repro/models/params.py:32,52``.  The
 reference stacks each block's layers for ``lax.scan``; the port keeps one
 dict per layer in ``spec["layers"]`` and loops over them.  A layer's spec
-depends on its kind: ``dense``, ``local`` or ``global`` (attention + MLP;
-gemma2's sliding-window and full-attention layers share the dense spec) or
-``mamba`` (the Mamba-2 mixer of :mod:`repro_torch.models.ssm`).  With
-``cfg.post_norms`` an attention layer also has the post-sublayer norms
-``post_ln1`` and ``post_ln2`` (``repro/models/transformer.py:51-53``).
+depends on its kind: ``dense``, ``local``, ``global`` or ``shared_attn``
+(attention + MLP; gemma2's sliding-window and full-attention layers share
+the dense spec) or ``mamba`` (the Mamba-2 mixer of
+:mod:`repro_torch.models.ssm`).  With ``cfg.post_norms`` an attention layer
+also has the post-sublayer norms ``post_ln1`` and ``post_ln2``
+(``repro/models/transformer.py:51-53``).
+
+A ``shared_attn`` layer (zamba2) owns no entry of ``spec["layers"]``: each
+group that has the kind holds ONE weight set, ``spec["shared"]["g<i>"]``,
+which every occurrence in the group reads (the reference's ``group_spec``
+keeps it outside the scanned stack, ``repro/models/transformer.py:57-69``).
+:func:`layer_plan` says where each layer's weights are, so nothing is
+aliased in the tree: a flattened tree holds the shared set once,
+:func:`count` counts it once and a traced step takes it as one set of
+inputs.
 
 * :func:`init` materializes parameters from an explicit ``torch.Generator``
   on an explicit device;
@@ -30,7 +40,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
-SERVED_KINDS = ("dense", "local", "global", "mamba")
+SERVED_KINDS = ("dense", "local", "global", "mamba", "shared_attn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,9 +71,33 @@ def layer_kinds(cfg: ArchConfig) -> list[str]:
         raise NotImplementedError(
             f"{cfg.name}: the port serves decoder layers of kinds "
             f"{list(SERVED_KINDS)} only (got kinds {sorted(set(kinds))}); "
-            f"shared_attn, MoE, MLA and encoder-decoder models wait for "
+            f"MoE, MLA, encoder-decoder and vlm models wait for "
             f"ROADMAP queue 1, \"Other archs\"")
     return kinds
+
+
+def layer_plan(cfg: ArchConfig) -> list[tuple[str, "int | str"]]:
+    """The decoder's layers in execution order as (kind, where its weights
+    are): an int indexes ``params["layers"]``; a group key ``"g<i>"`` names
+    ``params["shared"]["g<i>"]``, the one weight set that every
+    ``shared_attn`` occurrence of group ``i`` reads."""
+    layer_kinds(cfg)                       # refuses the kinds not ported
+    plan: list[tuple[str, int | str]] = []
+    own = 0
+    for gi, (unit, rep) in enumerate(cfg.blocks):
+        for _ in range(rep):
+            for kind in unit:
+                if kind == "shared_attn":
+                    plan.append((kind, f"g{gi}"))
+                else:
+                    plan.append((kind, own))
+                    own += 1
+    return plan
+
+
+def layer_params(params: dict, where: "int | str") -> dict:
+    """The weights of one layer of :func:`layer_plan`."""
+    return params["shared"][where] if isinstance(where, str) else params["layers"][where]
 
 
 def layer_spec(cfg: ArchConfig, kind: str) -> dict:
@@ -88,11 +122,15 @@ def layer_spec(cfg: ArchConfig, kind: str) -> dict:
 
 
 def model_spec(cfg: ArchConfig) -> dict:
+    plan = layer_plan(cfg)
     spec: dict[str, Any] = {
         "embed": embedding(cfg.vocab_size, cfg.d_model),
-        "layers": [layer_spec(cfg, kind) for kind in layer_kinds(cfg)],
-        "final_norm": norm_scale(cfg.d_model),
+        "layers": [layer_spec(cfg, kind) for kind, where in plan if isinstance(where, int)],
     }
+    shared = {where: layer_spec(cfg, kind) for kind, where in plan if isinstance(where, str)}
+    if shared:
+        spec["shared"] = shared
+    spec["final_norm"] = norm_scale(cfg.d_model)
     if not cfg.tie_embeddings:
         spec["lm_head"] = dense(cfg.d_model, cfg.vocab_size)
     return spec
@@ -151,7 +189,10 @@ def from_jax_numpy(tree: dict, cfg: ArchConfig,
     one dict per layer in execution order (``repro/models/transformer.py:
     57-72``): repeat ``r`` of a unit runs its kinds in order, so gemma2's
     ``"0:local"`` and ``"1:global"`` stacks interleave as (local, global) x
-    23.  The post norms ride along with their layer.  bf16 leaves
+    23.  The post norms ride along with their layer.  A group's shared set,
+    ``g<i>["shared"]["shared_attn"]``, is carried once to
+    ``["shared"]["g<i>"]``; its stack holds only the other kinds, so the
+    unstacking skips the ``shared_attn`` positions of each unit.  bf16 leaves
     arrive as float32 numpy (numpy has no bf16) and are cast back to each
     leaf's own dtype — an exact round trip.  ``dtype`` casts every leaf to
     one dtype instead (the float32 parity tests)."""
@@ -170,16 +211,19 @@ def from_jax_numpy(tree: dict, cfg: ArchConfig,
         return {k: tree_conv(node[k], v) for k, v in s.items()}
 
     layers = []
-    li = 0
     for gi, (unit, rep) in enumerate(cfg.blocks):
         stacked = tree[f"g{gi}"]["layers"]
         for r in range(rep):
             for j, kind in enumerate(unit):
-                one = _unstack(stacked[f"{j}:{kind}"], r)
-                layers.append(tree_conv(one, spec["layers"][li]))
-                li += 1
-    out = {k: tree_conv(tree[k], s) for k, s in spec.items() if k != "layers"}
+                if kind != "shared_attn":
+                    one = _unstack(stacked[f"{j}:{kind}"], r)
+                    layers.append(tree_conv(one, spec["layers"][len(layers)]))
+    out = {k: tree_conv(tree[k], s) for k, s in spec.items()
+           if k not in ("layers", "shared")}
     out["layers"] = layers
+    if "shared" in spec:
+        out["shared"] = {g: tree_conv(tree[g]["shared"]["shared_attn"], s)
+                         for g, s in spec["shared"].items()}
     return out
 
 

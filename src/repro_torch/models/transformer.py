@@ -1,11 +1,15 @@
 """The decoder stack: embedding, a Python loop over the layers, the head.
 
 Port of the dense (with gemma2's local/global layers and post-sublayer
-norms) and Mamba-2 paths of ``repro/models/transformer.py``.
-The reference scans each block of stacked layers
-(``transformer.py:179-222``); the port loops over a list of per-layer
-parameter dicts beside the list of their kinds (``params.layer_kinds``).
-Caches are one dict per layer: ``{"k", "v", "index"}`` for a dense layer,
+norms), Mamba-2 and hybrid (zamba2's ``shared_attn``) paths of
+``repro/models/transformer.py``.  The reference scans each block of
+stacked layers (``transformer.py:179-222``); the port walks the layers of
+``params.layer_plan``: each layer's kind and where its weights are, its own
+dict of ``params["layers"]`` or its group's shared set (every
+``shared_attn`` occurrence of a group reads the one set, as the
+reference's scan body reads ``shared["shared_attn"]``, ``transformer.py:
+182-190``).  Caches are one dict per layer, shared_attn occurrences
+included: ``{"k", "v", "index"}`` for an attention layer,
 ``{"conv": {"x", "b", "c"}, "ssm"}`` for a mamba layer.  Without caches,
 under autograd, each layer is rematerialized in the backward
 (``cfg.remat == "full"``), the counterpart of ``jax.checkpoint`` on the
@@ -19,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attn_fwd, linear, mlp_fwd, rmsnorm_fwd
-from repro_torch.models.params import layer_kinds
+from repro_torch.models.params import layer_params, layer_plan
 from repro_torch.models.ssm import ssm_fwd
 
 
@@ -31,8 +35,8 @@ def _maybe_post(cfg: ArchConfig, p: dict, key: str, x: torch.Tensor) -> torch.Te
 
 def layer_fwd(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig, *,
               positions: torch.Tensor, cache: dict | None):
-    """One layer of kind ``dense``, ``local``, ``global`` or ``mamba``.
-    Returns (x, new_cache)."""
+    """One layer of kind ``dense``, ``local``, ``global``, ``shared_attn``
+    (``p`` is its group's shared set) or ``mamba``.  Returns (x, new_cache)."""
     rs = cfg.residual_scale
     h = rmsnorm_fwd(p["ln1"], x, cfg.norm_eps)
     if kind == "mamba":
@@ -72,10 +76,11 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         positions = pos0[:, None] + steps[None, :]
     else:
         positions = pos0 + steps
-    kinds = layer_kinds(cfg)
+    plan = layer_plan(cfg)
     if caches is None:
         remat = torch.is_grad_enabled() and _remat(cfg)
-        for lp, kind in zip(params["layers"], kinds):
+        for kind, where in plan:
+            lp = layer_params(params, where)
             if remat:
                 h = checkpoint(_cache_free_layer, lp, h, kind, cfg, positions,
                                use_reentrant=False, preserve_rng_state=False)
@@ -83,8 +88,9 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
                 h = _cache_free_layer(lp, h, kind, cfg, positions)
         return rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps), None
     new_caches = []
-    for lp, kind, c in zip(params["layers"], kinds, caches):
-        h, nc = layer_fwd(lp, h, kind, cfg, positions=positions, cache=c)
+    for (kind, where), c in zip(plan, caches):
+        h, nc = layer_fwd(layer_params(params, where), h, kind, cfg,
+                          positions=positions, cache=c)
         new_caches.append(nc)
     h = rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps)
     return h, new_caches

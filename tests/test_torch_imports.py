@@ -92,3 +92,18 @@ def test_checker_sees_the_dense_family_and_the_frontend(module):
 
         assert {"default_overlay", "jit", "jit_assemble", "Instruction",
                 "cache_key"} <= set(core.__all__)
+
+
+@pytest.mark.parametrize("module", ["configs/zamba2_7b.py", "configs/base.py",
+                                    "launch/serve.py"])
+def test_checker_sees_the_hybrid(module):
+    """zamba2-7b's config and the modules that serve it are the port's own
+    copies: the checker above covers them, and they import neither jax nor
+    repro."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    if module == "configs/zamba2_7b.py":
+        from repro_torch.configs import list_archs
+
+        assert "zamba2-7b" in list_archs()

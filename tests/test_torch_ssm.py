@@ -526,9 +526,8 @@ def test_full_config_param_count_equals_the_jax_spec():
 
 
 @pytest.mark.parametrize("blocks", [
-    jax_get_config("zamba2-7b").blocks,                    # mamba + shared_attn
     ((("moe",), 2),),
-], ids=["zamba2_shared_attn", "moe"])
+], ids=["moe"])
 def test_unported_kinds_still_raise(blocks):
     cfg = get_config(ARCH).scaled(blocks=blocks)
     with pytest.raises(NotImplementedError, match='ROADMAP queue 1, "Other archs"'):
