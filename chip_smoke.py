@@ -90,22 +90,34 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     identical streams, 95 rmsnorm launches a call on the warp kernel (d
     3584), ssd_chunk 68 times a prefill on the CUDA-core kernel (state 64)
     and never in decode; under 1 GiB left;
-12. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
+12. ``[serve-granite]``: serves the mixture-of-experts granite-moe-1b-a400m
+    at full width and depth (24 layers, 32 experts, top-8, capacity factor
+    1.25, tied embeddings; random bf16 weights from the seed, 2.67 GB) at
+    batch 2, max_len 4128: four (16, 8) requests and one (4096, 16) through
+    ``Overlay(3, 3)`` and plainly: the logits of every call bit-identical
+    (digest) and finite, identical streams, 49 rmsnorm launches a call on
+    the warp kernel (d 1024), no ssd_chunk and no flash_attention (cached
+    attention is plain code); prints total against active parameters;
+    under 1 GiB left;
+13. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
     assembled on an all-LARGE ``Overlay(3, 3)``: logits bit-identical to
     ``forward`` + ``unembed``, 65 rmsnorm and 32 flash_attention launches;
     then zamba2-7b's at (1, 4096): bit-identical, 95 rmsnorm (warp), 68
     ssd_chunk (CUDA-core) and 13 flash_attention launches (tensor-core, at
-    head dim 112);
-13. checks the models' outputs: finite full-width logits, small float32
+    head dim 112); then granite-moe-1b-a400m's at (1, 4096): bit-identical,
+    49 rmsnorm (warp) and 24 flash_attention launches (tensor-core, head dim
+    64, 16 heads over 8);
+14. checks the models' outputs: finite full-width logits, small float32
     phi3, mamba2, gemma2 (window 8: prefill, three decodes and a
-    cache-free forward through the flash kernel) and zamba2 (state 64:
-    the same) models on the card (kernels) against the same models on the
+    cache-free forward through the flash kernel), zamba2 (state 64: the
+    same) and granite-moe (32 experts, top-8, capacity 1 at a batch-2
+    decode: the same) models on the card (kernels) against the same models on the
     CPU (plain versions), serving and one train step;
-14. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
+15. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
     the event loop, gemma2 (smoke) through the overlay, and the train
     launcher with an injected failure: it restarts from its checkpoint and
     ends with rc 0;
-15. ``[warm-restart]``: boots the serve launcher in fresh processes on one
+16. ``[warm-restart]``: boots the serve launcher in fresh processes on one
     persistent bitstream store directory — phi3-mini-3.8b at full width
     (the ``[serve]`` shape) plain, cold (``--store`` on an empty
     directory), warm (the same directory) and garbled (one entry flipped
@@ -120,10 +132,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     assembly or load, the first call), bytes on disk and load-vs-build ms
     per entry, the sanitizer's host ms per check, mamba2's downloads cold
     and warm;
-16. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
+17. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
     (lock lint, live checkers under the sanitizer, a two-member fleet's
     records and ``describe()``, the store, injected faults) must exit 0;
-17. prints the kernels line (time per call, host included, and device time
+18. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
     and ssd_chunk's CUDA-core kernels' times), timings at other shapes
@@ -135,7 +147,8 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, the overlay-served runs, the relocation
 and specialization rounds, the fleet runs, the full-width training runs,
-the dense family's and zamba2's runs and the step graphs' calls)
+the dense family's, zamba2's and granite's runs and the step graphs'
+calls)
 and read just
 after; launches made to compare or time a kernel are not counted.  A
 launcher boot of ``[warm-restart]`` is a process of its own: it counts from
@@ -243,6 +256,15 @@ ZAMBA_REQUESTS = ((PROMPT, MAX_NEW),) * REQUESTS + ((ZAMBA_LONG, ZAMBA_LONG_NEW)
 ZAMBA_D = 3584
 ZAMBA_SSD = (112, ZAMBA_LONG // 64, 64, 64, 64)   # (batch*heads, chunks, L, p, n) of its prefill
 ZAMBA_FLASH = (1, 32, ZAMBA_LONG, 112)           # q (B, H, S, D) of its cache-free forward
+# the mixture-of-experts granite-moe-1b-a400m at full width and depth (24
+# layers, 32 experts, top-8): four (16, 8) requests and one (4096, 16); its
+# step graph at (1, 4096), whose cache-free forward launches flash at head
+# dim 64 over 8 kv heads
+GRANITE = "granite-moe-1b-a400m"
+GRANITE_MAX_LEN, GRANITE_LONG, GRANITE_LONG_NEW = 4128, 4096, 16
+GRANITE_REQUESTS = ((PROMPT, MAX_NEW),) * REQUESTS + ((GRANITE_LONG, GRANITE_LONG_NEW),)
+GRANITE_D = 1024
+GRANITE_FLASH = (1, 16, 8, GRANITE_LONG, 64)     # (B, Hq, Hkv, S, D) of its cache-free forward
 RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOOP_CHUNK, 3072),
                   (TRAIN_BATCH, TRAIN_SEQ, 3072),
                   *((1, s, MAMBA_D) for s in MAMBA_PROMPTS), (MAMBA_BATCH, 1, MAMBA_D),
@@ -250,7 +272,9 @@ RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOO
                   # d > MAX_WARP_D), minicpm's decode rows, mistral's
                   (BATCH, GEMMA_D), (GEMMA_LONG, GEMMA_D), (BATCH, 2304), (BATCH, 12288),
                   # zamba2's decode rows, short prompts and long prefill
-                  (BATCH, ZAMBA_D), (1, PROMPT, ZAMBA_D), (1, ZAMBA_LONG, ZAMBA_D))
+                  (BATCH, ZAMBA_D), (1, PROMPT, ZAMBA_D), (1, ZAMBA_LONG, ZAMBA_D),
+                  # granite's
+                  (BATCH, GRANITE_D), (1, PROMPT, GRANITE_D), (1, GRANITE_LONG, GRANITE_D))
 
 
 def log(msg: str) -> None:
@@ -484,6 +508,8 @@ FLASH_CASES = [   # (B, Hq, Hkv, S, D, dtype, options)
     # zamba2-7b's shared_attn occurrences in its 4096-token cache-free forward
     (ZAMBA_FLASH[0], ZAMBA_FLASH[1], ZAMBA_FLASH[1], ZAMBA_FLASH[2], ZAMBA_FLASH[3],
      torch.bfloat16, {}),
+    # granite-moe-1b-a400m's 24 layers in its 4096-token cache-free forward
+    (*GRANITE_FLASH, torch.bfloat16, {}),
 ]
 
 
@@ -2212,6 +2238,31 @@ def phase_serve_zamba2(gen: torch.Generator) -> dict:
     return serve_arch("serve-zamba2", cfg, ZAMBA_REQUESTS, ZAMBA_MAX_LEN, gen)
 
 
+def phase_serve_granite(gen: torch.Generator) -> dict:
+    """[serve-granite]: granite-moe-1b-a400m at full width and all 24 layers
+    (32 experts, top-8, capacity factor 1.25, tied embeddings): 49 rmsnorm
+    launches a call on the warp kernel (d 1024), no ssd_chunk and no
+    flash_attention (serving's attention reads a KV cache: plain code, as
+    the reference's).  A batch-2 decode routes its two rows with capacity
+    1, so the second row loses each expert the first also chose, as in the
+    reference; overlay and plain must still agree bit for bit."""
+    cfg = get_config(GRANITE)
+    kinds = pm.layer_kinds(cfg)
+    check(cfg.d_model == GRANITE_D and kinds == ["moe"] * 24 and norms_per_call(cfg) == 49
+          and (cfg.num_experts, cfg.experts_per_token) == (32, 8)
+          and GRANITE_FLASH[1:] == (cfg.num_heads, cfg.num_kv_heads, GRANITE_LONG,
+                                    cfg.resolved_head_dim), f"{GRANITE} config {cfg}")
+    caps = {n: int(n * cfg.experts_per_token / cfg.num_experts * cfg.capacity_factor) + 1
+            for n in (BATCH, PROMPT, GRANITE_LONG)}
+    log(f"[serve-granite] {GRANITE}: {cfg.param_count() / 1e9:.3f} B params in all, "
+        f"{cfg.active_param_count() / 1e9:.3f} B active a token ({cfg.experts_per_token} of "
+        f"{cfg.num_experts} experts); expert capacity by tokens a call {caps}")
+    out = serve_arch("serve-granite", cfg, GRANITE_REQUESTS, GRANITE_MAX_LEN, gen)
+    check(out["launches"]["flash_attention"] == 0 and out["launches"]["ssd_chunk"] == 0,
+          f"[serve-granite] launches {out['launches']}")
+    return out
+
+
 def step_graph(cfg, shape: tuple[int, int], gen: torch.Generator, want_launches: dict) -> dict:
     """``build_step_graph(cfg, shape)`` at full width assembled on an
     all-LARGE ``Overlay(3, 3)``: its logits are bit-identical to
@@ -2259,7 +2310,9 @@ def phase_step_graph(gen: torch.Generator) -> dict:
     rmsnorm 65 times (warp) and flash_attention 32 times (wgmma) a call;
     then of zamba2-7b at (1, 4096): rmsnorm 95 times (warp), ssd_chunk 68
     times (simt, state 64) and flash_attention 13 times (wgmma, head dim
-    112: the 13 occurrences of the shared set)."""
+    112: the 13 occurrences of the shared set); then of
+    granite-moe-1b-a400m at (1, 4096): rmsnorm 49 times (warp) and
+    flash_attention 24 times (wgmma, head dim 64, 16 heads over 8)."""
     phi3 = get_config("phi3-mini-3.8b")
     out = {"step_graph": step_graph(phi3, (BATCH, PROMPT), gen, {
         "rmsnorm/warp": 2 * phi3.num_layers + 1,
@@ -2270,6 +2323,11 @@ def phase_step_graph(gen: torch.Generator) -> dict:
     out["step_graph_zamba2"] = step_graph(zamba, (1, ZAMBA_LONG), gen, {
         "rmsnorm/warp": norms_per_call(zamba), "ssd_chunk/simt": 68,
         "flash_attention/wgmma": 13})
+    granite = get_config(GRANITE)
+    check(fa_mod.variant(torch.bfloat16, granite.resolved_head_dim) == "wgmma",
+          f"{GRANITE} head dim {granite.resolved_head_dim} is not on wgmma")
+    out["step_graph_granite"] = step_graph(granite, (1, GRANITE_LONG), gen, {
+        "rmsnorm/warp": norms_per_call(granite), "flash_attention/wgmma": 24})
     return out
 
 
@@ -2370,6 +2428,57 @@ def phase_small_zamba2_reference() -> None:
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; the cache-free forward launched flash_attention {n['flash_attention']} and "
         f"ssd_chunk {n['ssd_chunk']} times (simt)")
+
+
+def phase_small_granite_reference() -> None:
+    """A small float32 granite-moe (its smoke config at d_model 128, head
+    dim 32, with the full config's routing: 32 experts, top-8, capacity
+    factor 1.25) on the card (CUDA kernels) against the same model on the
+    CPU (plain versions): a 20-token prefill and three decodes at batch 2
+    (capacity 1: slots drop; tolerance 1e-2 * (1 + |logit|), the bf16 KV
+    cache, as for phi3), and a cache-free forward of 24 tokens, which
+    runs the flash kernel once per layer (f32 throughout: 1e-3 * (1 +
+    |logit|))."""
+    cfg = smoke_config(GRANITE).scaled(d_model=128, head_dim=32, num_experts=32,
+                                       experts_per_token=8, capacity_factor=1.25,
+                                       dtype="float32")
+    cpu = _to(pm.init(cfg, torch.Generator().manual_seed(SEED), "cpu"), "cpu", torch.float32)
+    cuda = _to(cpu, DEV)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 20)).astype(np.int32))
+    errs = {}
+    lc, cc = mdl.prefill(cpu, cfg, toks, mdl.init_cache(cfg, 2, 32, "cpu"))
+    lg, cg = mdl.prefill(cuda, cfg, toks.to(DEV), mdl.init_cache(cfg, 2, 32, DEV))
+    pairs = [("prefill", lc, lg)]
+    for i in range(3):
+        nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 1)).astype(np.int32))
+        dc, cc = mdl.decode_step(cpu, cfg, nxt, cc)
+        dg, cg = mdl.decode_step(cuda, cfg, nxt.to(DEV), cg)
+        pairs.append((f"decode {i + 1}", dc, dg))
+    for name, want, got in pairs:
+        got = got.cpu()
+        errs[name] = (got - want).abs().max().item()
+        check(bool((got - want).abs().le(1e-2 * (1 + want.abs())).all()),
+              f"small granite {name}: card vs CPU max err {errs[name]}")
+    free = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 24)).astype(np.int32))
+    with torch.no_grad():
+        hc, _ = tfm.forward(cpu, cfg, free)
+        want = tfm.unembed(cpu, hc, cfg)
+        reset_counters()
+        hg, _ = tfm.forward(cuda, cfg, free.to(DEV))
+        torch.cuda.synchronize()
+        n = counts()
+        got = tfm.unembed(cuda, hg, cfg).cpu()
+    errs["cache-free forward of 24 tokens"] = (got - want).abs().max().item()
+    check(n["flash_attention"] == cfg.num_layers and n["rmsnorm"] == 2 * cfg.num_layers + 1,
+          f"small granite cache-free forward: launches {n}")
+    check(bool((got - want).abs().le(1e-3 * (1 + want.abs())).all()),
+          f"small granite cache-free forward: card vs CPU max err "
+          f"{errs['cache-free forward of 24 tokens']}")
+    log(f"[reference] small f32 granite-moe-1b-a400m ({cfg.num_layers} layers, "
+        f"{cfg.num_experts} experts, top-{cfg.experts_per_token}) logits card (kernels) vs CPU "
+        f"(plain) max err: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; the cache-free forward launched flash_attention {n['flash_attention']} times")
 
 
 def phase_launcher() -> None:
@@ -2697,7 +2806,8 @@ RMSNORM_TIMED = ((BATCH, 3072), (PROMPT, 3072), (BATCH * PROMPT, 3072), (LOOP_CH
                  (8192, 3072), (TRAIN_SEQ, MAMBA_D), (MAMBA_BATCH, MAMBA_D),
                  (BATCH, GEMMA_D), (PROMPT, GEMMA_D), (GEMMA_LONG, GEMMA_D), (BATCH, 2304),
                  (PROMPT, 2304), (BATCH, 12288), (PROMPT, 12288), (BATCH, ZAMBA_D),
-                 (ZAMBA_LONG, ZAMBA_D))
+                 (ZAMBA_LONG, ZAMBA_D), (BATCH, GRANITE_D), (PROMPT, GRANITE_D),
+                 (GRANITE_LONG, GRANITE_D))
 
 
 def vmul_bound_ms(n: int) -> tuple[float, str]:
@@ -2827,6 +2937,21 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
         "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6), 500),
         "library_device_ms": device_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6)),
         "shape": f"x: ({rows}, {d}) bfloat16, w: ({d},) float32"})
+    out[-1]["granite_shapes"] = []                # granite's decode rows and long prefill
+    for rows, d in ((BATCH, GRANITE_D), (GRANITE_LONG, GRANITE_D)):
+        x = torch.randn(rows, d, generator=gen, device=DEV).bfloat16()
+        w = torch.ones(d, device=DEV)
+        bound, by = rmsnorm_bound_ms(rows, d)
+        out[-1]["granite_shapes"].append({
+            "shape": f"x: ({rows}, {d}) bfloat16, w: ({d},) float32",
+            "variant": rn_mod.variant(x, x),
+            "ms": time_ms(lambda: rn_mod.rmsnorm_cuda(x, w), 500),
+            "device_ms": device_ms(lambda: rn_mod.rmsnorm_cuda(x, w)),
+            "plain_ms": time_ms(lambda: rn_mod.plain(x, w), 500),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6), 500),
+            "library_device_ms": device_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6))})
+    del x, w
     b, h, sq, hd = TRAIN_BATCH, 32, TRAIN_SEQ, 96      # the training path's attention
     q, k, v = (torch.randn(b, h, sq, hd, generator=gen, device=DEV).bfloat16()
                for _ in range(3))
@@ -2866,6 +2991,22 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
                               50, warmup=5),
         "library_device_ms": device_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), calls=20, replays=3)}
+    del q, k, v
+    b, hq, hkv, sq, hd = GRANITE_FLASH        # granite's cache-free forward, 8 kv heads, d 64
+    q = torch.randn(b, hq, sq, hd, generator=gen, device=DEV).bfloat16()
+    k, v = (torch.randn(b, hkv, sq, hd, generator=gen, device=DEV).bfloat16() for _ in range(2))
+    bound, by = flash_bound_ms(b, hq, hkv, sq, hd)
+    out[-1]["granite_shape"] = {
+        "shape": f"q ({b}, {hq}, {sq}, {hd}), k, v ({b}, {hkv}, {sq}, {hd}) bfloat16, causal",
+        "variant": fa_mod.variant(q.dtype, hd),
+        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 50, warmup=5),
+        "device_ms": device_ms(lambda: fa_mod.flash_attention(q, k, v), calls=20, replays=3),
+        "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v), 3, warmup=1),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 50, warmup=5),
+        "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), calls=20, replays=3)}
     del q, k, v
     bh, nc, L, p, n = SSD_PATH                          # a 4096-token mamba2 prefill or train row
     x = torch.randn(bh, nc, L, p, generator=gen, device=DEV).bfloat16()
@@ -3037,11 +3178,13 @@ def main() -> int:
     gemma2 = run_phase("[serve-gemma2]", phase_serve_gemma2, gen)
     archs = run_phase("[serve-archs]", phase_serve_archs, gen)
     zamba2 = run_phase("[serve-zamba2]", phase_serve_zamba2, gen)
+    granite = run_phase("[serve-granite]", phase_serve_granite, gen)
     step_graphs = run_phase("[step-graph]", phase_step_graph, gen)
     run_phase("[reference]", lambda: (phase_small_reference(), phase_small_train_reference(),
                                       phase_small_mamba_reference(),
                                       phase_small_gemma2_reference(),
-                                      phase_small_zamba2_reference()))
+                                      phase_small_zamba2_reference(),
+                                      phase_small_granite_reference()))
     run_phase("[launcher]", phase_launcher)
     booted = run_phase("[warm-restart]", phase_warm_restart)
     analysis = run_phase("[analysis]", phase_analysis)
@@ -3060,6 +3203,7 @@ def main() -> int:
                "serve_minicpm": archs["minicpm-2b"]["launches"],
                "serve_mistral": archs["mistral-large-123b"]["launches"],
                "serve_zamba2": zamba2["launches"],
+               "serve_granite": granite["launches"],
                **step_graphs, **booted, "analysis": analysis}
     launches = {name: sum(p[name] for p in by_path.values()) for name in counts()}
     for path, n in by_path.items():

@@ -7,9 +7,11 @@ Heterogeneous layer stacks are expressed as ``blocks``: a list of
 ``repeat`` times (e.g. gemma-2's local:global alternation is
 ``(("local", "global"), 23)``).  The reference scans each unit; the port
 loops over the layers in Python.  The port serves ``dense``, ``local``,
-``global``, ``mamba`` and ``shared_attn`` layers
+``global``, ``mamba``, ``shared_attn`` and ``moe`` layers
 (``models/params.py::SERVED_KINDS``); the schema keeps every field so
-configs copy verbatim.
+configs copy verbatim, and the analytic parameter counts
+(:meth:`ArchConfig.param_count`, :meth:`ArchConfig.active_param_count`)
+are the reference's.
 
 Layer kinds:
   dense        — full attention + dense MLP
@@ -117,7 +119,83 @@ class ArchConfig:
     def is_encdec(self) -> bool:
         return bool(self.encoder_blocks)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (total, incl. all experts)."""
+        return _count_params(self)
+
+    def active_param_count(self) -> int:
+        """Params active per token (MoE: only routed-in experts)."""
+        return _count_params(self, active_only=True)
+
     def scaled(self, **overrides) -> "ArchConfig":
         """Reduced config of the same family for CPU smoke tests."""
         return dataclasses.replace(self, **overrides)
+
+
+def _ffn_params(cfg: ArchConfig, d_ff: int) -> int:
+    return 3 * cfg.d_model * d_ff  # SwiGLU w1/w3/w2
+
+
+def _attn_params(cfg: ArchConfig) -> int:
+    hd = cfg.resolved_head_dim
+    if cfg.kv_lora_rank:  # MLA
+        q = cfg.d_model * cfg.q_lora_rank + \
+            cfg.q_lora_rank * cfg.num_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+        kv = cfg.d_model * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) + \
+            cfg.kv_lora_rank * cfg.num_heads * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+        o = cfg.num_heads * cfg.v_head_dim * cfg.d_model
+        return q + kv + o
+    q = cfg.d_model * cfg.num_heads * hd
+    kv = 2 * cfg.d_model * cfg.num_kv_heads * hd
+    o = cfg.num_heads * hd * cfg.d_model
+    return q + kv + o
+
+
+def _mamba_params(cfg: ArchConfig) -> int:
+    d_inner = cfg.ssm_expand * cfg.d_model
+    nheads = d_inner // cfg.ssm_head_dim
+    in_proj = cfg.d_model * (2 * d_inner + 2 * cfg.ssm_state + nheads)
+    conv = cfg.ssm_conv_width * (d_inner + 2 * cfg.ssm_state)
+    out = d_inner * cfg.d_model
+    return in_proj + conv + out + 2 * nheads  # + A_log, D
+
+
+def _layer_params(cfg: ArchConfig, kind: str) -> int:
+    norms = 2 * cfg.d_model
+    if kind == "mamba":
+        return _mamba_params(cfg) + cfg.d_model
+    if kind in ("dense", "local", "global", "enc", "shared_attn"):
+        return _attn_params(cfg) + _ffn_params(cfg, cfg.d_ff) + norms
+    if kind == "dec":
+        return 2 * _attn_params(cfg) + _ffn_params(cfg, cfg.d_ff) + 3 * cfg.d_model
+    if kind in ("moe", "mla_moe"):
+        att = _attn_params(cfg)
+        router = cfg.d_model * cfg.num_experts
+        experts = cfg.num_experts * _ffn_params(cfg, cfg.moe_d_ff)
+        shared = cfg.num_shared_experts * _ffn_params(cfg, cfg.moe_d_ff)
+        return att + router + experts + shared + norms
+    if kind == "mla_dense":
+        return _attn_params(cfg) + _ffn_params(cfg, cfg.d_ff) + norms
+    raise ValueError(f"unknown layer kind {kind!r}")
+
+
+def _count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    total = cfg.vocab_size * cfg.d_model            # embedding
+    if not cfg.tie_embeddings:
+        total += cfg.vocab_size * cfg.d_model       # lm head
+    total += cfg.d_model                            # final norm
+    for unit, rep in (*cfg.blocks, *cfg.encoder_blocks):
+        for kind in unit:
+            n = _layer_params(cfg, kind)
+            if active_only and kind in ("moe", "mla_moe"):
+                att = _attn_params(cfg)
+                router = cfg.d_model * cfg.num_experts
+                act_e = (cfg.experts_per_token + cfg.num_shared_experts) * \
+                    _ffn_params(cfg, cfg.moe_d_ff)
+                n = att + router + act_e + 2 * cfg.d_model
+            if kind == "shared_attn":
+                total += n          # weights shared across all repetitions
+            else:
+                total += n * rep
+    return total
 

@@ -5,11 +5,15 @@
 
 ``--arch`` takes any registered config: phi3-mini-3.8b, mamba2-130m, the
 dense family gemma2-27b (sliding-window and global layers, softcaps, post
-norms), minicpm-2b and mistral-large-123b, and the hybrid zamba2-7b (68
+norms), minicpm-2b and mistral-large-123b, the hybrid zamba2-7b (68
 mamba layers and 13 occurrences of one shared attention+MLP weight set,
 each with its own KV cache; not with ``--event-loop``, which refuses
-every config with mamba layers).  ``--smoke`` serves the tiny
-same-family config; ``--layers N`` keeps the full width and cuts the depth
+every config with mamba layers), and the mixture-of-experts
+granite-moe-1b-a400m (32 experts, top-8, capacity factor 1.25; with
+``--event-loop`` each padded prefill chunk is routed with a capacity of
+its own, so its streams need not equal ``ServeEngine``'s, as in the
+reference).  ``--smoke`` serves the tiny same-family config; ``--layers
+N`` keeps the full width and cuts the depth
 to the first N layers (mistral-large-123b's 88 layers are 245 GB in bf16,
 more than one card holds).
 

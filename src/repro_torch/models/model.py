@@ -4,8 +4,9 @@ decode, and the model step as an overlay graph.
 Port of ``repro/models/model.py`` (``cross_entropy`` :25, ``loss_fn`` :51,
 ``init_cache`` :92, ``prefill`` :96, ``decode_step`` :150,
 ``prefill_chunk`` :164, ``_current_index`` :185, ``build_step_graph``
-:203) for decoder LMs of dense (full or sliding-window), mamba and
-shared-attention (zamba2) layers.
+:203) for decoder LMs of dense (full or sliding-window), mamba,
+shared-attention (zamba2) and mixture-of-experts (granite; serving only)
+layers.
 """
 
 from __future__ import annotations
@@ -44,11 +45,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
     """Returns (loss, metrics) for a decoder LM.  batch: ``tokens``
-    and ``labels`` (tokens shifted by the caller), optional ``mask``."""
-    if cfg.is_encdec or cfg.frontend or cfg.mtp_depth:
+    and ``labels`` (tokens shifted by the caller), optional ``mask``.
+    MoE configs are refused: the reference adds ``aux_weight`` times the
+    routers' load-balance loss, which the port's forward does not carry."""
+    if cfg.is_encdec or cfg.frontend or cfg.mtp_depth or cfg.num_experts:
         raise NotImplementedError(
-            f"{cfg.name}: the loss of the enc-dec, vlm and multi-token-"
-            f"prediction families is not ported yet (ROADMAP queue 1, "
+            f"{cfg.name}: the loss of the enc-dec, vlm, multi-token-"
+            f"prediction and MoE families is not ported yet (ROADMAP queue 1, "
             f"\"Training's leftovers\")")
     h, _ = tfm.forward(params, cfg, batch["tokens"])
     logits = tfm.unembed(params, h, cfg)

@@ -8,7 +8,9 @@ reference stacks each block's layers for ``lax.scan``; the port keeps one
 dict per layer in ``spec["layers"]`` and loops over them.  A layer's spec
 depends on its kind: ``dense``, ``local``, ``global`` or ``shared_attn``
 (attention + MLP; gemma2's sliding-window and full-attention layers share
-the dense spec) or ``mamba`` (the Mamba-2 mixer of
+the dense spec), ``moe`` (attention + the mixture-of-experts FFN of
+:mod:`repro_torch.models.moe`: a router and the experts' weights stacked
+as (E, d, f)) or ``mamba`` (the Mamba-2 mixer of
 :mod:`repro_torch.models.ssm`).  With ``cfg.post_norms`` an attention layer
 also has the post-sublayer norms ``post_ln1`` and ``post_ln2``
 (``repro/models/transformer.py:51-53``).
@@ -40,7 +42,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
-SERVED_KINDS = ("dense", "local", "global", "mamba", "shared_attn")
+SERVED_KINDS = ("dense", "local", "global", "mamba", "shared_attn", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +73,7 @@ def layer_kinds(cfg: ArchConfig) -> list[str]:
         raise NotImplementedError(
             f"{cfg.name}: the port serves decoder layers of kinds "
             f"{list(SERVED_KINDS)} only (got kinds {sorted(set(kinds))}); "
-            f"MoE, MLA, encoder-decoder and vlm models wait for "
+            f"MLA, encoder-decoder and vlm models wait for "
             f"ROADMAP queue 1, \"Other archs\"")
     return kinds
 
@@ -112,9 +114,13 @@ def layer_spec(cfg: ArchConfig, kind: str) -> dict:
                  "wv": dense(d, cfg.num_kv_heads * hd),
                  "wo": dense(cfg.num_heads * hd, d)},
         "ln2": norm_scale(d),
-        "ffn": {"w_gate": dense(d, f), "w_up": dense(d, f),
-                "w_down": dense(f, d)},
     }
+    if kind == "moe":
+        from repro_torch.models.moe import moe_spec   # moe imports this module
+        spec["ffn"] = moe_spec(cfg)
+    else:
+        spec["ffn"] = {"w_gate": dense(d, f), "w_up": dense(d, f),
+                       "w_down": dense(f, d)}
     if cfg.post_norms:
         spec["post_ln1"] = norm_scale(d)
         spec["post_ln2"] = norm_scale(d)
@@ -192,7 +198,9 @@ def from_jax_numpy(tree: dict, cfg: ArchConfig,
     23.  The post norms ride along with their layer.  A group's shared set,
     ``g<i>["shared"]["shared_attn"]``, is carried once to
     ``["shared"]["g<i>"]``; its stack holds only the other kinds, so the
-    unstacking skips the ``shared_attn`` positions of each unit.  bf16 leaves
+    unstacking skips the ``shared_attn`` positions of each unit.  A ``moe``
+    layer's stacked experts, ``(rep, E, d, f)``, and router, ``(rep, d,
+    E)``, unstack like any other leaf.  bf16 leaves
     arrive as float32 numpy (numpy has no bf16) and are cast back to each
     leaf's own dtype — an exact round trip.  ``dtype`` casts every leaf to
     one dtype instead (the float32 parity tests)."""

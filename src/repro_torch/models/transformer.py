@@ -1,7 +1,8 @@
 """The decoder stack: embedding, a Python loop over the layers, the head.
 
 Port of the dense (with gemma2's local/global layers and post-sublayer
-norms), Mamba-2 and hybrid (zamba2's ``shared_attn``) paths of
+norms), mixture-of-experts (``moe``: attention + :mod:`repro_torch.models.
+moe`), Mamba-2 and hybrid (zamba2's ``shared_attn``) paths of
 ``repro/models/transformer.py``.  The reference scans each block of
 stacked layers (``transformer.py:179-222``); the port walks the layers of
 ``params.layer_plan``: each layer's kind and where its weights are, its own
@@ -23,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attn_fwd, linear, mlp_fwd, rmsnorm_fwd
+from repro_torch.models.moe import moe_fwd
 from repro_torch.models.params import layer_params, layer_plan
 from repro_torch.models.ssm import ssm_fwd
 
@@ -36,7 +38,10 @@ def _maybe_post(cfg: ArchConfig, p: dict, key: str, x: torch.Tensor) -> torch.Te
 def layer_fwd(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig, *,
               positions: torch.Tensor, cache: dict | None):
     """One layer of kind ``dense``, ``local``, ``global``, ``shared_attn``
-    (``p`` is its group's shared set) or ``mamba``.  Returns (x, new_cache)."""
+    (``p`` is its group's shared set), ``moe`` or ``mamba``.  Returns (x,
+    new_cache).  A ``moe`` layer's load-balance loss is dropped: serving
+    does not read it, and the port's loss does not train MoE yet
+    (``model.loss_fn``)."""
     rs = cfg.residual_scale
     h = rmsnorm_fwd(p["ln1"], x, cfg.norm_eps)
     if kind == "mamba":
@@ -46,7 +51,11 @@ def layer_fwd(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig, *,
                             cache=cache)
     x = x + rs * _maybe_post(cfg, p, "post_ln1", h)
     h = rmsnorm_fwd(p["ln2"], x, cfg.norm_eps)
-    h = mlp_fwd(p["ffn"], h, cfg)
+    if kind == "moe":
+        b, s, d = h.shape
+        h = moe_fwd(p["ffn"], h.reshape(b * s, d), cfg)[0].reshape(b, s, d)
+    else:
+        h = mlp_fwd(p["ffn"], h, cfg)
     return x + rs * _maybe_post(cfg, p, "post_ln2", h), new_cache
 
 

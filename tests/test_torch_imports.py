@@ -107,3 +107,17 @@ def test_checker_sees_the_hybrid(module):
         from repro_torch.configs import list_archs
 
         assert "zamba2-7b" in list_archs()
+
+
+@pytest.mark.parametrize("module", ["configs/granite_moe_1b.py", "models/moe.py"])
+def test_checker_sees_the_moe_family(module):
+    """granite-moe-1b-a400m's config and the mixture-of-experts FFN are the
+    port's own copies: the checker above covers them, and they import
+    neither jax nor repro."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    if module == "configs/granite_moe_1b.py":
+        from repro_torch.configs import list_archs
+
+        assert "granite-moe-1b-a400m" in list_archs()
