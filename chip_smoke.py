@@ -99,25 +99,45 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the warp kernel (d 1024), no ssd_chunk and no flash_attention (cached
     attention is plain code); prints total against active parameters;
     under 1 GiB left;
-13. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
+13. ``[serve-deepseek]``: serves deepseek-v3-671b at full width cut to its
+    first 4 of 61 layers (3 ``mla_dense`` and 1 ``mla_moe``: Multi-head
+    Latent Attention over a bf16 latent cache, 256 experts, top-8, one
+    shared expert, sigmoid scoring; random bf16 weights from the seed,
+    31.6 GB with the multi-token-prediction module the tree carries) at
+    batch 2, max_len 2080: four (16, 8) requests and one (2048, 16)
+    through ``Overlay(3, 3)`` and plainly: the logits of every call
+    bit-identical (digest) and finite, identical streams, 17 rmsnorm
+    launches a call (9 on the block kernel at d 7168, 8 on the warp
+    kernel at the latents' 1536 and 512), no ssd_chunk and no
+    flash_attention (MLA's attention is plain code, as the reference's);
+    prints the expert capacity of each call's token count; under 1 GiB
+    left; then times the plain 2048-token prefill and a batch-2 decode,
+    each to a synchronize, the decode beside the time to read its
+    weights once;
+14. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
     assembled on an all-LARGE ``Overlay(3, 3)``: logits bit-identical to
     ``forward`` + ``unembed``, 65 rmsnorm and 32 flash_attention launches;
     then zamba2-7b's at (1, 4096): bit-identical, 95 rmsnorm (warp), 68
     ssd_chunk (CUDA-core) and 13 flash_attention launches (tensor-core, at
     head dim 112); then granite-moe-1b-a400m's at (1, 4096): bit-identical,
     49 rmsnorm (warp) and 24 flash_attention launches (tensor-core, head dim
-    64, 16 heads over 8);
-14. checks the models' outputs: finite full-width logits, small float32
+    64, 16 heads over 8); then deepseek-v3-671b's (4 layers) at (1, 2048):
+    bit-identical, 9 rmsnorm on the block kernel and 8 on the warp kernel,
+    no flash_attention (MLA's cache-free attention has q/k width 192 and v
+    width 128: plain code, as the reference's);
+15. checks the models' outputs: finite full-width logits, small float32
     phi3, mamba2, gemma2 (window 8: prefill, three decodes and a
     cache-free forward through the flash kernel), zamba2 (state 64: the
-    same) and granite-moe (32 experts, top-8, capacity 1 at a batch-2
-    decode: the same) models on the card (kernels) against the same models on the
-    CPU (plain versions), serving and one train step;
-15. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
+    same), granite-moe (32 experts, top-8, capacity 1 at a batch-2
+    decode: the same) and deepseek (MLA over latents of 128, 32 experts,
+    sigmoid scoring: the same, and a ragged decode) models on the card
+    (kernels) against the same models on the CPU (plain versions), serving
+    and one train step;
+16. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
     the event loop, gemma2 (smoke) through the overlay, and the train
     launcher with an injected failure: it restarts from its checkpoint and
     ends with rc 0;
-16. ``[warm-restart]``: boots the serve launcher in fresh processes on one
+17. ``[warm-restart]``: boots the serve launcher in fresh processes on one
     persistent bitstream store directory — phi3-mini-3.8b at full width
     (the ``[serve]`` shape) plain, cold (``--store`` on an empty
     directory), warm (the same directory) and garbled (one entry flipped
@@ -132,10 +152,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     assembly or load, the first call), bytes on disk and load-vs-build ms
     per entry, the sanitizer's host ms per check, mamba2's downloads cold
     and warm;
-17. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
+18. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
     (lock lint, live checkers under the sanitizer, a two-member fleet's
     records and ``describe()``, the store, injected faults) must exit 0;
-18. prints the kernels line (time per call, host included, and device time
+19. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
     and ssd_chunk's CUDA-core kernels' times), timings at other shapes
@@ -147,8 +167,8 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, the overlay-served runs, the relocation
 and specialization rounds, the fleet runs, the full-width training runs,
-the dense family's, zamba2's and granite's runs and the step graphs'
-calls)
+the dense family's, zamba2's, granite's and deepseek's runs and the step
+graphs' calls)
 and read just
 after; launches made to compare or time a kernel are not counted.  A
 launcher boot of ``[warm-restart]`` is a process of its own: it counts from
@@ -265,6 +285,15 @@ GRANITE_MAX_LEN, GRANITE_LONG, GRANITE_LONG_NEW = 4128, 4096, 16
 GRANITE_REQUESTS = ((PROMPT, MAX_NEW),) * REQUESTS + ((GRANITE_LONG, GRANITE_LONG_NEW),)
 GRANITE_D = 1024
 GRANITE_FLASH = (1, 16, 8, GRANITE_LONG, 64)     # (B, Hq, Hkv, S, D) of its cache-free forward
+# deepseek-v3-671b at full width cut to 4 of its 61 layers (3 mla_dense + 1
+# mla_moe; all 61 are 1.34 TB in bf16): four (16, 8) requests and one
+# (2048, 16).  The absorbed cached prefill keeps (1, 128, S, max_len) f32
+# scores, 2.2 GB a copy at 2048 tokens; its step graph at (1, 2048)
+DEEPSEEK = "deepseek-v3-671b"
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_MAX_LEN, DEEPSEEK_LONG, DEEPSEEK_LONG_NEW = 2080, 2048, 16
+DEEPSEEK_REQUESTS = ((PROMPT, MAX_NEW),) * REQUESTS + ((DEEPSEEK_LONG, DEEPSEEK_LONG_NEW),)
+DEEPSEEK_D, DEEPSEEK_Q_LORA, DEEPSEEK_KV_LORA = 7168, 1536, 512
 RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOOP_CHUNK, 3072),
                   (TRAIN_BATCH, TRAIN_SEQ, 3072),
                   *((1, s, MAMBA_D) for s in MAMBA_PROMPTS), (MAMBA_BATCH, 1, MAMBA_D),
@@ -274,7 +303,11 @@ RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOO
                   # zamba2's decode rows, short prompts and long prefill
                   (BATCH, ZAMBA_D), (1, PROMPT, ZAMBA_D), (1, ZAMBA_LONG, ZAMBA_D),
                   # granite's
-                  (BATCH, GRANITE_D), (1, PROMPT, GRANITE_D), (1, GRANITE_LONG, GRANITE_D))
+                  (BATCH, GRANITE_D), (1, PROMPT, GRANITE_D), (1, GRANITE_LONG, GRANITE_D),
+                  # deepseek's: ln1/ln2/final (the block kernel), the query
+                  # and key/value latents (the warp kernel)
+                  *((*rows, d) for d in (DEEPSEEK_D, DEEPSEEK_Q_LORA, DEEPSEEK_KV_LORA)
+                    for rows in ((BATCH, 1), (1, PROMPT), (1, DEEPSEEK_LONG))))
 
 
 def log(msg: str) -> None:
@@ -2012,14 +2045,15 @@ def logits_digest(logits: torch.Tensor) -> str:
 
 class Digested(Counted):
     """``Counted`` that also keeps a digest of every call's logits, whether
-    they are all finite, and the call's rmsnorm and ssd_chunk launches,
-    each taken after the call's time is read."""
+    they are all finite, and the call's rmsnorm launches by variant and
+    ssd_chunk launches, each taken after the call's time is read."""
 
     def __init__(self, fn):
         super().__init__(fn)
         self.digests: list[str] = []
         self.finite: list[bool] = []
-        self.launches: list[tuple[int, int]] = []   # (rmsnorm, ssd_chunk) of each call
+        # ({rmsnorm variant: launches}, ssd_chunk launches) of each call
+        self.launches: list[tuple[dict[str, int], int]] = []
 
     def __call__(self, *args):
         before = counts()
@@ -2027,16 +2061,30 @@ class Digested(Counted):
         after = counts()
         self.digests.append(logits_digest(out[0]))
         self.finite.append(bool(torch.isfinite(out[0]).all()))
-        self.launches.append(tuple(after[k] - before[k] for k in ("rmsnorm", "ssd_chunk")))
+        self.launches.append(({v: after[f"rmsnorm/{v}"] - before[f"rmsnorm/{v}"]
+                               for v in rn_mod.VARIANTS},
+                              after["ssd_chunk"] - before["ssd_chunk"]))
         return out
 
 
-def norms_per_call(cfg) -> int:
-    """rmsnorm launches a full forward makes: ln1 of a mamba layer; ln1 and
-    ln2 of an attention layer (and gemma2's two post norms); the final
-    norm."""
-    attn = 4 if cfg.post_norms else 2
-    return 1 + sum(1 if kind == "mamba" else attn for kind in pm.layer_kinds(cfg))
+def norms_per_call(cfg) -> dict[str, int]:
+    """rmsnorm launches a full forward makes, by variant: ln1 of a mamba
+    layer; ln1 and ln2 of an attention layer (and gemma2's two post norms),
+    at d_model; an MLA layer's query and key/value latent norms, at their
+    ranks; the final norm.  A bf16 row (fresh, 16-byte aligned) takes the
+    warp kernel up to ``MAX_WARP_D`` and the block kernel past it; rows
+    narrower than 128 take the plain version (``layers.rmsnorm_fwd``) and
+    launch nothing."""
+    widths = [cfg.d_model]
+    for kind in pm.layer_kinds(cfg):
+        widths += [cfg.d_model] * (1 if kind == "mamba" else 4 if cfg.post_norms else 2)
+        if kind.startswith("mla"):
+            widths += [cfg.q_lora_rank, cfg.kv_lora_rank]
+    out = dict.fromkeys(rn_mod.VARIANTS, 0)
+    for d in widths:
+        if d >= 128:
+            out["warp" if d % 8 == 0 and d <= rn_mod.MAX_WARP_D else "block"] += 1
+    return out
 
 
 def ssd_variant(cfg) -> str:
@@ -2074,8 +2122,8 @@ def serve_arch(tag: str, cfg, requests, max_len: int, gen: torch.Generator,
     """One arch of the dense family or zamba2 at full width, random bf16
     weights from the seed, served through ``Overlay(3, 3)`` and plainly:
     the logits of every call bit-identical (digest) and finite, identical
-    streams, rmsnorm launched once per norm every call
-    (:func:`norms_per_call`) on the variant its width takes, ssd_chunk once
+    streams, rmsnorm launched once per norm every call on the variant each
+    norm's width takes (:func:`norms_per_call`), ssd_chunk once
     per mamba layer every prefill call and never in decode, on the variant
     its state takes (:func:`ssd_variant`), one ``kernels/ssd`` node per
     mamba layer in each traced prefill, under 1 GiB left allocated after
@@ -2094,7 +2142,6 @@ def serve_arch(tag: str, cfg, requests, max_len: int, gen: torch.Generator,
         f"{BATCH}, max_len {max_len}")
     norms = norms_per_call(cfg)
     mamba = pm.layer_kinds(cfg).count("mamba")
-    kind = "warp" if cfg.d_model <= rn_mod.MAX_WARP_D else "block"
     ssd_kind = ssd_variant(cfg)
     runs = {}
     for name, overlay in (("overlay", Overlay(3, 3)), ("plain", None)):
@@ -2102,13 +2149,15 @@ def serve_arch(tag: str, cfg, requests, max_len: int, gen: torch.Generator,
         eng = r["engine"]
         calls = {"prefill": eng._prefill.calls, "decode": eng._decode.calls}
         n = r["launches"]
-        want = norms * (calls["prefill"] + calls["decode"])
-        check(n["rmsnorm"] == want and n[f"rmsnorm/{kind}"] == want,
-              f"[{tag}] {cfg.name} {name}: rmsnorm launches {n} != {norms} x {calls} on {kind}")
+        ncalls = calls["prefill"] + calls["decode"]
+        check(n["rmsnorm"] == sum(norms.values()) * ncalls
+              and all(n[f"rmsnorm/{v}"] == k * ncalls for v, k in norms.items()),
+              f"[{tag}] {cfg.name} {name}: rmsnorm launches {n} != {norms} x {calls}")
         per_call = {step: getattr(eng, f"_{step}").launches for step in calls}
         check(all(lc == (norms, mamba) for lc in per_call["prefill"])
               and all(lc == (norms, 0) for lc in per_call["decode"]),
-              f"[{tag}] {cfg.name} {name}: (rmsnorm, ssd_chunk) launches by call {per_call}, "
+              f"[{tag}] {cfg.name} {name}: (rmsnorm by variant, ssd_chunk) launches by call "
+              f"{per_call}, "
               f"not ({norms}, {mamba}) a prefill and ({norms}, 0) a decode")
         check(n[f"ssd_chunk/{ssd_kind}"] == n["ssd_chunk"],
               f"[{tag}] {cfg.name} {name}: ssd_chunk launches {n}, not all on {ssd_kind}")
@@ -2229,7 +2278,8 @@ def phase_serve_zamba2(gen: torch.Generator) -> dict:
     cfg = get_config(ZAMBA)
     kinds = pm.layer_kinds(cfg)
     check(cfg.d_model == ZAMBA_D and len(kinds) == 81 and kinds.count("mamba") == 68
-          and kinds.count("shared_attn") == 13 and norms_per_call(cfg) == 95
+          and kinds.count("shared_attn") == 13
+          and norms_per_call(cfg) == {"warp": 95, "block": 0}
           and ssd_variant(cfg) == "simt", f"{ZAMBA} config {cfg}")
     spec = pm.model_spec(cfg)
     log(f"[serve-zamba2] {ZAMBA}: {len(spec['layers'])} per-layer weight sets and "
@@ -2248,7 +2298,8 @@ def phase_serve_granite(gen: torch.Generator) -> dict:
     reference; overlay and plain must still agree bit for bit."""
     cfg = get_config(GRANITE)
     kinds = pm.layer_kinds(cfg)
-    check(cfg.d_model == GRANITE_D and kinds == ["moe"] * 24 and norms_per_call(cfg) == 49
+    check(cfg.d_model == GRANITE_D and kinds == ["moe"] * 24
+          and norms_per_call(cfg) == {"warp": 49, "block": 0}
           and (cfg.num_experts, cfg.experts_per_token) == (32, 8)
           and GRANITE_FLASH[1:] == (cfg.num_heads, cfg.num_kv_heads, GRANITE_LONG,
                                     cfg.resolved_head_dim), f"{GRANITE} config {cfg}")
@@ -2263,12 +2314,71 @@ def phase_serve_granite(gen: torch.Generator) -> dict:
     return out
 
 
+def phase_serve_deepseek(gen: torch.Generator) -> dict:
+    """[serve-deepseek]: deepseek-v3-671b at full width cut to its first 4
+    layers (3 ``mla_dense``, 1 ``mla_moe``: 256 experts, top-8, one shared
+    expert, sigmoid scoring): 17 rmsnorm launches a call, 9 on the block
+    kernel (ln1, ln2 and the final norm at d 7168) and 8 on the warp
+    kernel (the query latent at 1536 and the key/value latent at 512), no
+    ssd_chunk and no flash_attention (MLA attends over its latent cache in
+    plain code, as the reference does).  A batch-2 decode and a 16-token
+    prompt route with expert capacity 1, the 2048-token prompt with 81.
+    Then the plain steps once more, each ended by a synchronize (the
+    engine's host times end before the card does): a 2048-token prefill
+    and a batch-2 ragged decode, the decode beside its bound, the
+    weights it reads once."""
+    full = get_config(DEEPSEEK)
+    cfg = cut_layers(full, DEEPSEEK_LAYERS)
+    check(cfg.d_model == DEEPSEEK_D and cfg.num_heads == 128
+          and (cfg.q_lora_rank, cfg.kv_lora_rank) == (DEEPSEEK_Q_LORA, DEEPSEEK_KV_LORA)
+          and pm.layer_kinds(cfg) == ["mla_dense"] * 3 + ["mla_moe"]
+          and (cfg.num_experts, cfg.experts_per_token, cfg.num_shared_experts,
+               cfg.router_scoring) == (256, 8, 1, "sigmoid")
+          and norms_per_call(cfg) == {"warp": 8, "block": 9}, f"{DEEPSEEK} config {cfg}")
+    leaves = pytree.tree_leaves(pm.model_spec(full))
+    caps = {n: int(n * cfg.experts_per_token / cfg.num_experts * cfg.capacity_factor) + 1
+            for n in (BATCH, PROMPT, DEEPSEEK_LONG)}
+    log(f"[serve-deepseek] {DEEPSEEK}: cut to {DEEPSEEK_LAYERS} of {full.num_layers} layers "
+        f"(all {full.num_layers}: {full.param_count() / 1e9:.1f} B params, "
+        f"{sum(math.prod(sp.shape) * sp.dtype.itemsize for sp in leaves) / 1e12:.2f} TB in "
+        f"bf16); the cut: {cfg.param_count() / 1e9:.3f} B params by param_count(), "
+        f"{cfg.active_param_count() / 1e9:.3f} B active a token; latent cache "
+        f"{(cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2} B a token a layer; expert capacity "
+        f"by tokens a call {caps}")
+    out = serve_arch("serve-deepseek", cfg, DEEPSEEK_REQUESTS, DEEPSEEK_MAX_LEN, gen)
+    check(out["launches"]["flash_attention"] == 0 and out["launches"]["ssd_chunk"] == 0,
+          f"[serve-deepseek] launches {out['launches']}")
+    params = pm.init(cfg, gen, DEV)
+    prompt = torch.randint(0, cfg.vocab_size, (1, DEEPSEEK_LONG), generator=gen, device=DEV,
+                           dtype=torch.int64).to(torch.int32)
+    with torch.no_grad():
+        prefill = [_sync_ms(lambda: mdl.prefill(params, cfg, prompt, mdl.init_cache(
+            cfg, 1, DEEPSEEK_MAX_LEN, DEV)))[0] for _ in range(2)]
+        caches = mdl.init_cache(cfg, BATCH, DEEPSEEK_MAX_LEN, DEV)
+        tok = prompt[:, :1].expand(BATCH, 1).contiguous()
+        pos = torch.tensor([PROMPT, DEEPSEEK_LONG], dtype=torch.int32, device=DEV)
+        host, synced = _decode_ms(lambda i: mdl.decode_step(params, cfg, tok, caches,
+                                                            positions=pos))
+    # the weights a decode call reads: all but the embedding (two rows
+    # gathered) and the multi-token-prediction module (not run)
+    read = sum(t.numel() * t.element_size() for k, v in params.items()
+               if k not in ("embed", "mtp") for t in pytree.tree_leaves(v))
+    log(f"[serve-deepseek] plain steps ended by a synchronize: a {DEEPSEEK_LONG}-token prefill "
+        f"{prefill[1]:.1f} ms (first {prefill[0]:.1f}); a batch-{BATCH} decode {synced:.2f} ms "
+        f"a call (the host issues it in {host:.2f} ms), against {read / 1e9:.2f} GB of weights "
+        f"read once: {read / HBM_BYTES_PER_S * 1e3:.2f} ms")
+    del params, prompt, caches, tok, pos
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def step_graph(cfg, shape: tuple[int, int], gen: torch.Generator, want_launches: dict) -> dict:
     """``build_step_graph(cfg, shape)`` at full width assembled on an
     all-LARGE ``Overlay(3, 3)``: its logits are bit-identical to
     ``forward`` + ``unembed``, and one call makes the launches
-    ``want_launches`` ({"<kernel>/<variant>": n}, every launch of each
-    kernel named)."""
+    ``want_launches`` ({"<kernel>/<variant>": n}: every launch of each
+    kernel named is on the variants named, as many on each)."""
     b, s = shape
     params = pm.init(cfg, gen, DEV)
     toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=DEV,
@@ -2290,7 +2400,9 @@ def step_graph(cfg, shape: tuple[int, int], gen: torch.Generator, want_launches:
           f"[step-graph] {cfg.name} logits differ from forward + unembed by "
           f"{(got - want).abs().max().item()}")
     for key, n in want_launches.items():
-        check(launches[key] == launches[key.split("/")[0]] == n,
+        kernel = key.split("/")[0]
+        total = sum(m for k, m in want_launches.items() if k.split("/")[0] == kernel)
+        check(launches[key] == n and launches[kernel] == total,
               f"[step-graph] {cfg.name} launches {launches}, not {want_launches}")
     ms = time_ms(lambda: acc(params, toks), 5, warmup=1)
     tiles = {nd.name: acc.placement.assignment[nd.node_id] for nd in g.op_nodes()}
@@ -2312,7 +2424,10 @@ def phase_step_graph(gen: torch.Generator) -> dict:
     times (simt, state 64) and flash_attention 13 times (wgmma, head dim
     112: the 13 occurrences of the shared set); then of
     granite-moe-1b-a400m at (1, 4096): rmsnorm 49 times (warp) and
-    flash_attention 24 times (wgmma, head dim 64, 16 heads over 8)."""
+    flash_attention 24 times (wgmma, head dim 64, 16 heads over 8); then
+    of deepseek-v3-671b cut to 4 layers at (1, 2048): rmsnorm 9 times on
+    block (d 7168) and 8 times on warp (the latents), no flash_attention
+    (MLA's q/k and v widths differ: plain code)."""
     phi3 = get_config("phi3-mini-3.8b")
     out = {"step_graph": step_graph(phi3, (BATCH, PROMPT), gen, {
         "rmsnorm/warp": 2 * phi3.num_layers + 1,
@@ -2321,13 +2436,19 @@ def phase_step_graph(gen: torch.Generator) -> dict:
     check(ZAMBA_FLASH[3] == zamba.resolved_head_dim and ZAMBA_SSD[0] ==
           zamba.ssm_expand * zamba.d_model // zamba.ssm_head_dim, f"{ZAMBA} shapes")
     out["step_graph_zamba2"] = step_graph(zamba, (1, ZAMBA_LONG), gen, {
-        "rmsnorm/warp": norms_per_call(zamba), "ssd_chunk/simt": 68,
+        "rmsnorm/warp": norms_per_call(zamba)["warp"], "ssd_chunk/simt": 68,
         "flash_attention/wgmma": 13})
     granite = get_config(GRANITE)
     check(fa_mod.variant(torch.bfloat16, granite.resolved_head_dim) == "wgmma",
           f"{GRANITE} head dim {granite.resolved_head_dim} is not on wgmma")
     out["step_graph_granite"] = step_graph(granite, (1, GRANITE_LONG), gen, {
-        "rmsnorm/warp": norms_per_call(granite), "flash_attention/wgmma": 24})
+        "rmsnorm/warp": norms_per_call(granite)["warp"], "flash_attention/wgmma": 24})
+    deepseek = cut_layers(get_config(DEEPSEEK), DEEPSEEK_LAYERS)
+    out["step_graph_deepseek"] = step_graph(deepseek, (1, DEEPSEEK_LONG), gen, {
+        f"rmsnorm/{v}": k for v, k in norms_per_call(deepseek).items()})
+    check(out["step_graph_deepseek"]["flash_attention"] == 0
+          and out["step_graph_deepseek"]["ssd_chunk"] == 0,
+          f"[step-graph] {DEEPSEEK} launches {out['step_graph_deepseek']}")
     return out
 
 
@@ -2479,6 +2600,66 @@ def phase_small_granite_reference() -> None:
         f"{cfg.num_experts} experts, top-{cfg.experts_per_token}) logits card (kernels) vs CPU "
         f"(plain) max err: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; the cache-free forward launched flash_attention {n['flash_attention']} times")
+
+
+def phase_small_deepseek_reference() -> None:
+    """A small float32 deepseek (its smoke config at d_model 128 with both
+    latents at 128, so every norm takes the kernel; 4 heads, nope 32, rope
+    16, v 32; 32 experts, top-8, sigmoid scoring, one shared expert) on the
+    card (CUDA kernels) against the same model on the CPU (plain
+    versions): a 20-token prefill, three decodes and a ragged decode at
+    batch 2 over the bf16 latent cache (tolerance 1e-2 * (1 + |logit|), as
+    for phi3's bf16 KV cache), and a cache-free forward of 24 tokens (f32
+    throughout: 1e-3 * (1 + |logit|)), which launches rmsnorm 4 times a
+    layer and once more, and no flash_attention."""
+    cfg = smoke_config(DEEPSEEK).scaled(d_model=128, q_lora_rank=128, kv_lora_rank=128,
+                                        qk_nope_head_dim=32, qk_rope_head_dim=16,
+                                        v_head_dim=32, num_experts=32, experts_per_token=8,
+                                        capacity_factor=1.25, dtype="float32")
+    cpu = _to(pm.init(cfg, torch.Generator().manual_seed(SEED), "cpu"), "cpu", torch.float32)
+    cuda = _to(cpu, DEV)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 20)).astype(np.int32))
+    errs = {}
+    with torch.no_grad():
+        lc, cc = mdl.prefill(cpu, cfg, toks, mdl.init_cache(cfg, 2, 32, "cpu"))
+        lg, cg = mdl.prefill(cuda, cfg, toks.to(DEV), mdl.init_cache(cfg, 2, 32, DEV))
+        pairs = [("prefill", lc, lg)]
+        for i in range(3):
+            nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 1)).astype(np.int32))
+            dc, cc = mdl.decode_step(cpu, cfg, nxt, cc)
+            dg, cg = mdl.decode_step(cuda, cfg, nxt.to(DEV), cg)
+            pairs.append((f"decode {i + 1}", dc, dg))
+        pos = torch.tensor([22, 13], dtype=torch.int32)
+        rc, _ = mdl.decode_step(cpu, cfg, nxt, cc, positions=pos)
+        rg, _ = mdl.decode_step(cuda, cfg, nxt.to(DEV), cg, positions=pos.to(DEV))
+        pairs.append(("ragged decode", rc, rg))
+    for name, want, got in pairs:
+        got = got.cpu()
+        errs[name] = (got - want).abs().max().item()
+        check(bool((got - want).abs().le(1e-2 * (1 + want.abs())).all()),
+              f"small deepseek {name}: card vs CPU max err {errs[name]}")
+    free = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 24)).astype(np.int32))
+    with torch.no_grad():
+        hc, _ = tfm.forward(cpu, cfg, free)
+        want = tfm.unembed(cpu, hc, cfg)
+        reset_counters()
+        hg, _ = tfm.forward(cuda, cfg, free.to(DEV))
+        torch.cuda.synchronize()
+        n = counts()
+        got = tfm.unembed(cuda, hg, cfg).cpu()
+    errs["cache-free forward of 24 tokens"] = (got - want).abs().max().item()
+    check(n["flash_attention"] == 0 and n["rmsnorm"] == 4 * cfg.num_layers + 1
+          and n["rmsnorm/warp"] == n["rmsnorm"],
+          f"small deepseek cache-free forward: launches {n}")
+    check(bool((got - want).abs().le(1e-3 * (1 + want.abs())).all()),
+          f"small deepseek cache-free forward: card vs CPU max err "
+          f"{errs['cache-free forward of 24 tokens']}")
+    log(f"[reference] small f32 deepseek-v3-671b ({cfg.num_layers} layers: "
+        f"{pm.layer_kinds(cfg)}, {cfg.num_experts} experts, top-{cfg.experts_per_token}, "
+        f"{cfg.router_scoring}) logits card (kernels) vs CPU (plain) max err: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; the cache-free forward launched rmsnorm {n['rmsnorm']} times")
 
 
 def phase_launcher() -> None:
@@ -2951,6 +3132,22 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
             "bound_ms": bound, "bound_by": by,
             "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6), 500),
             "library_device_ms": device_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6))})
+    out[-1]["deepseek_shapes"] = []              # deepseek's decode rows and long prefill
+    for rows in (BATCH, DEEPSEEK_LONG):
+        for d in (DEEPSEEK_D, DEEPSEEK_Q_LORA, DEEPSEEK_KV_LORA):
+            x = torch.randn(rows, d, generator=gen, device=DEV).bfloat16()
+            w = torch.ones(d, device=DEV)
+            bound, by = rmsnorm_bound_ms(rows, d)
+            out[-1]["deepseek_shapes"].append({
+                "shape": f"x: ({rows}, {d}) bfloat16, w: ({d},) float32",
+                "variant": rn_mod.variant(x, x),
+                "ms": time_ms(lambda: rn_mod.rmsnorm_cuda(x, w), 500),
+                "device_ms": device_ms(lambda: rn_mod.rmsnorm_cuda(x, w)),
+                "plain_ms": time_ms(lambda: rn_mod.plain(x, w), 500),
+                "bound_ms": bound, "bound_by": by,
+                "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6), 500),
+                "library_device_ms": device_ms(
+                    lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6))})
     del x, w
     b, h, sq, hd = TRAIN_BATCH, 32, TRAIN_SEQ, 96      # the training path's attention
     q, k, v = (torch.randn(b, h, sq, hd, generator=gen, device=DEV).bfloat16()
@@ -3149,12 +3346,16 @@ def run_phase(tag: str, fn, *args):
     return out
 
 
-# paths whose every rmsnorm launch is on the block kernel (d > MAX_WARP_D);
-# every other path's are on the warp kernel
-BLOCK_PATHS = ("serve_gemma2", "serve_mistral")
 # paths whose every ssd_chunk launch is on the CUDA-core kernel (zamba2's
 # state 64); every other path's (mamba2's) are on the tensor-core kernel
 SIMT_SSD_PATHS = ("serve_zamba2", "step_graph_zamba2")
+# how each call of a path splits its rmsnorm launches between the variants
+# (every other path's are all on the warp kernel): gemma2's and mistral's
+# all on the block kernel (d > MAX_WARP_D), deepseek's 9 on block (d 7168)
+# and 8 on warp (its latents)
+NORM_SPLITS = {"serve_gemma2": {"block": 1}, "serve_mistral": {"block": 1},
+               "serve_deepseek": {"block": 9, "warp": 8},
+               "step_graph_deepseek": {"block": 9, "warp": 8}}
 
 
 def main() -> int:
@@ -3179,12 +3380,14 @@ def main() -> int:
     archs = run_phase("[serve-archs]", phase_serve_archs, gen)
     zamba2 = run_phase("[serve-zamba2]", phase_serve_zamba2, gen)
     granite = run_phase("[serve-granite]", phase_serve_granite, gen)
+    deepseek = run_phase("[serve-deepseek]", phase_serve_deepseek, gen)
     step_graphs = run_phase("[step-graph]", phase_step_graph, gen)
     run_phase("[reference]", lambda: (phase_small_reference(), phase_small_train_reference(),
                                       phase_small_mamba_reference(),
                                       phase_small_gemma2_reference(),
                                       phase_small_zamba2_reference(),
-                                      phase_small_granite_reference()))
+                                      phase_small_granite_reference(),
+                                      phase_small_deepseek_reference()))
     run_phase("[launcher]", phase_launcher)
     booted = run_phase("[warm-restart]", phase_warm_restart)
     analysis = run_phase("[analysis]", phase_analysis)
@@ -3204,12 +3407,14 @@ def main() -> int:
                "serve_mistral": archs["mistral-large-123b"]["launches"],
                "serve_zamba2": zamba2["launches"],
                "serve_granite": granite["launches"],
+               "serve_deepseek": deepseek["launches"],
                **step_graphs, **booted, "analysis": analysis}
     launches = {name: sum(p[name] for p in by_path.values()) for name in counts()}
     for path, n in by_path.items():
-        kind = "block" if path in BLOCK_PATHS else "warp"
-        check(n[f"rmsnorm/{kind}"] == n["rmsnorm"],
-              f"{path}: rmsnorm launches by variant {n} (every one must be on the {kind} kernel)")
+        split = NORM_SPLITS.get(path, {"warp": 1})
+        check(all(n[f"rmsnorm/{v}"] * sum(split.values()) == n["rmsnorm"] * split.get(v, 0)
+                  for v in rn_mod.VARIANTS),
+              f"{path}: rmsnorm launches by variant {n} (they must split as {split} a call)")
         kind = "simt" if path in SIMT_SSD_PATHS else "mma"
         check(n[f"ssd_chunk/{kind}"] == n["ssd_chunk"],
               f"{path}: ssd_chunk launches by variant {n} (every one must be on the {kind} kernel)")

@@ -12,10 +12,13 @@ every config with mamba layers), and the mixture-of-experts
 granite-moe-1b-a400m (32 experts, top-8, capacity factor 1.25; with
 ``--event-loop`` each padded prefill chunk is routed with a capacity of
 its own, so its streams need not equal ``ServeEngine``'s, as in the
-reference).  ``--smoke`` serves the tiny same-family config; ``--layers
-N`` keeps the full width and cuts the depth
-to the first N layers (mistral-large-123b's 88 layers are 245 GB in bf16,
-more than one card holds).
+reference), and deepseek-v3-671b (Multi-head Latent Attention over a
+latent cache, 256 experts, top-8, a shared expert, sigmoid scoring; serve
+it with ``--layers 4``).  ``--smoke`` serves the tiny same-family config;
+``--layers N`` keeps the full width and cuts the depth to the first N
+layers (mistral-large-123b's 88 layers are 245 GB in bf16 and
+deepseek-v3-671b's 61 are 1.34 TB, more than one card holds; deepseek's
+first 4, its 3 ``mla_dense`` layers and one ``mla_moe``, are 31.6 GB).
 
 ``--overlay`` serves through the JIT-assembled accelerator path: prefill and
 decode are traced by the overlay frontend, placed on a 3x3 tile grid and
@@ -114,7 +117,9 @@ def _launches() -> dict[str, int]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="a registered config, e.g. phi3-mini-3.8b, gemma2-27b, "
+                         "granite-moe-1b-a400m, or deepseek-v3-671b with --layers 4")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=None, metavar="N",
                     help="serve only the first N decoder layers (a whole "

@@ -1,17 +1,20 @@
 """Transformer layers: RoPE, RMSNorm, attention over a KV cache (full or
-sliding-window, with gemma2's logit softcap and query scaling), the
+sliding-window, with gemma2's logit softcap and query scaling),
+deepseek-v3's Multi-head Latent Attention (MLA) over a latent cache, the
 SwiGLU / GeGLU MLP.
 
 Every layer is a plain function of a parameter dict and tensors.  The
 functions are functional (no in-place updates), so the overlay's tracer can
 capture them.
 
-Port of the dense subset of ``repro/models/layers.py``.  Attention over a
-KV cache — cached prefill and decode, including the ragged per-row decode
-branch (``layers.py:314-332``) — is plain tensor code in the reference
-(``layers.py:304-351``) and plain PyTorch here.  Attention without a cache
-(the training loss, the cache-free forward) runs the flash_attention
-kernel through its custom op.
+Port of the dense and MLA subsets of ``repro/models/layers.py``.  Attention
+over a KV cache — cached prefill and decode, including the ragged per-row
+decode branch (``layers.py:314-332``) — is plain tensor code in the
+reference (``layers.py:304-351``) and plain PyTorch here.  Attention without
+a cache (the training loss, the cache-free forward) runs the
+flash_attention kernel through its custom op, except MLA's, whose q/k width
+(nope + rope) differs from its v width: the reference's dispatcher sends
+that to plain code (``layers.py:241-247``), and so does the port.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models.params import dense, norm_scale
 
 
 # ---------------------------------------------------------------------------
@@ -204,3 +208,130 @@ def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
                        scale=scale, q_offset=idx, kv_len=idx + s)
     o = o.transpose(1, 2).reshape(b, s, hq * hd)
     return linear(o, p["wo"]), {"k": ck, "v": cv, "index": idx + s}
+
+
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (deepseek-v3)
+# ---------------------------------------------------------------------------
+def mla_spec(cfg: ArchConfig) -> dict:
+    """``repro/models/layers.py::mla_spec`` (:370): the query's low-rank
+    path (``wq_a``, ``q_norm``, ``wq_b``), the joint key/value latent and
+    the shared rope key (``wkv_a``, ``kv_norm``), the latent's per-head
+    up-projection to (nope key, value) (``wkv_b``) and the output."""
+    d, h, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    nope, rope_d, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": dense(d, cfg.q_lora_rank),
+        "q_norm": norm_scale(cfg.q_lora_rank),
+        "wq_b": dense(cfg.q_lora_rank, h * (nope + rope_d)),
+        "wkv_a": dense(d, r + rope_d),
+        "kv_norm": norm_scale(r),
+        "wkv_b": dense(r, h * (nope + vh)),
+        "wo": dense(h * vh, d),
+    }
+
+
+def mla_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
+    """The latent cache of an MLA layer (``mla_cache_spec``, :464): the
+    normed latent ``c_kv`` (B, Smax, kv_lora_rank) and the roped shared key
+    ``k_rope`` (B, Smax, qk_rope_head_dim), bf16, and the write index."""
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=torch.bfloat16,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                  dtype=torch.bfloat16, device=device),
+            "index": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _heads_first(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, n) -> (H, B*S, n), contiguous: a bmm operand batched over
+    heads."""
+    b, s, h, n = t.shape
+    return t.permute(2, 0, 1, 3).contiguous().reshape(h, b * s, n)
+
+
+def _batch_first(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, n) -> (B, H*S, n), contiguous: a bmm operand batched over
+    the batch, its rows head-major."""
+    b, s, h, n = t.shape
+    return t.permute(0, 2, 1, 3).contiguous().reshape(b, h * s, n)
+
+
+def mla_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+            positions: torch.Tensor, cache: dict | None):
+    """Multi-head Latent Attention (``repro/models/layers.py::mla_fwd``,
+    :386).  x: (B, S, D).  Returns (out, updated_cache).
+
+    Without a cache (the cache-free forward) the per-head keys and values
+    are materialized from the latent and attended with the plain
+    :func:`_attention` at q/k width nope + rope and v width v_head_dim.
+    Over a cache (cached prefill, decode) the up-projection is absorbed:
+    the queries are taken into the latent space, scored against the cached
+    latent and the shared rope key, and the context is projected out per
+    head — the keys and values are never materialized.  This branch is f32
+    throughout, its probabilities included (the reference's is).  Its
+    products are each one ``torch.bmm`` over explicitly laid out operands:
+    the query and value projections batched over heads, the two score
+    products and the context product batched over the batch.  A
+    ``positions`` of (B, S) takes the ragged branch: one-hot per-row
+    latent writes and per-row query positions."""
+    b, s, _ = x.shape
+    h, r = cfg.num_heads, cfg.kv_lora_rank
+    nope, rope_d, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    scale = (nope + rope_d) ** -0.5
+
+    q_lat = rmsnorm_fwd(p["q_norm"], linear(x, p["wq_a"]), cfg.norm_eps)
+    q = linear(q_lat, p["wq_b"]).reshape(b, s, h, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    kv_a = linear(x, p["wkv_a"])                               # (B, S, r + rope)
+    # the latent is a strided slice of kv_a: the kernel takes contiguous rows
+    c_kv = rmsnorm_fwd(p["kv_norm"], kv_a[..., :r].contiguous(), cfg.norm_eps)
+    k_rope = kv_a[..., r:].reshape(b, s, 1, rope_d)
+
+    cos, sin = rope_cos_sin(positions, rope_d, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope, cos, sin)
+
+    if cache is None:
+        kv = linear(c_kv, p["wkv_b"]).reshape(b, s, h, nope + vh)
+        k = torch.cat([kv[..., :nope], k_rope.expand(b, s, h, rope_d)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        o = _attention(q_full.transpose(1, 2), k.transpose(1, 2),
+                       kv[..., nope:].transpose(1, 2), window=None, softcap=None,
+                       scale=scale, q_offset=0, kv_len=s)
+        o = o.transpose(1, 2).reshape(b, s, h * vh)
+        return linear(o, p["wo"]), None
+
+    idx = cache["index"]
+    smax = cache["c_kv"].shape[1]
+    if positions.dim() >= 2:
+        # ragged decode (s == 1): one-hot per-row latent writes, per-row
+        # query positions; the scalar index keeps ticking, unread
+        pos_b = positions[:, 0].to(torch.int32)                   # (B,)
+        sel = (torch.arange(smax, device=x.device)[None, :] == pos_b[:, None])[:, :, None]
+        ckv = torch.where(sel, c_kv.to(cache["c_kv"].dtype), cache["c_kv"])
+        krc = torch.where(sel, k_rope[:, :, 0].to(cache["k_rope"].dtype), cache["k_rope"])
+        qpos = (pos_b[:, None] + torch.arange(s, device=x.device)[None, :])[:, None, :, None]
+    else:
+        ckv = cache_update(cache["c_kv"], c_kv, idx, axis=1)      # (B, Smax, r)
+        krc = cache_update(cache["k_rope"], k_rope[:, :, 0], idx, axis=1)
+        qpos = (idx + torch.arange(s, device=x.device))[None, None, :, None]
+
+    wkv_b = p["wkv_b"].reshape(r, h, nope + vh)
+    w_k = wkv_b[..., :nope].permute(1, 2, 0).contiguous().float()  # (h, nope, r)
+    w_v = wkv_b[..., nope:].permute(1, 0, 2).contiguous().float()  # (h, r, vh)
+
+    q_abs = torch.bmm(_heads_first(q_nope.float()), w_k)        # (h, B*S, r)
+    q_abs = _batch_first(q_abs.reshape(h, b, s, r).permute(1, 2, 0, 3))   # (B, h*S, r)
+    ckv_f, krc_f = ckv.float(), krc.float()
+    scores = (torch.bmm(q_abs, ckv_f.transpose(1, 2)) +
+              torch.bmm(_batch_first(q_rope.float()), krc_f.transpose(1, 2))) * scale
+    # causal within the incoming window: the query at idx+i sees keys <= idx+i
+    kpos = torch.arange(smax, device=x.device)[None, None, None, :]
+    scores = torch.where(kpos <= qpos, scores.reshape(b, h, s, smax), -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.bmm(probs.reshape(b, h * s, smax), ckv_f)      # (B, h*S, r)
+    ctx = _heads_first(ctx.reshape(b, h, s, r).permute(0, 2, 1, 3))   # (h, B*S, r)
+    o = torch.bmm(ctx, w_v).reshape(h, b, s, vh).permute(1, 2, 0, 3)  # (B, S, h, vh)
+    o = o.reshape(b, s, h * vh).to(x.dtype)
+    return linear(o, p["wo"]), {"c_kv": ckv, "k_rope": krc, "index": idx + s}

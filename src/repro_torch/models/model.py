@@ -5,8 +5,8 @@ Port of ``repro/models/model.py`` (``cross_entropy`` :25, ``loss_fn`` :51,
 ``init_cache`` :92, ``prefill`` :96, ``decode_step`` :150,
 ``prefill_chunk`` :164, ``_current_index`` :185, ``build_step_graph``
 :203) for decoder LMs of dense (full or sliding-window), mamba,
-shared-attention (zamba2) and mixture-of-experts (granite; serving only)
-layers.
+shared-attention (zamba2), mixture-of-experts (granite; serving only) and
+MLA (deepseek-v3's ``mla_dense``/``mla_moe``; serving only) layers.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import params as pm
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import mla_cache
 from repro_torch.models.params import layer_kinds
 from repro_torch.models.ssm import ssm_cache
 
@@ -47,7 +48,9 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
     """Returns (loss, metrics) for a decoder LM.  batch: ``tokens``
     and ``labels`` (tokens shifted by the caller), optional ``mask``.
     MoE configs are refused: the reference adds ``aux_weight`` times the
-    routers' load-balance loss, which the port's forward does not carry."""
+    routers' load-balance loss, which the port's forward does not carry;
+    so is multi-token prediction (deepseek-v3), whose second loss runs the
+    ``mtp`` module (``repro/models/model.py:73-83``)."""
     if cfg.is_encdec or cfg.frontend or cfg.mtp_depth or cfg.num_experts:
         raise NotImplementedError(
             f"{cfg.name}: the loss of the enc-dec, vlm, multi-token-"
@@ -66,7 +69,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: "str | torch.device | None" = None) -> list[dict]:
     """Zeroed caches, one dict per layer: a bf16 KV cache
     ``{"k", "v", "index"}`` for an attention layer (the reference's cache is
-    bf16 whatever the parameter dtype), the conv windows and SSD state
+    bf16 whatever the parameter dtype), the bf16 latent cache
+    ``{"c_kv", "k_rope", "index"}`` (:func:`~repro_torch.models.layers.
+    mla_cache`) for an MLA layer, the conv windows and SSD state
     (:func:`~repro_torch.models.ssm.ssm_cache`) for a mamba layer.  Every
     ``shared_attn`` occurrence gets a cache of its own, though all of them
     read one weight set (the reference's ``cache_spec``,
@@ -79,8 +84,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
                 "index": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    return [ssm_cache(cfg, batch, dev) if kind == "mamba" else kv()
-            for kind in layer_kinds(cfg)]
+    def one(kind):
+        if kind == "mamba":
+            return ssm_cache(cfg, batch, dev)
+        if kind.startswith("mla"):
+            return mla_cache(cfg, batch, max_len, dev)
+        return kv()
+
+    return [one(kind) for kind in layer_kinds(cfg)]
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, caches: list):
@@ -129,7 +140,8 @@ def prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 def _current_index(cfg: ArchConfig, caches: list) -> torch.Tensor:
     """The shared decode position: the first attention layer's cache index
     (mamba layers keep none; a pure-SSM model has no position, so 0).  In
-    zamba2 that is layer 8, the first ``shared_attn`` occurrence."""
+    zamba2 that is layer 8, the first ``shared_attn`` occurrence; an MLA
+    layer's latent cache keeps its index as a KV cache does."""
     for kind, c in zip(layer_kinds(cfg), caches):
         if kind != "mamba":
             return c["index"]

@@ -10,10 +10,16 @@ depends on its kind: ``dense``, ``local``, ``global`` or ``shared_attn``
 (attention + MLP; gemma2's sliding-window and full-attention layers share
 the dense spec), ``moe`` (attention + the mixture-of-experts FFN of
 :mod:`repro_torch.models.moe`: a router and the experts' weights stacked
-as (E, d, f)) or ``mamba`` (the Mamba-2 mixer of
+as (E, d, f)), ``mla_dense`` / ``mla_moe`` (deepseek-v3's Multi-head Latent
+Attention, :func:`~repro_torch.models.layers.mla_spec`, + the MLP or the
+mixture-of-experts FFN) or ``mamba`` (the Mamba-2 mixer of
 :mod:`repro_torch.models.ssm`).  With ``cfg.post_norms`` an attention layer
 also has the post-sublayer norms ``post_ln1`` and ``post_ln2``
-(``repro/models/transformer.py:51-53``).
+(``repro/models/transformer.py:51-53``).  A config with ``mtp_depth``
+(deepseek-v3) also carries the multi-token-prediction module ``spec["mtp"]``
+(``proj``, a ``dense`` layer and ``norm``, ``transformer.py:86-90``):
+initialized and counted as in the reference, run by neither package's
+serving.
 
 A ``shared_attn`` layer (zamba2) owns no entry of ``spec["layers"]``: each
 group that has the kind holds ONE weight set, ``spec["shared"]["g<i>"]``,
@@ -42,7 +48,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
-SERVED_KINDS = ("dense", "local", "global", "mamba", "shared_attn", "moe")
+SERVED_KINDS = ("dense", "local", "global", "mamba", "shared_attn", "moe",
+                "mla_dense", "mla_moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +80,7 @@ def layer_kinds(cfg: ArchConfig) -> list[str]:
         raise NotImplementedError(
             f"{cfg.name}: the port serves decoder layers of kinds "
             f"{list(SERVED_KINDS)} only (got kinds {sorted(set(kinds))}); "
-            f"MLA, encoder-decoder and vlm models wait for "
+            f"encoder-decoder and vlm models wait for "
             f"ROADMAP queue 1, \"Other archs\"")
     return kinds
 
@@ -107,15 +114,16 @@ def layer_spec(cfg: ArchConfig, kind: str) -> dict:
     if kind == "mamba":
         from repro_torch.models.ssm import ssm_spec   # ssm imports this module
         return {"ln1": norm_scale(d), "mixer": ssm_spec(cfg)}
-    spec = {
-        "ln1": norm_scale(d),
-        "attn": {"wq": dense(d, cfg.num_heads * hd),
-                 "wk": dense(d, cfg.num_kv_heads * hd),
-                 "wv": dense(d, cfg.num_kv_heads * hd),
-                 "wo": dense(cfg.num_heads * hd, d)},
-        "ln2": norm_scale(d),
-    }
-    if kind == "moe":
+    if kind.startswith("mla"):
+        from repro_torch.models.layers import mla_spec   # layers imports this module
+        attn = mla_spec(cfg)
+    else:
+        attn = {"wq": dense(d, cfg.num_heads * hd),
+                "wk": dense(d, cfg.num_kv_heads * hd),
+                "wv": dense(d, cfg.num_kv_heads * hd),
+                "wo": dense(cfg.num_heads * hd, d)}
+    spec = {"ln1": norm_scale(d), "attn": attn, "ln2": norm_scale(d)}
+    if kind in ("moe", "mla_moe"):
         from repro_torch.models.moe import moe_spec   # moe imports this module
         spec["ffn"] = moe_spec(cfg)
     else:
@@ -139,6 +147,10 @@ def model_spec(cfg: ArchConfig) -> dict:
     spec["final_norm"] = norm_scale(cfg.d_model)
     if not cfg.tie_embeddings:
         spec["lm_head"] = dense(cfg.d_model, cfg.vocab_size)
+    if cfg.mtp_depth:
+        spec["mtp"] = {"proj": dense(2 * cfg.d_model, cfg.d_model),
+                       "layer": layer_spec(cfg, "dense"),
+                       "norm": norm_scale(cfg.d_model)}
     return spec
 
 
@@ -200,7 +212,9 @@ def from_jax_numpy(tree: dict, cfg: ArchConfig,
     ``["shared"]["g<i>"]``; its stack holds only the other kinds, so the
     unstacking skips the ``shared_attn`` positions of each unit.  A ``moe``
     layer's stacked experts, ``(rep, E, d, f)``, and router, ``(rep, d,
-    E)``, unstack like any other leaf.  bf16 leaves
+    E)``, unstack like any other leaf, as do an MLA layer's projections and
+    latent norms; deepseek's unstacked ``mtp`` module is carried as it is.
+    bf16 leaves
     arrive as float32 numpy (numpy has no bf16) and are cast back to each
     leaf's own dtype — an exact round trip.  ``dtype`` casts every leaf to
     one dtype instead (the float32 parity tests)."""

@@ -2,7 +2,9 @@
 
 Port of the dense (with gemma2's local/global layers and post-sublayer
 norms), mixture-of-experts (``moe``: attention + :mod:`repro_torch.models.
-moe`), Mamba-2 and hybrid (zamba2's ``shared_attn``) paths of
+moe`), MLA (deepseek-v3's ``mla_dense`` and ``mla_moe``: Multi-head Latent
+Attention + the MLP or the MoE FFN), Mamba-2 and hybrid (zamba2's
+``shared_attn``) paths of
 ``repro/models/transformer.py``.  The reference scans each block of
 stacked layers (``transformer.py:179-222``); the port walks the layers of
 ``params.layer_plan``: each layer's kind and where its weights are, its own
@@ -10,8 +12,9 @@ dict of ``params["layers"]`` or its group's shared set (every
 ``shared_attn`` occurrence of a group reads the one set, as the
 reference's scan body reads ``shared["shared_attn"]``, ``transformer.py:
 182-190``).  Caches are one dict per layer, shared_attn occurrences
-included: ``{"k", "v", "index"}`` for an attention layer,
-``{"conv": {"x", "b", "c"}, "ssm"}`` for a mamba layer.  Without caches,
+included: ``{"k", "v", "index"}`` for an attention layer, the latent
+``{"c_kv", "k_rope", "index"}`` for an MLA layer, ``{"conv": {"x", "b",
+"c"}, "ssm"}`` for a mamba layer.  Without caches,
 under autograd, each layer is rematerialized in the backward
 (``cfg.remat == "full"``), the counterpart of ``jax.checkpoint`` on the
 reference's scan body (``transformer.py:199-200``).
@@ -23,7 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import attn_fwd, linear, mlp_fwd, rmsnorm_fwd
+from repro_torch.models.layers import attn_fwd, linear, mla_fwd, mlp_fwd, rmsnorm_fwd
 from repro_torch.models.moe import moe_fwd
 from repro_torch.models.params import layer_params, layer_plan
 from repro_torch.models.ssm import ssm_fwd
@@ -38,20 +41,23 @@ def _maybe_post(cfg: ArchConfig, p: dict, key: str, x: torch.Tensor) -> torch.Te
 def layer_fwd(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig, *,
               positions: torch.Tensor, cache: dict | None):
     """One layer of kind ``dense``, ``local``, ``global``, ``shared_attn``
-    (``p`` is its group's shared set), ``moe`` or ``mamba``.  Returns (x,
-    new_cache).  A ``moe`` layer's load-balance loss is dropped: serving
-    does not read it, and the port's loss does not train MoE yet
-    (``model.loss_fn``)."""
+    (``p`` is its group's shared set), ``moe``, ``mla_dense``, ``mla_moe``
+    or ``mamba``.  Returns (x, new_cache).  The load-balance loss of a
+    ``moe`` or ``mla_moe`` layer is dropped: serving does not read it, and
+    the port's loss does not train MoE yet (``model.loss_fn``)."""
     rs = cfg.residual_scale
     h = rmsnorm_fwd(p["ln1"], x, cfg.norm_eps)
     if kind == "mamba":
         h, new_cache = ssm_fwd(p["mixer"], h, cfg, cache=cache)
         return x + rs * h, new_cache
-    h, new_cache = attn_fwd(p["attn"], h, cfg, kind=kind, positions=positions,
-                            cache=cache)
+    if kind.startswith("mla"):
+        h, new_cache = mla_fwd(p["attn"], h, cfg, positions=positions, cache=cache)
+    else:
+        h, new_cache = attn_fwd(p["attn"], h, cfg, kind=kind, positions=positions,
+                                cache=cache)
     x = x + rs * _maybe_post(cfg, p, "post_ln1", h)
     h = rmsnorm_fwd(p["ln2"], x, cfg.norm_eps)
-    if kind == "moe":
+    if kind in ("moe", "mla_moe"):
         b, s, d = h.shape
         h = moe_fwd(p["ffn"], h.reshape(b * s, d), cfg)[0].reshape(b, s, d)
     else:

@@ -121,3 +121,17 @@ def test_checker_sees_the_moe_family(module):
         from repro_torch.configs import list_archs
 
         assert "granite-moe-1b-a400m" in list_archs()
+
+
+@pytest.mark.parametrize("module", ["configs/deepseek_v3_671b.py", "models/layers.py"])
+def test_checker_sees_the_mla_family(module):
+    """deepseek-v3-671b's config and the Multi-head Latent Attention layer
+    are the port's own copies: the checker above covers them, and they
+    import neither jax nor repro."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    if module == "configs/deepseek_v3_671b.py":
+        from repro_torch.configs import list_archs
+
+        assert "deepseek-v3-671b" in list_archs()

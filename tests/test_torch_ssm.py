@@ -526,8 +526,8 @@ def test_full_config_param_count_equals_the_jax_spec():
 
 
 @pytest.mark.parametrize("blocks", [
-    ((("mla_moe",), 2),),
-], ids=["mla_moe"])
+    ((("dec",), 2),),
+], ids=["dec"])
 def test_unported_kinds_still_raise(blocks):
     cfg = get_config(ARCH).scaled(blocks=blocks)
     with pytest.raises(NotImplementedError, match='ROADMAP queue 1, "Other archs"'):
