@@ -14,8 +14,9 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
    also across 64 chunks of steep decay, where the op's gradients must be
    finite; flash_attention runs the variant its wrapper picks (the
    tensor-core kernel for bf16 with a head dim that is a multiple of 16, the
-   CUDA-core kernel otherwise), ssd_chunk every variant that takes each
-   case; checks with ``torch.profiler``
+   CUDA-core kernel otherwise; not causal with as many queries as keys at
+   seamless's encoder shape, and with 16 queries over 4096 keys), ssd_chunk
+   every variant that takes each case; checks with ``torch.profiler``
    that one vmul_reduce call and one rmsnorm call each run exactly one CUDA
    kernel, on every variant;
 3. runs the paper's workload, ``sum(a * b)``, through ``Overlay(3, 3).jit``
@@ -114,7 +115,22 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     left; then times the plain 2048-token prefill and a batch-2 decode,
     each to a synchronize, the decode beside the time to read its
     weights once;
-14. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
+14. ``[serve-seamless]``: serves the encoder-decoder seamless-m4t-medium
+    at full width and depth (12 ``enc`` + 12 ``dec`` layers, the audio
+    stub's ``frontend_proj``; random bf16 weights from the seed, 1.96 GB)
+    through the model API (``prefill(enc_in=frames)``, then greedy
+    ``decode_step``; no engine serves an encoder-decoder, the reference's
+    passes no encoder input) at batch 2, max_len 4096: frames of 1024 with
+    16 new tokens, then 4096 with 32, each after a 2-token prompt, through
+    ``Overlay(3, 3).jit`` of both steps and plainly: the logits of every
+    call bit-identical (digest) and finite, identical streams, 62 rmsnorm
+    launches a prefill and 37 a decode (warp, d 1024), 12 flash_attention
+    launches a prefill (the encoder's, not causal, tensor-core kernel) and
+    none a decode, no ssd_chunk, 12 ``kernels/attention`` nodes in each of
+    the two traced prefills; under 1 GiB left; then times the plain
+    4096-frame prefill and a batch-2 decode, each to a synchronize, the
+    decode beside the time to read its weights and caches once;
+15. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
     assembled on an all-LARGE ``Overlay(3, 3)``: logits bit-identical to
     ``forward`` + ``unembed``, 65 rmsnorm and 32 flash_attention launches;
     then zamba2-7b's at (1, 4096): bit-identical, 95 rmsnorm (warp), 68
@@ -125,19 +141,22 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     bit-identical, 9 rmsnorm on the block kernel and 8 on the warp kernel,
     no flash_attention (MLA's cache-free attention has q/k width 192 and v
     width 128: plain code, as the reference's);
-15. checks the models' outputs: finite full-width logits, small float32
+16. checks the models' outputs: finite full-width logits, small float32
     phi3, mamba2, gemma2 (window 8: prefill, three decodes and a
     cache-free forward through the flash kernel), zamba2 (state 64: the
     same), granite-moe (32 experts, top-8, capacity 1 at a batch-2
-    decode: the same) and deepseek (MLA over latents of 128, 32 experts,
-    sigmoid scoring: the same, and a ragged decode) models on the card
+    decode: the same), deepseek (MLA over latents of 128, 32 experts,
+    sigmoid scoring: the same, and a ragged decode) and seamless (d 256,
+    2 + 2 layers, 256 frames: prefill, three decodes and a cache-free
+    forward, whose flash launches are not causal with Sq = Sk in the
+    encoder and Sq != Sk in the cross-attention) models on the card
     (kernels) against the same models on the CPU (plain versions), serving
     and one train step;
-16. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
+17. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
     the event loop, gemma2 (smoke) through the overlay, and the train
     launcher with an injected failure: it restarts from its checkpoint and
     ends with rc 0;
-17. ``[warm-restart]``: boots the serve launcher in fresh processes on one
+18. ``[warm-restart]``: boots the serve launcher in fresh processes on one
     persistent bitstream store directory — phi3-mini-3.8b at full width
     (the ``[serve]`` shape) plain, cold (``--store`` on an empty
     directory), warm (the same directory) and garbled (one entry flipped
@@ -152,10 +171,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     assembly or load, the first call), bytes on disk and load-vs-build ms
     per entry, the sanitizer's host ms per check, mamba2's downloads cold
     and warm;
-18. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
+19. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
     (lock lint, live checkers under the sanitizer, a two-member fleet's
     records and ``describe()``, the store, injected faults) must exit 0;
-19. prints the kernels line (time per call, host included, and device time
+20. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
     and ssd_chunk's CUDA-core kernels' times), timings at other shapes
@@ -167,8 +186,8 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, the overlay-served runs, the relocation
 and specialization rounds, the fleet runs, the full-width training runs,
-the dense family's, zamba2's, granite's and deepseek's runs and the step
-graphs' calls)
+the dense family's, zamba2's, granite's, deepseek's and seamless's runs
+and the step graphs' calls)
 and read just
 after; launches made to compare or time a kernel are not counted.  A
 launcher boot of ``[warm-restart]`` is a process of its own: it counts from
@@ -294,6 +313,18 @@ DEEPSEEK_LAYERS = 4
 DEEPSEEK_MAX_LEN, DEEPSEEK_LONG, DEEPSEEK_LONG_NEW = 2080, 2048, 16
 DEEPSEEK_REQUESTS = ((PROMPT, MAX_NEW),) * REQUESTS + ((DEEPSEEK_LONG, DEEPSEEK_LONG_NEW),)
 DEEPSEEK_D, DEEPSEEK_Q_LORA, DEEPSEEK_KV_LORA = 7168, 1536, 512
+# the encoder-decoder seamless-m4t-medium at full width and depth (12 enc +
+# 12 dec layers, d 1024): batch 2, max_len 4096 (the cross cache is as long
+# as the self cache, so the encoder's frames must fit it), two rounds of a
+# 2-token decoder prompt after (frames, new tokens): a short utterance and a
+# long one, 4096 frames, the long-prompt length of the granite and zamba2
+# phases.  Its encoder's self-attention is flash, not causal, q = k = v
+# (2, 16, S, 64); a cache-free cross-attention has Sq != Sk (16 over 4096)
+SEAMLESS = "seamless-m4t-medium"
+SEAMLESS_MAX_LEN, SEAMLESS_PROMPT = 4096, 2
+SEAMLESS_ROUNDS = ((1024, 16), (4096, 32))
+SEAMLESS_D, SEAMLESS_HEADS, SEAMLESS_HEAD_DIM = 1024, 16, 64
+SEAMLESS_CROSS_Q = 16
 RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOOP_CHUNK, 3072),
                   (TRAIN_BATCH, TRAIN_SEQ, 3072),
                   *((1, s, MAMBA_D) for s in MAMBA_PROMPTS), (MAMBA_BATCH, 1, MAMBA_D),
@@ -307,7 +338,12 @@ RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOO
                   # deepseek's: ln1/ln2/final (the block kernel), the query
                   # and key/value latents (the warp kernel)
                   *((*rows, d) for d in (DEEPSEEK_D, DEEPSEEK_Q_LORA, DEEPSEEK_KV_LORA)
-                    for rows in ((BATCH, 1), (1, PROMPT), (1, DEEPSEEK_LONG))))
+                    for rows in ((BATCH, 1), (1, PROMPT), (1, DEEPSEEK_LONG))),
+                  # seamless's encoder at 4096 and 1024 frames, its decoder
+                  # prompt and decode rows (d 1024, the warp kernel)
+                  (BATCH, SEAMLESS_ROUNDS[1][0], SEAMLESS_D),
+                  (BATCH, SEAMLESS_ROUNDS[0][0], SEAMLESS_D),
+                  (BATCH, SEAMLESS_PROMPT, SEAMLESS_D), (BATCH, 1, SEAMLESS_D))
 
 
 def log(msg: str) -> None:
@@ -521,28 +557,36 @@ def phase_one_launch(gen: torch.Generator) -> None:
         log(f"[kernels] {case}: one kernel per call ({kernel}), by torch.profiler")
 
 
-FLASH_CASES = [   # (B, Hq, Hkv, S, D, dtype, options)
-    (TRAIN_BATCH, 32, 32, TRAIN_SEQ, 96, torch.bfloat16, {}),   # the training path
-    (2, 8, 2, 256, 64, torch.bfloat16, {}),                     # GQA
-    (2, 8, 2, 256, 64, torch.float32, {}),
-    (2, 8, 2, 512, 128, torch.bfloat16, {}),                    # GQA at d 128
-    (1, 4, 4, 384, 96, torch.float32, dict(window=100)),
-    (1, 4, 4, 384, 96, torch.bfloat16, dict(window=100)),
-    (1, 4, 2, 256, 32, torch.float32, dict(softcap=30.0, scale=0.1)),
-    (1, 4, 2, 256, 32, torch.bfloat16, dict(softcap=30.0, scale=0.1)),
-    (1, 4, 4, 200, 128, torch.float32, dict(causal=False)),     # ragged tiles
-    (1, 4, 2, 77, 96, torch.bfloat16, {}),                      # ragged, bf16
-    (1, 4, 2, 200, 16, torch.bfloat16, dict(causal=False)),
-    (1, 4, 4, 1, 64, torch.bfloat16, {}),
-    (1, 4, 2, 256, 40, torch.bfloat16, {}),                     # bf16 on the CUDA cores
+FLASH_CASES = [   # (B, Hq, Hkv, Sq, Sk, D, dtype, options)
+    (TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 96, torch.bfloat16, {}),   # the training path
+    (2, 8, 2, 256, 256, 64, torch.bfloat16, {}),                # GQA
+    (2, 8, 2, 256, 256, 64, torch.float32, {}),
+    (2, 8, 2, 512, 512, 128, torch.bfloat16, {}),               # GQA at d 128
+    (1, 4, 4, 384, 384, 96, torch.float32, dict(window=100)),
+    (1, 4, 4, 384, 384, 96, torch.bfloat16, dict(window=100)),
+    (1, 4, 2, 256, 256, 32, torch.float32, dict(softcap=30.0, scale=0.1)),
+    (1, 4, 2, 256, 256, 32, torch.bfloat16, dict(softcap=30.0, scale=0.1)),
+    (1, 4, 4, 200, 200, 128, torch.float32, dict(causal=False)),   # ragged tiles
+    (1, 4, 2, 77, 77, 96, torch.bfloat16, {}),                  # ragged, bf16
+    (1, 4, 2, 200, 200, 16, torch.bfloat16, dict(causal=False)),
+    (1, 4, 4, 1, 1, 64, torch.bfloat16, {}),
+    (1, 4, 2, 256, 256, 40, torch.bfloat16, {}),                # bf16 on the CUDA cores
     # gemma2-27b's local and global layers at seq 6144 (the window acts)
-    (1, 32, 16, 6144, 128, torch.bfloat16, dict(window=4096, softcap=50.0, scale=144 ** -0.5)),
-    (1, 32, 16, 6144, 128, torch.bfloat16, dict(softcap=50.0, scale=144 ** -0.5)),
+    (1, 32, 16, 6144, 6144, 128, torch.bfloat16,
+     dict(window=4096, softcap=50.0, scale=144 ** -0.5)),
+    (1, 32, 16, 6144, 6144, 128, torch.bfloat16, dict(softcap=50.0, scale=144 ** -0.5)),
     # zamba2-7b's shared_attn occurrences in its 4096-token cache-free forward
-    (ZAMBA_FLASH[0], ZAMBA_FLASH[1], ZAMBA_FLASH[1], ZAMBA_FLASH[2], ZAMBA_FLASH[3],
-     torch.bfloat16, {}),
+    (ZAMBA_FLASH[0], ZAMBA_FLASH[1], ZAMBA_FLASH[1], ZAMBA_FLASH[2], ZAMBA_FLASH[2],
+     ZAMBA_FLASH[3], torch.bfloat16, {}),
     # granite-moe-1b-a400m's 24 layers in its 4096-token cache-free forward
-    (*GRANITE_FLASH, torch.bfloat16, {}),
+    (*GRANITE_FLASH[:4], GRANITE_FLASH[3], GRANITE_FLASH[4], torch.bfloat16, {}),
+    # seamless-m4t-medium's encoder at 4096 and 1024 frames (not causal,
+    # every query tile walks every key tile), and a cache-free
+    # cross-attention, 16 queries over 4096 keys, bf16 and f32
+    *((BATCH, SEAMLESS_HEADS, SEAMLESS_HEADS, n, n, SEAMLESS_HEAD_DIM, torch.bfloat16,
+       dict(causal=False)) for n, _ in reversed(SEAMLESS_ROUNDS)),
+    *((BATCH, SEAMLESS_HEADS, SEAMLESS_HEADS, SEAMLESS_CROSS_Q, SEAMLESS_ROUNDS[1][0],
+       SEAMLESS_HEAD_DIM, dt, dict(causal=False)) for dt in (torch.bfloat16, torch.float32)),
 ]
 
 
@@ -560,22 +604,22 @@ def check_flash(gen: torch.Generator) -> float:
     2**-9 * max|v|, so it gets 2**-8 * max|v| more (the max over the keys of
     the row's kv head, per column)."""
     worst = 0.0
-    for b, hq, hkv, s, d, dt, kw in FLASH_CASES:
-        q = torch.randn(b, hq, s, d, generator=gen, device=DEV).to(dt)
-        k = torch.randn(b, hkv, s, d, generator=gen, device=DEV).to(dt)
-        v = torch.randn(b, hkv, s, d, generator=gen, device=DEV).to(dt)
+    for b, hq, hkv, sq, sk, d, dt, kw in FLASH_CASES:
+        q = torch.randn(b, hq, sq, d, generator=gen, device=DEV).to(dt)
+        k = torch.randn(b, hkv, sk, d, generator=gen, device=DEV).to(dt)
+        v = torch.randn(b, hkv, sk, d, generator=gen, device=DEV).to(dt)
         kernel = fa_mod.variant(dt, d)
         k1 = fa_mod.flash_attention(q, k, v, **kw)
         k2 = fa_mod.flash_attention(q, k, v, **kw)
         p = fa_mod.plain(q, k, v, **kw)
         diff = (k1.float() - p.float()).abs()
         tol = fa_mod.tolerance(p, v, kernel)
-        case = f"flash_attention {(b, hq, hkv, s, d)} {dt} {kw} on {kernel}"
+        case = f"flash_attention {(b, hq, hkv, sq, sk, d)} {dt} {kw} on {kernel}"
         check(torch.equal(k1, k2), f"{case}: repeated launches differ")
         check(bool((diff <= tol).all()), f"{case}: max err {diff.max().item()}, "
               f"worst err / tol {(diff / tol).max().item()}")
         worst = max(worst, diff.max().item())
-        log(f"[kernels] flash_attention q ({b}, {hq}, {s}, {d}) kv heads {hkv} "
+        log(f"[kernels] flash_attention q ({b}, {hq}, {sq}, {d}) kv heads {hkv} keys {sk} "
             f"{str(dt)[6:]} {kw or 'causal'} on {kernel}: max err {diff.max().item():.3g} "
             f"(worst err / tol {(diff / tol).max().item():.3f}), bit-identical repeat")
         del q, k, v, k1, k2, p, diff, tol
@@ -2045,8 +2089,9 @@ def logits_digest(logits: torch.Tensor) -> str:
 
 class Digested(Counted):
     """``Counted`` that also keeps a digest of every call's logits, whether
-    they are all finite, and the call's rmsnorm launches by variant and
-    ssd_chunk launches, each taken after the call's time is read."""
+    they are all finite, the call's rmsnorm launches by variant and
+    ssd_chunk launches, and its flash_attention launches by variant, each
+    taken after the call's time is read."""
 
     def __init__(self, fn):
         super().__init__(fn)
@@ -2054,6 +2099,7 @@ class Digested(Counted):
         self.finite: list[bool] = []
         # ({rmsnorm variant: launches}, ssd_chunk launches) of each call
         self.launches: list[tuple[dict[str, int], int]] = []
+        self.flash: list[dict[str, int]] = []       # {flash variant: launches} of each call
 
     def __call__(self, *args):
         before = counts()
@@ -2064,20 +2110,23 @@ class Digested(Counted):
         self.launches.append(({v: after[f"rmsnorm/{v}"] - before[f"rmsnorm/{v}"]
                                for v in rn_mod.VARIANTS},
                               after["ssd_chunk"] - before["ssd_chunk"]))
+        self.flash.append({v: after[f"flash_attention/{v}"] - before[f"flash_attention/{v}"]
+                           for v in fa_mod.VARIANTS})
         return out
 
 
 def norms_per_call(cfg) -> dict[str, int]:
-    """rmsnorm launches a full forward makes, by variant: ln1 of a mamba
-    layer; ln1 and ln2 of an attention layer (and gemma2's two post norms),
-    at d_model; an MLA layer's query and key/value latent norms, at their
-    ranks; the final norm.  A bf16 row (fresh, 16-byte aligned) takes the
+    """rmsnorm launches a full forward of the decoder makes, by variant: ln1
+    of a mamba layer; ln1 and ln2 of an attention layer (and gemma2's two
+    post norms; a ``dec`` layer's ``ln_cross``), at d_model; an MLA layer's
+    query and key/value latent norms, at their ranks; the final norm.  A bf16 row (fresh, 16-byte aligned) takes the
     warp kernel up to ``MAX_WARP_D`` and the block kernel past it; rows
     narrower than 128 take the plain version (``layers.rmsnorm_fwd``) and
     launch nothing."""
     widths = [cfg.d_model]
     for kind in pm.layer_kinds(cfg):
-        widths += [cfg.d_model] * (1 if kind == "mamba" else 4 if cfg.post_norms else 2)
+        widths += [cfg.d_model] * (1 if kind == "mamba" else 4 if cfg.post_norms
+                                   else 3 if kind == "dec" else 2)
         if kind.startswith("mla"):
             widths += [cfg.q_lora_rank, cfg.kv_lora_rank]
     out = dict.fromkeys(rn_mod.VARIANTS, 0)
@@ -2373,6 +2422,189 @@ def phase_serve_deepseek(gen: torch.Generator) -> dict:
     return out
 
 
+def seamless_rounds(cfg) -> list:
+    """The two rounds of ``[serve-seamless]``: (frames (BATCH, S, 1024) bf16,
+    the decoder prompt (BATCH, 2) int32, new tokens), numpy draws from the
+    seed."""
+    rng = np.random.default_rng(SEED)
+    out = []
+    for n, new in SEAMLESS_ROUNDS:
+        frames = rng.standard_normal((BATCH, n, cfg.frontend_dim))
+        prompt = rng.integers(0, cfg.vocab_size, size=(BATCH, SEAMLESS_PROMPT))
+        out.append((torch.from_numpy(frames).to(torch.bfloat16).to(DEV),
+                    torch.from_numpy(prompt.astype(np.int32)).to(DEV), new))
+    return out
+
+
+def serve_seamless(params, cfg, overlay, rounds) -> dict:
+    """Each round through ``prefill(enc_in=frames)`` and ``new`` greedy
+    ``decode_step`` calls on a fresh cache of ``SEAMLESS_MAX_LEN``; with an
+    overlay both steps go through ``overlay.jit`` as ``ServeEngine`` traces
+    its own (a quarter of the fabric each).  Returns the streams, the
+    launches, the seconds, the peak memory and the two wrapped steps."""
+    pf = lambda p, t, c, f: mdl.prefill(p, cfg, t, c, enc_in=f)
+    dec = lambda p, t, c: mdl.decode_step(p, cfg, t, c)
+    if overlay is not None:
+        budget = max(1, overlay.grid.num_tiles // 4)
+        pf = overlay.jit(pf, name=f"{cfg.name}.prefill", tile_budget=budget)
+        dec = overlay.jit(dec, name=f"{cfg.name}.decode", tile_budget=budget)
+    pf, dec = Digested(pf), Digested(dec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()                           # the driven path starts here
+    t0 = time.perf_counter()
+    streams = []
+    for frames, prompt, new in rounds:
+        caches = mdl.init_cache(cfg, BATCH, SEAMLESS_MAX_LEN, DEV)
+        logits, caches = pf(params, prompt, caches, frames)
+        toks = [torch.argmax(logits, -1).to(torch.int32)]
+        for _ in range(new):
+            logits, caches = dec(params, toks[-1][:, None], caches)
+            toks.append(torch.argmax(logits, -1).to(torch.int32))
+        streams += torch.stack(toks, 1).tolist()
+        del caches, logits
+    torch.cuda.synchronize()
+    return {"streams": streams, "launches": counts(), "seconds": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated(), "prefill": pf, "decode": dec}
+
+
+def phase_serve_seamless(gen: torch.Generator) -> dict:
+    """[serve-seamless]: the encoder-decoder seamless-m4t-medium at full
+    width and depth (12 ``enc`` + 12 ``dec`` layers, GELU, untied vocab of
+    256206; random bf16 weights from the seed) through the model API, as
+    no engine serves it (the reference's engine passes no encoder input):
+    two rounds of frames (1024, then 4096) with a 2-token decoder prompt
+    and 16, then 32 greedy decodes, through ``Overlay(3, 3).jit`` and
+    plainly.  The logits of every call bit-identical (digest) and finite,
+    identical streams; rmsnorm 62 times a prefill (the encoder's 2 x 12 and
+    ``enc_norm``, the decoder's 3 x 12 and the final norm) and 37 times a
+    decode, all on the warp kernel (d 1024); flash_attention 12 times a
+    prefill, all on the tensor-core kernel (the encoder's non-causal
+    self-attention), none a decode (the decoder's self- and
+    cross-attention read caches: plain code, as the reference's); no
+    ssd_chunk; 12 ``kernels/attention`` nodes in each traced prefill, two
+    prefill signatures and one decode signature; under 1 GiB left.  Then
+    the plain steps once more, each ended by a synchronize: a 4096-frame
+    prefill and a batch-2 decode, the decode beside the time to read its
+    weights and the caches it attends over once."""
+    cfg = get_config(SEAMLESS)
+    enc, kinds = pm.encoder_kinds(cfg), pm.layer_kinds(cfg)
+    decoder_norms = norms_per_call(cfg)
+    check(cfg.d_model == SEAMLESS_D and enc == ["enc"] * 12 and kinds == ["dec"] * 12
+          and (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim) ==
+          (SEAMLESS_HEADS, SEAMLESS_HEADS, SEAMLESS_HEAD_DIM)
+          and decoder_norms == {"warp": 37, "block": 0}
+          and fa_mod.variant(torch.bfloat16, cfg.resolved_head_dim) == "wgmma"
+          and all(n <= SEAMLESS_MAX_LEN for n, _ in SEAMLESS_ROUNDS), f"{SEAMLESS} config {cfg}")
+    want = {"prefill": ({"warp": 2 * len(enc) + 1 + decoder_norms["warp"], "block": 0}, 0,
+                        {"wgmma": len(enc), "simt": 0}),
+            "decode": (decoder_norms, 0, {"wgmma": 0, "simt": 0})}
+    t0 = time.perf_counter()
+    params = pm.init(cfg, gen, DEV)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(params)) / 1e9
+    rounds = seamless_rounds(cfg)
+    log(f"[serve-seamless] {cfg.name}: {pm.count(params) / 1e9:.3f} B params "
+        f"({cfg.param_count() / 1e9:.3f} B by param_count(), d_model {cfg.d_model}, "
+        f"{len(enc)} enc + {len(kinds)} dec layers, bf16, {gb:.2f} GB) initialized in "
+        f"{time.perf_counter() - t0:.1f}s; rounds (frames, prompt, new) "
+        f"{[(f.shape[1], p.shape[1], n) for f, p, n in rounds]}, batch {BATCH}, max_len "
+        f"{SEAMLESS_MAX_LEN}")
+    runs = {}
+    for name, overlay in (("overlay", Overlay(3, 3)), ("plain", None)):
+        r = serve_seamless(params, cfg, overlay, rounds)
+        pf, dec = r["prefill"], r["decode"]
+        for step, fn in (("prefill", pf), ("decode", dec)):
+            got = [(norms, ssd, flash) for (norms, ssd), flash in zip(fn.launches, fn.flash)]
+            check(all(g == want[step] for g in got),
+                  f"[serve-seamless] {name}: (rmsnorm by variant, ssd_chunk, flash_attention by "
+                  f"variant) launches of each {step} call {got}, not {want[step]}")
+        check(all(pf.finite + dec.finite), f"[serve-seamless] {name}: non-finite logits")
+        n = r["launches"]
+        tokens = sum(len(st) for st in r["streams"])
+        log(f"[serve-seamless] {cfg.name} {name}: {tokens} tokens in {r['seconds']:.2f}s "
+            f"({tokens / r['seconds']:.2f} tok/s), calls prefill {pf.calls} decode {dec.calls}, "
+            f"launches { {k: v for k, v in n.items() if v} }; host ms a prefill (1024, 4096 "
+            f"frames) {[round(t * 1e3, 1) for t in pf.seconds]}; decode {dec.split_ms()}")
+        if overlay is not None:
+            desc = overlay.describe()
+            log(f"[serve-seamless] {cfg.name} overlay: traces {desc['traces']} "
+                f"({desc['trace_seconds']:.1f}s), downloads {desc['downloads']}")
+            sigs = {"prefill": list(pf.fn._entries.values()),
+                    "decode": list(dec.fn._entries.values())}
+            check(len(sigs["prefill"]) == 2 and len(sigs["decode"]) == 1,
+                  f"[serve-seamless] signatures {({k: len(v) for k, v in sigs.items()})}, not "
+                  f"two prefills and one decode")
+            for step, entries in sigs.items():
+                for entry in entries:
+                    graph = entry.lowered.graph
+                    frames = [tuple(a.shape) for a in graph.input_avals() if len(a.shape) == 3
+                              and a.shape[-1] == cfg.frontend_dim]
+                    attn = [nd.name for nd in graph.op_nodes()].count("kernels/attention")
+                    check(attn == (len(enc) if step == "prefill" else 0),
+                          f"[serve-seamless] a traced {step} holds {attn} kernels/attention nodes")
+                    log(f"[serve-seamless] {cfg.name} {step} signature frames {frames}: trace "
+                        f"{entry.trace_seconds:.2f} s, assemble {entry.assemble_seconds:.2f} s; "
+                        f"{len(graph.op_nodes())} op nodes ({len(entry.lowered.unmapped)} "
+                        f"residue, {attn} kernels/attention), "
+                        f"{entry.acc.placement.total_passthrough} pass-through hops")
+            overlay.close()
+        runs[name] = dict(r, tokens=tokens, digests=pf.digests + dec.digests,
+                          calls=pf.calls + dec.calls)
+        for key in ("prefill", "decode"):
+            runs[name].pop(key)
+        del r, pf, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+    ov, pl = runs["overlay"], runs["plain"]
+    check(ov["streams"] == pl["streams"],
+          f"[serve-seamless] overlay and plain streams differ:\n{ov['streams']}\n{pl['streams']}")
+    check(len(ov["digests"]) == len(pl["digests"]) == ov["calls"]
+          and ov["digests"] == pl["digests"],
+          f"[serve-seamless] overlay and plain logits differ on calls "
+          f"{[i for i, (a, b) in enumerate(zip(ov['digests'], pl['digests'])) if a != b]}")
+    check(all(all(0 <= t < cfg.vocab_size for t in st) for st in ov["streams"])
+          and [len(st) for st in ov["streams"]] ==
+          [1 + new for _, new in SEAMLESS_ROUNDS for _ in range(BATCH)],
+          f"[serve-seamless] unexpected token stream shape/range")
+    log(f"[serve-seamless] {cfg.name} overlay / plain tok/s "
+        f"{(ov['tokens'] / ov['seconds']) / (pl['tokens'] / pl['seconds']):.3f}; logits "
+        f"bit-identical (digest) and finite on all {len(ov['digests'])} calls; "
+        f"max_memory_allocated overlay {ov['peak'] / 2**30:.2f} GiB ({ov['peak'] / 1e9:.2f} GB), "
+        f"plain {pl['peak'] / 2**30:.2f} GiB; streams {[st[:6] for st in ov['streams']]}...; "
+        f"distinct tokens per stream {[len(set(st)) for st in ov['streams']]}")
+    frames, prompt, _ = rounds[1]
+    with torch.no_grad():
+        prefill = [_sync_ms(lambda: mdl.prefill(params, cfg, prompt, mdl.init_cache(
+            cfg, BATCH, SEAMLESS_MAX_LEN, DEV), enc_in=frames))[0] for _ in range(2)]
+        _, caches = mdl.prefill(params, cfg, prompt, mdl.init_cache(
+            cfg, BATCH, SEAMLESS_MAX_LEN, DEV), enc_in=frames)
+        tok = prompt[:, :1].contiguous()
+        host, synced = _decode_ms(lambda i: mdl.decode_step(params, cfg, tok, caches))
+    # what a decode call reads once: the decoder's weights and the head (the
+    # embedding gives two rows; the encoder and frontend_proj do not run),
+    # and every self and cross cache slot (the plain attention reads all of
+    # max_len and masks)
+    read = sum(t.numel() * t.element_size() for k, v in params.items()
+               if k in ("layers", "final_norm", "lm_head") for t in pytree.tree_leaves(v))
+    cache_bytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(caches))
+    log(f"[serve-seamless] plain steps ended by a synchronize: a {frames.shape[1]}-frame "
+        f"prefill (batch {BATCH}, {SEAMLESS_PROMPT}-token prompt) {prefill[1]:.1f} ms (first "
+        f"{prefill[0]:.1f}); a batch-{BATCH} decode {synced:.2f} ms a call (the host issues it "
+        f"in {host:.2f} ms), against {read / 1e9:.3f} GB of weights read once: "
+        f"{read / HBM_BYTES_PER_S * 1e3:.3f} ms, and {cache_bytes / 1e9:.3f} GB of caches: "
+        f"{(read + cache_bytes) / HBM_BYTES_PER_S * 1e3:.3f} ms for both")
+    del params, caches, tok, rounds, frames, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    check(left < 1.0, f"[serve-seamless] {left:.2f} GiB still allocated after the phase")
+    log(f"[serve-seamless] {cfg.name}: {left:.3f} GiB allocated after the phase")
+    return {"launches": ov["launches"], "tok_s_overlay": ov["tokens"] / ov["seconds"],
+            "tok_s_plain": pl["tokens"] / pl["seconds"], "prefill_ms": prefill[1],
+            "decode_ms": synced}
+
+
 def step_graph(cfg, shape: tuple[int, int], gen: torch.Generator, want_launches: dict) -> dict:
     """``build_step_graph(cfg, shape)`` at full width assembled on an
     all-LARGE ``Overlay(3, 3)``: its logits are bit-identical to
@@ -2660,6 +2892,66 @@ def phase_small_deepseek_reference() -> None:
         f"{cfg.router_scoring}) logits card (kernels) vs CPU (plain) max err: "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; the cache-free forward launched rmsnorm {n['rmsnorm']} times")
+
+
+def phase_small_seamless_reference() -> None:
+    """A small float32 seamless (its smoke config at d_model 256, 4 heads of
+    64, 2 ``enc`` + 2 ``dec`` layers) on the card (CUDA kernels) against
+    the same model on the CPU (plain versions): ``prefill(enc_in=)`` of 256
+    frames and a 20-token prompt at batch 2 and three decodes over the bf16
+    self and cross caches (tolerance 1e-2 * (1 + |logit|), as for phi3's
+    bf16 KV cache), and a cache-free ``forward(enc_out=encode(frames))`` of
+    24 tokens (f32 throughout: 1e-3 * (1 + |logit|)), which launches
+    flash_attention 6 times, every one not causal but the decoder's 2
+    self-attentions — the encoder's 2 with Sq = Sk, the 2 cross-attentions
+    with Sq 24 != Sk 256 — all on the CUDA-core kernel (f32), and rmsnorm 12
+    times (the encoder's 2 x 2 and ``enc_norm``, the decoder's 3 x 2 and
+    the final norm)."""
+    cfg = smoke_config(SEAMLESS).scaled(d_model=256, num_heads=4, num_kv_heads=4, head_dim=64,
+                                        d_ff=512, dtype="float32")
+    cpu = _to(pm.init(cfg, torch.Generator().manual_seed(SEED), "cpu"), "cpu", torch.float32)
+    cuda = _to(cpu, DEV)
+    rng = np.random.default_rng(SEED)
+    frames = torch.from_numpy(rng.standard_normal((2, 256, cfg.frontend_dim)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 20)).astype(np.int32))
+    errs = {}
+    with torch.no_grad():
+        lc, cc = mdl.prefill(cpu, cfg, toks, mdl.init_cache(cfg, 2, 288, "cpu"), enc_in=frames)
+        lg, cg = mdl.prefill(cuda, cfg, toks.to(DEV), mdl.init_cache(cfg, 2, 288, DEV),
+                             enc_in=frames.to(DEV))
+        pairs = [("prefill", lc, lg)]
+        for i in range(3):
+            nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 1)).astype(np.int32))
+            dc, cc = mdl.decode_step(cpu, cfg, nxt, cc)
+            dg, cg = mdl.decode_step(cuda, cfg, nxt.to(DEV), cg)
+            pairs.append((f"decode {i + 1}", dc, dg))
+    for name, want, got in pairs:
+        got = got.cpu()
+        errs[name] = (got - want).abs().max().item()
+        check(bool((got - want).abs().le(1e-2 * (1 + want.abs())).all()),
+              f"small seamless {name}: card vs CPU max err {errs[name]}")
+    free = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 24)).astype(np.int32))
+    with torch.no_grad():
+        hc, _ = tfm.forward(cpu, cfg, free, enc_out=tfm.encode(cpu, cfg, frames))
+        want = tfm.unembed(cpu, hc, cfg)
+        torch.cuda.synchronize()
+        reset_counters()
+        hg, _ = tfm.forward(cuda, cfg, free.to(DEV), enc_out=tfm.encode(cuda, cfg, frames.to(DEV)))
+        torch.cuda.synchronize()
+        n = counts()
+        got = tfm.unembed(cuda, hg, cfg).cpu()
+    errs["cache-free forward of 24 tokens"] = (got - want).abs().max().item()
+    check(n["flash_attention"] == n["flash_attention/simt"] == 6
+          and n["rmsnorm"] == n["rmsnorm/warp"] == 12,
+          f"small seamless cache-free forward: launches {n}")
+    check(bool((got - want).abs().le(1e-3 * (1 + want.abs())).all()),
+          f"small seamless cache-free forward: card vs CPU max err "
+          f"{errs['cache-free forward of 24 tokens']}")
+    log(f"[reference] small f32 seamless-m4t-medium ({pm.encoder_kinds(cfg)} + "
+        f"{pm.layer_kinds(cfg)}, d {cfg.d_model}, 256 frames) logits card (kernels) vs CPU "
+        f"(plain) max err: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; the cache-free forward launched flash_attention {n['flash_attention']} times "
+        f"(simt), rmsnorm {n['rmsnorm']} times")
 
 
 def phase_launcher() -> None:
@@ -2954,14 +3246,20 @@ def _to(tree, dev, dtype=None):
 
 
 def flash_bound_ms(b: int, hq: int, hkv: int, s: int, d: int,
-                   window: int | None = None) -> tuple[float, str]:
-    """The least time of causal attention on the card, bf16: q, k, v read
-    once and o written once against QK^T and PV over the (query, key) pairs
-    the mask keeps on the tensor cores — the causal half, or with a window
-    each query's last ``window`` keys."""
-    bytes_ = (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2
-    w = s if window is None else min(window, s)
-    pairs = w * (w + 1) // 2 + (s - w) * w
+                   window: int | None = None, *, sk: int | None = None,
+                   causal: bool = True) -> tuple[float, str]:
+    """The least time of attention on the card, bf16: q, k, v read once and
+    o written once against QK^T and PV over the (query, key) pairs the mask
+    keeps on the tensor cores — the causal half, or with a window each
+    query's last ``window`` keys; without ``causal`` all ``s`` x ``sk``
+    pairs of ``s`` queries over ``sk`` keys (default ``s``)."""
+    sk = s if sk is None else sk
+    bytes_ = (2 * b * hq * s * d + 2 * b * hkv * sk * d) * 2
+    if causal:
+        w = s if window is None else min(window, s)
+        pairs = w * (w + 1) // 2 + (s - w) * w
+    else:
+        pairs = s * sk
     flops = 4 * b * hq * d * pairs
     by = "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S else "operations"
     return max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3, by
@@ -2988,7 +3286,8 @@ RMSNORM_TIMED = ((BATCH, 3072), (PROMPT, 3072), (BATCH * PROMPT, 3072), (LOOP_CH
                  (BATCH, GEMMA_D), (PROMPT, GEMMA_D), (GEMMA_LONG, GEMMA_D), (BATCH, 2304),
                  (PROMPT, 2304), (BATCH, 12288), (PROMPT, 12288), (BATCH, ZAMBA_D),
                  (ZAMBA_LONG, ZAMBA_D), (BATCH, GRANITE_D), (PROMPT, GRANITE_D),
-                 (GRANITE_LONG, GRANITE_D))
+                 (GRANITE_LONG, GRANITE_D),
+                 *((BATCH * n, SEAMLESS_D) for n, _ in reversed(SEAMLESS_ROUNDS)))
 
 
 def vmul_bound_ms(n: int) -> tuple[float, str]:
@@ -3148,6 +3447,21 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
                 "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6), 500),
                 "library_device_ms": device_ms(
                     lambda: F.rms_norm(x, (d,), w.bfloat16(), 1e-6))})
+    out[-1]["seamless_shapes"] = []              # seamless's encoder rows at 4096 and 1024 frames
+    for rows in (BATCH * n for n, _ in reversed(SEAMLESS_ROUNDS)):
+        x = torch.randn(rows, SEAMLESS_D, generator=gen, device=DEV).bfloat16()
+        w = torch.ones(SEAMLESS_D, device=DEV)
+        bound, by = rmsnorm_bound_ms(rows, SEAMLESS_D)
+        out[-1]["seamless_shapes"].append({
+            "shape": f"x: ({rows}, {SEAMLESS_D}) bfloat16, w: ({SEAMLESS_D},) float32",
+            "variant": rn_mod.variant(x, x),
+            "ms": time_ms(lambda: rn_mod.rmsnorm_cuda(x, w), 500),
+            "device_ms": device_ms(lambda: rn_mod.rmsnorm_cuda(x, w)),
+            "plain_ms": time_ms(lambda: rn_mod.plain(x, w), 500),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(lambda: F.rms_norm(x, (SEAMLESS_D,), w.bfloat16(), 1e-6), 500),
+            "library_device_ms": device_ms(
+                lambda: F.rms_norm(x, (SEAMLESS_D,), w.bfloat16(), 1e-6))})
     del x, w
     b, h, sq, hd = TRAIN_BATCH, 32, TRAIN_SEQ, 96      # the training path's attention
     q, k, v = (torch.randn(b, h, sq, hd, generator=gen, device=DEV).bfloat16()
@@ -3205,6 +3519,37 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
         "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), calls=20, replays=3)}
     del q, k, v
+    # seamless's encoder at 4096 and 1024 frames and a cache-free
+    # cross-attention of 16 queries over 4096 keys: not causal, every (query,
+    # key) pair; SDPA with is_causal=False beside each
+    out[-1]["seamless_shapes"] = []
+    h, hd = SEAMLESS_HEADS, SEAMLESS_HEAD_DIM
+    for sq, sk in ((SEAMLESS_ROUNDS[1][0],) * 2, (SEAMLESS_ROUNDS[0][0],) * 2,
+                   (SEAMLESS_CROSS_Q, SEAMLESS_ROUNDS[1][0])):
+        q = torch.randn(BATCH, h, sq, hd, generator=gen, device=DEV).bfloat16()
+        k, v = (torch.randn(BATCH, h, sk, hd, generator=gen, device=DEV).bfloat16()
+                for _ in range(2))
+        bound, by = flash_bound_ms(BATCH, h, h, sq, hd, sk=sk, causal=False)
+        out[-1]["seamless_shapes"].append({
+            "shape": f"q ({BATCH}, {h}, {sq}, {hd}), k, v ({BATCH}, {h}, {sk}, {hd}) bfloat16, "
+                     f"not causal",
+            "variant": fa_mod.variant(q.dtype, hd),
+            "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v, causal=False), 50, warmup=5),
+            "device_ms": device_ms(lambda: fa_mod.flash_attention(q, k, v, causal=False),
+                                   calls=20, replays=3),
+            "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v, causal=False), 3, warmup=1),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=False), 50, warmup=5),
+            "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=False), calls=20, replays=3)})
+        row = out[-1]["seamless_shapes"][-1]
+        log(f"[timing] flash_attention {row['shape']}: {row['variant']} {row['ms']:.4f} ms per "
+            f"call, device {row['device_ms']:.4f} ms ({bound / row['device_ms']:.0%} of the "
+            f"bound {bound:.4f} ms, by {by}); plain {row['plain_ms']:.4f} ms; SDPA "
+            f"(is_causal=False) {row['library_ms']:.4f} ms, device "
+            f"{row['library_device_ms']:.4f} ms")
+        del q, k, v
     bh, nc, L, p, n = SSD_PATH                          # a 4096-token mamba2 prefill or train row
     x = torch.randn(bh, nc, L, p, generator=gen, device=DEV).bfloat16()
     b, c = (torch.randn(bh, nc, L, n, generator=gen, device=DEV).bfloat16() for _ in range(2))
@@ -3381,13 +3726,15 @@ def main() -> int:
     zamba2 = run_phase("[serve-zamba2]", phase_serve_zamba2, gen)
     granite = run_phase("[serve-granite]", phase_serve_granite, gen)
     deepseek = run_phase("[serve-deepseek]", phase_serve_deepseek, gen)
+    seamless = run_phase("[serve-seamless]", phase_serve_seamless, gen)
     step_graphs = run_phase("[step-graph]", phase_step_graph, gen)
     run_phase("[reference]", lambda: (phase_small_reference(), phase_small_train_reference(),
                                       phase_small_mamba_reference(),
                                       phase_small_gemma2_reference(),
                                       phase_small_zamba2_reference(),
                                       phase_small_granite_reference(),
-                                      phase_small_deepseek_reference()))
+                                      phase_small_deepseek_reference(),
+                                      phase_small_seamless_reference()))
     run_phase("[launcher]", phase_launcher)
     booted = run_phase("[warm-restart]", phase_warm_restart)
     analysis = run_phase("[analysis]", phase_analysis)
@@ -3408,6 +3755,7 @@ def main() -> int:
                "serve_zamba2": zamba2["launches"],
                "serve_granite": granite["launches"],
                "serve_deepseek": deepseek["launches"],
+               "serve_seamless": seamless["launches"],
                **step_graphs, **booted, "analysis": analysis}
     launches = {name: sum(p[name] for p in by_path.values()) for name in counts()}
     for path, n in by_path.items():

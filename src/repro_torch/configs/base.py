@@ -6,9 +6,9 @@ Heterogeneous layer stacks are expressed as ``blocks``: a list of
 ``(unit, repeat)`` pairs, where ``unit`` is a tuple of layer kinds repeated
 ``repeat`` times (e.g. gemma-2's local:global alternation is
 ``(("local", "global"), 23)``).  The reference scans each unit; the port
-loops over the layers in Python.  The port serves ``dense``, ``local``,
-``global``, ``mamba``, ``shared_attn`` and ``moe`` layers
-(``models/params.py::SERVED_KINDS``); the schema keeps every field so
+loops over the layers in Python.  The port serves the kinds of
+``models/params.py::SERVED_KINDS`` (every kind below; a vlm frontend is
+refused); the schema keeps every field so
 configs copy verbatim, and the analytic parameter counts
 (:meth:`ArchConfig.param_count`, :meth:`ArchConfig.active_param_count`)
 are the reference's.

@@ -71,14 +71,41 @@ class SyntheticLM:
             step += 1
 
 
+def _refuse_vision(cfg: ArchConfig) -> None:
+    if cfg.frontend == "vision":
+        raise NotImplementedError(
+            f"{cfg.name}: the vision frontend's stub inputs are not ported yet "
+            f"(ROADMAP queue 1, \"Other archs\")")
+
+
 def make_batch(cfg: ArchConfig, batch: int, seq: int, step: int = 0,
                seed: int = 0, device: "str | torch.device | None" = None) -> dict:
-    """Concrete batch for a decoder LM arch."""
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend's stub inputs are not "
-            f"ported yet (ROADMAP queue 1, \"Other archs\")")
-    return SyntheticLM(cfg.vocab_size, seq, batch, seed, device=device).batch(step)
+    """Concrete batch for an arch: tokens and labels, and for the audio
+    stub ``frames`` (batch, seq, frontend_dim) bf16, the reference's numpy
+    draws (``repro/data/pipeline.py:73-83``)."""
+    _refuse_vision(cfg)
+    ds = SyntheticLM(cfg.vocab_size, seq, batch, seed, device=device)
+    out = ds.batch(step)
+    if cfg.frontend == "audio":
+        rng = np.random.default_rng(seed + 17 * step)
+        frames = rng.standard_normal((batch, seq, cfg.frontend_dim))
+        out["frames"] = torch.from_numpy(frames).to(torch.bfloat16).to(ds.device)
+    return out
+
+
+def batch_specs(cfg: ArchConfig, batch: int, seq: int,
+                device: "str | torch.device | None" = None) -> dict:
+    """The abstract batch of :func:`make_batch` as
+    :class:`~repro_torch.core.graph.TensorSpec` on ``device`` (default
+    cuda), as ``repro/data/pipeline.py::batch_specs``."""
+    from repro_torch.core.graph import TensorSpec
+    _refuse_vision(cfg)
+    dev = resolve_device(device)
+    spec = {"tokens": TensorSpec((batch, seq), torch.int32, dev),
+            "labels": TensorSpec((batch, seq), torch.int32, dev)}
+    if cfg.frontend == "audio":
+        spec["frames"] = TensorSpec((batch, seq, cfg.frontend_dim), torch.bfloat16, dev)
+    return spec
 
 
 class Prefetcher:

@@ -159,6 +159,9 @@ def main(argv=None) -> int:
     lens = ([int(n) for n in args.prompt_lens.split(",")] if args.prompt_lens
             else [args.prompt_len])
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_encdec:
+        raise SystemExit("serve launcher targets decoder LMs; serve an encoder-decoder "
+                         "through models.model.prefill(..., enc_in=) and decode_step")
     if args.layers is not None:
         cfg = cut_layers(cfg, args.layers)
     gen = torch.Generator(device=device).manual_seed(args.seed)

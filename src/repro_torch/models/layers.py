@@ -1,18 +1,21 @@
 """Transformer layers: RoPE, RMSNorm, attention over a KV cache (full or
-sliding-window, with gemma2's logit softcap and query scaling),
-deepseek-v3's Multi-head Latent Attention (MLA) over a latent cache, the
-SwiGLU / GeGLU MLP.
+sliding-window, with gemma2's logit softcap and query scaling), an
+encoder's bidirectional self-attention and an encoder-decoder's
+cross-attention, deepseek-v3's Multi-head Latent Attention (MLA) over a
+latent cache, the SwiGLU / GeGLU MLP.
 
 Every layer is a plain function of a parameter dict and tensors.  The
 functions are functional (no in-place updates), so the overlay's tracer can
 capture them.
 
-Port of the dense and MLA subsets of ``repro/models/layers.py``.  Attention
-over a KV cache — cached prefill and decode, including the ragged per-row
-decode branch (``layers.py:314-332``) — is plain tensor code in the
-reference (``layers.py:304-351``) and plain PyTorch here.  Attention without
-a cache (the training loss, the cache-free forward) runs the
-flash_attention kernel through its custom op, except MLA's, whose q/k width
+Port of the dense, encoder-decoder and MLA subsets of
+``repro/models/layers.py``.  Attention over a KV cache — cached prefill and
+decode, including the ragged per-row decode branch (``layers.py:314-332``),
+and cross-attention over the cache filled once from the encoder's output —
+is plain tensor code in the reference (``layers.py:304-351``) and plain
+PyTorch here.  Attention without a cache (the training loss, the
+cache-free forward, the encoder, a cache-free cross-attention) runs the
+flash_attention kernel through its custom op, causal or not, except MLA's, whose q/k width
 (nope + rope) differs from its v width: the reference's dispatcher sends
 that to plain code (``layers.py:241-247``), and so does the port.
 """
@@ -105,12 +108,14 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor, idx, *, axis: int):
 # ---------------------------------------------------------------------------
 # Attention (GQA family) over a KV cache
 # ---------------------------------------------------------------------------
-def _attention(q, k, v, *, window, softcap, scale, q_offset, kv_len):
-    """Causal masked attention (B,H,Sq,D)x(B,Hkv,Sk,D), scores in f32.
+def _attention(q, k, v, *, window, softcap, scale, q_offset, kv_len, causal=True):
+    """Masked attention (B,H,Sq,D)x(B,Hkv,Sk,D), scores in f32.
 
     ``q_offset`` positions queries within the kv sequence (decode);
     ``kv_len`` masks out unwritten cache slots.  Either may also be a (B,)
-    tensor — ragged decode, every batch row at its own position.  ``window``
+    tensor — ragged decode, every batch row at its own position.  With
+    ``causal`` a query sees no key past its own position; without it (the
+    cached cross-attention) it sees every key below ``kv_len``.  ``window``
     (None for full attention) keeps only the keys less than ``window``
     positions behind each query, the row's own position on the ragged
     branch.  Mirrors ``repro/models/layers.py::_attention_xla``, including
@@ -132,14 +137,18 @@ def _attention(q, k, v, *, window, softcap, scale, q_offset, kv_len):
         kl = torch.as_tensor(kv_len, device=dev).to(torch.int32).reshape(-1)
         qpos = qo[:, None, None] + torch.arange(sq, device=dev)[None, :, None]
         kpos = torch.arange(sk, device=dev)[None, None, :]
-        mask = (qpos >= kpos) & (kpos < kl[:, None, None])
+        mask = kpos < kl[:, None, None]
+        if causal:
+            mask = mask & (qpos >= kpos)
         if window is not None:
             mask = mask & ((qpos - kpos) < window)
         s = torch.where(mask[:, None, None], s, -1e30)
     else:
         qpos = q_offset + torch.arange(sq, device=dev)[:, None]
         kpos = torch.arange(sk, device=dev)[None, :]
-        mask = (qpos >= kpos) & (kpos < kv_len)
+        mask = kpos < kv_len
+        if causal:
+            mask = mask & (qpos >= kpos)
         if window is not None:
             mask = mask & ((qpos - kpos) < window)
         s = torch.where(mask[None, None, None], s, -1e30)
@@ -150,42 +159,64 @@ def _attention(q, k, v, *, window, softcap, scale, q_offset, kv_len):
 
 
 def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
-             positions: torch.Tensor, cache: dict | None):
-    """Self-attention, over a KV cache or (``cache=None``) over the whole
-    sequence.
+             positions: torch.Tensor, cache: dict | None,
+             x_kv: torch.Tensor | None = None):
+    """Attention, over a KV cache or (``cache=None``) over the whole
+    sequence (``repro/models/layers.py::attn_fwd``, :258-351).
 
-    x: (B, S, D). kind: dense | local | global | shared_attn; a ``local``
-    layer attends within ``cfg.sliding_window`` positions (gemma2), on every
-    branch; the others attend causally with no window (a ``shared_attn``
-    occurrence, zamba2's, as the reference's ``layers.py:279-281``).
+    x: (B, S, D). kind: dense | local | global | shared_attn | enc | dec |
+    cross.  A ``local`` layer attends within ``cfg.sliding_window``
+    positions (gemma2), on every branch; ``dense``, ``global``,
+    ``shared_attn`` (zamba2's occurrences, as the reference's
+    ``layers.py:279-281``) and ``dec`` (an encoder-decoder's decoder
+    self-attention) attend causally with no window; ``enc`` attends to the
+    whole sequence, not causally.  ``cross`` (or any kind given ``x_kv``,
+    the encoder's output (B, Skv, D)) is cross-attention: the keys and
+    values come from ``x_kv`` — or, over a cache, are the cache's, filled
+    once at prefill (``model._fill_cross_caches``) and read as they are up
+    to its index — it is not causal, and it takes no RoPE.  The reference
+    also projects keys and values from ``x`` in the cached cross branch
+    and drops them; the port does not compute them.
     cache: None or {"k": (B, Hkv, Smax, hd), "v": ..., "index": ()}.
     ``positions`` is (S,) for a uniform batch, or (B, S) for ragged decode,
     where every row writes its KV entry at its own position.
-    Returns (out, updated_cache); the cache is None without one.
+    Returns (out, updated_cache); the cache is None without one, and a
+    cross-attention returns its cache unchanged.
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    q = linear(x, p["wq"]).reshape(b, s, hq, hd)
-    k = linear(x, p["wk"]).reshape(b, s, hkv, hd)
-    v = linear(x, p["wv"]).reshape(b, s, hkv, hd)
+    is_cross = x_kv is not None or kind == "cross"
+    causal = kind != "enc" and not is_cross
     window = cfg.sliding_window if kind == "local" else None
     if cfg.query_pre_attn_scalar is not None:
         scale = cfg.query_pre_attn_scalar ** -0.5
     else:
         scale = hd ** -0.5
-
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    q = linear(x, p["wq"]).reshape(b, s, hq, hd)
+    if is_cross and cache is not None:
+        # the cross cache was filled once from the encoder's output; its
+        # index is the encoder's length, and slots past it are masked
+        o = _attention(q.transpose(1, 2), cache["k"], cache["v"], causal=False, window=None,
+                       softcap=cfg.attn_softcap, scale=scale, q_offset=0,
+                       kv_len=cache["index"])
+        o = o.transpose(1, 2).reshape(b, s, hq * hd)
+        return linear(o, p["wo"]), cache
+    src = x if x_kv is None else x_kv
+    k = linear(src, p["wk"]).reshape(b, src.shape[1], hkv, hd)
+    v = linear(src, p["wv"]).reshape(b, src.shape[1], hkv, hd)
+    if not is_cross:                     # RoPE on self-attention only
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     if cache is None:
-        # the flash_attention op at every length: the CUDA kernel masks
-        # ragged tiles itself, so the reference's gate to plain code where S
-        # is not a multiple of its 128 blocks (repro/models/layers.py:237-255)
-        # has nothing to route around here
-        o = kops.attention(qt, kt, vt, causal=True, window=window,
+        # the flash_attention op at every length, causal or not, Sq = Sk or
+        # not: the CUDA kernel masks ragged tiles itself, so the reference's
+        # gate to plain code where S is not a multiple of its 128 blocks
+        # (repro/models/layers.py:237-255) has nothing to route around here
+        o = kops.attention(qt, kt, vt, causal=causal, window=window,
                            softcap=cfg.attn_softcap, scale=scale)
         o = o.transpose(1, 2).reshape(b, s, hq * hd)
         return linear(o, p["wo"]), None

@@ -4,9 +4,11 @@ decode, and the model step as an overlay graph.
 Port of ``repro/models/model.py`` (``cross_entropy`` :25, ``loss_fn`` :51,
 ``init_cache`` :92, ``prefill`` :96, ``decode_step`` :150,
 ``prefill_chunk`` :164, ``_current_index`` :185, ``build_step_graph``
-:203) for decoder LMs of dense (full or sliding-window), mamba,
-shared-attention (zamba2), mixture-of-experts (granite; serving only) and
-MLA (deepseek-v3's ``mla_dense``/``mla_moe``; serving only) layers.
+:203, ``_fill_cross_caches`` :114) for decoder LMs of dense (full or
+sliding-window), mamba, shared-attention (zamba2), mixture-of-experts
+(granite; serving only) and MLA (deepseek-v3's ``mla_dense``/``mla_moe``;
+serving only) layers, and for the encoder-decoder seamless-m4t (serving
+only, through :func:`prefill` with ``enc_in`` and :func:`decode_step`).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import params as pm
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import mla_cache
+from repro_torch.models.layers import cache_update, linear, mla_cache
 from repro_torch.models.params import layer_kinds
 from repro_torch.models.ssm import ssm_cache
 
@@ -72,7 +74,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     bf16 whatever the parameter dtype), the bf16 latent cache
     ``{"c_kv", "k_rope", "index"}`` (:func:`~repro_torch.models.layers.
     mla_cache`) for an MLA layer, the conv windows and SSD state
-    (:func:`~repro_torch.models.ssm.ssm_cache`) for a mamba layer.  Every
+    (:func:`~repro_torch.models.ssm.ssm_cache`) for a mamba layer, and two
+    KV caches ``{"self", "cross"}`` of max_len for a ``dec`` layer
+    (``repro/models/transformer.py:102-112``): the encoder's output must
+    fit ``max_len`` too.  Every
     ``shared_attn`` occurrence gets a cache of its own, though all of them
     read one weight set (the reference's ``cache_spec``,
     ``repro/models/transformer.py:115-123``)."""
@@ -89,16 +94,61 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             return ssm_cache(cfg, batch, dev)
         if kind.startswith("mla"):
             return mla_cache(cfg, batch, max_len, dev)
+        if kind == "dec":
+            return {"self": kv(), "cross": kv()}
         return kv()
 
     return [one(kind) for kind in layer_kinds(cfg)]
 
 
-def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, caches: list):
+def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, caches: list, *,
+            enc_in: torch.Tensor | None = None):
     """Run the prompt through the decoder, filling caches.
-    Returns (logits_last (B, V), caches)."""
-    h, caches = tfm.forward(params, cfg, tokens, pos0=0, caches=caches)
+    Returns (logits_last (B, V), caches).
+
+    An encoder-decoder first runs the encoder on ``enc_in`` (frames (B, S,
+    frontend_dim) or tokens (B, S), :func:`~repro_torch.models.
+    transformer.encode`) and fills every ``dec`` layer's cross cache from
+    its output (:func:`_fill_cross_caches`); one without ``enc_in`` raises
+    ``ValueError`` (the reference fails there on ``None.ndim``)."""
+    enc_out = None
+    if cfg.is_encdec:
+        if enc_in is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: prefill needs the "
+                             f"encoder's input (enc_in)")
+        enc_out = tfm.encode(params, cfg, enc_in)
+        caches = _fill_cross_caches(params, cfg, enc_out, caches)
+    h, caches = tfm.forward(params, cfg, tokens, pos0=0, caches=caches, enc_out=enc_out)
     return tfm.unembed(params, h[:, -1:], cfg)[:, 0], caches
+
+
+def _fill_cross_caches(params: dict, cfg: ArchConfig, enc_out: torch.Tensor,
+                       caches: list) -> list:
+    """Every ``dec`` layer's cross-attention keys and values, computed once
+    from the encoder's output (``repro/models/model.py:114-147``): ``enc_out
+    @ wk`` and ``@ wv``, head-split, written at positions 0..S-1 of a zeroed
+    cache (the functional :func:`~repro_torch.models.layers.cache_update`,
+    so a traced prefill is the eager one), the index set to S.  Returns the
+    new cache list; the other layers' caches are passed through."""
+    b, s, _ = enc_out.shape
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    new = []
+    for (kind, where), c in zip(pm.layer_plan(cfg), caches):
+        if kind != "dec":
+            new.append(c)
+            continue
+        smax = c["cross"]["k"].shape[2]
+        if s > smax:
+            raise ValueError(f"{cfg.name}: the encoder's output has {s} positions, more than "
+                             f"the cross cache's max_len {smax}")
+        w = pm.layer_params(params, where)["cross"]
+        cross = {}
+        for name in ("k", "v"):
+            t = linear(enc_out, w[f"w{name}"]).reshape(b, s, hkv, hd).transpose(1, 2)
+            cross[name] = cache_update(torch.zeros_like(c["cross"][name]), t, 0, axis=2)
+        cross["index"] = torch.full_like(c["cross"]["index"], s)
+        new.append({"self": c["self"], "cross": cross})
+    return new
 
 
 def decode_step(params: dict, cfg: ArchConfig, token: torch.Tensor,
@@ -141,8 +191,11 @@ def _current_index(cfg: ArchConfig, caches: list) -> torch.Tensor:
     """The shared decode position: the first attention layer's cache index
     (mamba layers keep none; a pure-SSM model has no position, so 0).  In
     zamba2 that is layer 8, the first ``shared_attn`` occurrence; an MLA
-    layer's latent cache keeps its index as a KV cache does."""
+    layer's latent cache keeps its index as a KV cache does; a ``dec``
+    layer's is its self cache's."""
     for kind, c in zip(layer_kinds(cfg), caches):
+        if kind == "dec":
+            return c["self"]["index"]
         if kind != "mamba":
             return c["index"]
     return torch.zeros((), dtype=torch.int32, device=caches[0]["ssm"].device)
@@ -160,10 +213,21 @@ def build_step_graph(cfg: ArchConfig, batch_shape: tuple[int, int],
     the layers of ``cfg.blocks[i]``; the head is the final norm and the
     unembedding, so the graph's output is the logits (B, S, V) of
     :func:`~repro_torch.models.transformer.forward` + ``unembed``.  The
-    avals of the inputs live on ``device`` (default ``cuda``)."""
+    avals of the inputs live on ``device`` (default ``cuda``).
+
+    An encoder-decoder is refused: the reference's stages carry no
+    encoder output (``repro/models/model.py:227-230``), so its ``dec``
+    layers would cross-attend to the decoder's own states
+    (``repro/models/layers.py:272-279``)."""
     from repro_torch.core.graph import Graph
     from repro_torch.core.patterns import Operator, TileClass
 
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the step graph's stages carry no encoder output, so an "
+            f"encoder-decoder's dec layers would cross-attend to the decoder's own "
+            f"states (the reference's build_step_graph does so); serve it through "
+            f"prefill(enc_in=) and decode_step")
     dev = resolve_device(device)
     b, s = batch_shape
     abstract_params = pm.abstract(pm.model_spec(cfg), dev)

@@ -12,9 +12,16 @@ the dense spec), ``moe`` (attention + the mixture-of-experts FFN of
 :mod:`repro_torch.models.moe`: a router and the experts' weights stacked
 as (E, d, f)), ``mla_dense`` / ``mla_moe`` (deepseek-v3's Multi-head Latent
 Attention, :func:`~repro_torch.models.layers.mla_spec`, + the MLP or the
-mixture-of-experts FFN) or ``mamba`` (the Mamba-2 mixer of
-:mod:`repro_torch.models.ssm`).  With ``cfg.post_norms`` an attention layer
-also has the post-sublayer norms ``post_ln1`` and ``post_ln2``
+mixture-of-experts FFN), ``mamba`` (the Mamba-2 mixer of
+:mod:`repro_torch.models.ssm`), ``enc`` (an encoder layer: the dense spec,
+its self-attention not causal) or ``dec`` (an encoder-decoder's decoder
+layer: the dense spec plus ``ln_cross`` and the cross-attention set
+``cross``, ``repro/models/transformer.py:45-47``).  An encoder-decoder
+model (seamless-m4t-medium) also carries ``spec["enc_layers"]``, one dict
+per encoder layer in execution order (:func:`encoder_kinds`), the encoder's
+final norm ``enc_norm``, and with an audio frontend the stub's
+``frontend_proj`` (frontend_dim, d_model).  With ``cfg.post_norms`` an
+attention layer also has the post-sublayer norms ``post_ln1`` and ``post_ln2``
 (``repro/models/transformer.py:51-53``).  A config with ``mtp_depth``
 (deepseek-v3) also carries the multi-token-prediction module ``spec["mtp"]``
 (``proj``, a ``dense`` layer and ``norm``, ``transformer.py:86-90``):
@@ -49,7 +56,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
 SERVED_KINDS = ("dense", "local", "global", "mamba", "shared_attn", "moe",
-                "mla_dense", "mla_moe")
+                "mla_dense", "mla_moe", "enc", "dec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,14 +81,25 @@ def norm_scale(d: int) -> ParamSpec:
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
     """The decoder's layer kinds in execution order (blocks unrolled)."""
-    kinds = [k for unit, rep in cfg.blocks for _ in range(rep) for k in unit]
-    unsupported = sorted(set(kinds) - set(SERVED_KINDS))
-    if unsupported or cfg.is_encdec or cfg.frontend:
+    return _kinds(cfg, cfg.blocks)
+
+
+def encoder_kinds(cfg: ArchConfig) -> list[str]:
+    """The encoder's layer kinds in execution order (``cfg.encoder_blocks``
+    unrolled; empty for a decoder-only model)."""
+    return _kinds(cfg, cfg.encoder_blocks)
+
+
+def _kinds(cfg: ArchConfig, blocks) -> list[str]:
+    kinds = [k for unit, rep in blocks for _ in range(rep) for k in unit]
+    every = {k for unit, _ in (*cfg.blocks, *cfg.encoder_blocks) for k in unit}
+    unsupported = sorted(every - set(SERVED_KINDS))
+    if unsupported or cfg.frontend == "vision":
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoder layers of kinds "
-            f"{list(SERVED_KINDS)} only (got kinds {sorted(set(kinds))}); "
-            f"encoder-decoder and vlm models wait for "
-            f"ROADMAP queue 1, \"Other archs\"")
+            f"{cfg.name}: the port serves layers of kinds {list(SERVED_KINDS)} "
+            f"and the audio frontend's stub only (got kinds {sorted(every)}, "
+            f"frontend {cfg.frontend!r}); vlm models wait for ROADMAP queue 1, "
+            f"\"Other archs\"")
     return kinds
 
 
@@ -110,7 +128,7 @@ def layer_params(params: dict, where: "int | str") -> dict:
 
 
 def layer_spec(cfg: ArchConfig, kind: str) -> dict:
-    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    d, f = cfg.d_model, cfg.d_ff
     if kind == "mamba":
         from repro_torch.models.ssm import ssm_spec   # ssm imports this module
         return {"ln1": norm_scale(d), "mixer": ssm_spec(cfg)}
@@ -118,11 +136,12 @@ def layer_spec(cfg: ArchConfig, kind: str) -> dict:
         from repro_torch.models.layers import mla_spec   # layers imports this module
         attn = mla_spec(cfg)
     else:
-        attn = {"wq": dense(d, cfg.num_heads * hd),
-                "wk": dense(d, cfg.num_kv_heads * hd),
-                "wv": dense(d, cfg.num_kv_heads * hd),
-                "wo": dense(cfg.num_heads * hd, d)}
-    spec = {"ln1": norm_scale(d), "attn": attn, "ln2": norm_scale(d)}
+        attn = _attn_spec(cfg)
+    spec = {"ln1": norm_scale(d), "attn": attn}
+    if kind == "dec":
+        spec["ln_cross"] = norm_scale(d)
+        spec["cross"] = _attn_spec(cfg)
+    spec["ln2"] = norm_scale(d)
     if kind in ("moe", "mla_moe"):
         from repro_torch.models.moe import moe_spec   # moe imports this module
         spec["ffn"] = moe_spec(cfg)
@@ -135,12 +154,23 @@ def layer_spec(cfg: ArchConfig, kind: str) -> dict:
     return spec
 
 
+def _attn_spec(cfg: ArchConfig) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {"wq": dense(d, cfg.num_heads * hd),
+            "wk": dense(d, cfg.num_kv_heads * hd),
+            "wv": dense(d, cfg.num_kv_heads * hd),
+            "wo": dense(cfg.num_heads * hd, d)}
+
+
 def model_spec(cfg: ArchConfig) -> dict:
     plan = layer_plan(cfg)
-    spec: dict[str, Any] = {
-        "embed": embedding(cfg.vocab_size, cfg.d_model),
-        "layers": [layer_spec(cfg, kind) for kind, where in plan if isinstance(where, int)],
-    }
+    spec: dict[str, Any] = {"embed": embedding(cfg.vocab_size, cfg.d_model)}
+    if cfg.frontend:
+        spec["frontend_proj"] = dense(cfg.frontend_dim, cfg.d_model)
+    if cfg.is_encdec:
+        spec["enc_layers"] = [layer_spec(cfg, kind) for kind in encoder_kinds(cfg)]
+        spec["enc_norm"] = norm_scale(cfg.d_model)
+    spec["layers"] = [layer_spec(cfg, kind) for kind, where in plan if isinstance(where, int)]
     shared = {where: layer_spec(cfg, kind) for kind, where in plan if isinstance(where, str)}
     if shared:
         spec["shared"] = shared
@@ -214,7 +244,10 @@ def from_jax_numpy(tree: dict, cfg: ArchConfig,
     layer's stacked experts, ``(rep, E, d, f)``, and router, ``(rep, d,
     E)``, unstack like any other leaf, as do an MLA layer's projections and
     latent norms; deepseek's unstacked ``mtp`` module is carried as it is.
-    bf16 leaves
+    An encoder-decoder's ``enc<i>["layers"]["<j>:enc"]`` stacks unstack the
+    same way into ``enc_layers``; a ``dec`` layer's ``ln_cross`` and
+    ``cross`` ride along with it, and ``frontend_proj`` and ``enc_norm``
+    are carried as they are.  bf16 leaves
     arrive as float32 numpy (numpy has no bf16) and are cast back to each
     leaf's own dtype — an exact round trip.  ``dtype`` casts every leaf to
     one dtype instead (the float32 parity tests)."""
@@ -232,17 +265,22 @@ def from_jax_numpy(tree: dict, cfg: ArchConfig,
             return conv(node, s)
         return {k: tree_conv(node[k], v) for k, v in s.items()}
 
-    layers = []
-    for gi, (unit, rep) in enumerate(cfg.blocks):
-        stacked = tree[f"g{gi}"]["layers"]
-        for r in range(rep):
-            for j, kind in enumerate(unit):
-                if kind != "shared_attn":
-                    one = _unstack(stacked[f"{j}:{kind}"], r)
-                    layers.append(tree_conv(one, spec["layers"][len(layers)]))
+    def unstacked(prefix: str, blocks, specs: list) -> list:
+        layers = []
+        for gi, (unit, rep) in enumerate(blocks):
+            stacked = tree[f"{prefix}{gi}"]["layers"]
+            for r in range(rep):
+                for j, kind in enumerate(unit):
+                    if kind != "shared_attn":
+                        one = _unstack(stacked[f"{j}:{kind}"], r)
+                        layers.append(tree_conv(one, specs[len(layers)]))
+        return layers
+
     out = {k: tree_conv(tree[k], s) for k, s in spec.items()
-           if k not in ("layers", "shared")}
-    out["layers"] = layers
+           if k not in ("layers", "shared", "enc_layers")}
+    if "enc_layers" in spec:
+        out["enc_layers"] = unstacked("enc", cfg.encoder_blocks, spec["enc_layers"])
+    out["layers"] = unstacked("g", cfg.blocks, spec["layers"])
     if "shared" in spec:
         out["shared"] = {g: tree_conv(tree[g]["shared"]["shared_attn"], s)
                          for g, s in spec["shared"].items()}

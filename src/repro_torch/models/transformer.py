@@ -1,12 +1,15 @@
-"""The decoder stack: embedding, a Python loop over the layers, the head.
+"""The decoder stack (embedding, a Python loop over the layers, the head)
+and an encoder-decoder's encoder stack.
 
 Port of the dense (with gemma2's local/global layers and post-sublayer
 norms), mixture-of-experts (``moe``: attention + :mod:`repro_torch.models.
 moe`), MLA (deepseek-v3's ``mla_dense`` and ``mla_moe``: Multi-head Latent
-Attention + the MLP or the MoE FFN), Mamba-2 and hybrid (zamba2's
-``shared_attn``) paths of
-``repro/models/transformer.py``.  The reference scans each block of
-stacked layers (``transformer.py:179-222``); the port walks the layers of
+Attention + the MLP or the MoE FFN), Mamba-2, hybrid (zamba2's
+``shared_attn``) and encoder-decoder (seamless-m4t's ``enc`` and ``dec``:
+:func:`encode`, then a decoder whose layers also cross-attend to its
+output) paths of ``repro/models/transformer.py``.  The reference scans
+each block of stacked layers (``transformer.py:179-222``); the port walks
+the layers of
 ``params.layer_plan``: each layer's kind and where its weights are, its own
 dict of ``params["layers"]`` or its group's shared set (every
 ``shared_attn`` occurrence of a group reads the one set, as the
@@ -14,7 +17,8 @@ reference's scan body reads ``shared["shared_attn"]``, ``transformer.py:
 182-190``).  Caches are one dict per layer, shared_attn occurrences
 included: ``{"k", "v", "index"}`` for an attention layer, the latent
 ``{"c_kv", "k_rope", "index"}`` for an MLA layer, ``{"conv": {"x", "b",
-"c"}, "ssm"}`` for a mamba layer.  Without caches,
+"c"}, "ssm"}`` for a mamba layer, ``{"self": kv, "cross": kv}`` for a
+``dec`` layer (the encoder keeps none).  Without caches,
 under autograd, each layer is rematerialized in the backward
 (``cfg.remat == "full"``), the counterpart of ``jax.checkpoint`` on the
 reference's scan body (``transformer.py:199-200``).
@@ -28,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attn_fwd, linear, mla_fwd, mlp_fwd, rmsnorm_fwd
 from repro_torch.models.moe import moe_fwd
-from repro_torch.models.params import layer_params, layer_plan
+from repro_torch.models.params import encoder_kinds, layer_params, layer_plan
 from repro_torch.models.ssm import ssm_fwd
 
 
@@ -39,12 +43,24 @@ def _maybe_post(cfg: ArchConfig, p: dict, key: str, x: torch.Tensor) -> torch.Te
 
 
 def layer_fwd(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig, *,
-              positions: torch.Tensor, cache: dict | None):
+              positions: torch.Tensor, cache: dict | None,
+              enc_out: torch.Tensor | None = None):
     """One layer of kind ``dense``, ``local``, ``global``, ``shared_attn``
-    (``p`` is its group's shared set), ``moe``, ``mla_dense``, ``mla_moe``
-    or ``mamba``.  Returns (x, new_cache).  The load-balance loss of a
-    ``moe`` or ``mla_moe`` layer is dropped: serving does not read it, and
-    the port's loss does not train MoE yet (``model.loss_fn``)."""
+    (``p`` is its group's shared set), ``moe``, ``mla_dense``, ``mla_moe``,
+    ``mamba``, ``enc`` or ``dec``.  Returns (x, new_cache).  The
+    load-balance loss of a ``moe`` or ``mla_moe`` layer is dropped: serving
+    does not read it, and the port's loss does not train MoE yet
+    (``model.loss_fn``).
+
+    A ``dec`` layer attends causally to itself over ``cache["self"]``, then
+    (after ``ln_cross``) to the encoder: over ``cache["cross"]`` with a
+    cache, else to ``enc_out`` (``repro/models/transformer.py:147-161``);
+    its new cache is ``{"self", "cross"}``, the cross cache unchanged.  One
+    with neither raises ``ValueError``: the reference would cross-attend to
+    the decoder's own states there."""
+    if kind == "dec" and cache is None and enc_out is None:
+        raise ValueError(f"{cfg.name}: a dec layer cross-attends to the encoder; give it a "
+                         f"cache filled by prefill or the encoder's output (enc_out)")
     rs = cfg.residual_scale
     h = rmsnorm_fwd(p["ln1"], x, cfg.norm_eps)
     if kind == "mamba":
@@ -53,9 +69,18 @@ def layer_fwd(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig, *,
     if kind.startswith("mla"):
         h, new_cache = mla_fwd(p["attn"], h, cfg, positions=positions, cache=cache)
     else:
+        self_c = cache["self"] if kind == "dec" and cache is not None else cache
         h, new_cache = attn_fwd(p["attn"], h, cfg, kind=kind, positions=positions,
-                                cache=cache)
+                                cache=self_c)
     x = x + rs * _maybe_post(cfg, p, "post_ln1", h)
+    if kind == "dec":
+        hc = rmsnorm_fwd(p["ln_cross"], x, cfg.norm_eps)
+        cross_c = cache["cross"] if cache is not None else None
+        hc, _ = attn_fwd(p["cross"], hc, cfg, kind="cross", positions=positions,
+                         cache=cross_c, x_kv=None if cross_c is not None else enc_out)
+        x = x + rs * hc
+        if cache is not None:
+            new_cache = {"self": new_cache, "cross": cross_c}
     h = rmsnorm_fwd(p["ln2"], x, cfg.norm_eps)
     if kind in ("moe", "mla_moe"):
         b, s, d = h.shape
@@ -80,9 +105,30 @@ def unembed(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return logits
 
 
+def encode(params: dict, cfg: ArchConfig, enc_in: torch.Tensor) -> torch.Tensor:
+    """The encoder stack (``repro/models/transformer.py::encode``, :240-250).
+    ``enc_in`` is (B, S, frontend_dim) frame embeddings, rounded to bf16 and
+    mapped by ``frontend_proj`` (the audio stub), or (B, S) tokens, embedded.
+    The encoder layers run cache-free at positions ``arange(S)``, each
+    rematerialized in the backward under autograd as in :func:`forward`;
+    then ``enc_norm``.  Returns (B, S, d_model)."""
+    if enc_in.dim() == 3:
+        w = params["frontend_proj"]
+        h = linear(enc_in.to(torch.bfloat16).to(w.dtype), w)
+    else:
+        h = embed_tokens(params, enc_in, cfg)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h = _cache_free_stack(zip(encoder_kinds(cfg), params["enc_layers"]), h, cfg, positions,
+                          None)
+    return rmsnorm_fwd(params["enc_norm"], h, cfg.norm_eps)
+
+
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
-            pos0: "torch.Tensor | int" = 0, caches: list | None = None):
-    """Decoder stack. Returns (hidden, new_caches)."""
+            pos0: "torch.Tensor | int" = 0, caches: list | None = None,
+            enc_out: torch.Tensor | None = None):
+    """Decoder stack. Returns (hidden, new_caches).  An encoder-decoder's
+    ``dec`` layers cross-attend over their caches or, without caches, to
+    ``enc_out`` (:func:`encode`'s output)."""
     h = embed_tokens(params, tokens, cfg)
     steps = torch.arange(tokens.shape[1], device=tokens.device)
     if isinstance(pos0, torch.Tensor) and pos0.dim() >= 1:
@@ -93,27 +139,35 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         positions = pos0 + steps
     plan = layer_plan(cfg)
     if caches is None:
-        remat = torch.is_grad_enabled() and _remat(cfg)
-        for kind, where in plan:
-            lp = layer_params(params, where)
-            if remat:
-                h = checkpoint(_cache_free_layer, lp, h, kind, cfg, positions,
-                               use_reentrant=False, preserve_rng_state=False)
-            else:
-                h = _cache_free_layer(lp, h, kind, cfg, positions)
+        h = _cache_free_stack(((kind, layer_params(params, where)) for kind, where in plan),
+                              h, cfg, positions, enc_out)
         return rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps), None
     new_caches = []
     for (kind, where), c in zip(plan, caches):
         h, nc = layer_fwd(layer_params(params, where), h, kind, cfg,
-                          positions=positions, cache=c)
+                          positions=positions, cache=c, enc_out=enc_out)
         new_caches.append(nc)
     h = rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps)
     return h, new_caches
 
 
+def _cache_free_stack(layers, h: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+                      enc_out: torch.Tensor | None) -> torch.Tensor:
+    """``layers`` ((kind, params), ...) run cache-free in order, each
+    rematerialized in the backward under autograd (``cfg.remat``)."""
+    remat = torch.is_grad_enabled() and _remat(cfg)
+    for kind, lp in layers:
+        if remat:
+            h = checkpoint(_cache_free_layer, lp, h, kind, cfg, positions, enc_out,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _cache_free_layer(lp, h, kind, cfg, positions, enc_out)
+    return h
+
+
 def _cache_free_layer(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig,
-                      positions: torch.Tensor) -> torch.Tensor:
-    return layer_fwd(p, x, kind, cfg, positions=positions, cache=None)[0]
+                      positions: torch.Tensor, enc_out: torch.Tensor | None) -> torch.Tensor:
+    return layer_fwd(p, x, kind, cfg, positions=positions, cache=None, enc_out=enc_out)[0]
 
 
 def _remat(cfg: ArchConfig) -> bool:

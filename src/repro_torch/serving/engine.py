@@ -42,6 +42,11 @@ same: the fleet exposes the single-overlay surface.
 the serving-under-load path: priority admission with SLO-aware shedding
 and chunked, power-of-two-bucketed prefill interleaved with decode ticks.
 
+An encoder-decoder (seamless-m4t) is refused: the reference's engine
+passes no encoder input to prefill (``repro/serving/engine.py:112``) and
+fails there.  Serve one through ``models.model.prefill(..., enc_in=)``
+and ``decode_step``.
+
 Port of ``ServeEngine`` in ``repro/serving/engine.py``.
 """
 
@@ -95,6 +100,11 @@ class ServeEngine:
                  max_len: int, overlay: "Overlay | FleetOverlay | None" = None,
                  tile_budget: int | None = None,
                  device: "str | torch.device | None" = None):
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine's prefill passes no encoder input (the "
+                f"reference's fails on it too); serve an encoder-decoder through "
+                f"models.model.prefill(..., enc_in=) and decode_step")
         self.params = params
         self.cfg = cfg
         self.batch = batch

@@ -39,7 +39,10 @@ conv and SSD state ``prefill_chunk`` carries on, so from the second token
 on the streams of a prompt whose last chunk was padded differ from the
 synchronous engine's — in the reference too (``repro/serving/loop.py``,
 ROADMAP queue 3).  The port refuses configs with mamba layers rather than
-serve wrong tokens.
+serve wrong tokens.  It refuses encoder-decoders too: the reference's loop
+prefills through ``prefill_chunk``, which runs no encoder, so its ``dec``
+layers would cross-attend to an empty cross cache and serve garbage; the
+port raises instead.
 
 Port of ``repro/serving/loop.py``.
 """
@@ -75,6 +78,12 @@ class EventLoopEngine(ServeEngine):
                  device: "str | torch.device | None" = None):
         if chunk < 1 or chunk & (chunk - 1):
             raise ValueError(f"chunk must be a power of two, got {chunk}")
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                f"{cfg.name}: the event loop prefills in chunks and runs no encoder, so "
+                f"the dec layers would cross-attend to an empty cross cache (the "
+                f"reference's loop serves such garbage); serve an encoder-decoder through "
+                f"models.model.prefill(..., enc_in=) and decode_step")
         if "mamba" in layer_kinds(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: the event loop pads a prompt's last chunk with "

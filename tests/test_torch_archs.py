@@ -118,7 +118,7 @@ def test_layer_kinds_of_the_dense_family():
     assert tparams.layer_kinds(smoke_config("gemma2-27b")) == ["local", "global"] * 2
 
 
-@pytest.mark.parametrize("name", ["pixtral-12b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("name", ["pixtral-12b"])
 def test_the_remaining_archs_are_refused(name):
     """The reference's other configs, copied field by field into the port's
     schema: the port refuses each until its item of "Other archs"."""

@@ -135,3 +135,17 @@ def test_checker_sees_the_mla_family(module):
         from repro_torch.configs import list_archs
 
         assert "deepseek-v3-671b" in list_archs()
+
+
+@pytest.mark.parametrize("module", ["configs/seamless_m4t_medium.py", "data/pipeline.py"])
+def test_checker_sees_the_encoder_decoder(module):
+    """seamless-m4t-medium's config and the audio stub's batch are the
+    port's own copies: the checker above covers them, and they import
+    neither jax nor repro."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    if module == "configs/seamless_m4t_medium.py":
+        from repro_torch.configs import list_archs
+
+        assert "seamless-m4t-medium" in list_archs()

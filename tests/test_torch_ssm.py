@@ -525,11 +525,11 @@ def test_full_config_param_count_equals_the_jax_spec():
     assert tparams.layer_kinds(cfg) == ["mamba"] * 24
 
 
-@pytest.mark.parametrize("blocks", [
-    ((("dec",), 2),),
-], ids=["dec"])
-def test_unported_kinds_still_raise(blocks):
-    cfg = get_config(ARCH).scaled(blocks=blocks)
+@pytest.mark.parametrize("over", [
+    dict(blocks=((("dense",), 2),), frontend="vision", frontend_dim=32),
+], ids=["vision"])
+def test_unported_kinds_still_raise(over):
+    cfg = get_config(ARCH).scaled(**over)
     with pytest.raises(NotImplementedError, match='ROADMAP queue 1, "Other archs"'):
         tparams.layer_kinds(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
