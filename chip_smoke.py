@@ -15,7 +15,8 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
    finite; flash_attention runs the variant its wrapper picks (the
    tensor-core kernel for bf16 with a head dim that is a multiple of 16, the
    CUDA-core kernel otherwise; not causal with as many queries as keys at
-   seamless's encoder shape, and with 16 queries over 4096 keys), ssd_chunk
+   seamless's encoder shape, and with 16 queries over 4096 keys; causal
+   with 32 query heads over 8 kv heads at pixtral's shape), ssd_chunk
    every variant that takes each case; checks with ``torch.profiler``
    that one vmul_reduce call and one rmsnorm call each run exactly one CUDA
    kernel, on every variant;
@@ -130,7 +131,27 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the two traced prefills; under 1 GiB left; then times the plain
     4096-frame prefill and a batch-2 decode, each to a synchronize, the
     decode beside the time to read its weights and caches once;
-15. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
+15. ``[serve-pixtral]``: serves the vlm pixtral-12b at full width and
+    depth (40 ``dense`` layers, d 5120, 32 heads over 8 kv heads of 128,
+    untied vocab 131072, the vision stub's ``frontend_proj``; random bf16
+    weights from the seed, 24.5 GB) two ways, each through
+    ``Overlay(3, 3)`` and plainly: (a) as text through ``ServeEngine``,
+    as the reference's engine serves it (it passes no patches), four
+    (16, 8) requests at max_len 128; (b) through the model API at batch
+    2, max_len 4096, ``prefill(patch_embeds=)`` of 256 patches (1024
+    features, bf16, ``make_batch``'s count) over the leading slots of a
+    512-token prompt, then 16 greedy ``decode_step`` calls, and of a
+    2048-token prompt, then 32, both steps through ``Overlay(3, 3).jit``
+    (a quarter of the fabric each).  Each way: the logits of every call
+    bit-identical (digest) and finite, identical streams, 81 rmsnorm
+    launches a call, all on the block kernel (d 5120), no flash_attention
+    and no ssd_chunk (cached attention is plain code), one decode and two
+    prefill signatures through the model API; the stub acts (the prompt
+    without patches gives another digest) and the tokens under the
+    patches do not (new ids there give the same bits); under 1 GiB left;
+    then times the plain 2048-token prefill and a batch-2 decode, each to
+    a synchronize, the decode beside the time to read its weights once;
+16. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
     assembled on an all-LARGE ``Overlay(3, 3)``: logits bit-identical to
     ``forward`` + ``unembed``, 65 rmsnorm and 32 flash_attention launches;
     then zamba2-7b's at (1, 4096): bit-identical, 95 rmsnorm (warp), 68
@@ -140,8 +161,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     64, 16 heads over 8); then deepseek-v3-671b's (4 layers) at (1, 2048):
     bit-identical, 9 rmsnorm on the block kernel and 8 on the warp kernel,
     no flash_attention (MLA's cache-free attention has q/k width 192 and v
-    width 128: plain code, as the reference's);
-16. checks the models' outputs: finite full-width logits, small float32
+    width 128: plain code, as the reference's); then pixtral-12b's at (1,
+    2048): bit-identical, 81 rmsnorm (block) and 40 flash_attention
+    launches (tensor-core, head dim 128, 32 heads over 8);
+17. checks the models' outputs: finite full-width logits, small float32
     phi3, mamba2, gemma2 (window 8: prefill, three decodes and a
     cache-free forward through the flash kernel), zamba2 (state 64: the
     same), granite-moe (32 experts, top-8, capacity 1 at a batch-2
@@ -149,16 +172,19 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     sigmoid scoring: the same, and a ragged decode) and seamless (d 256,
     2 + 2 layers, 256 frames: prefill, three decodes and a cache-free
     forward, whose flash launches are not causal with Sq = Sk in the
-    encoder and Sq != Sk in the cross-attention) models on the card
+    encoder and Sq != Sk in the cross-attention) and pixtral (d 256, 2
+    layers, a 128-token prompt under 64 patches: prefill, three decodes
+    and a cache-free forward with the patches) models on the card
     (kernels) against the same models on the CPU (plain versions), serving
     and one train step;
-17. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
+18. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
     the event loop, gemma2 (smoke) through the overlay, and the train
     launcher with an injected failure: it restarts from its checkpoint and
     ends with rc 0;
-18. ``[warm-restart]``: boots the serve launcher in fresh processes on one
+19. ``[warm-restart]``: boots the serve launcher in fresh processes on one
     persistent bitstream store directory — phi3-mini-3.8b at full width
-    (the ``[serve]`` shape) plain, cold (``--store`` on an empty
+    cut to 8 of its 32 layers (``--layers 8``; the ``[serve]`` requests)
+    plain, cold (``--store`` on an empty
     directory), warm (the same directory) and garbled (one entry flipped
     mid-payload and one truncated, ``REPRO_SANITIZE=1``); then mamba2-130m
     plain, cold and warm on a second directory (prompts of 37, 500 and
@@ -171,10 +197,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     assembly or load, the first call), bytes on disk and load-vs-build ms
     per entry, the sanitizer's host ms per check, mamba2's downloads cold
     and warm;
-19. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
+20. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
     (lock lint, live checkers under the sanitizer, a two-member fleet's
     records and ``describe()``, the store, injected faults) must exit 0;
-20. prints the kernels line (time per call, host included, and device time
+21. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
     and ssd_chunk's CUDA-core kernels' times), timings at other shapes
@@ -186,8 +212,8 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, the overlay-served runs, the relocation
 and specialization rounds, the fleet runs, the full-width training runs,
-the dense family's, zamba2's, granite's, deepseek's and seamless's runs
-and the step graphs' calls)
+the dense family's, zamba2's, granite's, deepseek's, seamless's and
+pixtral's runs and the step graphs' calls)
 and read just
 after; launches made to compare or time a kernel are not counted.  A
 launcher boot of ``[warm-restart]`` is a process of its own: it counts from
@@ -234,7 +260,7 @@ from repro_torch.configs import (PAPER_VECTOR_LEN, cut_layers, get_config,  # no
 from repro_torch.core import (FaultPlan, FleetOverlay, Overlay, PlacementPolicy,  # noqa: E402
                               place)
 from repro_torch.core import interpreter as interp  # noqa: E402
-from repro_torch.data.pipeline import make_batch  # noqa: E402
+from repro_torch.data.pipeline import batch_specs, make_batch  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import native, ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -325,6 +351,17 @@ SEAMLESS_MAX_LEN, SEAMLESS_PROMPT = 4096, 2
 SEAMLESS_ROUNDS = ((1024, 16), (4096, 32))
 SEAMLESS_D, SEAMLESS_HEADS, SEAMLESS_HEAD_DIM = 1024, 16, 64
 SEAMLESS_CROSS_Q = 16
+# the vlm pixtral-12b at full width and depth (40 dense layers, d 5120, 32
+# heads over 8 kv heads of 128): served as text through ServeEngine (four
+# (16, 8) requests), and through the model API at batch 2, max_len 4096
+# with 256 patches (make_batch's min(256, seq // 2)) over the leading slots
+# of a 512-token prompt (16 decodes), then a 2048-token one (32 decodes);
+# its step graph at (1, 2048) launches flash causal at 32 over 8 heads
+PIXTRAL = "pixtral-12b"
+PIXTRAL_MAX_LEN, PIXTRAL_NPATCH = 4096, 256
+PIXTRAL_ROUNDS = ((512, 16), (2048, 32))
+PIXTRAL_D = 5120
+PIXTRAL_FLASH = (1, 32, 8, 2048, 128)     # (B, Hq, Hkv, S, D) of its cache-free forward
 RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOOP_CHUNK, 3072),
                   (TRAIN_BATCH, TRAIN_SEQ, 3072),
                   *((1, s, MAMBA_D) for s in MAMBA_PROMPTS), (MAMBA_BATCH, 1, MAMBA_D),
@@ -343,7 +380,10 @@ RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOO
                   # prompt and decode rows (d 1024, the warp kernel)
                   (BATCH, SEAMLESS_ROUNDS[1][0], SEAMLESS_D),
                   (BATCH, SEAMLESS_ROUNDS[0][0], SEAMLESS_D),
-                  (BATCH, SEAMLESS_PROMPT, SEAMLESS_D), (BATCH, 1, SEAMLESS_D))
+                  (BATCH, SEAMLESS_PROMPT, SEAMLESS_D), (BATCH, 1, SEAMLESS_D),
+                  # pixtral's decode rows and its 2048-token prefill at batch
+                  # 2 (d 5120, the block kernel)
+                  (BATCH, PIXTRAL_D), (BATCH * PIXTRAL_ROUNDS[1][0], PIXTRAL_D))
 
 
 def log(msg: str) -> None:
@@ -587,6 +627,8 @@ FLASH_CASES = [   # (B, Hq, Hkv, Sq, Sk, D, dtype, options)
        dict(causal=False)) for n, _ in reversed(SEAMLESS_ROUNDS)),
     *((BATCH, SEAMLESS_HEADS, SEAMLESS_HEADS, SEAMLESS_CROSS_Q, SEAMLESS_ROUNDS[1][0],
        SEAMLESS_HEAD_DIM, dt, dict(causal=False)) for dt in (torch.bfloat16, torch.float32)),
+    # pixtral-12b's 40 layers in its 2048-token cache-free forward
+    (*PIXTRAL_FLASH[:4], PIXTRAL_FLASH[3], PIXTRAL_FLASH[4], torch.bfloat16, {}),
 ]
 
 
@@ -2167,7 +2209,7 @@ def serve_dense(params, cfg, overlay, requests, max_len: int) -> dict:
 
 
 def serve_arch(tag: str, cfg, requests, max_len: int, gen: torch.Generator,
-               window_check: bool = False) -> dict:
+               window_check: bool = False, params=None) -> dict:
     """One arch of the dense family or zamba2 at full width, random bf16
     weights from the seed, served through ``Overlay(3, 3)`` and plainly:
     the logits of every call bit-identical (digest) and finite, identical
@@ -2180,15 +2222,20 @@ def serve_arch(tag: str, cfg, requests, max_len: int, gen: torch.Generator,
     per signature, the peak memory and the distinct tokens of each stream.
     With ``window_check``: a plain prefill of the long prompt and the decode
     step after it, once more with ``sliding_window=None``, must give other
-    logits (the window acts).  Returns the overlay run's launches."""
-    t0 = time.perf_counter()
-    params = pm.init(cfg, gen, DEV)
-    torch.cuda.synchronize()
-    gb = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(params)) / 1e9
-    log(f"[{tag}] {cfg.name}: {pm.count(params) / 1e9:.3f} B params (d_model {cfg.d_model}, "
-        f"{cfg.num_layers} layers, bf16, {gb:.2f} GB) initialized in "
-        f"{time.perf_counter() - t0:.1f}s; requests (prompt, new) {tuple(requests)}, batch "
-        f"{BATCH}, max_len {max_len}")
+    logits (the window acts).  With ``params`` it serves the caller's
+    weights and leaves them, and the memory check, to the caller.  Returns
+    the overlay run's launches."""
+    own = params is None
+    if own:
+        t0 = time.perf_counter()
+        params = pm.init(cfg, gen, DEV)
+        torch.cuda.synchronize()
+        gb = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(params)) / 1e9
+        log(f"[{tag}] {cfg.name}: {pm.count(params) / 1e9:.3f} B params (d_model "
+            f"{cfg.d_model}, {cfg.num_layers} layers, bf16, {gb:.2f} GB) initialized in "
+            f"{time.perf_counter() - t0:.1f}s")
+    log(f"[{tag}] {cfg.name}: requests (prompt, new) {tuple(requests)}, batch {BATCH}, "
+        f"max_len {max_len}")
     norms = norms_per_call(cfg)
     mamba = pm.layer_kinds(cfg).count("mamba")
     ssd_kind = ssd_variant(cfg)
@@ -2281,9 +2328,10 @@ def serve_arch(tag: str, cfg, requests, max_len: int, gen: torch.Generator,
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    left = torch.cuda.memory_allocated() / 2**30
-    check(left < 1.0, f"[{tag}] {cfg.name}: {left:.2f} GiB still allocated after the phase")
-    log(f"[{tag}] {cfg.name}: {left:.3f} GiB allocated after the phase")
+    if own:
+        left = torch.cuda.memory_allocated() / 2**30
+        check(left < 1.0, f"[{tag}] {cfg.name}: {left:.2f} GiB still allocated after the phase")
+        log(f"[{tag}] {cfg.name}: {left:.3f} GiB allocated after the phase")
     return {"launches": ov["launches"], "tok_s_overlay": ov["tokens"] / ov["seconds"],
             "tok_s_plain": pl["tokens"] / pl["seconds"]}
 
@@ -2423,26 +2471,28 @@ def phase_serve_deepseek(gen: torch.Generator) -> dict:
 
 
 def seamless_rounds(cfg) -> list:
-    """The two rounds of ``[serve-seamless]``: (frames (BATCH, S, 1024) bf16,
-    the decoder prompt (BATCH, 2) int32, new tokens), numpy draws from the
+    """The two rounds of ``[serve-seamless]``: (the decoder prompt (BATCH, 2)
+    int32, frames (BATCH, S, 1024) bf16, new tokens), numpy draws from the
     seed."""
     rng = np.random.default_rng(SEED)
     out = []
     for n, new in SEAMLESS_ROUNDS:
         frames = rng.standard_normal((BATCH, n, cfg.frontend_dim))
         prompt = rng.integers(0, cfg.vocab_size, size=(BATCH, SEAMLESS_PROMPT))
-        out.append((torch.from_numpy(frames).to(torch.bfloat16).to(DEV),
-                    torch.from_numpy(prompt.astype(np.int32)).to(DEV), new))
+        out.append((torch.from_numpy(prompt.astype(np.int32)).to(DEV),
+                    torch.from_numpy(frames).to(torch.bfloat16).to(DEV), new))
     return out
 
 
-def serve_seamless(params, cfg, overlay, rounds) -> dict:
-    """Each round through ``prefill(enc_in=frames)`` and ``new`` greedy
-    ``decode_step`` calls on a fresh cache of ``SEAMLESS_MAX_LEN``; with an
-    overlay both steps go through ``overlay.jit`` as ``ServeEngine`` traces
-    its own (a quarter of the fabric each).  Returns the streams, the
-    launches, the seconds, the peak memory and the two wrapped steps."""
-    pf = lambda p, t, c, f: mdl.prefill(p, cfg, t, c, enc_in=f)
+def serve_api(params, cfg, overlay, rounds, stub: str, max_len: int) -> dict:
+    """Each round (prompt, the stub's input, new tokens) through
+    ``prefill(prompt, **{stub: input})`` (``enc_in`` frames, or
+    ``patch_embeds``) and ``new`` greedy ``decode_step`` calls on a fresh
+    cache of ``max_len``; with an overlay both steps go through
+    ``overlay.jit`` as ``ServeEngine`` traces its own (a quarter of the
+    fabric each).  Returns the streams, the launches, the seconds, the peak
+    memory and the two wrapped steps."""
+    pf = lambda p, t, c, x: mdl.prefill(p, cfg, t, c, **{stub: x})
     dec = lambda p, t, c: mdl.decode_step(p, cfg, t, c)
     if overlay is not None:
         budget = max(1, overlay.grid.num_tiles // 4)
@@ -2454,9 +2504,9 @@ def serve_seamless(params, cfg, overlay, rounds) -> dict:
     reset_counters()                           # the driven path starts here
     t0 = time.perf_counter()
     streams = []
-    for frames, prompt, new in rounds:
-        caches = mdl.init_cache(cfg, BATCH, SEAMLESS_MAX_LEN, DEV)
-        logits, caches = pf(params, prompt, caches, frames)
+    for prompt, stub_in, new in rounds:
+        caches = mdl.init_cache(cfg, BATCH, max_len, DEV)
+        logits, caches = pf(params, prompt, caches, stub_in)
         toks = [torch.argmax(logits, -1).to(torch.int32)]
         for _ in range(new):
             logits, caches = dec(params, toks[-1][:, None], caches)
@@ -2508,11 +2558,11 @@ def phase_serve_seamless(gen: torch.Generator) -> dict:
         f"({cfg.param_count() / 1e9:.3f} B by param_count(), d_model {cfg.d_model}, "
         f"{len(enc)} enc + {len(kinds)} dec layers, bf16, {gb:.2f} GB) initialized in "
         f"{time.perf_counter() - t0:.1f}s; rounds (frames, prompt, new) "
-        f"{[(f.shape[1], p.shape[1], n) for f, p, n in rounds]}, batch {BATCH}, max_len "
+        f"{[(f.shape[1], p.shape[1], n) for p, f, n in rounds]}, batch {BATCH}, max_len "
         f"{SEAMLESS_MAX_LEN}")
     runs = {}
     for name, overlay in (("overlay", Overlay(3, 3)), ("plain", None)):
-        r = serve_seamless(params, cfg, overlay, rounds)
+        r = serve_api(params, cfg, overlay, rounds, "enc_in", SEAMLESS_MAX_LEN)
         pf, dec = r["prefill"], r["decode"]
         for step, fn in (("prefill", pf), ("decode", dec)):
             got = [(norms, ssd, flash) for (norms, ssd), flash in zip(fn.launches, fn.flash)]
@@ -2573,7 +2623,7 @@ def phase_serve_seamless(gen: torch.Generator) -> dict:
         f"max_memory_allocated overlay {ov['peak'] / 2**30:.2f} GiB ({ov['peak'] / 1e9:.2f} GB), "
         f"plain {pl['peak'] / 2**30:.2f} GiB; streams {[st[:6] for st in ov['streams']]}...; "
         f"distinct tokens per stream {[len(set(st)) for st in ov['streams']]}")
-    frames, prompt, _ = rounds[1]
+    prompt, frames, _ = rounds[1]
     with torch.no_grad():
         prefill = [_sync_ms(lambda: mdl.prefill(params, cfg, prompt, mdl.init_cache(
             cfg, BATCH, SEAMLESS_MAX_LEN, DEV), enc_in=frames))[0] for _ in range(2)]
@@ -2601,6 +2651,189 @@ def phase_serve_seamless(gen: torch.Generator) -> dict:
     check(left < 1.0, f"[serve-seamless] {left:.2f} GiB still allocated after the phase")
     log(f"[serve-seamless] {cfg.name}: {left:.3f} GiB allocated after the phase")
     return {"launches": ov["launches"], "tok_s_overlay": ov["tokens"] / ov["seconds"],
+            "tok_s_plain": pl["tokens"] / pl["seconds"], "prefill_ms": prefill[1],
+            "decode_ms": synced}
+
+
+def pixtral_rounds(cfg) -> list:
+    """The two model-API rounds of ``[serve-pixtral]``: (the prompt (BATCH,
+    S) int32, the patches (BATCH, 256, 1024) bf16, new tokens), numpy draws
+    from the seed; 256 patches is ``make_batch``'s count at both S."""
+    rng = np.random.default_rng(SEED)
+    out = []
+    for n, new in PIXTRAL_ROUNDS:
+        npatch = batch_specs(cfg, BATCH, n, DEV)["patch_embeds"].shape[1]
+        check(npatch == PIXTRAL_NPATCH, f"[serve-pixtral] {npatch} patches at {n} tokens")
+        prompt = rng.integers(0, cfg.vocab_size, size=(BATCH, n))
+        patches = rng.standard_normal((BATCH, npatch, cfg.frontend_dim))
+        out.append((torch.from_numpy(prompt.astype(np.int32)).to(DEV),
+                    torch.from_numpy(patches).to(torch.bfloat16).to(DEV), new))
+    return out
+
+
+def phase_serve_pixtral(gen: torch.Generator) -> dict:
+    """[serve-pixtral]: the vlm pixtral-12b at full width and all 40
+    ``dense`` layers (d 5120, 32 heads over 8 kv heads of 128, untied vocab
+    131072, the vision stub's ``frontend_proj``; random bf16 weights from
+    the seed), one set of weights served two ways, each through
+    ``Overlay(3, 3)`` and plainly: as text through ``ServeEngine``
+    (:func:`serve_arch`, as the reference's engine serves it), and through
+    the model API with 256 patches over the leading slots of a 512-token
+    prompt (16 greedy decodes), then of a 2048-token one (32), at batch 2,
+    max_len 4096 (:func:`serve_api`).  Each way: the logits of every call
+    bit-identical (digest) and finite, identical streams, 81 rmsnorm
+    launches a call on the block kernel (d 5120), no flash_attention and no
+    ssd_chunk (cached attention is plain code, as the reference's); one
+    decode and two prefill signatures through the model API, the patches an
+    input of each traced prefill.  Then, plainly: the stub acts (the
+    512-token prompt without its patches gives another digest) and the
+    tokens under the patches do not (new ids in the 256 slots give the
+    same bits); the 2048-token prefill and a batch-2 decode, each ended by
+    a synchronize, the decode beside the time to read its weights once;
+    under 1 GiB left."""
+    cfg = get_config(PIXTRAL)
+    norms = norms_per_call(cfg)
+    check(cfg.d_model == PIXTRAL_D and pm.layer_kinds(cfg) == ["dense"] * 40
+          and cfg.frontend == "vision" and norms == {"warp": 0, "block": 81}
+          and PIXTRAL_FLASH[1:] == (cfg.num_heads, cfg.num_kv_heads, PIXTRAL_ROUNDS[1][0],
+                                    cfg.resolved_head_dim)
+          and fa_mod.variant(torch.bfloat16, cfg.resolved_head_dim) == "wgmma",
+          f"{PIXTRAL} config {cfg}")
+    t0 = time.perf_counter()
+    params = pm.init(cfg, gen, DEV)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(params)) / 1e9
+    kv = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    log(f"[serve-pixtral] {cfg.name}: {pm.count(params) / 1e9:.3f} B params "
+        f"({cfg.param_count() / 1e9:.3f} B by param_count(), frontend_proj "
+        f"{tuple(params['frontend_proj'].shape)}; d_model {cfg.d_model}, {cfg.num_layers} "
+        f"layers, bf16, {gb:.2f} GB) initialized in {time.perf_counter() - t0:.1f}s; KV cache "
+        f"{kv} B a token, {kv * BATCH * PIXTRAL_MAX_LEN / 1e9:.2f} GB at batch {BATCH} and "
+        f"max_len {PIXTRAL_MAX_LEN}")
+    engine = serve_arch("serve-pixtral", cfg, ((PROMPT, MAX_NEW),) * REQUESTS, MAX_LEN, gen,
+                        params=params)
+    check(engine["launches"]["flash_attention"] == 0 and engine["launches"]["ssd_chunk"] == 0,
+          f"[serve-pixtral] engine launches {engine['launches']}")
+    rounds = pixtral_rounds(cfg)
+    log(f"[serve-pixtral] model API rounds (prompt, patches, new) "
+        f"{[(p.shape[1], pe.shape[1], n) for p, pe, n in rounds]}, batch {BATCH}, max_len "
+        f"{PIXTRAL_MAX_LEN}")
+    want = (norms, 0, {"wgmma": 0, "simt": 0})
+    runs = {}
+    for name, overlay in (("overlay", Overlay(3, 3)), ("plain", None)):
+        r = serve_api(params, cfg, overlay, rounds, "patch_embeds", PIXTRAL_MAX_LEN)
+        pf, dec = r["prefill"], r["decode"]
+        for step, fn in (("prefill", pf), ("decode", dec)):
+            got = [(n_, ssd, flash) for (n_, ssd), flash in zip(fn.launches, fn.flash)]
+            check(all(g == want for g in got),
+                  f"[serve-pixtral] {name}: (rmsnorm by variant, ssd_chunk, flash_attention by "
+                  f"variant) launches of each {step} call {got}, not {want}")
+        check(all(pf.finite + dec.finite), f"[serve-pixtral] {name}: non-finite logits")
+        n = r["launches"]
+        tokens = sum(len(st) for st in r["streams"])
+        log(f"[serve-pixtral] {cfg.name} patches {name}: {tokens} tokens in {r['seconds']:.2f}s "
+            f"({tokens / r['seconds']:.2f} tok/s), calls prefill {pf.calls} decode {dec.calls}, "
+            f"launches { {k: v for k, v in n.items() if v} }; host ms a prefill (512, 2048 "
+            f"tokens) {[round(t * 1e3, 1) for t in pf.seconds]}; decode {dec.split_ms()}")
+        if overlay is not None:
+            desc = overlay.describe()
+            log(f"[serve-pixtral] {cfg.name} patches overlay: traces {desc['traces']} "
+                f"({desc['trace_seconds']:.1f}s), downloads {desc['downloads']}")
+            sigs = {"prefill": list(pf.fn._entries.values()),
+                    "decode": list(dec.fn._entries.values())}
+            check(len(sigs["prefill"]) == 2 and len(sigs["decode"]) == 1,
+                  f"[serve-pixtral] signatures {({k: len(v) for k, v in sigs.items()})}, not "
+                  f"two prefills and one decode")
+            for step, entries in sigs.items():
+                for entry in entries:
+                    graph = entry.lowered.graph
+                    patches = [tuple(a.shape) for a in graph.input_avals() if len(a.shape) == 3
+                               and a.shape[-1] == cfg.frontend_dim]
+                    toks = next(a.shape for a in graph.input_avals()
+                                if a.dtype == torch.int32 and len(a.shape) == 2)
+                    check(patches == ([(BATCH, PIXTRAL_NPATCH, cfg.frontend_dim)]
+                                      if step == "prefill" else []),
+                          f"[serve-pixtral] a traced {step} takes patch inputs {patches}")
+                    log(f"[serve-pixtral] {cfg.name} {step} signature tokens {tuple(toks)}, "
+                        f"patches {patches}: trace {entry.trace_seconds:.2f} s, assemble "
+                        f"{entry.assemble_seconds:.2f} s; {len(graph.op_nodes())} op nodes "
+                        f"({len(entry.lowered.unmapped)} residue), "
+                        f"{entry.acc.placement.total_passthrough} pass-through hops")
+            overlay.close()
+        runs[name] = dict(r, tokens=tokens, digests=pf.digests + dec.digests,
+                          prefill_digests=pf.digests, calls=pf.calls + dec.calls)
+        for key in ("prefill", "decode"):
+            runs[name].pop(key)
+        del r, pf, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+    ov, pl = runs["overlay"], runs["plain"]
+    check(ov["streams"] == pl["streams"],
+          f"[serve-pixtral] overlay and plain streams differ:\n{ov['streams']}\n{pl['streams']}")
+    check(len(ov["digests"]) == len(pl["digests"]) == ov["calls"]
+          and ov["digests"] == pl["digests"],
+          f"[serve-pixtral] overlay and plain logits differ on calls "
+          f"{[i for i, (a, b) in enumerate(zip(ov['digests'], pl['digests'])) if a != b]}")
+    check(all(all(0 <= t < cfg.vocab_size for t in st) for st in ov["streams"])
+          and [len(st) for st in ov["streams"]] ==
+          [1 + new for _, new in PIXTRAL_ROUNDS for _ in range(BATCH)],
+          f"[serve-pixtral] unexpected token stream shape/range")
+    log(f"[serve-pixtral] {cfg.name} patches overlay / plain tok/s "
+        f"{(ov['tokens'] / ov['seconds']) / (pl['tokens'] / pl['seconds']):.3f}; logits "
+        f"bit-identical (digest) and finite on all {len(ov['digests'])} calls; "
+        f"max_memory_allocated overlay {ov['peak'] / 2**30:.2f} GiB ({ov['peak'] / 1e9:.2f} GB), "
+        f"plain {pl['peak'] / 2**30:.2f} GiB; streams {[st[:6] for st in ov['streams']]}...; "
+        f"distinct tokens per stream {[len(set(st)) for st in ov['streams']]}")
+
+    def prefill_digest(prompt, patches):
+        logits, _ = mdl.prefill(params, cfg, prompt, mdl.init_cache(
+            cfg, BATCH, PIXTRAL_MAX_LEN, DEV), patch_embeds=patches)
+        return logits_digest(logits)
+
+    prompt, patches, _ = rounds[0]
+    under = prompt.clone()
+    under[:, :PIXTRAL_NPATCH] = (prompt[:, :PIXTRAL_NPATCH] + 1) % cfg.vocab_size
+    with torch.no_grad():
+        stub = {"patches": prefill_digest(prompt, patches),
+                "no patches": prefill_digest(prompt, None),
+                "new ids under the patches": prefill_digest(under, patches)}
+    check(stub["patches"] == pl["prefill_digests"][0]
+          and stub["no patches"] != stub["patches"]
+          and stub["new ids under the patches"] == stub["patches"],
+          f"[serve-pixtral] stub checks on the {prompt.shape[1]}-token prompt: digests {stub} "
+          f"(served {pl['prefill_digests'][0]})")
+    log(f"[serve-pixtral] the stub acts: the {prompt.shape[1]}-token prefill's digest "
+        f"{stub['patches']} without its patches is {stub['no patches']}; with new ids in the "
+        f"{PIXTRAL_NPATCH} slots under the patches it is {stub['new ids under the patches']} "
+        f"(the same bits)")
+    prompt, patches, _ = rounds[1]
+    with torch.no_grad():
+        prefill = [_sync_ms(lambda: mdl.prefill(params, cfg, prompt, mdl.init_cache(
+            cfg, BATCH, PIXTRAL_MAX_LEN, DEV), patch_embeds=patches))[0] for _ in range(2)]
+        _, caches = mdl.prefill(params, cfg, prompt, mdl.init_cache(
+            cfg, BATCH, PIXTRAL_MAX_LEN, DEV), patch_embeds=patches)
+        tok = prompt[:, :1].contiguous()
+        host, synced = _decode_ms(lambda i: mdl.decode_step(params, cfg, tok, caches))
+    # what a decode call reads once: every weight but the embedding (two rows
+    # gathered) and frontend_proj (not run); and every cache slot (the plain
+    # attention reads all of max_len and masks)
+    read = sum(t.numel() * t.element_size() for k, v in params.items()
+               if k not in ("embed", "frontend_proj") for t in pytree.tree_leaves(v))
+    cache_bytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(caches))
+    log(f"[serve-pixtral] plain steps ended by a synchronize: a {prompt.shape[1]}-token prefill "
+        f"under {patches.shape[1]} patches (batch {BATCH}) {prefill[1]:.1f} ms (first "
+        f"{prefill[0]:.1f}); a batch-{BATCH} decode {synced:.2f} ms a call (the host issues it "
+        f"in {host:.2f} ms), against {read / 1e9:.3f} GB of weights read once: "
+        f"{read / HBM_BYTES_PER_S * 1e3:.3f} ms, and {cache_bytes / 1e9:.3f} GB of caches: "
+        f"{(read + cache_bytes) / HBM_BYTES_PER_S * 1e3:.3f} ms for both")
+    del params, caches, tok, rounds, prompt, patches, under
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    check(left < 1.0, f"[serve-pixtral] {left:.2f} GiB still allocated after the phase")
+    log(f"[serve-pixtral] {cfg.name}: {left:.3f} GiB allocated after the phase")
+    return {"launches": engine["launches"], "launches_patches": ov["launches"],
+            "tok_s_overlay": ov["tokens"] / ov["seconds"],
             "tok_s_plain": pl["tokens"] / pl["seconds"], "prefill_ms": prefill[1],
             "decode_ms": synced}
 
@@ -2659,7 +2892,10 @@ def phase_step_graph(gen: torch.Generator) -> dict:
     flash_attention 24 times (wgmma, head dim 64, 16 heads over 8); then
     of deepseek-v3-671b cut to 4 layers at (1, 2048): rmsnorm 9 times on
     block (d 7168) and 8 times on warp (the latents), no flash_attention
-    (MLA's q/k and v widths differ: plain code)."""
+    (MLA's q/k and v widths differ: plain code); then of pixtral-12b at
+    (1, 2048), tokens only as the reference's: rmsnorm 81 times on block
+    (d 5120) and flash_attention 40 times (wgmma, head dim 128, 32 heads
+    over 8)."""
     phi3 = get_config("phi3-mini-3.8b")
     out = {"step_graph": step_graph(phi3, (BATCH, PROMPT), gen, {
         "rmsnorm/warp": 2 * phi3.num_layers + 1,
@@ -2681,6 +2917,11 @@ def phase_step_graph(gen: torch.Generator) -> dict:
     check(out["step_graph_deepseek"]["flash_attention"] == 0
           and out["step_graph_deepseek"]["ssd_chunk"] == 0,
           f"[step-graph] {DEEPSEEK} launches {out['step_graph_deepseek']}")
+    pixtral = get_config(PIXTRAL)
+    check(fa_mod.variant(torch.bfloat16, pixtral.resolved_head_dim) == "wgmma"
+          and norms_per_call(pixtral) == {"warp": 0, "block": 81}, f"{PIXTRAL} shapes")
+    out["step_graph_pixtral"] = step_graph(pixtral, (1, PIXTRAL_FLASH[3]), gen, {
+        "rmsnorm/block": 81, "flash_attention/wgmma": pixtral.num_layers})
     return out
 
 
@@ -2954,6 +3195,63 @@ def phase_small_seamless_reference() -> None:
         f"(simt), rmsnorm {n['rmsnorm']} times")
 
 
+def phase_small_pixtral_reference() -> None:
+    """A small float32 pixtral (its smoke config at d_model 256, 4 heads of
+    64 over 2 kv heads, 2 ``dense`` layers, patches of 64 features) on the
+    card (CUDA kernels) against the same model on the CPU (plain versions):
+    ``prefill(patch_embeds=)`` of a 128-token prompt under 64 patches at
+    batch 2 and three decodes over the bf16 KV cache (tolerance 1e-2 * (1 +
+    |logit|), as for phi3), and the cache-free ``forward(patch_embeds=)``
+    of the same prompt (f32 throughout: 1e-3 * (1 + |logit|)), which
+    launches flash_attention twice, causal, on the CUDA-core kernel (f32),
+    and rmsnorm 5 times (warp)."""
+    cfg = smoke_config(PIXTRAL).scaled(d_model=256, num_heads=4, num_kv_heads=2, head_dim=64,
+                                       d_ff=512, frontend_dim=64, dtype="float32")
+    cpu = _to(pm.init(cfg, torch.Generator().manual_seed(SEED), "cpu"), "cpu", torch.float32)
+    cuda = _to(cpu, DEV)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 128)).astype(np.int32))
+    patches = torch.from_numpy(rng.standard_normal((2, 64, cfg.frontend_dim)).astype(np.float32))
+    errs = {}
+    with torch.no_grad():
+        lc, cc = mdl.prefill(cpu, cfg, toks, mdl.init_cache(cfg, 2, 160, "cpu"),
+                             patch_embeds=patches)
+        lg, cg = mdl.prefill(cuda, cfg, toks.to(DEV), mdl.init_cache(cfg, 2, 160, DEV),
+                             patch_embeds=patches.to(DEV))
+        pairs = [("prefill", lc, lg)]
+        for i in range(3):
+            nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 1)).astype(np.int32))
+            dc, cc = mdl.decode_step(cpu, cfg, nxt, cc)
+            dg, cg = mdl.decode_step(cuda, cfg, nxt.to(DEV), cg)
+            pairs.append((f"decode {i + 1}", dc, dg))
+    for name, want, got in pairs:
+        got = got.cpu()
+        errs[name] = (got - want).abs().max().item()
+        check(bool((got - want).abs().le(1e-2 * (1 + want.abs())).all()),
+              f"small pixtral {name}: card vs CPU max err {errs[name]}")
+    with torch.no_grad():
+        hc, _ = tfm.forward(cpu, cfg, toks, patch_embeds=patches)
+        want = tfm.unembed(cpu, hc, cfg)
+        torch.cuda.synchronize()
+        reset_counters()
+        hg, _ = tfm.forward(cuda, cfg, toks.to(DEV), patch_embeds=patches.to(DEV))
+        torch.cuda.synchronize()
+        n = counts()
+        got = tfm.unembed(cuda, hg, cfg).cpu()
+    errs["cache-free forward of 128 tokens"] = (got - want).abs().max().item()
+    check(n["flash_attention"] == n["flash_attention/simt"] == 2
+          and n["rmsnorm"] == n["rmsnorm/warp"] == 5,
+          f"small pixtral cache-free forward: launches {n}")
+    check(bool((got - want).abs().le(1e-3 * (1 + want.abs())).all()),
+          f"small pixtral cache-free forward: card vs CPU max err "
+          f"{errs['cache-free forward of 128 tokens']}")
+    log(f"[reference] small f32 pixtral-12b ({pm.layer_kinds(cfg)}, d {cfg.d_model}, 128 "
+        f"tokens under 64 patches) logits card (kernels) vs CPU (plain) max err: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; the cache-free forward launched flash_attention {n['flash_attention']} times "
+        f"(simt), rmsnorm {n['rmsnorm']} times")
+
+
 def phase_launcher() -> None:
     """``launch.serve.main`` serving mamba2-130m at full width, phi3-mini
     (smoke) on the event loop and gemma2-27b (smoke) through the overlay,
@@ -3000,7 +3298,9 @@ def phase_launcher() -> None:
 
 
 BOOT_TIMEOUT_S = 300
-PHI3_BOOT = ["--arch", "phi3-mini-3.8b", "--requests", str(REQUESTS), "--batch", str(BATCH),
+PHI3_BOOT_LAYERS = 8          # full width, 8 of its 32 layers: the boots' trace and init
+PHI3_BOOT = ["--arch", "phi3-mini-3.8b", "--layers", str(PHI3_BOOT_LAYERS),
+             "--requests", str(REQUESTS), "--batch", str(BATCH),
              "--prompt-len", str(PROMPT), "--max-new", str(MAX_NEW), "--max-len", str(MAX_LEN),
              "--seed", str(SEED)]
 MAMBA_BOOT = ["--arch", MAMBA, "--requests", str(MAMBA_REQUESTS), "--batch", str(MAMBA_BATCH),
@@ -3102,7 +3402,7 @@ def phase_warm_restart() -> dict:
     with tempfile.TemporaryDirectory(prefix="warm-phi3-") as d1, \
             tempfile.TemporaryDirectory(prefix="warm-mamba-") as d2, \
             tempfile.TemporaryDirectory(prefix="warm-fleet-") as d3:
-        norms = 2 * get_config("phi3-mini-3.8b").num_layers + 1
+        norms = 2 * PHI3_BOOT_LAYERS + 1
         plain, _ = boot("phi3 plain", PHI3_BOOT)
         cold, _ = boot("phi3 cold", PHI3_BOOT + ["--store", d1])
         sizes = {n: os.path.getsize(os.path.join(d1, n)) for n in sorted(os.listdir(d1))}
@@ -3462,6 +3762,23 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
             "library_ms": time_ms(lambda: F.rms_norm(x, (SEAMLESS_D,), w.bfloat16(), 1e-6), 500),
             "library_device_ms": device_ms(
                 lambda: F.rms_norm(x, (SEAMLESS_D,), w.bfloat16(), 1e-6))})
+    # pixtral's decode rows, its patch prefills at batch 2 (512 and 2048
+    # tokens) and its step graph's 2048 rows, all on the block kernel
+    out[-1]["pixtral_shapes"] = []
+    for rows in (BATCH, *(BATCH * n for n, _ in PIXTRAL_ROUNDS), PIXTRAL_FLASH[3]):
+        x = torch.randn(rows, PIXTRAL_D, generator=gen, device=DEV).bfloat16()
+        w = torch.ones(PIXTRAL_D, device=DEV)
+        bound, by = rmsnorm_bound_ms(rows, PIXTRAL_D)
+        out[-1]["pixtral_shapes"].append({
+            "shape": f"x: ({rows}, {PIXTRAL_D}) bfloat16, w: ({PIXTRAL_D},) float32",
+            "variant": rn_mod.variant(x, x),
+            "ms": time_ms(lambda: rn_mod.rmsnorm_cuda(x, w), 500),
+            "device_ms": device_ms(lambda: rn_mod.rmsnorm_cuda(x, w)),
+            "plain_ms": time_ms(lambda: rn_mod.plain(x, w), 500),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(lambda: F.rms_norm(x, (PIXTRAL_D,), w.bfloat16(), 1e-6), 500),
+            "library_device_ms": device_ms(
+                lambda: F.rms_norm(x, (PIXTRAL_D,), w.bfloat16(), 1e-6))})
     del x, w
     b, h, sq, hd = TRAIN_BATCH, 32, TRAIN_SEQ, 96      # the training path's attention
     q, k, v = (torch.randn(b, h, sq, hd, generator=gen, device=DEV).bfloat16()
@@ -3518,6 +3835,26 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
             q, k, v, is_causal=True, enable_gqa=True), 50, warmup=5),
         "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), calls=20, replays=3)}
+    del q, k, v
+    b, hq, hkv, sq, hd = PIXTRAL_FLASH        # pixtral's cache-free forward, 32 over 8 heads
+    q = torch.randn(b, hq, sq, hd, generator=gen, device=DEV).bfloat16()
+    k, v = (torch.randn(b, hkv, sq, hd, generator=gen, device=DEV).bfloat16() for _ in range(2))
+    bound, by = flash_bound_ms(b, hq, hkv, sq, hd)
+    out[-1]["pixtral_shape"] = row = {
+        "shape": f"q ({b}, {hq}, {sq}, {hd}), k, v ({b}, {hkv}, {sq}, {hd}) bfloat16, causal",
+        "variant": fa_mod.variant(q.dtype, hd),
+        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 50, warmup=5),
+        "device_ms": device_ms(lambda: fa_mod.flash_attention(q, k, v), calls=20, replays=3),
+        "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v), 3, warmup=1),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 50, warmup=5),
+        "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), calls=20, replays=3)}
+    log(f"[timing] flash_attention {row['shape']}: {row['variant']} {row['ms']:.4f} ms per "
+        f"call, device {row['device_ms']:.4f} ms ({bound / row['device_ms']:.0%} of the bound "
+        f"{bound:.4f} ms, by {by}); plain {row['plain_ms']:.4f} ms; SDPA (enable_gqa) "
+        f"{row['library_ms']:.4f} ms, device {row['library_device_ms']:.4f} ms")
     del q, k, v
     # seamless's encoder at 4096 and 1024 frames and a cache-free
     # cross-attention of 16 queries over 4096 keys: not causal, every (query,
@@ -3696,9 +4033,11 @@ def run_phase(tag: str, fn, *args):
 SIMT_SSD_PATHS = ("serve_zamba2", "step_graph_zamba2")
 # how each call of a path splits its rmsnorm launches between the variants
 # (every other path's are all on the warp kernel): gemma2's and mistral's
-# all on the block kernel (d > MAX_WARP_D), deepseek's 9 on block (d 7168)
-# and 8 on warp (its latents)
+# all on the block kernel (d > MAX_WARP_D), as are pixtral's (d 5120),
+# deepseek's 9 on block (d 7168) and 8 on warp (its latents)
 NORM_SPLITS = {"serve_gemma2": {"block": 1}, "serve_mistral": {"block": 1},
+               "serve_pixtral": {"block": 1}, "serve_pixtral_patches": {"block": 1},
+               "step_graph_pixtral": {"block": 1},
                "serve_deepseek": {"block": 9, "warp": 8},
                "step_graph_deepseek": {"block": 9, "warp": 8}}
 
@@ -3727,6 +4066,7 @@ def main() -> int:
     granite = run_phase("[serve-granite]", phase_serve_granite, gen)
     deepseek = run_phase("[serve-deepseek]", phase_serve_deepseek, gen)
     seamless = run_phase("[serve-seamless]", phase_serve_seamless, gen)
+    pixtral = run_phase("[serve-pixtral]", phase_serve_pixtral, gen)
     step_graphs = run_phase("[step-graph]", phase_step_graph, gen)
     run_phase("[reference]", lambda: (phase_small_reference(), phase_small_train_reference(),
                                       phase_small_mamba_reference(),
@@ -3734,7 +4074,8 @@ def main() -> int:
                                       phase_small_zamba2_reference(),
                                       phase_small_granite_reference(),
                                       phase_small_deepseek_reference(),
-                                      phase_small_seamless_reference()))
+                                      phase_small_seamless_reference(),
+                                      phase_small_pixtral_reference()))
     run_phase("[launcher]", phase_launcher)
     booted = run_phase("[warm-restart]", phase_warm_restart)
     analysis = run_phase("[analysis]", phase_analysis)
@@ -3756,6 +4097,8 @@ def main() -> int:
                "serve_granite": granite["launches"],
                "serve_deepseek": deepseek["launches"],
                "serve_seamless": seamless["launches"],
+               "serve_pixtral": pixtral["launches"],
+               "serve_pixtral_patches": pixtral["launches_patches"],
                **step_graphs, **booted, "analysis": analysis}
     launches = {name: sum(p[name] for p in by_path.values()) for name in counts()}
     for path, n in by_path.items():

@@ -1,12 +1,13 @@
 """Registration of the architectures the port serves, the paper's own
 VMUL&Reduce workload constants, and the smoke-test reduction helper.
 
-A copy of ``repro/configs/archs.py`` restricted to what the port serves:
-phi3-mini-3.8b, mamba2-130m, the dense family (gemma2-27b, minicpm-2b,
-mistral-large-123b), the hybrid zamba2-7b, the mixture-of-experts
-granite-moe-1b-a400m, deepseek-v3-671b (Multi-head Latent Attention and
-a 256-expert FFN) and the encoder-decoder seamless-m4t-medium (its audio
-frontend a stub of frame embeddings) are registered.
+A copy of ``repro/configs/archs.py``: all ten of its architectures are
+registered — phi3-mini-3.8b, mamba2-130m, the dense family (gemma2-27b,
+minicpm-2b, mistral-large-123b), the hybrid zamba2-7b, the
+mixture-of-experts granite-moe-1b-a400m, deepseek-v3-671b (Multi-head
+Latent Attention and a 256-expert FFN), the encoder-decoder
+seamless-m4t-medium (its audio frontend a stub of frame embeddings) and
+the vlm pixtral-12b (its vision frontend a stub of patch embeddings).
 :func:`cut_layers` is the port's own: a full-width config cut to fewer
 layers, for a model whose full depth does not fit one card.
 """
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 from repro_torch.configs import (  # noqa: F401  (registers)
     deepseek_v3_671b, gemma2_27b, granite_moe_1b, mamba2_130m, minicpm_2b,
-    mistral_large_123b, phi3_mini_3_8b, seamless_m4t_medium, zamba2_7b)
+    mistral_large_123b, phi3_mini_3_8b, pixtral_12b, seamless_m4t_medium, zamba2_7b)
 from repro_torch.configs.base import ArchConfig, get_config
 
 # ---------------------------------------------------------------------------

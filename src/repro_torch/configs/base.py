@@ -7,8 +7,8 @@ Heterogeneous layer stacks are expressed as ``blocks``: a list of
 ``repeat`` times (e.g. gemma-2's local:global alternation is
 ``(("local", "global"), 23)``).  The reference scans each unit; the port
 loops over the layers in Python.  The port serves the kinds of
-``models/params.py::SERVED_KINDS`` (every kind below; a vlm frontend is
-refused); the schema keeps every field so
+``models/params.py::SERVED_KINDS`` (every kind below) with no frontend,
+the audio stub or the vision stub; the schema keeps every field so
 configs copy verbatim, and the analytic parameter counts
 (:meth:`ArchConfig.param_count`, :meth:`ArchConfig.active_param_count`)
 are the reference's.

@@ -71,25 +71,28 @@ class SyntheticLM:
             step += 1
 
 
-def _refuse_vision(cfg: ArchConfig) -> None:
-    if cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: the vision frontend's stub inputs are not ported yet "
-            f"(ROADMAP queue 1, \"Other archs\")")
+def _npatch(seq: int) -> int:
+    """The vision stub's patch count for a sequence of ``seq`` tokens: the
+    patches take at most 256 leading slots and at most half the sequence."""
+    return min(256, seq // 2)
 
 
 def make_batch(cfg: ArchConfig, batch: int, seq: int, step: int = 0,
                seed: int = 0, device: "str | torch.device | None" = None) -> dict:
-    """Concrete batch for an arch: tokens and labels, and for the audio
-    stub ``frames`` (batch, seq, frontend_dim) bf16, the reference's numpy
-    draws (``repro/data/pipeline.py:73-83``)."""
-    _refuse_vision(cfg)
+    """Concrete batch for an arch: tokens and labels, and the stub
+    frontends' inputs, the reference's numpy draws from
+    ``default_rng(seed + 17 * step)`` after the tokens
+    (``repro/data/pipeline.py:68-83``): for the vision stub
+    ``patch_embeds`` (batch, min(256, seq // 2), frontend_dim) bf16, for
+    the audio stub ``frames`` (batch, seq, frontend_dim) bf16."""
     ds = SyntheticLM(cfg.vocab_size, seq, batch, seed, device=device)
     out = ds.batch(step)
-    if cfg.frontend == "audio":
-        rng = np.random.default_rng(seed + 17 * step)
-        frames = rng.standard_normal((batch, seq, cfg.frontend_dim))
-        out["frames"] = torch.from_numpy(frames).to(torch.bfloat16).to(ds.device)
+    rng = np.random.default_rng(seed + 17 * step)
+    bf16 = lambda a: torch.from_numpy(a).to(torch.bfloat16).to(ds.device)
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = bf16(rng.standard_normal((batch, _npatch(seq), cfg.frontend_dim)))
+    elif cfg.frontend == "audio":
+        out["frames"] = bf16(rng.standard_normal((batch, seq, cfg.frontend_dim)))
     return out
 
 
@@ -99,11 +102,13 @@ def batch_specs(cfg: ArchConfig, batch: int, seq: int,
     :class:`~repro_torch.core.graph.TensorSpec` on ``device`` (default
     cuda), as ``repro/data/pipeline.py::batch_specs``."""
     from repro_torch.core.graph import TensorSpec
-    _refuse_vision(cfg)
     dev = resolve_device(device)
     spec = {"tokens": TensorSpec((batch, seq), torch.int32, dev),
             "labels": TensorSpec((batch, seq), torch.int32, dev)}
-    if cfg.frontend == "audio":
+    if cfg.frontend == "vision":
+        spec["patch_embeds"] = TensorSpec((batch, _npatch(seq), cfg.frontend_dim),
+                                          torch.bfloat16, dev)
+    elif cfg.frontend == "audio":
         spec["frames"] = TensorSpec((batch, seq, cfg.frontend_dim), torch.bfloat16, dev)
     return spec
 

@@ -19,6 +19,11 @@ it with ``--layers 4``).  ``--smoke`` serves the tiny same-family config;
 layers (mistral-large-123b's 88 layers are 245 GB in bf16 and
 deepseek-v3-671b's 61 are 1.34 TB, more than one card holds; deepseek's
 first 4, its 3 ``mla_dense`` layers and one ``mla_moe``, are 31.6 GB).
+The vlm pixtral-12b (40 dense layers, 24.5 GB) is served as a text
+model: the reference's launcher refuses only encoder-decoders
+(``repro/launch/serve.py:71``) and its engine passes no patches, so
+patches reach the model only through ``models.model.prefill(...,
+patch_embeds=)``.
 
 ``--overlay`` serves through the JIT-assembled accelerator path: prefill and
 decode are traced by the overlay frontend, placed on a 3x3 tile grid and

@@ -7,8 +7,10 @@ Port of ``repro/models/model.py`` (``cross_entropy`` :25, ``loss_fn`` :51,
 :203, ``_fill_cross_caches`` :114) for decoder LMs of dense (full or
 sliding-window), mamba, shared-attention (zamba2), mixture-of-experts
 (granite; serving only) and MLA (deepseek-v3's ``mla_dense``/``mla_moe``;
-serving only) layers, and for the encoder-decoder seamless-m4t (serving
-only, through :func:`prefill` with ``enc_in`` and :func:`decode_step`).
+serving only) layers, for the encoder-decoder seamless-m4t (serving
+only, through :func:`prefill` with ``enc_in`` and :func:`decode_step`) and
+for the vlm pixtral (serving only; its patch embeddings through
+:func:`prefill` with ``patch_embeds``, its decodes as a text model's).
 """
 
 from __future__ import annotations
@@ -102,9 +104,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, caches: list, *,
-            enc_in: torch.Tensor | None = None):
+            enc_in: torch.Tensor | None = None,
+            patch_embeds: torch.Tensor | None = None):
     """Run the prompt through the decoder, filling caches.
     Returns (logits_last (B, V), caches).
+
+    A vlm's ``patch_embeds`` (B, npatch, frontend_dim) replace the prompt's
+    first npatch token slots (:func:`~repro_torch.models.transformer.
+    forward`); the cache then holds S positions, patches included, and
+    :func:`decode_step` goes on at S.  Only prefill takes patches, as in
+    the reference (``repro/models/model.py:96-111``).
 
     An encoder-decoder first runs the encoder on ``enc_in`` (frames (B, S,
     frontend_dim) or tokens (B, S), :func:`~repro_torch.models.
@@ -118,7 +127,8 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, caches: list, *
                              f"encoder's input (enc_in)")
         enc_out = tfm.encode(params, cfg, enc_in)
         caches = _fill_cross_caches(params, cfg, enc_out, caches)
-    h, caches = tfm.forward(params, cfg, tokens, pos0=0, caches=caches, enc_out=enc_out)
+    h, caches = tfm.forward(params, cfg, tokens, pos0=0, caches=caches, enc_out=enc_out,
+                            patch_embeds=patch_embeds)
     return tfm.unembed(params, h[:, -1:], cfg)[:, 0], caches
 
 

@@ -19,8 +19,9 @@ layer: the dense spec plus ``ln_cross`` and the cross-attention set
 ``cross``, ``repro/models/transformer.py:45-47``).  An encoder-decoder
 model (seamless-m4t-medium) also carries ``spec["enc_layers"]``, one dict
 per encoder layer in execution order (:func:`encoder_kinds`), the encoder's
-final norm ``enc_norm``, and with an audio frontend the stub's
-``frontend_proj`` (frontend_dim, d_model).  With ``cfg.post_norms`` an
+final norm ``enc_norm``.  A model with a frontend (seamless's audio
+stub, pixtral's vision stub) carries the stub's ``frontend_proj``
+(frontend_dim, d_model).  With ``cfg.post_norms`` an
 attention layer also has the post-sublayer norms ``post_ln1`` and ``post_ln2``
 (``repro/models/transformer.py:51-53``).  A config with ``mtp_depth``
 (deepseek-v3) also carries the multi-token-prediction module ``spec["mtp"]``
@@ -57,6 +58,7 @@ from repro_torch.device import resolve_device
 
 SERVED_KINDS = ("dense", "local", "global", "mamba", "shared_attn", "moe",
                 "mla_dense", "mla_moe", "enc", "dec")
+SERVED_FRONTENDS = (None, "audio", "vision")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,13 +95,11 @@ def encoder_kinds(cfg: ArchConfig) -> list[str]:
 def _kinds(cfg: ArchConfig, blocks) -> list[str]:
     kinds = [k for unit, rep in blocks for _ in range(rep) for k in unit]
     every = {k for unit, _ in (*cfg.blocks, *cfg.encoder_blocks) for k in unit}
-    unsupported = sorted(every - set(SERVED_KINDS))
-    if unsupported or cfg.frontend == "vision":
+    if every - set(SERVED_KINDS) or cfg.frontend not in SERVED_FRONTENDS:
         raise NotImplementedError(
             f"{cfg.name}: the port serves layers of kinds {list(SERVED_KINDS)} "
-            f"and the audio frontend's stub only (got kinds {sorted(every)}, "
-            f"frontend {cfg.frontend!r}); vlm models wait for ROADMAP queue 1, "
-            f"\"Other archs\"")
+            f"and the frontends {list(SERVED_FRONTENDS)} (got kinds {sorted(every)}, "
+            f"frontend {cfg.frontend!r})")
     return kinds
 
 
@@ -246,8 +246,8 @@ def from_jax_numpy(tree: dict, cfg: ArchConfig,
     latent norms; deepseek's unstacked ``mtp`` module is carried as it is.
     An encoder-decoder's ``enc<i>["layers"]["<j>:enc"]`` stacks unstack the
     same way into ``enc_layers``; a ``dec`` layer's ``ln_cross`` and
-    ``cross`` ride along with it, and ``frontend_proj`` and ``enc_norm``
-    are carried as they are.  bf16 leaves
+    ``cross`` ride along with it; ``enc_norm`` and either stub's
+    ``frontend_proj`` are carried as they are.  bf16 leaves
     arrive as float32 numpy (numpy has no bf16) and are cast back to each
     leaf's own dtype — an exact round trip.  ``dtype`` casts every leaf to
     one dtype instead (the float32 parity tests)."""

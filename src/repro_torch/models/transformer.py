@@ -7,7 +7,8 @@ moe`), MLA (deepseek-v3's ``mla_dense`` and ``mla_moe``: Multi-head Latent
 Attention + the MLP or the MoE FFN), Mamba-2, hybrid (zamba2's
 ``shared_attn``) and encoder-decoder (seamless-m4t's ``enc`` and ``dec``:
 :func:`encode`, then a decoder whose layers also cross-attend to its
-output) paths of ``repro/models/transformer.py``.  The reference scans
+output) paths of ``repro/models/transformer.py``, and the vlm's vision stub
+(:func:`forward` with ``patch_embeds``).  The reference scans
 each block of stacked layers (``transformer.py:179-222``); the port walks
 the layers of
 ``params.layer_plan``: each layer's kind and where its weights are, its own
@@ -125,11 +126,17 @@ def encode(params: dict, cfg: ArchConfig, enc_in: torch.Tensor) -> torch.Tensor:
 
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             pos0: "torch.Tensor | int" = 0, caches: list | None = None,
-            enc_out: torch.Tensor | None = None):
+            enc_out: torch.Tensor | None = None,
+            patch_embeds: torch.Tensor | None = None):
     """Decoder stack. Returns (hidden, new_caches).  An encoder-decoder's
     ``dec`` layers cross-attend over their caches or, without caches, to
-    ``enc_out`` (:func:`encode`'s output)."""
+    ``enc_out`` (:func:`encode`'s output).  ``patch_embeds`` (B, npatch,
+    frontend_dim), the vision stub's input, replace the embeddings of the
+    first npatch token slots (:func:`_with_patches`); the patches take
+    positions 0..npatch-1 as tokens would."""
     h = embed_tokens(params, tokens, cfg)
+    if patch_embeds is not None:
+        h = _with_patches(params, h, patch_embeds, cfg)
     steps = torch.arange(tokens.shape[1], device=tokens.device)
     if isinstance(pos0, torch.Tensor) and pos0.dim() >= 1:
         # per-row start positions (B,) -> ragged (B, S) position grid; the
@@ -149,6 +156,21 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         new_caches.append(nc)
     h = rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps)
     return h, new_caches
+
+
+def _with_patches(params: dict, h: torch.Tensor, patch_embeds: torch.Tensor,
+                  cfg: ArchConfig) -> torch.Tensor:
+    """The vision stub (``repro/models/transformer.py:259-262``): the
+    patches, cast to ``h``'s dtype, mapped by ``frontend_proj`` in one
+    ``mm``, then put in place of the first npatch rows of ``h``.  A prompt
+    shorter than its patches raises ``ValueError`` (the reference's
+    concatenate would give npatch rows against S positions)."""
+    npatch, s = patch_embeds.shape[1], h.shape[1]
+    if npatch > s:
+        raise ValueError(f"{cfg.name}: {npatch} patches do not fit a prompt of {s} tokens; "
+                         f"the patches replace the prompt's first {npatch} token slots")
+    pe = linear(patch_embeds.to(h.dtype), params["frontend_proj"])
+    return torch.cat([pe, h[:, npatch:]], 1)
 
 
 def _cache_free_stack(layers, h: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,

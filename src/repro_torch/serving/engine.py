@@ -45,7 +45,10 @@ and chunked, power-of-two-bucketed prefill interleaved with decode ticks.
 An encoder-decoder (seamless-m4t) is refused: the reference's engine
 passes no encoder input to prefill (``repro/serving/engine.py:112``) and
 fails there.  Serve one through ``models.model.prefill(..., enc_in=)``
-and ``decode_step``.
+and ``decode_step``.  A vlm (pixtral) is served as a text model: the
+reference's engine passes no patches to prefill (the same line), and
+neither does this one; patches reach the model only through
+``models.model.prefill(..., patch_embeds=)``.
 
 Port of ``ServeEngine`` in ``repro/serving/engine.py``.
 """

@@ -42,7 +42,10 @@ ROADMAP queue 3).  The port refuses configs with mamba layers rather than
 serve wrong tokens.  It refuses encoder-decoders too: the reference's loop
 prefills through ``prefill_chunk``, which runs no encoder, so its ``dec``
 layers would cross-attend to an empty cross cache and serve garbage; the
-port raises instead.
+port raises instead.  A vlm (pixtral) is served as a text model: the
+reference's loop passes no patches to ``prefill_chunk``
+(``repro/serving/loop.py:82``), and neither does this one; patches reach
+the model only through ``models.model.prefill(..., patch_embeds=)``.
 
 Port of ``repro/serving/loop.py``.
 """

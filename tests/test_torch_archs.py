@@ -18,14 +18,17 @@ softmax (as in ``test_torch_serving.py``).
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
 from repro.configs.archs import smoke_config as jax_smoke_config
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
@@ -118,15 +121,17 @@ def test_layer_kinds_of_the_dense_family():
     assert tparams.layer_kinds(smoke_config("gemma2-27b")) == ["local", "global"] * 2
 
 
-@pytest.mark.parametrize("name", ["pixtral-12b"])
-def test_the_remaining_archs_are_refused(name):
-    """The reference's other configs, copied field by field into the port's
-    schema: the port refuses each until its item of "Other archs"."""
+@pytest.mark.parametrize("name", sorted(jax_list_archs()))
+def test_every_reference_config_is_served(name):
+    """Each of the reference's ten configs, copied field by field into the
+    port's schema, passes ``layer_kinds`` and ``model_spec``: the kinds
+    and the spec's parameters are the reference's tree's."""
     cfg = ArchConfig(**dataclasses.asdict(jax_get_config(name)))
-    with pytest.raises(NotImplementedError, match="Other archs"):
-        tparams.layer_kinds(cfg)
-    with pytest.raises(NotImplementedError):
-        tparams.model_spec(cfg)
+    kinds = tparams.layer_kinds(cfg)
+    assert kinds == [k for unit, rep in cfg.blocks for _ in range(rep) for k in unit]
+    spec = tparams.model_spec(cfg)
+    n = sum(math.prod(s.shape) for s in pytree.tree_leaves(spec))
+    assert n == jparams.count(jtfm.model_spec(jax_get_config(name)))
 
 
 @pytest.mark.parametrize("name", ARCHS)

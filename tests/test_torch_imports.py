@@ -149,3 +149,17 @@ def test_checker_sees_the_encoder_decoder(module):
         from repro_torch.configs import list_archs
 
         assert "seamless-m4t-medium" in list_archs()
+
+
+@pytest.mark.parametrize("module", ["configs/pixtral_12b.py", "models/transformer.py"])
+def test_checker_sees_the_vlm(module):
+    """pixtral-12b's config and the vision stub's forward are the port's
+    own copies: the checker above covers them, and they import neither jax
+    nor repro."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    if module == "configs/pixtral_12b.py":
+        from repro_torch.configs import list_archs
+
+        assert "pixtral-12b" in list_archs()

@@ -526,13 +526,14 @@ def test_full_config_param_count_equals_the_jax_spec():
 
 
 @pytest.mark.parametrize("over", [
-    dict(blocks=((("dense",), 2),), frontend="vision", frontend_dim=32),
-], ids=["vision"])
+    dict(blocks=((("dense", "conv"), 2),)),
+    dict(blocks=((("dense",), 2),), frontend="video", frontend_dim=32),
+], ids=["unknown_kind", "unknown_frontend"])
 def test_unported_kinds_still_raise(over):
     cfg = get_config(ARCH).scaled(**over)
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, "Other archs"'):
+    with pytest.raises(NotImplementedError, match="the port serves layers of kinds"):
         tparams.layer_kinds(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="and the frontends"):
         tparams.init(cfg, torch.Generator().manual_seed(0), "cpu")
 
 
