@@ -70,20 +70,37 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
    finite losses and 48 ssd_chunk and 49 rmsnorm launches a step, every
    ssd_chunk launch on the tensor-core kernel; the aten ops the host issues
    a step;
-9. ``[serve-gemma2]``: serves gemma2-27b at full width and depth (46
-   layers of local and global attention, softcaps, post norms, tied
-   embeddings; random bf16 weights from the seed, 54.46 GB) at batch 2,
-   max_len 4608: four (16, 8) requests and one (4352, 16), whose prompt
-   reaches past the 4096 window, through ``Overlay(3, 3)`` and plainly:
-   the logits of every call bit-identical (digest), identical streams
-   (with random weights they repeat one token, so the digests carry the
-   check), 185 rmsnorm launches a call, every one on the block kernel
-   (d 4608); a plain prefill of the long prompt and the decode after it,
-   again with no window, must give other logits; under 1 GiB left;
-10. ``[serve-archs]``: the same for minicpm-2b (40 layers, 81 warp
+9. ``[train-gemma2]``: trains gemma2-27b at full width cut to its first
+   (local, global) unit (random bf16 weights from the seed; its 46 layers
+   with f32 moments need ~330 GB) at batch 1 x seq 6144, past the local
+   layer's 4096 window: 4 eager steps under remat ``"full"``, then the
+   same weights again and 2 steps under ``"dots"`` (each layer's 2-D
+   products saved, the rest recomputed): finite losses, 4 flash_attention
+   launches a step on the tensor-core kernel (the local layer's with
+   window 4096, both with softcap 50) and 17 rmsnorm launches on the block
+   kernel, under both policies; losses and grad norms bit-identical
+   between them; a profiled step; one optimizer step alone and its peak
+   memory above its start;
+10. ``[train-minicpm]``: trains minicpm-2b at full width and all 40
+    layers at batch 1 x seq 4096 on the launcher's ``wsd`` schedule, 4
+    steps (one warmup step, three at the peak): finite losses, the lr of
+    each step the schedule's, 80 flash_attention launches a step
+    (tensor-core kernel, 36 heads of 64) and 161 rmsnorm launches (warp
+    kernel);
+11. ``[serve-gemma2]``: serves gemma2-27b at full width and depth (46
+    layers of local and global attention, softcaps, post norms, tied
+    embeddings; random bf16 weights from the seed, 54.46 GB) at batch 2,
+    max_len 4608: four (16, 8) requests and one (4352, 16), whose prompt
+    reaches past the 4096 window, through ``Overlay(3, 3)`` and plainly:
+    the logits of every call bit-identical (digest), identical streams
+    (with random weights they repeat one token, so the digests carry the
+    check), 185 rmsnorm launches a call, every one on the block kernel
+    (d 4608); a plain prefill of the long prompt and the decode after it,
+    again with no window, must give other logits; under 1 GiB left;
+12. ``[serve-archs]``: the same for minicpm-2b (40 layers, 81 warp
     launches a call) and mistral-large-123b cut to 8 of its 88 layers
     (17 block launches a call), four (16, 8) requests each;
-11. ``[serve-zamba2]``: serves the hybrid zamba2-7b at full width and
+13. ``[serve-zamba2]``: serves the hybrid zamba2-7b at full width and
     depth (81 layers: 68 mamba layers at state 64 and 13 occurrences of ONE
     shared attention+MLP weight set, each with its own KV cache; random
     bf16 weights from the seed, 11.25 GB) at batch 2, max_len 4128: four
@@ -92,7 +109,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     identical streams, 95 rmsnorm launches a call on the warp kernel (d
     3584), ssd_chunk 68 times a prefill on the CUDA-core kernel (state 64)
     and never in decode; under 1 GiB left;
-12. ``[serve-granite]``: serves the mixture-of-experts granite-moe-1b-a400m
+14. ``[serve-granite]``: serves the mixture-of-experts granite-moe-1b-a400m
     at full width and depth (24 layers, 32 experts, top-8, capacity factor
     1.25, tied embeddings; random bf16 weights from the seed, 2.67 GB) at
     batch 2, max_len 4128: four (16, 8) requests and one (4096, 16) through
@@ -101,7 +118,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the warp kernel (d 1024), no ssd_chunk and no flash_attention (cached
     attention is plain code); prints total against active parameters;
     under 1 GiB left;
-13. ``[serve-deepseek]``: serves deepseek-v3-671b at full width cut to its
+15. ``[serve-deepseek]``: serves deepseek-v3-671b at full width cut to its
     first 4 of 61 layers (3 ``mla_dense`` and 1 ``mla_moe``: Multi-head
     Latent Attention over a bf16 latent cache, 256 experts, top-8, one
     shared expert, sigmoid scoring; random bf16 weights from the seed,
@@ -116,7 +133,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     left; then times the plain 2048-token prefill and a batch-2 decode,
     each to a synchronize, the decode beside the time to read its
     weights once;
-14. ``[serve-seamless]``: serves the encoder-decoder seamless-m4t-medium
+16. ``[serve-seamless]``: serves the encoder-decoder seamless-m4t-medium
     at full width and depth (12 ``enc`` + 12 ``dec`` layers, the audio
     stub's ``frontend_proj``; random bf16 weights from the seed, 1.96 GB)
     through the model API (``prefill(enc_in=frames)``, then greedy
@@ -131,7 +148,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the two traced prefills; under 1 GiB left; then times the plain
     4096-frame prefill and a batch-2 decode, each to a synchronize, the
     decode beside the time to read its weights and caches once;
-15. ``[serve-pixtral]``: serves the vlm pixtral-12b at full width and
+17. ``[serve-pixtral]``: serves the vlm pixtral-12b at full width and
     depth (40 ``dense`` layers, d 5120, 32 heads over 8 kv heads of 128,
     untied vocab 131072, the vision stub's ``frontend_proj``; random bf16
     weights from the seed, 24.5 GB) two ways, each through
@@ -151,7 +168,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     patches do not (new ids there give the same bits); under 1 GiB left;
     then times the plain 2048-token prefill and a batch-2 decode, each to
     a synchronize, the decode beside the time to read its weights once;
-16. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
+18. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
     assembled on an all-LARGE ``Overlay(3, 3)``: logits bit-identical to
     ``forward`` + ``unembed``, 65 rmsnorm and 32 flash_attention launches;
     then zamba2-7b's at (1, 4096): bit-identical, 95 rmsnorm (warp), 68
@@ -164,7 +181,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     width 128: plain code, as the reference's); then pixtral-12b's at (1,
     2048): bit-identical, 81 rmsnorm (block) and 40 flash_attention
     launches (tensor-core, head dim 128, 32 heads over 8);
-17. checks the models' outputs: finite full-width logits, small float32
+19. checks the models' outputs: finite full-width logits, small float32
     phi3, mamba2, gemma2 (window 8: prefill, three decodes and a
     cache-free forward through the flash kernel), zamba2 (state 64: the
     same), granite-moe (32 experts, top-8, capacity 1 at a batch-2
@@ -177,18 +194,21 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     and a cache-free forward with the patches) models on the card
     (kernels) against the same models on the CPU (plain versions), serving
     and one train step;
-18. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
+20. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
     the event loop, gemma2 (smoke) through the overlay, and the train
-    launcher with an injected failure: it restarts from its checkpoint and
-    ends with rc 0;
-19. ``[warm-restart]``: boots the serve launcher in fresh processes on one
+    launcher on gemma2-27b at full width cut to 2 layers (seq 1024) with
+    an injected failure at step 3: it restores its 23.1 GB step-2
+    checkpoint, replays and ends with rc 0 and finite losses (free disk
+    and host memory before it, the seconds of each host copy, write and
+    restore, the bytes on disk);
+21. ``[warm-restart]``: boots the serve launcher in fresh processes on one
     persistent bitstream store directory — phi3-mini-3.8b at full width
     cut to 8 of its 32 layers (``--layers 8``; the ``[serve]`` requests)
     plain, cold (``--store`` on an empty
     directory), warm (the same directory) and garbled (one entry flipped
     mid-payload and one truncated, ``REPRO_SANITIZE=1``); then mamba2-130m
-    plain, cold and warm on a second directory (prompts of 37, 500 and
-    4096 tokens); a two-member fleet (``--fleet 2 --store D``) cold and
+    at full width cut to 8 of its 24 layers (``--layers 8``) plain, cold
+    and warm on a second directory (prompts of 37, 500 and 4096 tokens); a two-member fleet (``--fleet 2 --store D``) cold and
     warm on a third.  Streams identical to plain; the cold boot saves every
     kernel key and writes the ledger; the warm boot loads every key and
     builds no kernel; the garbled boot warns, rebuilds each bad entry and
@@ -197,10 +217,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     assembly or load, the first call), bytes on disk and load-vs-build ms
     per entry, the sanitizer's host ms per check, mamba2's downloads cold
     and warm;
-20. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
+22. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
     (lock lint, live checkers under the sanitizer, a two-member fleet's
     records and ``describe()``, the store, injected faults) must exit 0;
-21. prints the kernels line (time per call, host included, and device time
+23. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
     and ssd_chunk's CUDA-core kernels' times), timings at other shapes
@@ -211,7 +231,8 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 
 Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, the overlay-served runs, the relocation
-and specialization rounds, the fleet runs, the full-width training runs,
+and specialization rounds, the fleet runs, the full-width training runs
+(the train launcher's too),
 the dense family's, zamba2's, granite's, deepseek's, seamless's and
 pixtral's runs and the step graphs' calls)
 and read just
@@ -235,6 +256,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -272,7 +294,8 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.models import params as pm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.optim import adamw_init, constant, cosine  # noqa: E402
+from repro_torch.optim import adamw_init, adamw_update_, constant, cosine  # noqa: E402
+from repro_torch.optim.adamw import SLICE_ELEMENTS  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serving.loop import EventLoopEngine  # noqa: E402
 
@@ -362,6 +385,21 @@ PIXTRAL_MAX_LEN, PIXTRAL_NPATCH = 4096, 256
 PIXTRAL_ROUNDS = ((512, 16), (2048, 32))
 PIXTRAL_D = 5120
 PIXTRAL_FLASH = (1, 32, 8, 2048, 128)     # (B, Hq, Hkv, S, D) of its cache-free forward
+# dense-family training: gemma2-27b at full width cut to one (local, global)
+# unit (its 46 layers and f32 moments need ~330 GB), batch 1 x seq 6144 so
+# the local layer's 4096 window drops pairs, 4 steps under remat "full"
+# and 2 more from the same seed under "dots"; minicpm-2b at full width and
+# depth, 1 x 4096 on the wsd schedule; the train launcher's full-width
+# checkpoint restart: gemma2 at 2 layers, seq 1024, a failure at step 3
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_SEQ, GEMMA_TRAIN_STEPS, GEMMA_DOTS_STEPS = 2, 6144, 4, 2
+GEMMA_FLASH = dict(softcap=50.0, scale=144 ** -0.5)      # its layers' options; local adds the window
+MINICPM = "minicpm-2b"
+MINICPM_TRAIN_STEPS = 4
+MINICPM_D = 2304
+MINICPM_FLASH = (1, 36, TRAIN_SEQ, 64)    # q, k, v (B, H, S, D) of its training forward (MHA)
+LAUNCHER_TRAIN = ["--arch", GEMMA, "--layers", str(GEMMA_TRAIN_LAYERS), "--batch", "1",
+                  "--seq", "1024", "--steps", "4", "--ckpt-every", "2", "--fail-at", "3",
+                  "--log-every", "1", "--seed", str(SEED)]
 RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOOP_CHUNK, 3072),
                   (TRAIN_BATCH, TRAIN_SEQ, 3072),
                   *((1, s, MAMBA_D) for s in MAMBA_PROMPTS), (MAMBA_BATCH, 1, MAMBA_D),
@@ -383,7 +421,11 @@ RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOO
                   (BATCH, SEAMLESS_PROMPT, SEAMLESS_D), (BATCH, 1, SEAMLESS_D),
                   # pixtral's decode rows and its 2048-token prefill at batch
                   # 2 (d 5120, the block kernel)
-                  (BATCH, PIXTRAL_D), (BATCH * PIXTRAL_ROUNDS[1][0], PIXTRAL_D))
+                  (BATCH, PIXTRAL_D), (BATCH * PIXTRAL_ROUNDS[1][0], PIXTRAL_D),
+                  # training: gemma2's rows at 6144 and the launcher's 1024
+                  # (block), minicpm's at 4096 (warp)
+                  (TRAIN_BATCH, GEMMA_TRAIN_SEQ, GEMMA_D), (1, 1024, GEMMA_D),
+                  (TRAIN_BATCH, TRAIN_SEQ, MINICPM_D))
 
 
 def log(msg: str) -> None:
@@ -611,10 +653,13 @@ FLASH_CASES = [   # (B, Hq, Hkv, Sq, Sk, D, dtype, options)
     (1, 4, 2, 200, 200, 16, torch.bfloat16, dict(causal=False)),
     (1, 4, 4, 1, 1, 64, torch.bfloat16, {}),
     (1, 4, 2, 256, 256, 40, torch.bfloat16, {}),                # bf16 on the CUDA cores
-    # gemma2-27b's local and global layers at seq 6144 (the window acts)
-    (1, 32, 16, 6144, 6144, 128, torch.bfloat16,
-     dict(window=4096, softcap=50.0, scale=144 ** -0.5)),
-    (1, 32, 16, 6144, 6144, 128, torch.bfloat16, dict(softcap=50.0, scale=144 ** -0.5)),
+    # gemma2-27b's local and global layers in training at seq 6144 (the
+    # window acts) and in the train launcher's at 1024 (it does not)
+    *((1, 32, 16, s, s, 128, torch.bfloat16, dict(window=w, **GEMMA_FLASH))
+      for s in (GEMMA_TRAIN_SEQ, 1024) for w in (4096, None)),
+    # minicpm-2b's 40 layers in training: 36 heads of 64, no GQA
+    (MINICPM_FLASH[0], MINICPM_FLASH[1], MINICPM_FLASH[1], MINICPM_FLASH[2], MINICPM_FLASH[2],
+     MINICPM_FLASH[3], torch.bfloat16, {}),
     # zamba2-7b's shared_attn occurrences in its 4096-token cache-free forward
     (ZAMBA_FLASH[0], ZAMBA_FLASH[1], ZAMBA_FLASH[1], ZAMBA_FLASH[2], ZAMBA_FLASH[2],
      ZAMBA_FLASH[3], torch.bfloat16, {}),
@@ -1692,6 +1737,61 @@ def _sync_ms(fn) -> tuple:
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def train_steps(tag: str, cfg, schedule, steps: int, seq: int) -> dict:
+    """Random bf16 weights from the seed, then ``steps`` eager in-place
+    steps of ``launch.train.make_step`` at batch ``TRAIN_BATCH`` x ``seq``
+    on the synthetic stream, the launch counters set to 0 just before the
+    first.  Returns the launches, step ms, losses and grad norms (on the
+    host), the peak memory, and the state, step fn and batches for what the
+    phase runs after the counted steps."""
+    params = pm.init(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    opt = adamw_init(params)
+    step_fn = train_cli.make_step(cfg, schedule)
+    batches = [make_batch(cfg, TRAIN_BATCH, seq, step=i, seed=SEED, device=DEV)
+               for i in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, step_ms, losses, gnorms, lrs = (params, opt), [], [], [], []
+    reset_counters()                           # the driven path starts here
+    for batch in batches:
+        ms, (state, metrics) = _sync_ms(lambda: step_fn(state, batch))
+        step_ms.append(ms)
+        losses.append(metrics["loss"].cpu())
+        gnorms.append(metrics["grad_norm"].cpu())
+        lrs.append(metrics["lr"].item())
+        log(f"[{tag}] step {len(losses)}: loss {losses[-1].item():.4f} grad_norm "
+            f"{gnorms[-1].item():.3f} lr {metrics['lr'].item():.2e} {ms:.1f} ms")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x.item()) for x in losses), f"[{tag}] non-finite loss {losses}")
+    steady = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * seq
+    log(f"[{tag}] {cfg.name}: {pm.count(params) / 1e9:.3f} B params, {cfg.num_layers} layers, "
+        f"batch {TRAIN_BATCH} x seq {seq}, remat {cfg.remat}: step ms first {step_ms[0]:.1f}, "
+        f"steady (median of the rest) {steady:.1f}; {tokens / steady * 1e3:.0f} tokens/s; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); launches "
+        f"{launches}")
+    return {"launches": launches, "step_ms": step_ms, "losses": losses, "grad_norms": gnorms,
+            "lrs": lrs, "peak_bytes": peak, "tok_s": tokens / steady * 1e3, "state": state,
+            "step_fn": step_fn, "batches": batches}
+
+
+def check_launches(tag: str, launches: dict, want: dict, variants: dict) -> None:
+    """Each kernel's launches equal ``want``, every one on the variant
+    ``variants`` names."""
+    for name, n in want.items():
+        check(launches[name] == n, f"[{tag}] {name} launches {launches[name]} != {n}")
+        check(launches[f"{name}/{variants[name]}"] == n,
+              f"[{tag}] {name} launches by variant: {launches} (every one must be on "
+              f"{variants[name]})")
+
+
+def _free() -> None:
+    """Returns what the phase dropped to the card before the next one."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_train() -> dict:
     """phi3-mini-3.8b at its published widths and all 32 layers, random bf16
     weights from the seed, 4 eager in-place steps at batch 1 x seq 4096 on
@@ -1702,45 +1802,17 @@ def phase_train() -> dict:
     cfg = get_config("phi3-mini-3.8b")
     alive = [f"{t.name}{' (daemon)' if t.daemon else ''}" for t in threading.enumerate()]
     log(f"[train] threads alive at the start: {len(alive)}: {alive}")
-    params = pm.init(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
-    opt = adamw_init(params)
-    step_fn = train_cli.make_step(cfg, cosine(3e-4, warmup=1, total=TRAIN_STEPS))
-    batches = [make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, step=i, seed=SEED, device=DEV)
-               for i in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    state, losses, step_ms = (params, opt), [], []
-    reset_counters()                           # the driven path starts here
-    for batch in batches:
-        ms, (state, metrics) = _sync_ms(lambda: step_fn(state, batch))
-        step_ms.append(ms)
-        losses.append(metrics["loss"].item())
-        log(f"[train] step {len(losses)}: loss {losses[-1]:.4f} grad_norm "
-            f"{metrics['grad_norm'].item():.3f} lr {metrics['lr'].item():.2e} "
-            f"{ms:.1f} ms")
-    launches = counts()
-    peak = torch.cuda.max_memory_allocated()
-    profile_step(lambda: step_fn(state, batches[0]))
-    check(all(math.isfinite(x) for x in losses), f"non-finite training loss {losses}")
-    want = {"flash_attention": TRAIN_STEPS * 2 * cfg.num_layers,
-            "rmsnorm": TRAIN_STEPS * ((2 * cfg.num_layers + 1) + 2 * cfg.num_layers)}
-    for name, n in want.items():
-        check(launches[name] == n, f"training {name} launches {launches[name]} != {n}")
-    check(launches["flash_attention/wgmma"] == want["flash_attention"],
-          f"training flash_attention launches by variant: {launches} (every one must be "
-          f"a tensor-core launch)")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    steady = float(np.median(step_ms[1:]))
-    log(f"[train] {cfg.name}: {pm.count(params) / 1e9:.3f} B params, {cfg.num_layers} "
-        f"layers, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, remat {cfg.remat}: step ms "
-        f"first {step_ms[0]:.1f}, steady (median of the rest) {steady:.1f}; "
-        f"{tokens / steady * 1e3:.0f} tokens/s; max_memory_allocated "
-        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); launches {launches} "
-        f"(want {want})")
-    del params, opt, state, batches
-    torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": step_ms, "losses": losses,
-            "peak_bytes": peak, "tok_s": tokens / steady * 1e3}
+    run = train_steps("train", cfg, cosine(3e-4, warmup=1, total=TRAIN_STEPS), TRAIN_STEPS,
+                      TRAIN_SEQ)
+    profile_step(lambda: run["step_fn"](run["state"], run["batches"][0]))
+    check_launches("train", run["launches"],
+                   {"flash_attention": TRAIN_STEPS * 2 * cfg.num_layers,
+                    "rmsnorm": TRAIN_STEPS * ((2 * cfg.num_layers + 1) + 2 * cfg.num_layers)},
+                   {"flash_attention": "wgmma", "rmsnorm": "warp"})
+    out = {k: run[k] for k in ("launches", "step_ms", "losses", "peak_bytes", "tok_s")}
+    del run
+    _free()
+    return out
 
 
 KERNEL_GROUPS = (   # (group, lower-case substrings of CUDA kernel names), first match wins
@@ -1782,6 +1854,7 @@ def profile_step(fn, tag: str = "train") -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         ms, _ = _sync_ms(fn)
     groups: dict[str, float] = {}
+    kernels: dict[str, float] = {}
     busy = 0.0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -1792,6 +1865,7 @@ def profile_step(fn, tag: str = "train") -> None:
         group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
                      "other elementwise")
         groups[group] = groups.get(group, 0.0) + us
+        kernels[ev.name] = kernels.get(ev.name, 0.0) + us
     if busy == 0.0:
         log(f"[{tag}] profile: the profiler saw no device time; breakdown not measured")
         return
@@ -1800,6 +1874,9 @@ def profile_step(fn, tag: str = "train") -> None:
     log(f"[{tag}] profile of one step ({ms:.1f} ms wall, under the profiler): device busy "
         f"{busy / 1e3:.1f} ms ({busy / 1e3 / ms:.0%} of the step, idle {1 - busy / 1e3 / ms:.0%}); "
         f"{parts}")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[{tag}] profile: the kernels that take most of it: "
+        + "; ".join(f"{name[:90]} {us / 1e3:.1f} ms" for name, us in top))
 
 
 def phase_train_overlay() -> dict:
@@ -2014,47 +2091,136 @@ def phase_train_mamba() -> dict:
     rmsnorm launch per ln1 in the forward and the recompute, plus the final
     norm."""
     cfg = get_config(MAMBA)
-    params = pm.init(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
-    opt = adamw_init(params)
-    step_fn = train_cli.make_step(cfg, cosine(3e-4, warmup=1, total=MAMBA_TRAIN_STEPS))
-    batches = [make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, step=i, seed=SEED, device=DEV)
-               for i in range(MAMBA_TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    state, losses, step_ms = (params, opt), [], []
-    reset_counters()                           # the driven path starts here
-    for batch in batches:
-        ms, (state, metrics) = _sync_ms(lambda: step_fn(state, batch))
-        step_ms.append(ms)
-        losses.append(metrics["loss"].item())
-        log(f"[train-mamba] step {len(losses)}: loss {losses[-1]:.4f} grad_norm "
-            f"{metrics['grad_norm'].item():.3f} {ms:.1f} ms")
-    launches = counts()
-    peak = torch.cuda.max_memory_allocated()
-    profile_step(lambda: step_fn(state, batches[0]), tag="train-mamba")
-    step_ops = aten_ops(lambda: step_fn(state, batches[0]))
-    grad_ops = aten_ops(lambda: train_cli._loss_and_grads(cfg, state[0], batches[0]))
+    run = train_steps("train-mamba", cfg, cosine(3e-4, warmup=1, total=MAMBA_TRAIN_STEPS),
+                      MAMBA_TRAIN_STEPS, TRAIN_SEQ)
+    state, batch = run["state"], run["batches"][0]
+    profile_step(lambda: run["step_fn"](state, batch), tag="train-mamba")
+    step_ops = aten_ops(lambda: run["step_fn"](state, batch))
+    grad_ops = aten_ops(lambda: train_cli._loss_and_grads(cfg, state[0], batch))
     log(f"[train-mamba] aten ops the host issues a step: {step_ops} ({step_ops / cfg.num_layers:.0f} "
         f"a layer), of which the loss and gradients {grad_ops}, the optimizer and the rest "
         f"{step_ops - grad_ops}")
-    check(all(math.isfinite(x) for x in losses), f"non-finite mamba training loss {losses}")
-    want = {"ssd_chunk": MAMBA_TRAIN_STEPS * 2 * cfg.num_layers,
-            "rmsnorm": MAMBA_TRAIN_STEPS * (2 * cfg.num_layers + 1)}
-    for name, n in want.items():
-        check(launches[name] == n, f"mamba training {name} launches {launches[name]} != {n}")
-    check(launches["ssd_chunk/mma"] == want["ssd_chunk"],
-          f"mamba training ssd_chunk launches by variant: {launches} (every one must be a "
-          f"tensor-core launch)")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    steady = float(np.median(step_ms[1:]))
-    log(f"[train-mamba] {cfg.name}: {pm.count(params) / 1e6:.1f} M params, {cfg.num_layers} "
-        f"layers, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, remat {cfg.remat}: step ms first "
-        f"{step_ms[0]:.1f}, steady (median of the rest) {steady:.1f}; "
-        f"{tokens / steady * 1e3:.0f} tokens/s; max_memory_allocated {peak / 2**30:.2f} GiB "
-        f"({peak / 1e9:.2f} GB); launches {launches} (want {want})")
-    del params, opt, state, batches
-    torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": step_ms, "losses": losses}
+    check_launches("train-mamba", run["launches"],
+                   {"ssd_chunk": MAMBA_TRAIN_STEPS * 2 * cfg.num_layers,
+                    "rmsnorm": MAMBA_TRAIN_STEPS * (2 * cfg.num_layers + 1)},
+                   {"ssd_chunk": "mma", "rmsnorm": "warp"})
+    out = {k: run[k] for k in ("launches", "step_ms", "losses")}
+    del run, state, batch
+    _free()
+    return out
+
+
+@contextlib.contextmanager
+def flash_options(record: dict):
+    """Counts each flash_attention launch by (Sq, window, softcap) while
+    open: the custom op's CUDA kernel calls ``fa_mod.flash_attention``."""
+    wrapped = fa_mod.flash_attention
+
+    def recording(q, k, v, **kw):
+        key = (q.shape[2], kw.get("window"), kw.get("softcap"))
+        record[key] = record.get(key, 0) + 1
+        return wrapped(q, k, v, **kw)
+
+    fa_mod.flash_attention = recording
+    try:
+        yield record
+    finally:
+        fa_mod.flash_attention = wrapped
+
+
+def phase_train_gemma2() -> dict:
+    """[train-gemma2]: gemma2-27b at its published widths cut to its first
+    (local, global) unit (``cut_layers``; random bf16 weights from the
+    seed), 4 eager in-place steps at batch 1 x seq 6144 under remat
+    ``"full"``, then one more under ``torch.profiler`` and an optimizer
+    step alone with its peak above its start (the slices bound it); then
+    the same weights made again from the seed and 2 steps under
+    ``"dots"``.  Per step under both: flash_attention twice a layer
+    (forward and the recompute) on the tensor-core kernel, the local
+    layer's with window 4096 and both with softcap 50; rmsnorm 4 a layer
+    and the final norm in the forward, 4 a layer in the recompute, all on
+    the block kernel (d 4608).  ``"dots"`` saves each layer's 2-D products
+    and recomputes the rest from the same inputs: its losses and grad norms
+    must equal the ``"full"`` run's bit for bit."""
+    cfg = cut_layers(get_config(GEMMA), GEMMA_TRAIN_LAYERS)
+    sched = cosine(3e-4, warmup=1, total=GEMMA_TRAIN_STEPS)
+    n = cfg.num_layers
+
+    def train(remat: str, steps: int) -> dict:
+        tag = f"train-gemma2 {remat}"
+        with flash_options({}) as opts:
+            run = train_steps(tag, cfg.scaled(remat=remat), sched, steps, GEMMA_TRAIN_SEQ)
+        check_launches(tag, run["launches"],
+                       {"flash_attention": steps * 2 * n, "rmsnorm": steps * (8 * n + 1)},
+                       {"flash_attention": "wgmma", "rmsnorm": "block"})
+        each = steps * 2 * (n // 2)         # forward + recompute of the local and global layers
+        want = {(GEMMA_TRAIN_SEQ, cfg.sliding_window, cfg.attn_softcap): each,
+                (GEMMA_TRAIN_SEQ, None, cfg.attn_softcap): each}
+        check(opts == want, f"[{tag}] flash launches by (Sq, window, softcap) {opts} != {want}")
+        log(f"[{tag}] flash launches by (Sq, window, softcap): {opts}")
+        return run
+
+    full = train("full", GEMMA_TRAIN_STEPS)
+    state, batch = full.pop("state"), full.pop("batches")[0]
+    step_fn = full.pop("step_fn")
+    profile_step(lambda: step_fn(state, batch), tag="train-gemma2")
+    _, _, grads, _ = train_cli._loss_and_grads(cfg, state[0], batch)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    torch.cuda.reset_peak_memory_stats()
+    ms, _ = _sync_ms(lambda: adamw_update_(state[0], grads, state[1], lr=3e-4))
+    extra = torch.cuda.max_memory_allocated() - start
+    largest = max(p.numel() for p in pytree.tree_leaves(state[0]))
+    log(f"[train-gemma2] optimizer step alone: {ms:.1f} ms, peak {extra / 2**30:.3f} GiB above "
+        f"its start of {start / 2**30:.2f} GiB (state and {grad_bytes / 2**30:.2f} GiB of "
+        f"gradients); largest leaf {largest} elements, in slices of {SLICE_ELEMENTS}")
+    del state, batch, step_fn, grads
+    _free()
+    dots = train("dots", GEMMA_DOTS_STEPS)
+    same = [torch.equal(a, b) and torch.equal(c, d)
+            for a, b, c, d in zip(dots["losses"], full["losses"], dots["grad_norms"],
+                                  full["grad_norms"])]
+    check(all(same), f"[train-gemma2] dots vs full: losses {dots['losses']} vs "
+                     f"{full['losses']}, grad norms {dots['grad_norms']} vs {full['grad_norms']}")
+    log(f"[train-gemma2] dots vs full: losses and grad norms of steps 1-{GEMMA_DOTS_STEPS} "
+        f"bit-identical; max_memory_allocated dots {dots['peak_bytes'] / 2**30:.2f} GiB vs full "
+        f"{full['peak_bytes'] / 2**30:.2f} GiB; steady step ms dots "
+        f"{float(np.median(dots['step_ms'][1:])):.1f} vs full "
+        f"{float(np.median(full['step_ms'][1:])):.1f}")
+    result = {"launches": full["launches"], "launches_dots": dots["launches"]}
+    del full, dots
+    _free()
+    return result
+
+
+def phase_train_minicpm() -> dict:
+    """[train-minicpm]: minicpm-2b at its published widths and all 40
+    layers (tied embeddings x12, residual scale 1.4/sqrt(40); random bf16
+    weights from the seed), 4 eager in-place steps at batch 1 x seq 4096 on
+    the launcher's ``wsd`` schedule (``make_schedule``; over 4 steps it is
+    one warmup step at lr 0 and three at the peak, its decay starting at
+    the peak: the lr of each step must be the schedule's).  Per step:
+    flash_attention twice a layer on the tensor-core kernel (36 heads of
+    64, no GQA), rmsnorm 2 a layer and the final norm in the forward, 2 a
+    layer in the recompute, on the warp kernel (d 2304)."""
+    cfg = get_config(MINICPM)
+    steps = MINICPM_TRAIN_STEPS
+    sched = train_cli.make_schedule("wsd", 3e-4, steps)
+    run = train_steps("train-minicpm", cfg, sched, steps, TRAIN_SEQ)
+    want_lr = [float(sched(i)) for i in range(steps)]
+    check(all(math.isclose(a, b, rel_tol=1e-6) for a, b in zip(run["lrs"], want_lr)),
+          f"[train-minicpm] lr by step {run['lrs']} != the wsd schedule's {want_lr}")
+    state, batch = run["state"], run["batches"][0]
+    profile_step(lambda: run["step_fn"](state, batch), tag="train-minicpm")
+    n = cfg.num_layers
+    check_launches("train-minicpm", run["launches"],
+                   {"flash_attention": steps * 2 * n, "rmsnorm": steps * ((2 * n + 1) + 2 * n)},
+                   {"flash_attention": "wgmma", "rmsnorm": "warp"})
+    out = {k: run[k] for k in ("launches", "step_ms", "peak_bytes")}
+    del run, state, batch
+    _free()
+    return out
 
 
 def phase_small_mamba_reference() -> None:
@@ -3252,11 +3418,47 @@ def phase_small_pixtral_reference() -> None:
         f"(simt), rmsnorm {n['rmsnorm']} times")
 
 
-def phase_launcher() -> None:
+@contextlib.contextmanager
+def timed_checkpoints(record: list):
+    """Appends (what, seconds) for each checkpoint host copy, write and
+    restore while open: ``CheckpointManager`` calls these functions of
+    ``repro_torch.checkpoint.ckpt`` by their module names."""
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    names = ("_to_host", "save_checkpoint", "load_checkpoint")
+    saved = {name: getattr(ckpt_mod, name) for name in names}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = saved[name](*args, **kwargs)
+            record.append((name, time.perf_counter() - t0))
+            return out
+        return call
+
+    for name in names:
+        setattr(ckpt_mod, name, timed(name))
+    try:
+        yield record
+    finally:
+        for name in names:
+            setattr(ckpt_mod, name, saved[name])
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as fh:
+        line = next(ln for ln in fh if ln.startswith("MemAvailable:"))
+    return int(line.split()[1]) * 1024
+
+
+def phase_launcher() -> dict:
     """``launch.serve.main`` serving mamba2-130m at full width, phi3-mini
     (smoke) on the event loop and gemma2-27b (smoke) through the overlay,
-    then ``launch.train.main`` on the card with a failure injected at step
-    3: it restores the step-2 checkpoint, replays and ends with rc 0."""
+    then ``launch.train.main`` training gemma2-27b at full width cut to 2
+    layers (seq 1024) with a failure injected at step 3: it restores the
+    step-2 checkpoint of its whole state (bf16 parameters, f32 moments:
+    23.1 GB) from disk, replays and ends with rc 0.  Returns the train
+    launcher's launches (4 steps run: flash 4 a step, rmsnorm 17, the
+    failed step runs none)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = serve_cli.main(["--arch", MAMBA, "--requests", "4", "--batch", "2",
@@ -3283,18 +3485,39 @@ def phase_launcher() -> None:
         log(f"[launcher] {line[:400]}")
     check(rc == 0 and "8/8 requests" in text and "on cuda" in text and "'downloads': " in text,
           "the serve launcher did not serve gemma2-27b (smoke) through the overlay on the card")
+    _free()
     with tempfile.TemporaryDirectory() as ckpt:
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = train_cli.main(["--arch", "phi3-mini-3.8b", "--smoke", "--steps", "6",
-                                 "--batch", "2", "--seq", "128", "--ckpt-every", "2",
-                                 "--fail-at", "3", "--log-every", "2",
-                                 "--ckpt-dir", ckpt])
+        disk = shutil.disk_usage(ckpt)
+        log(f"[launcher] train checkpoints in {ckpt}: {disk.free / 1e9:.1f} GB free of "
+            f"{disk.total / 1e9:.1f}; host MemAvailable {_mem_available() / 1e9:.1f} GB")
+        buf, timings = io.StringIO(), []
+        reset_counters()                       # the driven path starts here
+        with contextlib.redirect_stdout(buf), timed_checkpoints(timings):
+            t0 = time.perf_counter()
+            rc = train_cli.main(LAUNCHER_TRAIN + ["--ckpt-dir", ckpt])
+            wall = time.perf_counter() - t0
+        launches = counts()
+        sizes = {d: sum(os.path.getsize(os.path.join(ckpt, d, f))
+                        for f in os.listdir(os.path.join(ckpt, d)))
+                 for d in sorted(os.listdir(ckpt))}
     text = buf.getvalue()
     for line in text.splitlines():
         log(f"[launcher] {line}")
-    check(rc == 0 and "restarts=1" in text and "on cuda" in text,
-          "train launcher did not restart from its checkpoint and finish")
+    losses = [float(ln.split("loss ")[1].split()[0]) for ln in text.splitlines()
+              if ln.lstrip().startswith("step ")]
+    check(rc == 0 and "restarts=1" in text and "on cuda" in text and "2 layers" in text
+          and "4 steps" in text and len(losses) == 4 and all(map(math.isfinite, losses)),
+          "the train launcher did not train gemma2-27b at 2 layers on the card, restart from "
+          "its checkpoint and finish with finite losses")
+    check_launches("launcher", launches, {"flash_attention": 4 * 4, "rmsnorm": 4 * 17},
+                   {"flash_attention": "wgmma", "rmsnorm": "block"})
+    by = {}
+    for name, sec in timings:
+        by.setdefault(name, []).append(round(sec, 2))
+    log(f"[launcher] gemma2 train launcher at {GEMMA_TRAIN_LAYERS} layers: {wall:.1f} s; "
+        f"checkpoint bytes on disk {sizes}; host copy s {by.get('_to_host')}, write s (a "
+        f"background thread) {by.get('save_checkpoint')}, restore s {by.get('load_checkpoint')}")
+    return launches
 
 
 BOOT_TIMEOUT_S = 300
@@ -3303,7 +3526,9 @@ PHI3_BOOT = ["--arch", "phi3-mini-3.8b", "--layers", str(PHI3_BOOT_LAYERS),
              "--requests", str(REQUESTS), "--batch", str(BATCH),
              "--prompt-len", str(PROMPT), "--max-new", str(MAX_NEW), "--max-len", str(MAX_LEN),
              "--seed", str(SEED)]
-MAMBA_BOOT = ["--arch", MAMBA, "--requests", str(MAMBA_REQUESTS), "--batch", str(MAMBA_BATCH),
+MAMBA_BOOT_LAYERS = 8         # full width, 8 of its 24 layers: the boots' trace is per layer
+MAMBA_BOOT = ["--arch", MAMBA, "--layers", str(MAMBA_BOOT_LAYERS),
+              "--requests", str(MAMBA_REQUESTS), "--batch", str(MAMBA_BATCH),
               "--prompt-lens", ",".join(map(str, MAMBA_PROMPTS)), "--max-new", str(MAMBA_NEW),
               "--max-len", str(MAMBA_MAX_LEN), "--seed", str(SEED)]
 
@@ -3395,7 +3620,7 @@ def _per_entry(cold: dict, warm: dict) -> tuple[float, float]:
 
 def phase_warm_restart() -> dict:
     """[warm-restart]: the persistent bitstream store across real processes
-    (module docstring, item 11).  Returns the launches of each boot."""
+    (module docstring, item 21).  Returns the launches of each boot."""
     gc.collect()
     torch.cuda.empty_cache()
     out = {}
@@ -3472,11 +3697,10 @@ def phase_warm_restart() -> dict:
         m_plain, _ = boot("mamba2 plain", MAMBA_BOOT)
         m_cold, _ = boot("mamba2 cold", MAMBA_BOOT + ["--store", d2])
         m_warm, _ = boot("mamba2 warm", MAMBA_BOOT + ["--store", d2])
-        m_cfg = get_config(MAMBA)
         for tag, r in (("plain", m_plain), ("cold", m_cold), ("warm", m_warm)):
             check(r["streams"] == m_plain["streams"],
                   f"[warm-restart] mamba2 {tag} streams differ from plain")
-            _check_launches(f"mamba2 {tag}", r, m_cfg.num_layers + 1, m_cfg.num_layers)
+            _check_launches(f"mamba2 {tag}", r, MAMBA_BOOT_LAYERS + 1, MAMBA_BOOT_LAYERS)
             out[f"boot_mamba_{tag}"] = r["launches"]
         m_keys = m_cold["store"]["entries"]
         _check_warm("mamba2", m_warm, m_keys)
@@ -3587,7 +3811,8 @@ RMSNORM_TIMED = ((BATCH, 3072), (PROMPT, 3072), (BATCH * PROMPT, 3072), (LOOP_CH
                  (PROMPT, 2304), (BATCH, 12288), (PROMPT, 12288), (BATCH, ZAMBA_D),
                  (ZAMBA_LONG, ZAMBA_D), (BATCH, GRANITE_D), (PROMPT, GRANITE_D),
                  (GRANITE_LONG, GRANITE_D),
-                 *((BATCH * n, SEAMLESS_D) for n, _ in reversed(SEAMLESS_ROUNDS)))
+                 *((BATCH * n, SEAMLESS_D) for n, _ in reversed(SEAMLESS_ROUNDS)),
+                 (GEMMA_TRAIN_SEQ, GEMMA_D), (TRAIN_SEQ, MINICPM_D))
 
 
 def vmul_bound_ms(n: int) -> tuple[float, str]:
@@ -3856,6 +4081,26 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
         f"{bound:.4f} ms, by {by}); plain {row['plain_ms']:.4f} ms; SDPA (enable_gqa) "
         f"{row['library_ms']:.4f} ms, device {row['library_device_ms']:.4f} ms")
     del q, k, v
+    b, h, sq, hd = MINICPM_FLASH              # minicpm's training forward, 36 heads of 64
+    q, k, v = (torch.randn(b, h, sq, hd, generator=gen, device=DEV).bfloat16()
+               for _ in range(3))
+    bound, by = flash_bound_ms(b, h, h, sq, hd)
+    out[-1]["minicpm_shape"] = row = {
+        "shape": f"q, k, v: ({b}, {h}, {sq}, {hd}) bfloat16, causal",
+        "variant": fa_mod.variant(q.dtype, hd),
+        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 50, warmup=5),
+        "device_ms": device_ms(lambda: fa_mod.flash_attention(q, k, v), calls=20, replays=3),
+        "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v), 3, warmup=1),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                              50, warmup=5),
+        "library_device_ms": device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), calls=20, replays=3)}
+    log(f"[timing] flash_attention {row['shape']}: {row['variant']} {row['ms']:.4f} ms per "
+        f"call, device {row['device_ms']:.4f} ms ({bound / row['device_ms']:.0%} of the bound "
+        f"{bound:.4f} ms, by {by}); plain {row['plain_ms']:.4f} ms; SDPA "
+        f"{row['library_ms']:.4f} ms, device {row['library_device_ms']:.4f} ms")
+    del q, k, v
     # seamless's encoder at 4096 and 1024 frames and a cache-free
     # cross-attention of 16 queries over 4096 keys: not causal, every (query,
     # key) pair; SDPA with is_causal=False beside each
@@ -4032,10 +4277,13 @@ def run_phase(tag: str, fn, *args):
 # state 64); every other path's (mamba2's) are on the tensor-core kernel
 SIMT_SSD_PATHS = ("serve_zamba2", "step_graph_zamba2")
 # how each call of a path splits its rmsnorm launches between the variants
-# (every other path's are all on the warp kernel): gemma2's and mistral's
-# all on the block kernel (d > MAX_WARP_D), as are pixtral's (d 5120),
+# (every other path's are all on the warp kernel): gemma2's (serving and
+# training) and mistral's all on the block kernel (d > MAX_WARP_D), as are
+# pixtral's (d 5120),
 # deepseek's 9 on block (d 7168) and 8 on warp (its latents)
 NORM_SPLITS = {"serve_gemma2": {"block": 1}, "serve_mistral": {"block": 1},
+               "train_gemma2": {"block": 1}, "train_gemma2_dots": {"block": 1},
+               "launcher_train_gemma2": {"block": 1},
                "serve_pixtral": {"block": 1}, "serve_pixtral_patches": {"block": 1},
                "step_graph_pixtral": {"block": 1},
                "serve_deepseek": {"block": 9, "warp": 8},
@@ -4060,6 +4308,8 @@ def main() -> int:
     train_overlay = run_phase("[train-overlay]", phase_train_overlay)
     served_mamba = run_phase("[serve-mamba]", phase_serve_mamba, gen)
     trained_mamba = run_phase("[train-mamba]", phase_train_mamba)
+    trained_gemma2 = run_phase("[train-gemma2]", phase_train_gemma2)
+    trained_minicpm = run_phase("[train-minicpm]", phase_train_minicpm)
     gemma2 = run_phase("[serve-gemma2]", phase_serve_gemma2, gen)
     archs = run_phase("[serve-archs]", phase_serve_archs, gen)
     zamba2 = run_phase("[serve-zamba2]", phase_serve_zamba2, gen)
@@ -4076,7 +4326,7 @@ def main() -> int:
                                       phase_small_deepseek_reference(),
                                       phase_small_seamless_reference(),
                                       phase_small_pixtral_reference()))
-    run_phase("[launcher]", phase_launcher)
+    launcher = run_phase("[launcher]", phase_launcher)
     booted = run_phase("[warm-restart]", phase_warm_restart)
     analysis = run_phase("[analysis]", phase_analysis)
     gpu_state("[timing]")
@@ -4090,6 +4340,9 @@ def main() -> int:
                "serve_mamba": served_mamba["launches"],
                "serve_mamba_cost_model": served_mamba["launches_cost_model"],
                "train_mamba": trained_mamba["launches"],
+               "train_gemma2": trained_gemma2["launches"],
+               "train_gemma2_dots": trained_gemma2["launches_dots"],
+               "train_minicpm": trained_minicpm["launches"],
                "serve_gemma2": gemma2["launches"],
                "serve_minicpm": archs["minicpm-2b"]["launches"],
                "serve_mistral": archs["mistral-large-123b"]["launches"],
@@ -4099,7 +4352,8 @@ def main() -> int:
                "serve_seamless": seamless["launches"],
                "serve_pixtral": pixtral["launches"],
                "serve_pixtral_patches": pixtral["launches_patches"],
-               **step_graphs, **booted, "analysis": analysis}
+               **step_graphs, "launcher_train_gemma2": launcher, **booted,
+               "analysis": analysis}
     launches = {name: sum(p[name] for p in by_path.values()) for name in counts()}
     for path, n in by_path.items():
         split = NORM_SPLITS.get(path, {"warp": 1})

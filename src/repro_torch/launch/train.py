@@ -3,10 +3,16 @@
 Builds the model from ``--arch`` with random weights from ``--seed``, the
 synthetic data pipeline, AdamW + schedule, wraps the train step in the
 fault-tolerant Supervisor (checkpoint-restart, straggler watchdog) and runs
-``--steps`` steps.  Runs on ``cuda`` unless ``--device cpu``::
+``--steps`` steps.  Runs on ``cuda`` unless ``--device cpu``.  ``--layers
+N`` keeps the full width and cuts the depth to the first N layers, a whole
+number of the config's units (``configs.cut_layers``, as the serve
+launcher): gemma2-27b's 46 layers with their f32 moments need ~330 GB,
+2 of them fit one card::
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch phi3-mini-3.8b --smoke --steps 50 --batch 8 --seq 128
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch gemma2-27b --layers 2 --steps 4 --batch 1 --seq 1024
 
 Mirrors ``repro/launch/train.py:29-121``.
 """
@@ -21,7 +27,7 @@ import time
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import cut_layers, get_config, smoke_config
 from repro_torch.data.pipeline import make_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import model as mdl
@@ -82,11 +88,23 @@ def make_step(cfg, schedule, *, overlay=None):
     return train_step_inplace
 
 
+def make_schedule(name: str, lr: float, steps: int):
+    """The launcher's schedule over ``steps``: ``"wsd"`` (a 5% warmup, 70%
+    at the peak, a 20% decay) or ``"cosine"`` (the same warmup)."""
+    if name == "wsd":
+        return wsd(lr, warmup=max(steps // 20, 1), stable=steps * 7 // 10,
+                   decay=max(steps // 5, 1))
+    return cosine(lr, warmup=max(steps // 20, 1), total=steps)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config (CPU-sized)")
+    ap.add_argument("--layers", type=int, default=None, metavar="N",
+                    help="train only the first N decoder layers (a whole "
+                         "number of the config's units), at full width")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -108,19 +126,15 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        cfg = cut_layers(cfg, args.layers)
     params = pm.init(cfg, torch.Generator(device=device).manual_seed(args.seed),
                      device)
     print(f"[train] {cfg.name} on {device}: {pm.count(params) / 1e6:.2f}M params, "
           f"{cfg.num_layers} layers")
     opt_state = adamw_init(params)
 
-    if args.schedule == "wsd":
-        schedule = wsd(args.lr, warmup=max(args.steps // 20, 1),
-                       stable=args.steps * 7 // 10,
-                       decay=max(args.steps // 5, 1))
-    else:
-        schedule = cosine(args.lr, warmup=max(args.steps // 20, 1),
-                          total=args.steps)
+    schedule = make_schedule(args.schedule, args.lr, args.steps)
 
     overlay = None
     if args.assemble_overlay:

@@ -59,7 +59,7 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
         raise NotImplementedError(
             f"{cfg.name}: the loss of the enc-dec, vlm, multi-token-"
             f"prediction and MoE families is not ported yet (ROADMAP queue 1, "
-            f"\"Training's leftovers\")")
+            f"\"The losses the port refuses\")")
     h, _ = tfm.forward(params, cfg, batch["tokens"])
     logits = tfm.unembed(params, h, cfg)
     ce, acc = cross_entropy(logits, batch["labels"], batch.get("mask"))

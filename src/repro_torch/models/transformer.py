@@ -20,15 +20,21 @@ included: ``{"k", "v", "index"}`` for an attention layer, the latent
 ``{"c_kv", "k_rope", "index"}`` for an MLA layer, ``{"conv": {"x", "b",
 "c"}, "ssm"}`` for a mamba layer, ``{"self": kv, "cross": kv}`` for a
 ``dec`` layer (the encoder keeps none).  Without caches,
-under autograd, each layer is rematerialized in the backward
-(``cfg.remat == "full"``), the counterpart of ``jax.checkpoint`` on the
-reference's scan body (``transformer.py:199-200``).
+under autograd, each layer is rematerialized in the backward as
+``cfg.remat`` says (:func:`_cache_free_stack`): ``"full"`` recomputes all
+of it and ``"dots"`` keeps its matrix products and recomputes the rest,
+the counterparts of ``jax.checkpoint`` on the reference's scan body
+without and with the policy ``dots_with_no_batch_dims_saveable``
+(``transformer.py:199-204``); ``"none"`` keeps everything.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attn_fwd, linear, mla_fwd, mlp_fwd, rmsnorm_fwd
@@ -175,27 +181,37 @@ def _with_patches(params: dict, h: torch.Tensor, patch_embeds: torch.Tensor,
 
 def _cache_free_stack(layers, h: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
                       enc_out: torch.Tensor | None) -> torch.Tensor:
-    """``layers`` ((kind, params), ...) run cache-free in order, each
-    rematerialized in the backward under autograd (``cfg.remat``)."""
-    remat = torch.is_grad_enabled() and _remat(cfg)
+    """``layers`` ((kind, params), ...) run cache-free in order.  Under
+    autograd each layer is one checkpoint (``cfg.remat`` ``"full"`` or
+    ``"dots"``; ``"none"`` saves what autograd saves): the reference
+    checkpoints each scanned unit instead (gemma2's is two layers), which
+    recomputes the same ops from the same inputs, so the numbers are the
+    same.  While a tracer records the step (``Overlay.jit``), ``"dots"``
+    checkpoints as ``"full"`` does: under a tracer's proxy mode torch's
+    selective checkpoint would save every op's output (it leaves the choice
+    to a compiler's partitioner), the memory of ``"none"``; ``"full"``
+    gives the same numbers and recomputes every layer."""
+    remat = cfg.remat in ("full", "dots") and torch.is_grad_enabled()
+    dots = cfg.remat == "dots" and get_proxy_mode() is None
+    extra = {"context_fn": _SAVE_PRODUCTS} if dots else {}
     for kind, lp in layers:
         if remat:
             h = checkpoint(_cache_free_layer, lp, h, kind, cfg, positions, enc_out,
-                           use_reentrant=False, preserve_rng_state=False)
+                           use_reentrant=False, preserve_rng_state=False, **extra)
         else:
             h = _cache_free_layer(lp, h, kind, cfg, positions, enc_out)
     return h
 
 
+# The "dots" policy, the counterpart of the reference's
+# ``dots_with_no_batch_dims_saveable``: every 2-D product of the model is one
+# ``aten.mm`` (``layers.linear``), saved in the forward; every other op —
+# ``bmm`` (batched), the attention and rmsnorm ops, elementwise — is
+# recomputed in the backward, as the reference recomputes its Pallas calls.
+_SAVE_PRODUCTS = functools.partial(create_selective_checkpoint_contexts,
+                                   [torch.ops.aten.mm.default])
+
+
 def _cache_free_layer(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig,
                       positions: torch.Tensor, enc_out: torch.Tensor | None) -> torch.Tensor:
     return layer_fwd(p, x, kind, cfg, positions=positions, cache=None, enc_out=enc_out)[0]
-
-
-def _remat(cfg: ArchConfig) -> bool:
-    """Whether to rematerialize each layer in the backward."""
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save only the matrix products) is not ported yet "
-            "(ROADMAP queue 1, \"Training's leftovers\"); use 'full' or 'none'")
-    return cfg.remat == "full"

@@ -14,7 +14,12 @@ Two forms of one step, with the same arithmetic per leaf:
   form.  At phi3-mini's 3.8 B parameters the f32 moments are 30.6 GB, and
   a second copy of them does not fit on one 80 GB card; the traced step
   gets the same by donating its state (``Overlay.jit(...,
-  donate_argnums=(0,))``).
+  donate_argnums=(0,))``).  A leaf of more than ``SLICE_ELEMENTS``
+  elements is updated, and its sum of squares taken, in slices of its flat
+  view, so the step's f32 temporaries stay a few slices' size:
+  gemma2-27b's tied embedding has 1.18 G elements, and its unsliced update
+  would hold ~8 f32 copies of it (~38 GB) at once.  The update is
+  elementwise, so slicing moves no bit of it; both forms take the norm so.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ class OptState:
     nu: Any                  # second moment, f32, like params
 
 
+SLICE_ELEMENTS = 1 << 25      # a larger leaf is updated and summed in slices (128 MiB of f32)
+
+
 pytree.register_pytree_node(
     OptState,
     lambda s: ((s.step, s.mu, s.nu), None),
@@ -48,10 +56,18 @@ def adamw_init(params: Any) -> OptState:
                     nu=pytree.tree_map(f32, params))
 
 
+def _slices(t: torch.Tensor) -> list[torch.Tensor]:
+    """``t``'s flat view (a copy if ``t`` is strided) in slices of at most
+    ``SLICE_ELEMENTS`` elements."""
+    flat = t.reshape(-1)
+    return [flat[lo:lo + SLICE_ELEMENTS] for lo in range(0, flat.numel(), SLICE_ELEMENTS)]
+
+
 def global_norm(grads: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's f32 sum of squares (leaf order)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in pytree.tree_leaves(grads)))
+    """sqrt of the sum of every leaf's f32 sum of squares (leaf order), a
+    leaf of more than ``SLICE_ELEMENTS`` elements summed slice by slice."""
+    return torch.sqrt(sum(torch.sum(torch.square(s.float()))
+                          for g in pytree.tree_leaves(grads) for s in _slices(g)))
 
 
 def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -64,16 +80,17 @@ def clip_by_global_norm(grads: Any, max_norm: float):
     return pytree.tree_map(lambda g: g.float() * scale, grads), gnorm
 
 
-def _leaf_update(p, g, m, v, *, lr, b1, b2, eps, weight_decay, b1c, b2c):
-    """One leaf's AdamW update from its clipped f32 gradient ``g``.
-    Returns (new_p, new_m, new_v)."""
+def _leaf_update(p, g, m, v, *, lr, b1, b2, eps, weight_decay, b1c, b2c, matrix):
+    """One leaf's AdamW update from its clipped f32 gradient ``g``
+    (``matrix``: the leaf has ndim >= 2; ``p`` may be a slice of its flat
+    view).  Returns (new_p, new_m, new_v)."""
     m = b1 * m + (1 - b1) * g
     v = b2 * v + (1 - b2) * torch.square(g)
     mhat = m / b1c
     vhat = v / b2c
     delta = mhat / (torch.sqrt(vhat) + eps)
     # decoupled weight decay on matrices only (ndim >= 2)
-    if p.dim() >= 2:
+    if matrix:
         delta = delta + weight_decay * p.float()
     new_p = (p.float() - lr * delta).to(p.dtype)
     return new_p, m, v
@@ -94,7 +111,7 @@ def adamw_update(params: Any, grads: Any, state: OptState, *,
     b1c, b2c = _bias_corrections(step, b1, b2)
     flat_p, spec = pytree.tree_flatten(params)
     out = [_leaf_update(p, g, m, v, lr=lr, b1=b1, b2=b2, eps=eps,
-                        weight_decay=weight_decay, b1c=b1c, b2c=b2c)
+                        weight_decay=weight_decay, b1c=b1c, b2c=b2c, matrix=p.dim() >= 2)
            for p, g, m, v in zip(flat_p, spec.flatten_up_to(grads),
                                  spec.flatten_up_to(state.mu),
                                  spec.flatten_up_to(state.nu))]
@@ -110,8 +127,9 @@ def adamw_update_(params: Any, grads: list, state: OptState, *,
     """:func:`adamw_update` in place: ``params``, ``state.mu``, ``state.nu``
     and ``state.step`` are overwritten with the values adamw_update would
     return.  ``grads`` is the list of the parameters' gradients in leaf
-    order; each entry is dropped once its leaf is updated.  Returns the
-    metrics."""
+    order; each entry is dropped once its leaf is updated.  A leaf of more
+    than ``SLICE_ELEMENTS`` elements is updated in slices of that many
+    elements of its flat view.  Returns the metrics."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, max_grad_norm)
     state.step.add_(1)
@@ -119,11 +137,15 @@ def adamw_update_(params: Any, grads: list, state: OptState, *,
     flat_p, spec = pytree.tree_flatten(params)
     for i, (p, m, v) in enumerate(zip(flat_p, spec.flatten_up_to(state.mu),
                                       spec.flatten_up_to(state.nu))):
-        new_p, new_m, new_v = _leaf_update(
-            p, grads[i].float() * scale, m, v, lr=lr, b1=b1, b2=b2, eps=eps,
-            weight_decay=weight_decay, b1c=b1c, b2c=b2c)
-        grads[i] = None
-        p.copy_(new_p)
-        m.copy_(new_m)
-        v.copy_(new_v)
+        # view(-1): the slices of p, m and v are written in place
+        for ps, gs, ms, vs in zip(*map(_slices, (p.view(-1), grads[i], m.view(-1),
+                                                 v.view(-1)))):
+            new_p, new_m, new_v = _leaf_update(
+                ps, gs.float() * scale, ms, vs, lr=lr, b1=b1, b2=b2, eps=eps,
+                weight_decay=weight_decay, b1c=b1c, b2c=b2c, matrix=p.dim() >= 2)
+            ps.copy_(new_p)
+            ms.copy_(new_m)
+            vs.copy_(new_v)
+            del new_p, new_m, new_v       # before the next slice's temporaries
+        grads[i] = gs = None              # the gradient and its last slice
     return {"grad_norm": gnorm}

@@ -212,5 +212,5 @@ def test_loss_fn_refuses_the_families_it_does_not_train(arch):
     item that ports them."""
     cfg = smoke_config(arch)
     batch = tpipeline.make_batch(cfg, B, S, device="cpu")
-    with pytest.raises(NotImplementedError, match="Training's leftovers"):
+    with pytest.raises(NotImplementedError, match="The losses the port refuses"):
         tmodel.loss_fn({}, batch, cfg)

@@ -627,7 +627,7 @@ def test_loss_fn_refuses_an_encoder_decoder():
     the enc-dec family yet."""
     _, tcfg, _, tp, _ = _models()
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Training's leftovers"):
+    with pytest.raises(NotImplementedError, match="The losses the port refuses"):
         tmodel.loss_fn(tp, {"tokens": toks, "labels": toks,
                             "frames": torch.zeros(1, 8, tcfg.frontend_dim)}, tcfg)
 

@@ -502,7 +502,7 @@ def test_loss_fn_refuses_deepseek():
     _, tcfg = _configs(dtype="bfloat16")
     params = tparams.init(tcfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Training's leftovers"):
+    with pytest.raises(NotImplementedError, match="The losses the port refuses"):
         tmodel.loss_fn(params, {"tokens": toks, "labels": toks}, tcfg)
 
 

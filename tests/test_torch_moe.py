@@ -505,7 +505,7 @@ def test_loss_fn_refuses_moe():
     _, tcfg = _configs("smoke")
     params = tparams.init(tcfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Training's leftovers"):
+    with pytest.raises(NotImplementedError, match="The losses the port refuses"):
         tmodel.loss_fn(params, {"tokens": toks, "labels": toks}, tcfg)
 
 

@@ -35,6 +35,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.models import params as tparams
 from repro_torch.optim import (OptState, adamw_init, adamw_update, adamw_update_,
                                constant, cosine, wsd)
+from repro_torch.optim import adamw as adamw_mod
 from repro_torch.runtime import FailureInjector, Supervisor, TrainLoopConfig
 
 SMALL = dict(d_model=128, head_dim=32)
@@ -117,17 +118,23 @@ def test_cross_entropy_matches_jax_with_mask():
     np.testing.assert_allclose(ta.item(), float(ja), rtol=1e-6)
 
 
-def test_remat_changes_no_gradient_and_dots_is_not_ported():
-    _, tcfg = _configs("bfloat16")
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "gemma2-27b"])
+def test_remat_policies_give_bit_identical_loss_and_gradients(arch):
+    """``"full"``, ``"dots"`` and ``"none"`` run the same ops on the same
+    inputs, the first two again in the backward: loss and every gradient
+    bit-identical (gemma2: its local and global layers, window 32 against
+    seq 128, softcaps and post norms)."""
+    tcfg = smoke_config(arch).scaled(dtype="bfloat16", **SMALL)
+    if arch == "gemma2-27b":
+        tcfg = tcfg.scaled(query_pre_attn_scalar=32.0, sliding_window=32)
     params = tparams.init(tcfg, torch.Generator().manual_seed(1), "cpu")
     batch = tpipe.make_batch(tcfg, 1, SEQ, device="cpu")
     outs = [train_cli._loss_and_grads(tcfg.scaled(remat=r), params, batch)
-            for r in ("full", "none")]
-    assert torch.equal(outs[0][0], outs[1][0])
-    for a, b in zip(outs[0][2], outs[1][2]):
-        assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli._loss_and_grads(tcfg.scaled(remat="dots"), params, batch)
+            for r in ("full", "dots", "none")]
+    for out in outs[1:]:
+        assert torch.equal(outs[0][0], out[0])
+        for a, b in zip(outs[0][2], out[2]):
+            assert torch.equal(a, b)
 
 
 def test_loss_of_other_families_is_not_ported():
@@ -193,6 +200,25 @@ def test_adamw_in_place_equals_functional_bf16():
     for a, b in zip(pytree.tree_leaves((fp, fs)), pytree.tree_leaves((ip, is_))):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert ip["w"].dtype == torch.bfloat16 and is_.mu["w"].dtype == torch.float32
+
+
+def test_adamw_in_place_in_slices_equals_functional(monkeypatch):
+    """With the slice lowered to 7 elements the in-place update walks each
+    leaf in slices of its flat view (the (6, 5) matrix in five, the (3, 4)
+    one in two, each with its weight decay): the functional update's exact
+    bits, for bf16 and f32 parameters."""
+    monkeypatch.setattr(adamw_mod, "SLICE_ELEMENTS", 7)
+    p, gs = _opt_leaves(2)
+    for dtype in (torch.bfloat16, torch.float32):
+        base = pytree.tree_map(lambda t: t.to(dtype), _to_torch(p))
+        fp, fs = _clone(base), adamw_init(base)
+        ip, is_ = _clone(base), adamw_init(base)
+        for g in gs:
+            tg = pytree.tree_map(lambda q, t: t.to(dtype), base, _to_torch(g))
+            fp, fs, _ = adamw_update(fp, tg, fs, lr=3e-3)
+            adamw_update_(ip, pytree.tree_leaves(tg), is_, lr=3e-3)
+        for a, b in zip(pytree.tree_leaves((fp, fs)), pytree.tree_leaves((ip, is_))):
+            assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("name", ["constant", "cosine", "wsd"])
@@ -317,29 +343,36 @@ def test_supervisor_restart_reproduces_the_run_without_failure(tmp_path):
 
 def test_overlay_train_step_equals_eager_step():
     """Two steps through ``Overlay.jit`` (functional, traced with the
-    backward and the optimizer) and eagerly in place, from the same state:
-    the traced graph replays the eager run's aten ops, so losses and
-    updated parameters are bit-identical."""
-    _, tcfg = _configs("bfloat16")
-    sched = cosine(3e-3, warmup=1, total=4)
-    ov = Overlay(3, 3)
-    traced = train_cli.make_step(tcfg, sched, overlay=ov)
-    eager = train_cli.make_step(tcfg, sched)
-    s_ov = _small_state(tcfg, seed=2)
-    s_eg = _clone(s_ov[0]), adamw_init(s_ov[0])
-    for step in range(2):
-        batch = tpipe.make_batch(tcfg, 2, SEQ, step=step, device="cpu")
-        s_ov, m_ov = traced(s_ov, batch)
-        s_eg, m_eg = eager(s_eg, batch)
-        assert torch.equal(m_ov["loss"], m_eg["loss"])
-        assert torch.equal(m_ov["grad_norm"], m_eg["grad_norm"])
-    for a, b in zip(pytree.tree_leaves(s_ov), pytree.tree_leaves(s_eg)):
-        assert torch.equal(a, b)
-    assert ov.stats.traces == 1 and ov.stats.downloads == 1
-    names = [n.name for n in traced.lower(s_ov, batch).graph.op_nodes()]
-    # forward + the backward's recompute: one attention per layer each
-    assert names.count("kernels/attention") == 2 * tcfg.num_layers
-    assert names.count("kernels/rmsnorm") == 4 * tcfg.num_layers + 1
+    backward and the optimizer) and eagerly in place, from the same state,
+    under remat ``"full"`` and ``"dots"``: the traced graph replays the
+    eager run's aten ops, so losses and updated parameters are
+    bit-identical.  While traced, ``"dots"`` checkpoints as ``"full"``
+    (under a tracer's proxy mode torch's selective checkpoint would save
+    every op's output), so its graph also recomputes every layer in the
+    backward: bounded memory, the same numbers."""
+    _, base = _configs("bfloat16")
+    for remat in ("full", "dots"):
+        tcfg = base.scaled(remat=remat)
+        sched = cosine(3e-3, warmup=1, total=4)
+        ov = Overlay(3, 3)
+        traced = train_cli.make_step(tcfg, sched, overlay=ov)
+        eager = train_cli.make_step(tcfg, sched)
+        s_ov = _small_state(tcfg, seed=2)
+        s_eg = _clone(s_ov[0]), adamw_init(s_ov[0])
+        for step in range(2):
+            batch = tpipe.make_batch(tcfg, 2, SEQ, step=step, device="cpu")
+            s_ov, m_ov = traced(s_ov, batch)
+            s_eg, m_eg = eager(s_eg, batch)
+            assert torch.equal(m_ov["loss"], m_eg["loss"])
+            assert torch.equal(m_ov["grad_norm"], m_eg["grad_norm"])
+        for a, b in zip(pytree.tree_leaves(s_ov), pytree.tree_leaves(s_eg)):
+            assert torch.equal(a, b)
+        assert ov.stats.traces == 1 and ov.stats.downloads == 1
+        names = [n.name for n in traced.lower(s_ov, batch).graph.op_nodes()]
+        # the forward and the backward's recompute: one attention a layer
+        # each, and the layer norms again
+        assert names.count("kernels/attention") == 2 * tcfg.num_layers
+        assert names.count("kernels/rmsnorm") == 4 * tcfg.num_layers + 1
 
 
 def test_train_launcher_on_cpu_restarts_after_failure(tmp_path, capsys):
@@ -350,6 +383,26 @@ def test_train_launcher_on_cpu_restarts_after_failure(tmp_path, capsys):
     out = capsys.readouterr().out
     assert rc == 0 and "restarts=1" in out and "4 steps" in out
     assert sorted(os.listdir(tmp_path))[-1] == "step_0000000004"
+
+
+def test_train_launcher_cuts_gemma2_to_two_layers_and_restarts(tmp_path, capsys):
+    """``--layers 2`` keeps one (local, global) unit of gemma2 at its
+    (smoke) width; the run restarts from its step-2 checkpoint after the
+    failure at step 3."""
+    rc = train_cli.main(["--arch", "gemma2-27b", "--smoke", "--layers", "2", "--steps", "4",
+                         "--batch", "1", "--seq", "64", "--ckpt-every", "2",
+                         "--fail-at", "3", "--log-every", "1", "--device", "cpu",
+                         "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert rc == 0 and "2 layers" in out and "restarts=1" in out and "4 steps" in out
+    assert sorted(os.listdir(tmp_path))[-1] == "step_0000000004"
+
+
+def test_train_launcher_refuses_a_part_of_a_unit(tmp_path):
+    with pytest.raises(ValueError, match=r"3 layers is not a whole number of its units "
+                                         r"\[\('local', 'global'\)\]"):
+        train_cli.main(["--arch", "gemma2-27b", "--smoke", "--layers", "3", "--steps", "1",
+                        "--device", "cpu", "--ckpt-dir", str(tmp_path)])
 
 
 def test_train_launcher_through_the_overlay_on_cpu(tmp_path, capsys):
