@@ -87,29 +87,40 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     each step the schedule's, 80 flash_attention launches a step
     (tensor-core kernel, 36 heads of 64) and 161 rmsnorm launches (warp
     kernel);
-11. ``[serve-gemma2]``: serves gemma2-27b at full width and depth (46
-    layers of local and global attention, softcaps, post norms, tied
-    embeddings; random bf16 weights from the seed, 54.46 GB) at batch 2,
+11. ``[train-granite]``: trains the mixture-of-experts granite-moe-1b-a400m
+    at full width and all 24 layers (32 experts, top-8, capacity factor
+    1.25) at batch 1 x seq 4096, 4 steps under remat ``"full"`` on the
+    reference's loss ``ce + 0.01 * aux``, the backward through the
+    sort-based dispatch: finite losses, a finite aux above 0 and the loss
+    equal to ce + 0.01 x aux on every step, 48 flash_attention launches a
+    step (tensor-core kernel, 16 heads over 8 of 64) and 97 rmsnorm
+    launches (warp kernel); a profiled step with the device time of the
+    dispatch's index ops against the experts' bmm; whether step 1 again
+    from the seed gives the same bits (printed, not required);
+12. ``[serve-gemma2]``: serves gemma2-27b at full width cut to 8 of its 46
+    layers (4 units of local and global attention, softcaps, post norms,
+    tied embeddings; random bf16 weights from the seed) at batch 2,
     max_len 4608: four (16, 8) requests and one (4352, 16), whose prompt
     reaches past the 4096 window, through ``Overlay(3, 3)`` and plainly:
     the logits of every call bit-identical (digest), identical streams
     (with random weights they repeat one token, so the digests carry the
-    check), 185 rmsnorm launches a call, every one on the block kernel
+    check), 33 rmsnorm launches a call, every one on the block kernel
     (d 4608); a plain prefill of the long prompt and the decode after it,
     again with no window, must give other logits; under 1 GiB left;
-12. ``[serve-archs]``: the same for minicpm-2b (40 layers, 81 warp
-    launches a call) and mistral-large-123b cut to 8 of its 88 layers
-    (17 block launches a call), four (16, 8) requests each;
-13. ``[serve-zamba2]``: serves the hybrid zamba2-7b at full width and
-    depth (81 layers: 68 mamba layers at state 64 and 13 occurrences of ONE
-    shared attention+MLP weight set, each with its own KV cache; random
-    bf16 weights from the seed, 11.25 GB) at batch 2, max_len 4128: four
-    (16, 8) requests and one (4096, 16) through ``Overlay(3, 3)`` and
+13. ``[serve-archs]``: the same for minicpm-2b cut to 8 of its 40 layers
+    (17 warp launches a call) and mistral-large-123b cut to 8 of its 88
+    layers (17 block launches a call), four (16, 8) requests each;
+14. ``[serve-zamba2]``: serves the hybrid zamba2-7b at full width cut to
+    15 of its 81 layers (the leading 3 mamba layers and 2 of its 13 (5
+    mamba, shared_attn) units: 13 mamba layers at state 64 and 2
+    occurrences of ONE shared attention+MLP weight set, each with its own
+    KV cache; random bf16 weights from the seed) at batch 2, max_len 4128:
+    four (16, 8) requests and one (4096, 16) through ``Overlay(3, 3)`` and
     plainly: the logits of every call bit-identical (digest) and finite,
-    identical streams, 95 rmsnorm launches a call on the warp kernel (d
-    3584), ssd_chunk 68 times a prefill on the CUDA-core kernel (state 64)
+    identical streams, 18 rmsnorm launches a call on the warp kernel (d
+    3584), ssd_chunk 13 times a prefill on the CUDA-core kernel (state 64)
     and never in decode; under 1 GiB left;
-14. ``[serve-granite]``: serves the mixture-of-experts granite-moe-1b-a400m
+15. ``[serve-granite]``: serves the mixture-of-experts granite-moe-1b-a400m
     at full width and depth (24 layers, 32 experts, top-8, capacity factor
     1.25, tied embeddings; random bf16 weights from the seed, 2.67 GB) at
     batch 2, max_len 4128: four (16, 8) requests and one (4096, 16) through
@@ -118,7 +129,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the warp kernel (d 1024), no ssd_chunk and no flash_attention (cached
     attention is plain code); prints total against active parameters;
     under 1 GiB left;
-15. ``[serve-deepseek]``: serves deepseek-v3-671b at full width cut to its
+16. ``[serve-deepseek]``: serves deepseek-v3-671b at full width cut to its
     first 4 of 61 layers (3 ``mla_dense`` and 1 ``mla_moe``: Multi-head
     Latent Attention over a bf16 latent cache, 256 experts, top-8, one
     shared expert, sigmoid scoring; random bf16 weights from the seed,
@@ -133,7 +144,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     left; then times the plain 2048-token prefill and a batch-2 decode,
     each to a synchronize, the decode beside the time to read its
     weights once;
-16. ``[serve-seamless]``: serves the encoder-decoder seamless-m4t-medium
+17. ``[serve-seamless]``: serves the encoder-decoder seamless-m4t-medium
     at full width and depth (12 ``enc`` + 12 ``dec`` layers, the audio
     stub's ``frontend_proj``; random bf16 weights from the seed, 1.96 GB)
     through the model API (``prefill(enc_in=frames)``, then greedy
@@ -148,10 +159,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the two traced prefills; under 1 GiB left; then times the plain
     4096-frame prefill and a batch-2 decode, each to a synchronize, the
     decode beside the time to read its weights and caches once;
-17. ``[serve-pixtral]``: serves the vlm pixtral-12b at full width and
-    depth (40 ``dense`` layers, d 5120, 32 heads over 8 kv heads of 128,
+18. ``[serve-pixtral]``: serves the vlm pixtral-12b at full width cut to
+    8 of its 40 ``dense`` layers (d 5120, 32 heads over 8 kv heads of 128,
     untied vocab 131072, the vision stub's ``frontend_proj``; random bf16
-    weights from the seed, 24.5 GB) two ways, each through
+    weights from the seed) two ways, each through
     ``Overlay(3, 3)`` and plainly: (a) as text through ``ServeEngine``,
     as the reference's engine serves it (it passes no patches), four
     (16, 8) requests at max_len 128; (b) through the model API at batch
@@ -160,7 +171,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     512-token prompt, then 16 greedy ``decode_step`` calls, and of a
     2048-token prompt, then 32, both steps through ``Overlay(3, 3).jit``
     (a quarter of the fabric each).  Each way: the logits of every call
-    bit-identical (digest) and finite, identical streams, 81 rmsnorm
+    bit-identical (digest) and finite, identical streams, 17 rmsnorm
     launches a call, all on the block kernel (d 5120), no flash_attention
     and no ssd_chunk (cached attention is plain code), one decode and two
     prefill signatures through the model API; the stub acts (the prompt
@@ -168,7 +179,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     patches do not (new ids there give the same bits); under 1 GiB left;
     then times the plain 2048-token prefill and a batch-2 decode, each to
     a synchronize, the decode beside the time to read its weights once;
-18. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
+19. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
     assembled on an all-LARGE ``Overlay(3, 3)``: logits bit-identical to
     ``forward`` + ``unembed``, 65 rmsnorm and 32 flash_attention launches;
     then zamba2-7b's at (1, 4096): bit-identical, 95 rmsnorm (warp), 68
@@ -181,7 +192,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     width 128: plain code, as the reference's); then pixtral-12b's at (1,
     2048): bit-identical, 81 rmsnorm (block) and 40 flash_attention
     launches (tensor-core, head dim 128, 32 heads over 8);
-19. checks the models' outputs: finite full-width logits, small float32
+20. checks the models' outputs: finite full-width logits, small float32
     phi3, mamba2, gemma2 (window 8: prefill, three decodes and a
     cache-free forward through the flash kernel), zamba2 (state 64: the
     same), granite-moe (32 experts, top-8, capacity 1 at a batch-2
@@ -194,20 +205,20 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     and a cache-free forward with the patches) models on the card
     (kernels) against the same models on the CPU (plain versions), serving
     and one train step;
-20. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
+21. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
     the event loop, gemma2 (smoke) through the overlay, and the train
     launcher on gemma2-27b at full width cut to 2 layers (seq 1024) with
     an injected failure at step 3: it restores its 23.1 GB step-2
     checkpoint, replays and ends with rc 0 and finite losses (free disk
     and host memory before it, the seconds of each host copy, write and
     restore, the bytes on disk);
-21. ``[warm-restart]``: boots the serve launcher in fresh processes on one
+22. ``[warm-restart]``: boots the serve launcher in fresh processes on one
     persistent bitstream store directory — phi3-mini-3.8b at full width
-    cut to 8 of its 32 layers (``--layers 8``; the ``[serve]`` requests)
+    cut to 2 of its 32 layers (``--layers 2``; the ``[serve]`` requests)
     plain, cold (``--store`` on an empty
     directory), warm (the same directory) and garbled (one entry flipped
     mid-payload and one truncated, ``REPRO_SANITIZE=1``); then mamba2-130m
-    at full width cut to 8 of its 24 layers (``--layers 8``) plain, cold
+    at full width cut to 2 of its 24 layers (``--layers 2``) plain, cold
     and warm on a second directory (prompts of 37, 500 and 4096 tokens); a two-member fleet (``--fleet 2 --store D``) cold and
     warm on a third.  Streams identical to plain; the cold boot saves every
     kernel key and writes the ledger; the warm boot loads every key and
@@ -217,10 +228,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     assembly or load, the first call), bytes on disk and load-vs-build ms
     per entry, the sanitizer's host ms per check, mamba2's downloads cold
     and warm;
-22. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
+23. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
     (lock lint, live checkers under the sanitizer, a two-member fleet's
     records and ``describe()``, the store, injected faults) must exit 0;
-23. prints the kernels line (time per call, host included, and device time
+24. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
     and ssd_chunk's CUDA-core kernels' times), timings at other shapes
@@ -233,7 +244,7 @@ Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, the overlay-served runs, the relocation
 and specialization rounds, the fleet runs, the full-width training runs
 (the train launcher's too),
-the dense family's, zamba2's, granite's, deepseek's, seamless's and
+the dense family's, zamba2's, granite's (training too), deepseek's, seamless's and
 pixtral's runs and the step graphs' calls)
 and read just
 after; launches made to compare or time a kernel are not counted.  A
@@ -324,26 +335,28 @@ LOOP_FAULTS = dict(download_failure_rate=0.3, dispatch_failure_rate=0.02,
 # decode rows, its event loop's full prefill chunk and its training x (d
 # 3072); mamba2's prefills, one request at a time, its training x and its
 # decode rows (d 768)
-# the dense family: gemma2-27b at full width and depth (batch 2, max_len
-# 4608: four (16, 8) requests and one (4352, 16), whose prompt reaches past
-# the 4096 window of the local layers), minicpm-2b at full depth and
-# mistral-large-123b cut to 8 of its 88 layers (245 GB in bf16), each with
-# four (16, 8) requests
+# the dense family: gemma2-27b at full width cut to 8 of its 46 layers
+# (batch 2, max_len 4608: four (16, 8) requests and one (4352, 16), whose
+# prompt reaches past the 4096 window of the local layers), minicpm-2b at 8
+# of its 40 and mistral-large-123b at 8 of its 88 layers (245 GB in bf16),
+# each with four (16, 8) requests
 GEMMA = "gemma2-27b"
 GEMMA_MAX_LEN, GEMMA_LONG, GEMMA_LONG_NEW = 4608, 4352, 16
 GEMMA_REQUESTS = ((PROMPT, MAX_NEW),) * REQUESTS + ((GEMMA_LONG, GEMMA_LONG_NEW),)
 GEMMA_D = 4608
-DENSE_ARCHS = (("minicpm-2b", None), ("mistral-large-123b", 8))   # (arch, layers kept)
-# the hybrid zamba2-7b at full width and depth: four (16, 8) requests and
-# one (4096, 16), whose prefill launches ssd_chunk at the full chunked shape
-# (112 heads, 64 chunks of 64, head dim 64, state 64); its step graph at
-# (1, 4096)
+GEMMA_SERVE_LAYERS = 8       # [serve-gemma2]: 4 of its 23 (local, global) units, at full width
+DENSE_ARCHS = (("minicpm-2b", 8), ("mistral-large-123b", 8))   # (arch, layers kept)
+# the hybrid zamba2-7b at full width, served at 15 of its 81 layers: four
+# (16, 8) requests and one (4096, 16), whose prefill launches ssd_chunk at
+# the full chunked shape (112 heads, 64 chunks of 64, head dim 64, state
+# 64); its step graph at (1, 4096) and all 81 layers
 ZAMBA = "zamba2-7b"
 ZAMBA_MAX_LEN, ZAMBA_LONG, ZAMBA_LONG_NEW = 4128, 4096, 16
 ZAMBA_REQUESTS = ((PROMPT, MAX_NEW),) * REQUESTS + ((ZAMBA_LONG, ZAMBA_LONG_NEW),)
 ZAMBA_D = 3584
 ZAMBA_SSD = (112, ZAMBA_LONG // 64, 64, 64, 64)   # (batch*heads, chunks, L, p, n) of its prefill
 ZAMBA_FLASH = (1, 32, ZAMBA_LONG, 112)           # q (B, H, S, D) of its cache-free forward
+ZAMBA_SERVE_LAYERS = 15      # [serve-zamba2]: 3 + 2 x 6 of its 81 layers, at full width
 # the mixture-of-experts granite-moe-1b-a400m at full width and depth (24
 # layers, 32 experts, top-8): four (16, 8) requests and one (4096, 16); its
 # step graph at (1, 4096), whose cache-free forward launches flash at head
@@ -374,17 +387,19 @@ SEAMLESS_MAX_LEN, SEAMLESS_PROMPT = 4096, 2
 SEAMLESS_ROUNDS = ((1024, 16), (4096, 32))
 SEAMLESS_D, SEAMLESS_HEADS, SEAMLESS_HEAD_DIM = 1024, 16, 64
 SEAMLESS_CROSS_Q = 16
-# the vlm pixtral-12b at full width and depth (40 dense layers, d 5120, 32
-# heads over 8 kv heads of 128): served as text through ServeEngine (four
+# the vlm pixtral-12b at full width (d 5120, 32 heads over 8 kv heads of
+# 128), served at 8 of its 40 dense layers: as text through ServeEngine (four
 # (16, 8) requests), and through the model API at batch 2, max_len 4096
 # with 256 patches (make_batch's min(256, seq // 2)) over the leading slots
 # of a 512-token prompt (16 decodes), then a 2048-token one (32 decodes);
-# its step graph at (1, 2048) launches flash causal at 32 over 8 heads
+# its step graph at (1, 2048), all 40 layers, launches flash causal at 32
+# over 8 heads
 PIXTRAL = "pixtral-12b"
 PIXTRAL_MAX_LEN, PIXTRAL_NPATCH = 4096, 256
 PIXTRAL_ROUNDS = ((512, 16), (2048, 32))
 PIXTRAL_D = 5120
 PIXTRAL_FLASH = (1, 32, 8, 2048, 128)     # (B, Hq, Hkv, S, D) of its cache-free forward
+PIXTRAL_SERVE_LAYERS = 8     # [serve-pixtral]: 8 of its 40 layers, at full width
 # dense-family training: gemma2-27b at full width cut to one (local, global)
 # unit (its 46 layers and f32 moments need ~330 GB), batch 1 x seq 6144 so
 # the local layer's 4096 window drops pairs, 4 steps under remat "full"
@@ -397,6 +412,8 @@ MINICPM = "minicpm-2b"
 MINICPM_TRAIN_STEPS = 4
 MINICPM_D = 2304
 MINICPM_FLASH = (1, 36, TRAIN_SEQ, 64)    # q, k, v (B, H, S, D) of its training forward (MHA)
+# MoE training: granite-moe-1b-a400m at full width and depth, 1 x 4096, 4 steps
+GRANITE_TRAIN_STEPS = 4
 LAUNCHER_TRAIN = ["--arch", GEMMA, "--layers", str(GEMMA_TRAIN_LAYERS), "--batch", "1",
                   "--seq", "1024", "--steps", "4", "--ckpt-every", "2", "--fail-at", "3",
                   "--log-every", "1", "--seed", str(SEED)]
@@ -1741,9 +1758,10 @@ def train_steps(tag: str, cfg, schedule, steps: int, seq: int) -> dict:
     """Random bf16 weights from the seed, then ``steps`` eager in-place
     steps of ``launch.train.make_step`` at batch ``TRAIN_BATCH`` x ``seq``
     on the synthetic stream, the launch counters set to 0 just before the
-    first.  Returns the launches, step ms, losses and grad norms (on the
-    host), the peak memory, and the state, step fn and batches for what the
-    phase runs after the counted steps."""
+    first.  Returns the launches, step ms, losses, their cross-entropy and
+    load-balance terms and grad norms (on the host), the peak memory, and
+    the state, step fn and batches for what the phase runs after the
+    counted steps."""
     params = pm.init(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
     opt = adamw_init(params)
     step_fn = train_cli.make_step(cfg, schedule)
@@ -1752,14 +1770,18 @@ def train_steps(tag: str, cfg, schedule, steps: int, seq: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state, step_ms, losses, gnorms, lrs = (params, opt), [], [], [], []
+    ces, auxs = [], []
     reset_counters()                           # the driven path starts here
     for batch in batches:
         ms, (state, metrics) = _sync_ms(lambda: step_fn(state, batch))
         step_ms.append(ms)
         losses.append(metrics["loss"].cpu())
+        ces.append(metrics["ce"].cpu())
+        auxs.append(metrics["aux"].cpu())
         gnorms.append(metrics["grad_norm"].cpu())
         lrs.append(metrics["lr"].item())
-        log(f"[{tag}] step {len(losses)}: loss {losses[-1].item():.4f} grad_norm "
+        log(f"[{tag}] step {len(losses)}: loss {losses[-1].item():.4f} (ce "
+            f"{ces[-1].item():.4f}, aux {auxs[-1].item():.4f}) grad_norm "
             f"{gnorms[-1].item():.3f} lr {metrics['lr'].item():.2e} {ms:.1f} ms")
     launches = counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1772,8 +1794,9 @@ def train_steps(tag: str, cfg, schedule, steps: int, seq: int) -> dict:
         f"max_memory_allocated {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); launches "
         f"{launches}")
     return {"launches": launches, "step_ms": step_ms, "losses": losses, "grad_norms": gnorms,
-            "lrs": lrs, "peak_bytes": peak, "tok_s": tokens / steady * 1e3, "state": state,
-            "step_fn": step_fn, "batches": batches}
+            "ces": ces, "auxs": auxs, "lrs": lrs, "peak_bytes": peak,
+            "tok_s": tokens / steady * 1e3, "state": state, "step_fn": step_fn,
+            "batches": batches}
 
 
 def check_launches(tag: str, launches: dict, want: dict, variants: dict) -> None:
@@ -1819,7 +1842,7 @@ KERNEL_GROUPS = (   # (group, lower-case substrings of CUDA kernel names), first
     ("flash_attention", ("flash_fwd",)),
     ("ssd_chunk", ("ssd_chunk_mma", "ssd_chunk_simt")),
     ("rmsnorm", ("rmsnorm_warp", "rmsnorm_block")),
-    ("matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "cublas")),
+    ("matrix products (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "cublas", "nvjet")),
     ("softmax", ("softmax",)),
     ("reductions", ("reduce",)),
     ("copies", ("copy", "memcpy", "memset")),
@@ -1845,10 +1868,14 @@ def aten_ops(fn) -> int:
     return Count.n
 
 
-def profile_step(fn, tag: str = "train") -> None:
+def profile_step(fn, tag: str = "train", op_groups: tuple = ()) -> None:
     """One more train step (after the counted run) under ``torch.profiler``:
     device time by kernel group, and the device's busy share of the step's
-    wall time (kernels run on one stream, so their times add)."""
+    wall time (kernels run on one stream, so their times add).  With
+    ``op_groups`` ((group, test of an aten op's profiler event), ...): the
+    device time of the kernels each group's aten ops launch themselves
+    (each op's self device time, so nested ops are not counted twice),
+    first match wins."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1877,6 +1904,33 @@ def profile_step(fn, tag: str = "train") -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     log(f"[{tag}] profile: the kernels that take most of it: "
         + "; ".join(f"{name[:90]} {us / 1e3:.1f} ms" for name, us in top))
+    if not op_groups:
+        return
+    by_op: dict[str, float] = {}
+    names: dict[str, dict[str, float]] = {}     # the kernels of each group, us by name
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        group = next((g for g, test in op_groups if test(ev)), None)
+        if group is not None and us:
+            by_op[group] = by_op.get(group, 0.0) + us
+            for k in getattr(ev, "kernels", ()):
+                named = names.setdefault(group, {})
+                named[k.name] = named.get(k.name, 0.0) + k.duration
+    if not by_op:
+        log(f"[{tag}] profile: the profiler gave its aten ops no device time; the split by "
+            f"op is not measured")
+        return
+    log(f"[{tag}] profile by aten op (self device time of the kernels each op launches): "
+        + ", ".join(f"{g} {by_op.get(g, 0.0) / 1e3:.1f} ms ({by_op.get(g, 0.0) / busy:.1%})"
+                    for g, _ in op_groups))
+    for g, named in names.items():
+        top = sorted(named.items(), key=lambda kv: -kv[1])[:3]
+        log(f"[{tag}] profile: {g}'s kernels: "
+            + "; ".join(f"{name[:80]} {us / 1e3:.1f} ms" for name, us in top))
 
 
 def phase_train_overlay() -> dict:
@@ -2223,6 +2277,96 @@ def phase_train_minicpm() -> dict:
     return out
 
 
+def _in_attention(ev) -> bool:
+    """Whether a profiler event runs inside the attention op (its plain
+    VJP runs under the ``_Attention`` autograd node's backward)."""
+    while ev is not None:
+        if "_Attention" in ev.name:
+            return True
+        ev = ev.cpu_parent
+    return False
+
+
+# the aten ops of granite's training step whose kernels the profile splits
+# out: the MoE dispatch's sorts, counts, gathers and scatters (their
+# backward's accumulating index_put too; the embedding's index_select is
+# among them); the experts' bmm, and the plain attention VJP's f32 bmm
+# apart from them; the 2-D products
+GRANITE_OP_GROUPS = (
+    ("dispatch index ops",
+     lambda ev: any(k in ev.name for k in ("index", "sort", "gather", "scatter", "cumsum"))),
+    ("expert bmm", lambda ev: ev.name == "aten::bmm" and not _in_attention(ev)),
+    ("the attention VJP's bmm", lambda ev: ev.name == "aten::bmm"),
+    ("mm", lambda ev: ev.name == "aten::mm"),
+)
+
+
+def phase_train_granite() -> dict:
+    """[train-granite]: the mixture-of-experts granite-moe-1b-a400m at its
+    published widths and all 24 ``moe`` layers (32 experts, top-8,
+    capacity factor 1.25: 1281 slots an expert at 4096 tokens; tied
+    embeddings; random bf16 weights from the seed), 4 eager in-place steps
+    at batch 1 x seq 4096 under remat ``"full"`` on ``cosine(3e-4, warmup=1,
+    total=4)``, the reference's loss ``ce + 0.01 * aux``, then one more
+    under ``torch.profiler``.  Each step: a finite loss, a finite ``aux``
+    above 0, the loss equal to ``ce + 0.01 * aux`` to f32 rounding;
+    flash_attention twice a layer (forward and the recompute) on the
+    tensor-core kernel (16 heads over 8 kv heads of 64), rmsnorm 2 a layer
+    and the final norm in the forward, 2 a layer in the recompute, on the
+    warp kernel (d 1024).  Printed, not required: whether step 1 again
+    (fresh weights from the seed, the same batch) gives the same loss and
+    grad norm bit for bit."""
+    cfg = get_config(GRANITE)
+    n, steps = cfg.num_layers, GRANITE_TRAIN_STEPS
+    check(pm.layer_kinds(cfg) == ["moe"] * 24 and cfg.d_model == GRANITE_D
+          and (TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ, cfg.resolved_head_dim)
+          == GRANITE_FLASH, f"{GRANITE} config {cfg}")
+    cap = int(TRAIN_BATCH * TRAIN_SEQ * cfg.experts_per_token / cfg.num_experts
+              * cfg.capacity_factor) + 1
+    log(f"[train-granite] {cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters "
+        f"({cfg.active_param_count() / 1e9:.3f} B active a token), {cfg.num_experts} experts, "
+        f"top-{cfg.experts_per_token}, capacity {cap} slots an expert of "
+        f"{TRAIN_BATCH * TRAIN_SEQ * cfg.experts_per_token} a layer; state (bf16 parameters "
+        f"and gradients, f32 moments) {12 * cfg.param_count() / 1e9:.2f} GB")
+    sched = cosine(3e-4, warmup=1, total=steps)
+    run = train_steps("train-granite", cfg, sched, steps, TRAIN_SEQ)
+    for i, (loss, ce, aux) in enumerate(zip(run["losses"], run["ces"], run["auxs"])):
+        want = ce + 0.01 * aux                 # f32 on the host, as on the card
+        check(math.isfinite(aux.item()) and aux.item() > 0,
+              f"[train-granite] step {i + 1}: aux {aux.item()} (must be finite and > 0)")
+        check(abs(loss.item() - want.item()) <= 4 * torch.finfo(torch.float32).eps
+              * abs(want.item()),
+              f"[train-granite] step {i + 1}: loss {loss.item()!r} != ce + 0.01 * aux "
+              f"{want.item()!r}")
+    log(f"[train-granite] loss = ce + 0.01 * aux on every step; aux by step "
+        f"{[round(a.item(), 4) for a in run['auxs']]} ({n} layers: "
+        f"{run['auxs'][0].item() / n:.4f} a layer at step 1)")
+    check_launches("train-granite", run["launches"],
+                   {"flash_attention": steps * 2 * n, "rmsnorm": steps * ((2 * n + 1) + 2 * n)},
+                   {"flash_attention": "wgmma", "rmsnorm": "warp"})
+    state, batch, step_fn = run.pop("state"), run["batches"][0], run.pop("step_fn")
+    profile_step(lambda: step_fn(state, batch), tag="train-granite",
+                 op_groups=GRANITE_OP_GROUPS)
+    del state, step_fn
+    _free()
+    params = pm.init(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    _, m = train_cli.make_step(cfg, sched)((params, adamw_init(params)), batch)
+    loss, gnorm = m["loss"].cpu(), m["grad_norm"].cpu()
+    same = torch.equal(loss, run["losses"][0]) and torch.equal(gnorm, run["grad_norms"][0])
+    gaps = [abs(a.item() - b.item()) / abs(b.item()) for a, b in
+            ((loss, run["losses"][0]), (gnorm, run["grad_norms"][0]))]
+    log(f"[train-granite] step 1 again (fresh weights from the seed, the same batch): "
+        + ("loss and grad norm bit-identical" if same else
+           f"NOT bit-identical: loss {loss.item()!r} vs {run['losses'][0].item()!r}, grad norm "
+           f"{gnorm.item()!r} vs {run['grad_norms'][0].item()!r}; relative gaps {gaps}")
+        + " (printed, not required)")
+    out = {k: run[k] for k in ("launches", "step_ms", "peak_bytes", "tok_s")}
+    out["repeat_bit_identical"] = same
+    del run, params, m, batch
+    _free()
+    return out
+
+
 def phase_small_mamba_reference() -> None:
     """A small float32 mamba2 (d_model 128, 2 layers, state 16, head dim 16,
     chunk 8, so rmsnorm and ssd_chunk both run) on the card (kernels)
@@ -2503,22 +2647,29 @@ def serve_arch(tag: str, cfg, requests, max_len: int, gen: torch.Generator,
 
 
 def phase_serve_gemma2(gen: torch.Generator) -> dict:
-    """[serve-gemma2]: gemma2-27b at full width and all 46 layers (local and
-    global attention, softcaps 50 / 30, post norms, tied embeddings): every
-    norm on the block kernel (d 4608 > ``MAX_WARP_D``), 185 launches a
-    call, and the window acts on the 4352-token prompt."""
-    cfg = get_config(GEMMA)
-    check(cfg.d_model == GEMMA_D and cfg.num_layers == 46 and cfg.sliding_window == 4096
-          and GEMMA_LONG > cfg.sliding_window, f"{GEMMA} config {cfg}")
+    """[serve-gemma2]: gemma2-27b at full width cut to its first
+    ``GEMMA_SERVE_LAYERS`` layers (4 (local, global) units; local and global
+    attention, softcaps 50 / 30, post norms, tied embeddings): every norm
+    on the block kernel (d 4608 > ``MAX_WARP_D``), 4 a layer and the final
+    norm a call, and the window acts on the 4352-token prompt."""
+    full = get_config(GEMMA)
+    cfg = cut_layers(full, GEMMA_SERVE_LAYERS)
+    check(cfg.d_model == GEMMA_D and full.num_layers == 46
+          and pm.layer_kinds(cfg) == ["local", "global"] * (GEMMA_SERVE_LAYERS // 2)
+          and norms_per_call(cfg) == {"warp": 0, "block": 4 * cfg.num_layers + 1}
+          and cfg.sliding_window == 4096 and GEMMA_LONG > cfg.sliding_window,
+          f"{GEMMA} config {cfg}")
+    log(f"[serve-gemma2] {GEMMA}: cut to {cfg.num_layers} of {full.num_layers} layers")
     return serve_arch("serve-gemma2", cfg, GEMMA_REQUESTS, GEMMA_MAX_LEN, gen,
                       window_check=True)
 
 
 def phase_serve_archs(gen: torch.Generator) -> dict:
-    """[serve-archs]: minicpm-2b at full width and depth (40 layers, d 2304:
-    the warp kernel, 81 launches a call) and mistral-large-123b at full
-    width cut to 8 of its 88 layers (d 12288: the block kernel, 17 a
-    call), four (16, 8) requests each."""
+    """[serve-archs]: minicpm-2b at full width cut to 8 of its 40 layers
+    (d 2304: the warp kernel, 17 launches a call; ``[train-minicpm]``
+    keeps all 40) and mistral-large-123b at full width cut to 8 of its 88
+    layers (d 12288: the block kernel, 17 a call), four (16, 8) requests
+    each; the launch counts come from each cut config."""
     out = {}
     for arch, layers in DENSE_ARCHS:
         cfg = get_config(arch)
@@ -2533,21 +2684,28 @@ def phase_serve_archs(gen: torch.Generator) -> dict:
 
 
 def phase_serve_zamba2(gen: torch.Generator) -> dict:
-    """[serve-zamba2]: zamba2-7b at full width and all 81 layers (68 mamba
-    layers at state 64, 13 occurrences of one shared attention+MLP set,
-    each with its own KV cache): 95 rmsnorm launches a call on the warp
-    kernel (d 3584), 68 ssd_chunk launches a prefill on the CUDA-core
-    kernel and none a decode."""
-    cfg = get_config(ZAMBA)
+    """[serve-zamba2]: zamba2-7b at full width cut to its first
+    ``ZAMBA_SERVE_LAYERS`` layers (``cut_layers``: the leading group of 3
+    mamba layers and 2 of the 13 (5 mamba, shared_attn) units, so 13 mamba
+    layers at state 64 and 2 occurrences of the one shared attention+MLP
+    set, each with its own KV cache): rmsnorm once a mamba layer, twice a
+    shared_attn occurrence and once for the final norm a call, on the warp
+    kernel (d 3584), ssd_chunk once a mamba layer a prefill on the
+    CUDA-core kernel and never a decode, counts derived from the cut
+    config."""
+    full = get_config(ZAMBA)
+    cfg = cut_layers(full, ZAMBA_SERVE_LAYERS)
     kinds = pm.layer_kinds(cfg)
-    check(cfg.d_model == ZAMBA_D and len(kinds) == 81 and kinds.count("mamba") == 68
-          and kinds.count("shared_attn") == 13
-          and norms_per_call(cfg) == {"warp": 95, "block": 0}
+    mamba, shared = kinds.count("mamba"), kinds.count("shared_attn")
+    check(cfg.d_model == ZAMBA_D and len(kinds) == ZAMBA_SERVE_LAYERS
+          and kinds == pm.layer_kinds(full)[:ZAMBA_SERVE_LAYERS] and shared >= 1
+          and norms_per_call(cfg) == {"warp": mamba + 2 * shared + 1, "block": 0}
           and ssd_variant(cfg) == "simt", f"{ZAMBA} config {cfg}")
     spec = pm.model_spec(cfg)
-    log(f"[serve-zamba2] {ZAMBA}: {len(spec['layers'])} per-layer weight sets and "
-        f"{len(spec['shared'])} shared set ({list(spec['shared'])}) read by "
-        f"{kinds.count('shared_attn')} occurrences")
+    log(f"[serve-zamba2] {ZAMBA}: cut to {len(kinds)} of {full.num_layers} layers ({mamba} "
+        f"mamba, {shared} shared_attn occurrences); {len(spec['layers'])} per-layer weight sets "
+        f"and {len(spec['shared'])} shared set ({list(spec['shared'])}) read by {shared} "
+        f"occurrences")
     return serve_arch("serve-zamba2", cfg, ZAMBA_REQUESTS, ZAMBA_MAX_LEN, gen)
 
 
@@ -2838,17 +2996,18 @@ def pixtral_rounds(cfg) -> list:
 
 
 def phase_serve_pixtral(gen: torch.Generator) -> dict:
-    """[serve-pixtral]: the vlm pixtral-12b at full width and all 40
-    ``dense`` layers (d 5120, 32 heads over 8 kv heads of 128, untied vocab
-    131072, the vision stub's ``frontend_proj``; random bf16 weights from
-    the seed), one set of weights served two ways, each through
+    """[serve-pixtral]: the vlm pixtral-12b at full width cut to the first
+    ``PIXTRAL_SERVE_LAYERS`` of its 40 ``dense`` layers (d 5120, 32 heads
+    over 8 kv heads of 128, untied vocab 131072, the vision stub's
+    ``frontend_proj``; random bf16 weights from the seed), one set of
+    weights served two ways, each through
     ``Overlay(3, 3)`` and plainly: as text through ``ServeEngine``
     (:func:`serve_arch`, as the reference's engine serves it), and through
     the model API with 256 patches over the leading slots of a 512-token
     prompt (16 greedy decodes), then of a 2048-token one (32), at batch 2,
     max_len 4096 (:func:`serve_api`).  Each way: the logits of every call
-    bit-identical (digest) and finite, identical streams, 81 rmsnorm
-    launches a call on the block kernel (d 5120), no flash_attention and no
+    bit-identical (digest) and finite, identical streams, rmsnorm 2 a layer
+    and the final norm a call on the block kernel (d 5120), no flash_attention and no
     ssd_chunk (cached attention is plain code, as the reference's); one
     decode and two prefill signatures through the model API, the patches an
     input of each traced prefill.  Then, plainly: the stub acts (the
@@ -2857,10 +3016,12 @@ def phase_serve_pixtral(gen: torch.Generator) -> dict:
     same bits); the 2048-token prefill and a batch-2 decode, each ended by
     a synchronize, the decode beside the time to read its weights once;
     under 1 GiB left."""
-    cfg = get_config(PIXTRAL)
+    full = get_config(PIXTRAL)
+    cfg = cut_layers(full, PIXTRAL_SERVE_LAYERS)
     norms = norms_per_call(cfg)
-    check(cfg.d_model == PIXTRAL_D and pm.layer_kinds(cfg) == ["dense"] * 40
-          and cfg.frontend == "vision" and norms == {"warp": 0, "block": 81}
+    check(cfg.d_model == PIXTRAL_D and pm.layer_kinds(full) == ["dense"] * 40
+          and pm.layer_kinds(cfg) == ["dense"] * PIXTRAL_SERVE_LAYERS
+          and cfg.frontend == "vision" and norms == {"warp": 0, "block": 2 * cfg.num_layers + 1}
           and PIXTRAL_FLASH[1:] == (cfg.num_heads, cfg.num_kv_heads, PIXTRAL_ROUNDS[1][0],
                                     cfg.resolved_head_dim)
           and fa_mod.variant(torch.bfloat16, cfg.resolved_head_dim) == "wgmma",
@@ -2872,8 +3033,9 @@ def phase_serve_pixtral(gen: torch.Generator) -> dict:
     kv = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim * 2
     log(f"[serve-pixtral] {cfg.name}: {pm.count(params) / 1e9:.3f} B params "
         f"({cfg.param_count() / 1e9:.3f} B by param_count(), frontend_proj "
-        f"{tuple(params['frontend_proj'].shape)}; d_model {cfg.d_model}, {cfg.num_layers} "
-        f"layers, bf16, {gb:.2f} GB) initialized in {time.perf_counter() - t0:.1f}s; KV cache "
+        f"{tuple(params['frontend_proj'].shape)}; d_model {cfg.d_model}, cut to "
+        f"{cfg.num_layers} of {full.num_layers} layers, bf16, {gb:.2f} GB) initialized in "
+        f"{time.perf_counter() - t0:.1f}s; KV cache "
         f"{kv} B a token, {kv * BATCH * PIXTRAL_MAX_LEN / 1e9:.2f} GB at batch {BATCH} and "
         f"max_len {PIXTRAL_MAX_LEN}")
     engine = serve_arch("serve-pixtral", cfg, ((PROMPT, MAX_NEW),) * REQUESTS, MAX_LEN, gen,
@@ -3196,9 +3358,10 @@ def phase_small_granite_reference() -> None:
     factor 1.25) on the card (CUDA kernels) against the same model on the
     CPU (plain versions): a 20-token prefill and three decodes at batch 2
     (capacity 1: slots drop; tolerance 1e-2 * (1 + |logit|), the bf16 KV
-    cache, as for phi3), and a cache-free forward of 24 tokens, which
-    runs the flash kernel once per layer (f32 throughout: 1e-3 * (1 +
-    |logit|))."""
+    cache, as for phi3), a cache-free forward of 24 tokens, which runs
+    the flash kernel once per layer (f32 throughout: 1e-3 * (1 +
+    |logit|)), and the training loss, its aux (relative 1e-4) and every
+    gradient (1e-3 of each leaf's largest) at batch 2 x 32."""
     cfg = smoke_config(GRANITE).scaled(d_model=128, head_dim=32, num_experts=32,
                                        experts_per_token=8, capacity_factor=1.25,
                                        dtype="float32")
@@ -3239,6 +3402,20 @@ def phase_small_granite_reference() -> None:
         f"{cfg.num_experts} experts, top-{cfg.experts_per_token}) logits card (kernels) vs CPU "
         f"(plain) max err: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; the cache-free forward launched flash_attention {n['flash_attention']} times")
+    # the training loss ce + 0.01 * aux and its gradients through the
+    # sort-based dispatch (slots drop at 2 x 32 tokens: capacity 21)
+    batch = make_batch(cfg, 2, 32, step=0, seed=SEED, device="cpu")
+    lc, mc, gc_, _ = train_cli._loss_and_grads(cfg, cpu, batch)
+    lg, mg, gg, _ = train_cli._loss_and_grads(cfg, cuda, {k: v.to(DEV) for k, v in batch.items()})
+    worst = max(((g.cpu() - w).abs().max() / w.abs().max()).item() for g, w in zip(gg, gc_))
+    check(math.isclose(lg.item(), lc.item(), rel_tol=1e-4)
+          and math.isclose(mg["aux"].item(), mc["aux"].item(), rel_tol=1e-4) and worst < 1e-3,
+          f"small granite train: card vs CPU loss {lg.item()} vs {lc.item()}, aux "
+          f"{mg['aux'].item()} vs {mc['aux'].item()}, worst gradient error {worst} of a leaf's "
+          f"largest")
+    log(f"[reference] small f32 granite-moe-1b-a400m loss ce + 0.01 * aux card vs CPU: "
+        f"{lg.item():.6f} vs {lc.item():.6f} (aux {mg['aux'].item():.6f} vs "
+        f"{mc['aux'].item():.6f}); worst gradient error {worst:.3g} of a leaf's largest")
 
 
 def phase_small_deepseek_reference() -> None:
@@ -3521,12 +3698,12 @@ def phase_launcher() -> dict:
 
 
 BOOT_TIMEOUT_S = 300
-PHI3_BOOT_LAYERS = 8          # full width, 8 of its 32 layers: the boots' trace and init
+PHI3_BOOT_LAYERS = 2          # full width, 2 of its 32 layers: the boots' trace and init
 PHI3_BOOT = ["--arch", "phi3-mini-3.8b", "--layers", str(PHI3_BOOT_LAYERS),
              "--requests", str(REQUESTS), "--batch", str(BATCH),
              "--prompt-len", str(PROMPT), "--max-new", str(MAX_NEW), "--max-len", str(MAX_LEN),
              "--seed", str(SEED)]
-MAMBA_BOOT_LAYERS = 8         # full width, 8 of its 24 layers: the boots' trace is per layer
+MAMBA_BOOT_LAYERS = 2         # full width, 2 of its 24 layers: the boots' trace is per layer
 MAMBA_BOOT = ["--arch", MAMBA, "--layers", str(MAMBA_BOOT_LAYERS),
               "--requests", str(MAMBA_REQUESTS), "--batch", str(MAMBA_BATCH),
               "--prompt-lens", ",".join(map(str, MAMBA_PROMPTS)), "--max-new", str(MAMBA_NEW),
@@ -3620,9 +3797,12 @@ def _per_entry(cold: dict, warm: dict) -> tuple[float, float]:
 
 def phase_warm_restart() -> dict:
     """[warm-restart]: the persistent bitstream store across real processes
-    (module docstring, item 21).  Returns the launches of each boot."""
+    (module docstring, item 22).  Returns the launches of each boot."""
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[warm-restart] phi3-mini-3.8b boots at full width, {PHI3_BOOT_LAYERS} of "
+        f"{get_config('phi3-mini-3.8b').num_layers} layers; {MAMBA} boots at full width, "
+        f"{MAMBA_BOOT_LAYERS} of {get_config(MAMBA).num_layers} layers (--layers)")
     out = {}
     with tempfile.TemporaryDirectory(prefix="warm-phi3-") as d1, \
             tempfile.TemporaryDirectory(prefix="warm-mamba-") as d2, \
@@ -4310,6 +4490,7 @@ def main() -> int:
     trained_mamba = run_phase("[train-mamba]", phase_train_mamba)
     trained_gemma2 = run_phase("[train-gemma2]", phase_train_gemma2)
     trained_minicpm = run_phase("[train-minicpm]", phase_train_minicpm)
+    trained_granite = run_phase("[train-granite]", phase_train_granite)
     gemma2 = run_phase("[serve-gemma2]", phase_serve_gemma2, gen)
     archs = run_phase("[serve-archs]", phase_serve_archs, gen)
     zamba2 = run_phase("[serve-zamba2]", phase_serve_zamba2, gen)
@@ -4343,6 +4524,7 @@ def main() -> int:
                "train_gemma2": trained_gemma2["launches"],
                "train_gemma2_dots": trained_gemma2["launches_dots"],
                "train_minicpm": trained_minicpm["launches"],
+               "train_granite": trained_granite["launches"],
                "serve_gemma2": gemma2["launches"],
                "serve_minicpm": archs["minicpm-2b"]["launches"],
                "serve_mistral": archs["mistral-large-123b"]["launches"],

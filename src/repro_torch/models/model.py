@@ -6,8 +6,9 @@ Port of ``repro/models/model.py`` (``cross_entropy`` :25, ``loss_fn`` :51,
 ``prefill_chunk`` :164, ``_current_index`` :185, ``build_step_graph``
 :203, ``_fill_cross_caches`` :114) for decoder LMs of dense (full or
 sliding-window), mamba, shared-attention (zamba2), mixture-of-experts
-(granite; serving only) and MLA (deepseek-v3's ``mla_dense``/``mla_moe``;
-serving only) layers, for the encoder-decoder seamless-m4t (serving
+(granite; its loss adds the routers' load-balance loss) and MLA
+(deepseek-v3's ``mla_dense``/``mla_moe``; serving only, since its loss
+needs multi-token prediction) layers, for the encoder-decoder seamless-m4t (serving
 only, through :func:`prefill` with ``enc_in`` and :func:`decode_step`) and
 for the vlm pixtral (serving only; its patch embeddings through
 :func:`prefill` with ``patch_embeds``, its decodes as a text model's).
@@ -48,22 +49,25 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return loss, acc
 
 
-def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
-    """Returns (loss, metrics) for a decoder LM.  batch: ``tokens``
-    and ``labels`` (tokens shifted by the caller), optional ``mask``.
-    MoE configs are refused: the reference adds ``aux_weight`` times the
-    routers' load-balance loss, which the port's forward does not carry;
-    so is multi-token prediction (deepseek-v3), whose second loss runs the
-    ``mtp`` module (``repro/models/model.py:73-83``)."""
-    if cfg.is_encdec or cfg.frontend or cfg.mtp_depth or cfg.num_experts:
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig, *, aux_weight: float = 0.01):
+    """Returns (loss, metrics) for a decoder LM: ``ce + aux_weight * aux``
+    and ``{"ce", "acc", "aux"}`` (``repro/models/model.py:49-86``), ``aux``
+    the routers' load-balance loss summed over the layers
+    (:func:`~repro_torch.models.transformer.forward_with_aux`; 0 for a
+    config without experts).  batch: ``tokens`` and ``labels`` (tokens
+    shifted by the caller), optional ``mask``.  The enc-dec and vlm losses
+    and multi-token prediction (deepseek-v3, whose second loss runs the
+    ``mtp`` module, ``repro/models/model.py:73-83``) are refused."""
+    if cfg.is_encdec or cfg.frontend or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: the loss of the enc-dec, vlm, multi-token-"
-            f"prediction and MoE families is not ported yet (ROADMAP queue 1, "
-            f"\"The losses the port refuses\")")
-    h, _ = tfm.forward(params, cfg, batch["tokens"])
+            f"{cfg.name}: the loss of the enc-dec, vlm and multi-token-prediction "
+            f"families is not ported yet (ROADMAP queue 1, \"The losses the port refuses\")")
+    h, aux = tfm.forward_with_aux(params, cfg, batch["tokens"])
     logits = tfm.unembed(params, h, cfg)
     ce, acc = cross_entropy(logits, batch["labels"], batch.get("mask"))
-    return ce, {"ce": ce, "acc": acc}
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + aux_weight * aux, {"ce": ce, "acc": acc, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

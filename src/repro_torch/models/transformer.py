@@ -25,7 +25,9 @@ under autograd, each layer is rematerialized in the backward as
 of it and ``"dots"`` keeps its matrix products and recomputes the rest,
 the counterparts of ``jax.checkpoint`` on the reference's scan body
 without and with the policy ``dots_with_no_batch_dims_saveable``
-(``transformer.py:199-204``); ``"none"`` keeps everything.
+(``transformer.py:199-204``); ``"none"`` keeps everything.  The cache-free
+stack also sums the ``moe``/``mla_moe`` layers' load-balance losses, the
+training loss's aux term (:func:`forward_with_aux`); serving drops them.
 """
 
 from __future__ import annotations
@@ -54,10 +56,12 @@ def layer_fwd(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig, *,
               enc_out: torch.Tensor | None = None):
     """One layer of kind ``dense``, ``local``, ``global``, ``shared_attn``
     (``p`` is its group's shared set), ``moe``, ``mla_dense``, ``mla_moe``,
-    ``mamba``, ``enc`` or ``dec``.  Returns (x, new_cache).  The
-    load-balance loss of a ``moe`` or ``mla_moe`` layer is dropped: serving
-    does not read it, and the port's loss does not train MoE yet
-    (``model.loss_fn``).
+    ``mamba``, ``enc`` or ``dec``.  Returns (x, new_cache, aux), as the
+    reference's: ``aux`` is the layer's load-balance loss (f32,
+    :func:`~repro_torch.models.moe.router_topk`) for a ``moe`` or
+    ``mla_moe`` layer and None for any other kind, where the reference's is
+    a zero (no op is added where there is no router).  Serving reads no
+    aux; the cache-free stack sums it (:func:`forward_with_aux`).
 
     A ``dec`` layer attends causally to itself over ``cache["self"]``, then
     (after ``ln_cross``) to the encoder: over ``cache["cross"]`` with a
@@ -72,7 +76,7 @@ def layer_fwd(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig, *,
     h = rmsnorm_fwd(p["ln1"], x, cfg.norm_eps)
     if kind == "mamba":
         h, new_cache = ssm_fwd(p["mixer"], h, cfg, cache=cache)
-        return x + rs * h, new_cache
+        return x + rs * h, new_cache, None
     if kind.startswith("mla"):
         h, new_cache = mla_fwd(p["attn"], h, cfg, positions=positions, cache=cache)
     else:
@@ -89,12 +93,14 @@ def layer_fwd(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig, *,
         if cache is not None:
             new_cache = {"self": new_cache, "cross": cross_c}
     h = rmsnorm_fwd(p["ln2"], x, cfg.norm_eps)
+    aux = None
     if kind in ("moe", "mla_moe"):
         b, s, d = h.shape
-        h = moe_fwd(p["ffn"], h.reshape(b * s, d), cfg)[0].reshape(b, s, d)
+        h, aux = moe_fwd(p["ffn"], h.reshape(b * s, d), cfg)
+        h = h.reshape(b, s, d)
     else:
         h = mlp_fwd(p["ffn"], h, cfg)
-    return x + rs * _maybe_post(cfg, p, "post_ln2", h), new_cache
+    return x + rs * _maybe_post(cfg, p, "post_ln2", h), new_cache, aux
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -125,8 +131,8 @@ def encode(params: dict, cfg: ArchConfig, enc_in: torch.Tensor) -> torch.Tensor:
     else:
         h = embed_tokens(params, enc_in, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
-    h = _cache_free_stack(zip(encoder_kinds(cfg), params["enc_layers"]), h, cfg, positions,
-                          None)
+    h, _ = _cache_free_stack(zip(encoder_kinds(cfg), params["enc_layers"]), h, cfg, positions,
+                             None)
     return rmsnorm_fwd(params["enc_norm"], h, cfg.norm_eps)
 
 
@@ -134,12 +140,45 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             pos0: "torch.Tensor | int" = 0, caches: list | None = None,
             enc_out: torch.Tensor | None = None,
             patch_embeds: torch.Tensor | None = None):
-    """Decoder stack. Returns (hidden, new_caches).  An encoder-decoder's
-    ``dec`` layers cross-attend over their caches or, without caches, to
-    ``enc_out`` (:func:`encode`'s output).  ``patch_embeds`` (B, npatch,
+    """Decoder stack. Returns (hidden, new_caches), new_caches None without
+    caches (the cache-free stack's load-balance loss is
+    :func:`forward_with_aux`'s).  An encoder-decoder's ``dec`` layers
+    cross-attend over their caches or, without caches, to ``enc_out``
+    (:func:`encode`'s output).  ``patch_embeds`` (B, npatch,
     frontend_dim), the vision stub's input, replace the embeddings of the
     first npatch token slots (:func:`_with_patches`); the patches take
     positions 0..npatch-1 as tokens would."""
+    if caches is None:
+        return forward_with_aux(params, cfg, tokens, pos0=pos0, enc_out=enc_out,
+                                patch_embeds=patch_embeds)[0], None
+    h, positions = _decoder_input(params, cfg, tokens, pos0, patch_embeds)
+    new_caches = []
+    for (kind, where), c in zip(layer_plan(cfg), caches):
+        h, nc, _ = layer_fwd(layer_params(params, where), h, kind, cfg,
+                             positions=positions, cache=c, enc_out=enc_out)
+        new_caches.append(nc)
+    h = rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps)
+    return h, new_caches
+
+
+def forward_with_aux(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+                     pos0: "torch.Tensor | int" = 0, enc_out: torch.Tensor | None = None,
+                     patch_embeds: torch.Tensor | None = None):
+    """The cache-free decoder stack (:func:`forward` without caches).
+    Returns (hidden, aux): ``aux`` is the routers' load-balance loss summed
+    over the ``moe``/``mla_moe`` layers, one f32 term a layer in layer
+    order (the reference's third output, ``repro/models/transformer.py:
+    264-281``), None for a config without experts."""
+    h, positions = _decoder_input(params, cfg, tokens, pos0, patch_embeds)
+    plan = layer_plan(cfg)
+    h, aux = _cache_free_stack(((kind, layer_params(params, where)) for kind, where in plan),
+                               h, cfg, positions, enc_out)
+    return rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps), aux
+
+
+def _decoder_input(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                   pos0: "torch.Tensor | int", patch_embeds: torch.Tensor | None):
+    """The embeddings (the patches over the leading slots) and positions."""
     h = embed_tokens(params, tokens, cfg)
     if patch_embeds is not None:
         h = _with_patches(params, h, patch_embeds, cfg)
@@ -147,21 +186,8 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     if isinstance(pos0, torch.Tensor) and pos0.dim() >= 1:
         # per-row start positions (B,) -> ragged (B, S) position grid; the
         # attention layers switch to per-row cache writes/masks on seeing it
-        positions = pos0[:, None] + steps[None, :]
-    else:
-        positions = pos0 + steps
-    plan = layer_plan(cfg)
-    if caches is None:
-        h = _cache_free_stack(((kind, layer_params(params, where)) for kind, where in plan),
-                              h, cfg, positions, enc_out)
-        return rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps), None
-    new_caches = []
-    for (kind, where), c in zip(plan, caches):
-        h, nc = layer_fwd(layer_params(params, where), h, kind, cfg,
-                          positions=positions, cache=c, enc_out=enc_out)
-        new_caches.append(nc)
-    h = rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps)
-    return h, new_caches
+        return h, pos0[:, None] + steps[None, :]
+    return h, pos0 + steps
 
 
 def _with_patches(params: dict, h: torch.Tensor, patch_embeds: torch.Tensor,
@@ -180,9 +206,12 @@ def _with_patches(params: dict, h: torch.Tensor, patch_embeds: torch.Tensor,
 
 
 def _cache_free_stack(layers, h: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
-                      enc_out: torch.Tensor | None) -> torch.Tensor:
-    """``layers`` ((kind, params), ...) run cache-free in order.  Under
-    autograd each layer is one checkpoint (``cfg.remat`` ``"full"`` or
+                      enc_out: torch.Tensor | None):
+    """``layers`` ((kind, params), ...) run cache-free in order.  Returns
+    (h, aux): ``aux`` sums the layers' load-balance losses in f32, one term
+    a layer in layer order, or is None where no layer has a router.  Under
+    autograd each layer is one checkpoint returning (h, its aux), so the
+    recompute gives aux its gradient (``cfg.remat`` ``"full"`` or
     ``"dots"``; ``"none"`` saves what autograd saves): the reference
     checkpoints each scanned unit instead (gemma2's is two layers), which
     recomputes the same ops from the same inputs, so the numbers are the
@@ -194,13 +223,16 @@ def _cache_free_stack(layers, h: torch.Tensor, cfg: ArchConfig, positions: torch
     remat = cfg.remat in ("full", "dots") and torch.is_grad_enabled()
     dots = cfg.remat == "dots" and get_proxy_mode() is None
     extra = {"context_fn": _SAVE_PRODUCTS} if dots else {}
+    total = None
     for kind, lp in layers:
         if remat:
-            h = checkpoint(_cache_free_layer, lp, h, kind, cfg, positions, enc_out,
-                           use_reentrant=False, preserve_rng_state=False, **extra)
+            h, aux = checkpoint(_cache_free_layer, lp, h, kind, cfg, positions, enc_out,
+                                use_reentrant=False, preserve_rng_state=False, **extra)
         else:
-            h = _cache_free_layer(lp, h, kind, cfg, positions, enc_out)
-    return h
+            h, aux = _cache_free_layer(lp, h, kind, cfg, positions, enc_out)
+        if aux is not None:
+            total = aux if total is None else total + aux
+    return h, total
 
 
 # The "dots" policy, the counterpart of the reference's
@@ -213,5 +245,6 @@ _SAVE_PRODUCTS = functools.partial(create_selective_checkpoint_contexts,
 
 
 def _cache_free_layer(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig,
-                      positions: torch.Tensor, enc_out: torch.Tensor | None) -> torch.Tensor:
-    return layer_fwd(p, x, kind, cfg, positions=positions, cache=None, enc_out=enc_out)[0]
+                      positions: torch.Tensor, enc_out: torch.Tensor | None):
+    x, _, aux = layer_fwd(p, x, kind, cfg, positions=positions, cache=None, enc_out=enc_out)
+    return x, aux

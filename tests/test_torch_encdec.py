@@ -360,8 +360,8 @@ def test_dec_layer_matches_jax(cached):
         jy, jnew, _ = jtfm.layer_fwd(jl, jnp.asarray(x), "dec", jcfg, positions=jnp.asarray(pos),
                                      cache=jc)
         with torch.no_grad():
-            ty, tnew = tfm.layer_fwd(tp["layers"][0], torch.from_numpy(x), "dec", tcfg,
-                                     positions=torch.from_numpy(pos), cache=tc)
+            ty, tnew, _ = tfm.layer_fwd(tp["layers"][0], torch.from_numpy(x), "dec", tcfg,
+                                        positions=torch.from_numpy(pos), cache=tc)
         _close_normwise(ty.numpy(), jy, 2 ** -8, "cached")
         assert sorted(tnew) == ["cross", "self"] and tnew["cross"] is tc["cross"]
         assert int(tnew["self"]["index"]) == 7 and int(tnew["cross"]["index"]) == 13
@@ -372,9 +372,9 @@ def test_dec_layer_matches_jax(cached):
         jy, jnew, _ = jtfm.layer_fwd(jl, jnp.asarray(x), "dec", jcfg, positions=jnp.asarray(pos),
                                      enc_out=jnp.asarray(enc))
         with torch.no_grad():
-            ty, tnew = tfm.layer_fwd(tp["layers"][0], torch.from_numpy(x), "dec", tcfg,
-                                     positions=torch.from_numpy(pos), cache=None,
-                                     enc_out=torch.from_numpy(enc))
+            ty, tnew, _ = tfm.layer_fwd(tp["layers"][0], torch.from_numpy(x), "dec", tcfg,
+                                        positions=torch.from_numpy(pos), cache=None,
+                                        enc_out=torch.from_numpy(enc))
         _close_normwise(ty.numpy(), jy, TOL, "cache-free")
         assert tnew is None
 

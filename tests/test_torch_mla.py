@@ -261,8 +261,8 @@ def test_each_kind_matches_the_reference_layer(kind, cached):
     jy, jnew, _ = jtfm.layer_fwd(jl, jnp.asarray(x), kind, jcfg, positions=jnp.arange(11),
                                  cache=jc)
     with torch.no_grad():
-        ty, tnew = tfm.layer_fwd(tp["layers"][li], torch.from_numpy(x), kind, tcfg,
-                                 positions=torch.arange(11), cache=tc)
+        ty, tnew, _ = tfm.layer_fwd(tp["layers"][li], torch.from_numpy(x), kind, tcfg,
+                                    positions=torch.arange(11), cache=tc)
     _close_normwise(ty.numpy(), jy, 2 ** -8 if cached else TOL, kind)
     assert (tnew is None) == (not cached)
     if cached:
@@ -430,11 +430,11 @@ def test_traced_mla_layers_equal_eager_bit_for_bit():
                                  cache=None)[0]
 
         def cached(p, h, c, pos, _kind=kind):
-            return tfm.layer_fwd(p, h, _kind, tcfg, positions=pos[:, None], cache=c)
+            return tfm.layer_fwd(p, h, _kind, tcfg, positions=pos[:, None], cache=c)[:2]
 
         with torch.no_grad():
-            _, cache = tfm.layer_fwd(layer, x, kind, tcfg, positions=torch.arange(9),
-                                     cache=tmodel.init_cache(tcfg, 2, MAX_LEN, "cpu")[li])
+            _, cache, _ = tfm.layer_fwd(layer, x, kind, tcfg, positions=torch.arange(9),
+                                        cache=tmodel.init_cache(tcfg, 2, MAX_LEN, "cpu")[li])
         pos = torch.tensor([9, 5], dtype=torch.int32)
         for name, fn, args in (("free", free, (layer, x)),
                                ("cached", cached, (layer, x1, cache, pos))):

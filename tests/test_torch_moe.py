@@ -328,11 +328,12 @@ def test_each_layer_matches_jax(routing):
     x = np.random.default_rng(5).standard_normal((2, 20, jcfg.d_model)).astype(np.float32)
     for li in range(2):
         jp = jax.tree.map(lambda a: jnp.asarray(a[li]), tree["g0"]["layers"]["0:moe"])
-        jy, _, _ = jtfm.layer_fwd(jp, jnp.asarray(x), "moe", jcfg, positions=jnp.arange(20))
+        jy, _, jaux = jtfm.layer_fwd(jp, jnp.asarray(x), "moe", jcfg, positions=jnp.arange(20))
         with torch.no_grad():
-            ty, _ = tfm.layer_fwd(tp["layers"][li], torch.from_numpy(x), "moe", tcfg,
-                                  positions=torch.arange(20), cache=None)
+            ty, _, taux = tfm.layer_fwd(tp["layers"][li], torch.from_numpy(x), "moe", tcfg,
+                                        positions=torch.arange(20), cache=None)
         _close_normwise(ty.numpy(), jy, TOL, f"layer {li}")
+        np.testing.assert_allclose(taux.item(), float(jaux), rtol=1e-6)
 
 
 @pytest.mark.parametrize("routing", ROUTINGS)
@@ -497,16 +498,6 @@ def test_step_graph_matches_forward():
         h, _ = tfm.forward(tp, tcfg, toks)
         want = tfm.unembed(tp, h, tcfg)
     assert got.shape == (2, 16, tcfg.vocab_size) and torch.equal(got, want)
-
-
-def test_loss_fn_refuses_moe():
-    """The reference's loss adds the routers' load-balance loss; the port
-    does not train MoE yet."""
-    _, tcfg = _configs("smoke")
-    params = tparams.init(tcfg, torch.Generator().manual_seed(0), "cpu")
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="The losses the port refuses"):
-        tmodel.loss_fn(params, {"tokens": toks, "labels": toks}, tcfg)
 
 
 def test_serve_launcher_gives_equal_tokens_with_and_without_the_overlay(capsys):

@@ -118,12 +118,14 @@ def test_cross_entropy_matches_jax_with_mask():
     np.testing.assert_allclose(ta.item(), float(ja), rtol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "gemma2-27b", "granite-moe-1b-a400m"])
 def test_remat_policies_give_bit_identical_loss_and_gradients(arch):
     """``"full"``, ``"dots"`` and ``"none"`` run the same ops on the same
     inputs, the first two again in the backward: loss and every gradient
     bit-identical (gemma2: its local and global layers, window 32 against
-    seq 128, softcaps and post norms)."""
+    seq 128, softcaps and post norms; granite: the routers' aux loss, each
+    checkpointed layer returning its own, and the backward through the
+    sort-based dispatch)."""
     tcfg = smoke_config(arch).scaled(dtype="bfloat16", **SMALL)
     if arch == "gemma2-27b":
         tcfg = tcfg.scaled(query_pre_attn_scalar=32.0, sliding_window=32)
@@ -133,6 +135,7 @@ def test_remat_policies_give_bit_identical_loss_and_gradients(arch):
             for r in ("full", "dots", "none")]
     for out in outs[1:]:
         assert torch.equal(outs[0][0], out[0])
+        assert torch.equal(outs[0][1]["aux"], out[1]["aux"])
         for a, b in zip(outs[0][2], out[2]):
             assert torch.equal(a, b)
 
