@@ -97,7 +97,18 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     launches (warp kernel); a profiled step with the device time of the
     dispatch's index ops against the experts' bmm; whether step 1 again
     from the seed gives the same bits (printed, not required);
-12. ``[serve-gemma2]``: serves gemma2-27b at full width cut to 8 of its 46
+12. ``[train-pixtral]``: trains the vlm pixtral-12b at full width cut to 8
+    of its 40 layers (d 5120, 32 heads over 8 kv heads of 128, untied vocab
+    131072, the vision stub's ``frontend_proj``) at batch 1 x seq 4096
+    under ``make_batch``'s 256 patches, 4 steps under remat ``"full"`` on
+    the reference's vlm loss, which masks the patch positions out:
+    finite losses equal to ce, 16 flash_attention launches a step
+    (tensor-core kernel) and 33 rmsnorm launches (block kernel); a
+    profiled step split into the f32 unembed's mm, the attention VJP and
+    the optimizer; other labels under the patches give the same loss and
+    grad norm bit for bit, and ``frontend_proj``'s gradient is finite and
+    nonzero;
+13. ``[serve-gemma2]``: serves gemma2-27b at full width cut to 8 of its 46
     layers (4 units of local and global attention, softcaps, post norms,
     tied embeddings; random bf16 weights from the seed) at batch 2,
     max_len 4608: four (16, 8) requests and one (4352, 16), whose prompt
@@ -107,10 +118,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     check), 33 rmsnorm launches a call, every one on the block kernel
     (d 4608); a plain prefill of the long prompt and the decode after it,
     again with no window, must give other logits; under 1 GiB left;
-13. ``[serve-archs]``: the same for minicpm-2b cut to 8 of its 40 layers
+14. ``[serve-archs]``: the same for minicpm-2b cut to 8 of its 40 layers
     (17 warp launches a call) and mistral-large-123b cut to 8 of its 88
     layers (17 block launches a call), four (16, 8) requests each;
-14. ``[serve-zamba2]``: serves the hybrid zamba2-7b at full width cut to
+15. ``[serve-zamba2]``: serves the hybrid zamba2-7b at full width cut to
     15 of its 81 layers (the leading 3 mamba layers and 2 of its 13 (5
     mamba, shared_attn) units: 13 mamba layers at state 64 and 2
     occurrences of ONE shared attention+MLP weight set, each with its own
@@ -120,7 +131,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     identical streams, 18 rmsnorm launches a call on the warp kernel (d
     3584), ssd_chunk 13 times a prefill on the CUDA-core kernel (state 64)
     and never in decode; under 1 GiB left;
-15. ``[serve-granite]``: serves the mixture-of-experts granite-moe-1b-a400m
+16. ``[serve-granite]``: serves the mixture-of-experts granite-moe-1b-a400m
     at full width and depth (24 layers, 32 experts, top-8, capacity factor
     1.25, tied embeddings; random bf16 weights from the seed, 2.67 GB) at
     batch 2, max_len 4128: four (16, 8) requests and one (4096, 16) through
@@ -129,7 +140,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the warp kernel (d 1024), no ssd_chunk and no flash_attention (cached
     attention is plain code); prints total against active parameters;
     under 1 GiB left;
-16. ``[serve-deepseek]``: serves deepseek-v3-671b at full width cut to its
+17. ``[serve-deepseek]``: serves deepseek-v3-671b at full width cut to its
     first 4 of 61 layers (3 ``mla_dense`` and 1 ``mla_moe``: Multi-head
     Latent Attention over a bf16 latent cache, 256 experts, top-8, one
     shared expert, sigmoid scoring; random bf16 weights from the seed,
@@ -144,7 +155,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     left; then times the plain 2048-token prefill and a batch-2 decode,
     each to a synchronize, the decode beside the time to read its
     weights once;
-17. ``[serve-seamless]``: serves the encoder-decoder seamless-m4t-medium
+18. ``[serve-seamless]``: serves the encoder-decoder seamless-m4t-medium
     at full width and depth (12 ``enc`` + 12 ``dec`` layers, the audio
     stub's ``frontend_proj``; random bf16 weights from the seed, 1.96 GB)
     through the model API (``prefill(enc_in=frames)``, then greedy
@@ -159,7 +170,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the two traced prefills; under 1 GiB left; then times the plain
     4096-frame prefill and a batch-2 decode, each to a synchronize, the
     decode beside the time to read its weights and caches once;
-18. ``[serve-pixtral]``: serves the vlm pixtral-12b at full width cut to
+19. ``[serve-pixtral]``: serves the vlm pixtral-12b at full width cut to
     8 of its 40 ``dense`` layers (d 5120, 32 heads over 8 kv heads of 128,
     untied vocab 131072, the vision stub's ``frontend_proj``; random bf16
     weights from the seed) two ways, each through
@@ -179,7 +190,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     patches do not (new ids there give the same bits); under 1 GiB left;
     then times the plain 2048-token prefill and a batch-2 decode, each to
     a synchronize, the decode beside the time to read its weights once;
-19. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
+20. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
     assembled on an all-LARGE ``Overlay(3, 3)``: logits bit-identical to
     ``forward`` + ``unembed``, 65 rmsnorm and 32 flash_attention launches;
     then zamba2-7b's at (1, 4096): bit-identical, 95 rmsnorm (warp), 68
@@ -192,7 +203,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     width 128: plain code, as the reference's); then pixtral-12b's at (1,
     2048): bit-identical, 81 rmsnorm (block) and 40 flash_attention
     launches (tensor-core, head dim 128, 32 heads over 8);
-20. checks the models' outputs: finite full-width logits, small float32
+21. checks the models' outputs: finite full-width logits, small float32
     phi3, mamba2, gemma2 (window 8: prefill, three decodes and a
     cache-free forward through the flash kernel), zamba2 (state 64: the
     same), granite-moe (32 experts, top-8, capacity 1 at a batch-2
@@ -202,17 +213,17 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     forward, whose flash launches are not causal with Sq = Sk in the
     encoder and Sq != Sk in the cross-attention) and pixtral (d 256, 2
     layers, a 128-token prompt under 64 patches: prefill, three decodes
-    and a cache-free forward with the patches) models on the card
-    (kernels) against the same models on the CPU (plain versions), serving
-    and one train step;
-21. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
+    and a cache-free forward with the patches; the vlm loss and its
+    gradients) models on the card (kernels) against the same models on
+    the CPU (plain versions), serving and one train step;
+22. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
     the event loop, gemma2 (smoke) through the overlay, and the train
-    launcher on gemma2-27b at full width cut to 2 layers (seq 1024) with
-    an injected failure at step 3: it restores its 23.1 GB step-2
-    checkpoint, replays and ends with rc 0 and finite losses (free disk
+    launcher on pixtral-12b at full width cut to 2 layers (seq 1024 under
+    256 patches) with an injected failure at step 3: it restores its 18.9
+    GB step-2 checkpoint, replays and ends with rc 0 and finite losses (free disk
     and host memory before it, the seconds of each host copy, write and
     restore, the bytes on disk);
-22. ``[warm-restart]``: boots the serve launcher in fresh processes on one
+23. ``[warm-restart]``: boots the serve launcher in fresh processes on one
     persistent bitstream store directory — phi3-mini-3.8b at full width
     cut to 2 of its 32 layers (``--layers 2``; the ``[serve]`` requests)
     plain, cold (``--store`` on an empty
@@ -228,10 +239,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     assembly or load, the first call), bytes on disk and load-vs-build ms
     per entry, the sanitizer's host ms per check, mamba2's downloads cold
     and warm;
-23. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
+24. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
     (lock lint, live checkers under the sanitizer, a two-member fleet's
     records and ``describe()``, the store, injected faults) must exit 0;
-24. prints the kernels line (time per call, host included, and device time
+25. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
     and ssd_chunk's CUDA-core kernels' times), timings at other shapes
@@ -245,7 +256,7 @@ driven path (the paper workload, the overlay-served runs, the relocation
 and specialization rounds, the fleet runs, the full-width training runs
 (the train launcher's too),
 the dense family's, zamba2's, granite's (training too), deepseek's, seamless's and
-pixtral's runs and the step graphs' calls)
+pixtral's runs (training too) and the step graphs' calls)
 and read just
 after; launches made to compare or time a kernel are not counted.  A
 launcher boot of ``[warm-restart]`` is a process of its own: it counts from
@@ -404,8 +415,7 @@ PIXTRAL_SERVE_LAYERS = 8     # [serve-pixtral]: 8 of its 40 layers, at full widt
 # unit (its 46 layers and f32 moments need ~330 GB), batch 1 x seq 6144 so
 # the local layer's 4096 window drops pairs, 4 steps under remat "full"
 # and 2 more from the same seed under "dots"; minicpm-2b at full width and
-# depth, 1 x 4096 on the wsd schedule; the train launcher's full-width
-# checkpoint restart: gemma2 at 2 layers, seq 1024, a failure at step 3
+# depth, 1 x 4096 on the wsd schedule
 GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_SEQ, GEMMA_TRAIN_STEPS, GEMMA_DOTS_STEPS = 2, 6144, 4, 2
 GEMMA_FLASH = dict(softcap=50.0, scale=144 ** -0.5)      # its layers' options; local adds the window
 MINICPM = "minicpm-2b"
@@ -414,9 +424,16 @@ MINICPM_D = 2304
 MINICPM_FLASH = (1, 36, TRAIN_SEQ, 64)    # q, k, v (B, H, S, D) of its training forward (MHA)
 # MoE training: granite-moe-1b-a400m at full width and depth, 1 x 4096, 4 steps
 GRANITE_TRAIN_STEPS = 4
-LAUNCHER_TRAIN = ["--arch", GEMMA, "--layers", str(GEMMA_TRAIN_LAYERS), "--batch", "1",
-                  "--seq", "1024", "--steps", "4", "--ckpt-every", "2", "--fail-at", "3",
-                  "--log-every", "1", "--seed", str(SEED)]
+# vlm training: pixtral-12b at full width cut to 8 of its 40 layers (all 40
+# with f32 moments need ~147 GB), 1 x 4096 under make_batch's 256 patches,
+# 4 steps under remat "full"; the train launcher's full-width checkpoint
+# restart: pixtral at 2 layers, seq 1024 (256 patches), a failure at step 3
+PIXTRAL_TRAIN_LAYERS, PIXTRAL_TRAIN_STEPS = 8, 4
+PIXTRAL_TRAIN_FLASH = (TRAIN_BATCH, 32, 8, TRAIN_SEQ, 128)   # (B, Hq, Hkv, S, D) in training
+LAUNCHER_LAYERS, LAUNCHER_SEQ = 2, 1024
+LAUNCHER_TRAIN = ["--arch", PIXTRAL, "--layers", str(LAUNCHER_LAYERS), "--batch", "1",
+                  "--seq", str(LAUNCHER_SEQ), "--steps", "4", "--ckpt-every", "2",
+                  "--fail-at", "3", "--log-every", "1", "--seed", str(SEED)]
 RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOOP_CHUNK, 3072),
                   (TRAIN_BATCH, TRAIN_SEQ, 3072),
                   *((1, s, MAMBA_D) for s in MAMBA_PROMPTS), (MAMBA_BATCH, 1, MAMBA_D),
@@ -439,9 +456,10 @@ RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOO
                   # pixtral's decode rows and its 2048-token prefill at batch
                   # 2 (d 5120, the block kernel)
                   (BATCH, PIXTRAL_D), (BATCH * PIXTRAL_ROUNDS[1][0], PIXTRAL_D),
-                  # training: gemma2's rows at 6144 and the launcher's 1024
-                  # (block), minicpm's at 4096 (warp)
+                  # training: gemma2's rows at 6144 and 1024, pixtral's at 4096
+                  # and the launcher's 1024 (block), minicpm's at 4096 (warp)
                   (TRAIN_BATCH, GEMMA_TRAIN_SEQ, GEMMA_D), (1, 1024, GEMMA_D),
+                  (TRAIN_BATCH, TRAIN_SEQ, PIXTRAL_D), (1, LAUNCHER_SEQ, PIXTRAL_D),
                   (TRAIN_BATCH, TRAIN_SEQ, MINICPM_D))
 
 
@@ -671,7 +689,7 @@ FLASH_CASES = [   # (B, Hq, Hkv, Sq, Sk, D, dtype, options)
     (1, 4, 4, 1, 1, 64, torch.bfloat16, {}),
     (1, 4, 2, 256, 256, 40, torch.bfloat16, {}),                # bf16 on the CUDA cores
     # gemma2-27b's local and global layers in training at seq 6144 (the
-    # window acts) and in the train launcher's at 1024 (it does not)
+    # window acts) and at 1024 (it does not)
     *((1, 32, 16, s, s, 128, torch.bfloat16, dict(window=w, **GEMMA_FLASH))
       for s in (GEMMA_TRAIN_SEQ, 1024) for w in (4096, None)),
     # minicpm-2b's 40 layers in training: 36 heads of 64, no GQA
@@ -689,8 +707,11 @@ FLASH_CASES = [   # (B, Hq, Hkv, Sq, Sk, D, dtype, options)
        dict(causal=False)) for n, _ in reversed(SEAMLESS_ROUNDS)),
     *((BATCH, SEAMLESS_HEADS, SEAMLESS_HEADS, SEAMLESS_CROSS_Q, SEAMLESS_ROUNDS[1][0],
        SEAMLESS_HEAD_DIM, dt, dict(causal=False)) for dt in (torch.bfloat16, torch.float32)),
-    # pixtral-12b's 40 layers in its 2048-token cache-free forward
+    # pixtral-12b's 40 layers in its 2048-token cache-free forward, its 8
+    # in training at 4096 and the train launcher's 2 at 1024
     (*PIXTRAL_FLASH[:4], PIXTRAL_FLASH[3], PIXTRAL_FLASH[4], torch.bfloat16, {}),
+    *((*PIXTRAL_TRAIN_FLASH[:3], s, s, PIXTRAL_TRAIN_FLASH[4], torch.bfloat16, {})
+      for s in (TRAIN_SEQ, LAUNCHER_SEQ)),
 ]
 
 
@@ -1868,24 +1889,30 @@ def aten_ops(fn) -> int:
     return Count.n
 
 
-def profile_step(fn, tag: str = "train", op_groups: tuple = ()) -> None:
+OPTIMIZER_RANGE = "adamw_update_"     # the profiler range of recorded_optimizer
+
+
+def profile_step(fn, tag: str = "train", op_groups: tuple = (), shapes: bool = False) -> None:
     """One more train step (after the counted run) under ``torch.profiler``:
     device time by kernel group, and the device's busy share of the step's
     wall time (kernels run on one stream, so their times add).  With
     ``op_groups`` ((group, test of an aten op's profiler event), ...): the
     device time of the kernels each group's aten ops launch themselves
     (each op's self device time, so nested ops are not counted twice),
-    first match wins."""
+    first match wins; ``shapes`` records each op's input shapes for the
+    tests to read (``record_shapes``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
         ms, _ = _sync_ms(fn)
     groups: dict[str, float] = {}
     kernels: dict[str, float] = {}
     busy = 0.0
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.name == OPTIMIZER_RANGE \
+                or getattr(ev, "is_user_annotation", False):
+            continue                 # a range's span on the device is no kernel
         us = ev.time_range.elapsed_us()
         busy += us
         name = ev.name.lower()
@@ -2277,14 +2304,20 @@ def phase_train_minicpm() -> dict:
     return out
 
 
-def _in_attention(ev) -> bool:
-    """Whether a profiler event runs inside the attention op (its plain
-    VJP runs under the ``_Attention`` autograd node's backward)."""
+def _under(ev, text: str) -> bool:
+    """Whether a profiler event or one of its host parents has ``text`` in
+    its name."""
     while ev is not None:
-        if "_Attention" in ev.name:
+        if text in ev.name:
             return True
         ev = ev.cpu_parent
     return False
+
+
+def _in_attention(ev) -> bool:
+    """Whether a profiler event runs inside the attention op (its plain
+    VJP runs under the ``_Attention`` autograd node's backward)."""
+    return _under(ev, "_Attention")
 
 
 # the aten ops of granite's training step whose kernels the profile splits
@@ -2363,6 +2396,136 @@ def phase_train_granite() -> dict:
     out = {k: run[k] for k in ("launches", "step_ms", "peak_bytes", "tok_s")}
     out["repeat_bit_identical"] = same
     del run, params, m, batch
+    _free()
+    return out
+
+
+def _has_dim(ev, n: int) -> bool:
+    """Whether one of a profiler event's recorded input shapes has a
+    dimension of ``n``."""
+    return any(isinstance(shape, (list, tuple)) and n in shape
+               for shape in (ev.input_shapes or ()))
+
+
+@contextlib.contextmanager
+def recorded_optimizer():
+    """While open, the eager step's optimizer runs under a profiler range
+    named ``OPTIMIZER_RANGE`` (``launch.train``'s step calls it by its
+    module name)."""
+    saved = train_cli.adamw_update_
+
+    def recorded(*args, **kwargs):
+        with torch.profiler.record_function(OPTIMIZER_RANGE):
+            return saved(*args, **kwargs)
+
+    train_cli.adamw_update_ = recorded
+    try:
+        yield
+    finally:
+        train_cli.adamw_update_ = saved
+
+
+def pixtral_op_groups(vocab: int) -> tuple:
+    """The aten ops of pixtral's training step whose kernels the profile
+    splits out (its input shapes recorded): the untied f32 unembed's three
+    ``mm``, the forward's and the backward's two, each with an operand
+    ``vocab`` wide; the plain attention VJP (every aten op under the
+    ``_Attention`` node: the flash forward is no aten op); the optimizer;
+    the other ops on vocab-wide tensors (the head's f32 cast and its
+    gradient's, the cross-entropy and its backward); the layers' ``mm``."""
+    return (
+        ("the f32 unembed's mm", lambda ev: ev.name == "aten::mm" and _has_dim(ev, vocab)),
+        ("the attention VJP", lambda ev: ev.name.startswith("aten::") and _in_attention(ev)),
+        ("the optimizer", lambda ev: ev.name.startswith("aten::")
+         and _under(ev, OPTIMIZER_RANGE)),
+        ("other ops on vocab-wide tensors",
+         lambda ev: ev.name.startswith("aten::") and _has_dim(ev, vocab)),
+        ("the layers' mm", lambda ev: ev.name == "aten::mm"),
+    )
+
+
+def _loss_and_norm(cfg, params, batch, leaf: int) -> tuple:
+    """``launch.train._loss_and_grads`` on the card: the loss, the norm of
+    every gradient (one f32 norm a leaf, then the norm of those), and the
+    largest |gradient| of leaf ``leaf`` and whether all of it is finite.
+    The gradients are dropped before it returns."""
+    loss, _, grads, _ = train_cli._loss_and_grads(cfg, params, batch)
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float())
+                                                 for g in grads]))
+    top, finite = grads[leaf].abs().max().float(), torch.isfinite(grads[leaf]).all()
+    del grads
+    return loss.cpu(), norm.cpu(), top.item(), bool(finite)
+
+
+def phase_train_pixtral() -> dict:
+    """[train-pixtral]: the vlm pixtral-12b at its published widths (d
+    5120, 32 heads over 8 kv heads of 128, d_ff 14336, untied vocab
+    131072, the vision stub's ``frontend_proj`` (1024, 5120)) cut to its
+    first 8 of 40 ``dense`` layers (``cut_layers``; random bf16 weights
+    from the seed), 4 eager in-place steps at batch 1 x seq 4096 under
+    remat ``"full"`` on ``cosine(3e-4, warmup=1, total=4)``, each batch
+    with ``make_batch``'s 256 patches over the leading slots, which the
+    reference's vlm loss masks out; then one more step under
+    ``torch.profiler`` (input shapes recorded, the optimizer in a range of
+    its own).  Each step: a finite loss equal to ``ce`` (aux 0: no
+    router); flash_attention twice a layer (forward and the recompute) on
+    the tensor-core kernel, rmsnorm 2 a layer and the final norm in the
+    forward, 2 a layer in the recompute, on the block kernel (d 5120).
+    Then, on the state after those steps, the loss and gradients of batch
+    1 and of batch 1 with other labels under the patches: the same loss
+    and grad norm bit for bit; ``frontend_proj``'s gradient finite and
+    nonzero."""
+    cfg = cut_layers(get_config(PIXTRAL), PIXTRAL_TRAIN_LAYERS)
+    n, steps = cfg.num_layers, PIXTRAL_TRAIN_STEPS
+    check(pm.layer_kinds(cfg) == ["dense"] * n and cfg.d_model == PIXTRAL_D
+          and not cfg.tie_embeddings and cfg.frontend == "vision"
+          and (TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ, cfg.resolved_head_dim)
+          == PIXTRAL_TRAIN_FLASH, f"{PIXTRAL} config {cfg}")
+    log(f"[train-pixtral] {cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters at {n} of "
+        f"{get_config(PIXTRAL).num_layers} layers, vocab {cfg.vocab_size} untied; state (bf16 "
+        f"parameters and gradients, f32 moments) {12 * cfg.param_count() / 1e9:.2f} GB")
+    run = train_steps("train-pixtral", cfg, cosine(3e-4, warmup=1, total=steps), steps,
+                      TRAIN_SEQ)
+    npatch = run["batches"][0]["patch_embeds"].shape[1]
+    check(npatch == PIXTRAL_NPATCH and all(b["patch_embeds"].shape[1] == npatch
+                                           for b in run["batches"]),
+          f"[train-pixtral] patches {[tuple(b['patch_embeds'].shape) for b in run['batches']]}")
+    for i, (loss, ce, aux) in enumerate(zip(run["losses"], run["ces"], run["auxs"])):
+        check(torch.equal(loss, ce) and aux.item() == 0.0,
+              f"[train-pixtral] step {i + 1}: loss {loss.item()!r} != ce {ce.item()!r} or aux "
+              f"{aux.item()} != 0")
+    text = TRAIN_BATCH * (TRAIN_SEQ - npatch)
+    steady = float(np.median(run["step_ms"][1:]))
+    log(f"[train-pixtral] loss = ce on every step (aux 0); {npatch} patches a row: "
+        f"{text} positions of {TRAIN_BATCH * TRAIN_SEQ} in the loss, {text / steady * 1e3:.0f} "
+        f"loss tokens/s ({run['tok_s']:.0f} tokens/s counting every position)")
+    check_launches("train-pixtral", run["launches"],
+                   {"flash_attention": steps * 2 * n, "rmsnorm": steps * ((2 * n + 1) + 2 * n)},
+                   {"flash_attention": "wgmma", "rmsnorm": "block"})
+    state, step_fn, batch = run.pop("state"), run.pop("step_fn"), run["batches"][0]
+    with recorded_optimizer():
+        profile_step(lambda: step_fn(state, batch), tag="train-pixtral",
+                     op_groups=pixtral_op_groups(cfg.vocab_size), shapes=True)
+    del step_fn
+    _free()
+    stub = next(i for i, t in enumerate(pytree.tree_leaves(state[0]))
+                if t is state[0]["frontend_proj"])
+    other = dict(batch, labels=batch["labels"].clone())
+    other["labels"][:, :npatch] = (other["labels"][:, :npatch] + 1) % cfg.vocab_size
+    loss_a, norm_a, top, finite = _loss_and_norm(cfg, state[0], batch, stub)
+    _free()
+    loss_b, norm_b, _, _ = _loss_and_norm(cfg, state[0], other, stub)
+    check(torch.equal(loss_a, loss_b) and torch.equal(norm_a, norm_b),
+          f"[train-pixtral] other labels under the {npatch} patches moved the loss or the grad "
+          f"norm: {loss_a.item()!r} vs {loss_b.item()!r}, {norm_a.item()!r} vs "
+          f"{norm_b.item()!r}")
+    check(finite and top > 0, f"[train-pixtral] frontend_proj's gradient: max |g| {top}, "
+                              f"finite {finite}")
+    log(f"[train-pixtral] the patch mask: other labels under the {npatch} patches give the "
+        f"same loss {loss_a.item():.6f} and grad norm {norm_a.item():.6f} bit for bit; "
+        f"frontend_proj's gradient finite, max |g| {top:.4g}")
+    out = {k: run[k] for k in ("launches", "step_ms", "peak_bytes", "tok_s")}
+    del run, state, batch, other
     _free()
     return out
 
@@ -3547,7 +3710,10 @@ def phase_small_pixtral_reference() -> None:
     |logit|), as for phi3), and the cache-free ``forward(patch_embeds=)``
     of the same prompt (f32 throughout: 1e-3 * (1 + |logit|)), which
     launches flash_attention twice, causal, on the CUDA-core kernel (f32),
-    and rmsnorm 5 times (warp)."""
+    and rmsnorm 5 times (warp); and the vlm loss (the 16 patch positions
+    of ``make_batch``'s batch 2 x 32 masked out) and every gradient,
+    ``frontend_proj``'s included (relative 1e-4 on the loss, 1e-3 of each
+    leaf's largest on the gradients)."""
     cfg = smoke_config(PIXTRAL).scaled(d_model=256, num_heads=4, num_kv_heads=2, head_dim=64,
                                        d_ff=512, frontend_dim=64, dtype="float32")
     cpu = _to(pm.init(cfg, torch.Generator().manual_seed(SEED), "cpu"), "cpu", torch.float32)
@@ -3593,6 +3759,22 @@ def phase_small_pixtral_reference() -> None:
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; the cache-free forward launched flash_attention {n['flash_attention']} times "
         f"(simt), rmsnorm {n['rmsnorm']} times")
+    # the vlm loss, its patch positions masked out, and every gradient
+    batch = make_batch(cfg, 2, 32, step=0, seed=SEED, device="cpu")
+    lc, mc, gc_, spec = train_cli._loss_and_grads(cfg, cpu, batch)
+    lg, mg, gg, _ = train_cli._loss_and_grads(cfg, cuda, {k: v.to(DEV) for k, v in batch.items()})
+    stub = pytree.tree_unflatten(list(range(len(gc_))), spec)["frontend_proj"]
+    worst = max(((g.cpu() - w).abs().max() / w.abs().max()).item() for g, w in zip(gg, gc_))
+    check(math.isclose(lg.item(), lc.item(), rel_tol=1e-4)
+          and math.isclose(mg["ce"].item(), mc["ce"].item(), rel_tol=1e-4) and worst < 1e-3
+          and bool(gc_[stub].abs().max() > 0),
+          f"small pixtral train: card vs CPU loss {lg.item()} vs {lc.item()}, worst gradient "
+          f"error {worst} of a leaf's largest, frontend_proj's max |g| "
+          f"{gc_[stub].abs().max().item()}")
+    log(f"[reference] small f32 pixtral-12b vlm loss ({batch['patch_embeds'].shape[1]} of 32 "
+        f"positions masked) card vs CPU: {lg.item():.6f} vs {lc.item():.6f}; worst gradient "
+        f"error {worst:.3g} of a leaf's largest (frontend_proj's "
+        f"{((gg[stub].cpu() - gc_[stub]).abs().max() / gc_[stub].abs().max()).item():.3g})")
 
 
 @contextlib.contextmanager
@@ -3630,12 +3812,13 @@ def _mem_available() -> int:
 def phase_launcher() -> dict:
     """``launch.serve.main`` serving mamba2-130m at full width, phi3-mini
     (smoke) on the event loop and gemma2-27b (smoke) through the overlay,
-    then ``launch.train.main`` training gemma2-27b at full width cut to 2
-    layers (seq 1024) with a failure injected at step 3: it restores the
-    step-2 checkpoint of its whole state (bf16 parameters, f32 moments:
-    23.1 GB) from disk, replays and ends with rc 0.  Returns the train
-    launcher's launches (4 steps run: flash 4 a step, rmsnorm 17, the
-    failed step runs none)."""
+    then ``launch.train.main`` training pixtral-12b at full width cut to 2
+    layers (seq 1024 under 256 patches, the vlm loss) with a failure
+    injected at step 3: it restores the step-2 checkpoint of its whole
+    state (bf16 parameters, f32 moments: 18.9 GB) from disk, replays and
+    ends with rc 0.  Returns the train launcher's launches (4 steps run:
+    flash 2 a layer a step, rmsnorm (2n + 1) + 2n, all on the tensor-core
+    and block kernels; the failed step runs none)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = serve_cli.main(["--arch", MAMBA, "--requests", "4", "--batch", "2",
@@ -3682,16 +3865,19 @@ def phase_launcher() -> dict:
         log(f"[launcher] {line}")
     losses = [float(ln.split("loss ")[1].split()[0]) for ln in text.splitlines()
               if ln.lstrip().startswith("step ")]
-    check(rc == 0 and "restarts=1" in text and "on cuda" in text and "2 layers" in text
-          and "4 steps" in text and len(losses) == 4 and all(map(math.isfinite, losses)),
-          "the train launcher did not train gemma2-27b at 2 layers on the card, restart from "
-          "its checkpoint and finish with finite losses")
-    check_launches("launcher", launches, {"flash_attention": 4 * 4, "rmsnorm": 4 * 17},
+    n = cut_layers(get_config(PIXTRAL), LAUNCHER_LAYERS).num_layers
+    check(rc == 0 and "restarts=1" in text and "on cuda" in text and f"{n} layers" in text
+          and PIXTRAL in text and "4 steps" in text and len(losses) == 4
+          and all(map(math.isfinite, losses)),
+          f"the train launcher did not train {PIXTRAL} at {n} layers on the card, restart from "
+          f"its checkpoint and finish with finite losses")
+    check_launches("launcher", launches,
+                   {"flash_attention": 4 * 2 * n, "rmsnorm": 4 * ((2 * n + 1) + 2 * n)},
                    {"flash_attention": "wgmma", "rmsnorm": "block"})
     by = {}
     for name, sec in timings:
         by.setdefault(name, []).append(round(sec, 2))
-    log(f"[launcher] gemma2 train launcher at {GEMMA_TRAIN_LAYERS} layers: {wall:.1f} s; "
+    log(f"[launcher] pixtral train launcher at {n} layers: {wall:.1f} s; "
         f"checkpoint bytes on disk {sizes}; host copy s {by.get('_to_host')}, write s (a "
         f"background thread) {by.get('save_checkpoint')}, restore s {by.get('load_checkpoint')}")
     return launches
@@ -4078,6 +4264,34 @@ def time_chunk_states(gen: torch.Generator) -> None:
         f"difference {err:.3g}")
 
 
+def flash_timing(gen: torch.Generator, b: int, hq: int, hkv: int, sq: int, hd: int) -> dict:
+    """flash_attention at q (b, hq, sq, hd) over k, v (b, hkv, sq, hd), bf16
+    causal: ms a call and on the device alone, beside its bound, the plain
+    version and SDPA (``enable_gqa`` where hq != hkv); logs a [timing] line."""
+    import torch.nn.functional as F
+    q = torch.randn(b, hq, sq, hd, generator=gen, device=DEV).bfloat16()
+    k, v = (torch.randn(b, hkv, sq, hd, generator=gen, device=DEV).bfloat16() for _ in range(2))
+    bound, by = flash_bound_ms(b, hq, hkv, sq, hd)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                  enable_gqa=hq != hkv)
+    row = {
+        "shape": (f"q, k, v: ({b}, {hq}, {sq}, {hd}) bfloat16, causal" if hq == hkv else
+                  f"q ({b}, {hq}, {sq}, {hd}), k, v ({b}, {hkv}, {sq}, {hd}) bfloat16, causal"),
+        "variant": fa_mod.variant(q.dtype, hd),
+        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 50, warmup=5),
+        "device_ms": device_ms(lambda: fa_mod.flash_attention(q, k, v), calls=20, replays=3),
+        "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v), 3, warmup=1),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(sdpa, 50, warmup=5),
+        "library_device_ms": device_ms(sdpa, calls=20, replays=3)}
+    log(f"[timing] flash_attention {row['shape']}: {row['variant']} {row['ms']:.4f} ms per "
+        f"call, device {row['device_ms']:.4f} ms ({bound / row['device_ms']:.0%} of the bound "
+        f"{bound:.4f} ms, by {by}); plain {row['plain_ms']:.4f} ms; SDPA"
+        f"{' (enable_gqa)' if hq != hkv else ''} {row['library_ms']:.4f} ms, device "
+        f"{row['library_device_ms']:.4f} ms")
+    return row
+
+
 def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[dict]:
     """Time each kernel at the main path's shape beside its bound, its plain
     version and one library call computing the same function."""
@@ -4168,7 +4382,8 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
             "library_device_ms": device_ms(
                 lambda: F.rms_norm(x, (SEAMLESS_D,), w.bfloat16(), 1e-6))})
     # pixtral's decode rows, its patch prefills at batch 2 (512 and 2048
-    # tokens) and its step graph's 2048 rows, all on the block kernel
+    # tokens; the train launcher's and the training step's rows are 1024
+    # and 4096 too) and its step graph's 2048 rows, all on the block kernel
     out[-1]["pixtral_shapes"] = []
     for rows in (BATCH, *(BATCH * n for n, _ in PIXTRAL_ROUNDS), PIXTRAL_FLASH[3]):
         x = torch.randn(rows, PIXTRAL_D, generator=gen, device=DEV).bfloat16()
@@ -4209,78 +4424,15 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), calls=20, replays=3),
         "shape": f"q, k, v: ({b}, {h}, {sq}, {hd}) bfloat16, causal"})
     del q, k, v
-    b, h, sq, hd = ZAMBA_FLASH                 # zamba2's cache-free forward, head dim 112
-    q, k, v = (torch.randn(b, h, sq, hd, generator=gen, device=DEV).bfloat16()
-               for _ in range(3))
-    bound, by = flash_bound_ms(b, h, h, sq, hd)
-    out[-1]["zamba2_shape"] = {
-        "shape": f"q, k, v: ({b}, {h}, {sq}, {hd}) bfloat16, causal",
-        "variant": fa_mod.variant(q.dtype, hd),
-        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 50, warmup=5),
-        "device_ms": device_ms(lambda: fa_mod.flash_attention(q, k, v), calls=20, replays=3),
-        "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v), 3, warmup=1),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-                              50, warmup=5),
-        "library_device_ms": device_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), calls=20, replays=3)}
-    del q, k, v
-    b, hq, hkv, sq, hd = GRANITE_FLASH        # granite's cache-free forward, 8 kv heads, d 64
-    q = torch.randn(b, hq, sq, hd, generator=gen, device=DEV).bfloat16()
-    k, v = (torch.randn(b, hkv, sq, hd, generator=gen, device=DEV).bfloat16() for _ in range(2))
-    bound, by = flash_bound_ms(b, hq, hkv, sq, hd)
-    out[-1]["granite_shape"] = {
-        "shape": f"q ({b}, {hq}, {sq}, {hd}), k, v ({b}, {hkv}, {sq}, {hd}) bfloat16, causal",
-        "variant": fa_mod.variant(q.dtype, hd),
-        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 50, warmup=5),
-        "device_ms": device_ms(lambda: fa_mod.flash_attention(q, k, v), calls=20, replays=3),
-        "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v), 3, warmup=1),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 50, warmup=5),
-        "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), calls=20, replays=3)}
-    del q, k, v
-    b, hq, hkv, sq, hd = PIXTRAL_FLASH        # pixtral's cache-free forward, 32 over 8 heads
-    q = torch.randn(b, hq, sq, hd, generator=gen, device=DEV).bfloat16()
-    k, v = (torch.randn(b, hkv, sq, hd, generator=gen, device=DEV).bfloat16() for _ in range(2))
-    bound, by = flash_bound_ms(b, hq, hkv, sq, hd)
-    out[-1]["pixtral_shape"] = row = {
-        "shape": f"q ({b}, {hq}, {sq}, {hd}), k, v ({b}, {hkv}, {sq}, {hd}) bfloat16, causal",
-        "variant": fa_mod.variant(q.dtype, hd),
-        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 50, warmup=5),
-        "device_ms": device_ms(lambda: fa_mod.flash_attention(q, k, v), calls=20, replays=3),
-        "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v), 3, warmup=1),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 50, warmup=5),
-        "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), calls=20, replays=3)}
-    log(f"[timing] flash_attention {row['shape']}: {row['variant']} {row['ms']:.4f} ms per "
-        f"call, device {row['device_ms']:.4f} ms ({bound / row['device_ms']:.0%} of the bound "
-        f"{bound:.4f} ms, by {by}); plain {row['plain_ms']:.4f} ms; SDPA (enable_gqa) "
-        f"{row['library_ms']:.4f} ms, device {row['library_device_ms']:.4f} ms")
-    del q, k, v
-    b, h, sq, hd = MINICPM_FLASH              # minicpm's training forward, 36 heads of 64
-    q, k, v = (torch.randn(b, h, sq, hd, generator=gen, device=DEV).bfloat16()
-               for _ in range(3))
-    bound, by = flash_bound_ms(b, h, h, sq, hd)
-    out[-1]["minicpm_shape"] = row = {
-        "shape": f"q, k, v: ({b}, {h}, {sq}, {hd}) bfloat16, causal",
-        "variant": fa_mod.variant(q.dtype, hd),
-        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 50, warmup=5),
-        "device_ms": device_ms(lambda: fa_mod.flash_attention(q, k, v), calls=20, replays=3),
-        "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v), 3, warmup=1),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-                              50, warmup=5),
-        "library_device_ms": device_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), calls=20, replays=3)}
-    log(f"[timing] flash_attention {row['shape']}: {row['variant']} {row['ms']:.4f} ms per "
-        f"call, device {row['device_ms']:.4f} ms ({bound / row['device_ms']:.0%} of the bound "
-        f"{bound:.4f} ms, by {by}); plain {row['plain_ms']:.4f} ms; SDPA "
-        f"{row['library_ms']:.4f} ms, device {row['library_device_ms']:.4f} ms")
-    del q, k, v
+    # the cache-free forwards of zamba2 (head dim 112), granite (16 over 8
+    # heads of 64) and pixtral (32 over 8 of 128, serving's 2048 and
+    # training's 4096 tokens), and minicpm's training forward (36 heads of 64)
+    out[-1]["zamba2_shape"] = flash_timing(gen, ZAMBA_FLASH[0], ZAMBA_FLASH[1], *ZAMBA_FLASH[1:])
+    out[-1]["granite_shape"] = flash_timing(gen, *GRANITE_FLASH)
+    out[-1]["pixtral_shape"] = flash_timing(gen, *PIXTRAL_FLASH)
+    out[-1]["pixtral_train_shape"] = flash_timing(gen, *PIXTRAL_TRAIN_FLASH)
+    out[-1]["minicpm_shape"] = flash_timing(gen, MINICPM_FLASH[0], MINICPM_FLASH[1],
+                                            *MINICPM_FLASH[1:])
     # seamless's encoder at 4096 and 1024 frames and a cache-free
     # cross-attention of 16 queries over 4096 keys: not causal, every (query,
     # key) pair; SDPA with is_causal=False beside each
@@ -4459,11 +4611,11 @@ SIMT_SSD_PATHS = ("serve_zamba2", "step_graph_zamba2")
 # how each call of a path splits its rmsnorm launches between the variants
 # (every other path's are all on the warp kernel): gemma2's (serving and
 # training) and mistral's all on the block kernel (d > MAX_WARP_D), as are
-# pixtral's (d 5120),
+# pixtral's (d 5120: serving, training, the train launcher),
 # deepseek's 9 on block (d 7168) and 8 on warp (its latents)
 NORM_SPLITS = {"serve_gemma2": {"block": 1}, "serve_mistral": {"block": 1},
                "train_gemma2": {"block": 1}, "train_gemma2_dots": {"block": 1},
-               "launcher_train_gemma2": {"block": 1},
+               "train_pixtral": {"block": 1}, "launcher_train_pixtral": {"block": 1},
                "serve_pixtral": {"block": 1}, "serve_pixtral_patches": {"block": 1},
                "step_graph_pixtral": {"block": 1},
                "serve_deepseek": {"block": 9, "warp": 8},
@@ -4491,6 +4643,7 @@ def main() -> int:
     trained_gemma2 = run_phase("[train-gemma2]", phase_train_gemma2)
     trained_minicpm = run_phase("[train-minicpm]", phase_train_minicpm)
     trained_granite = run_phase("[train-granite]", phase_train_granite)
+    trained_pixtral = run_phase("[train-pixtral]", phase_train_pixtral)
     gemma2 = run_phase("[serve-gemma2]", phase_serve_gemma2, gen)
     archs = run_phase("[serve-archs]", phase_serve_archs, gen)
     zamba2 = run_phase("[serve-zamba2]", phase_serve_zamba2, gen)
@@ -4525,6 +4678,7 @@ def main() -> int:
                "train_gemma2_dots": trained_gemma2["launches_dots"],
                "train_minicpm": trained_minicpm["launches"],
                "train_granite": trained_granite["launches"],
+               "train_pixtral": trained_pixtral["launches"],
                "serve_gemma2": gemma2["launches"],
                "serve_minicpm": archs["minicpm-2b"]["launches"],
                "serve_mistral": archs["mistral-large-123b"]["launches"],
@@ -4534,7 +4688,7 @@ def main() -> int:
                "serve_seamless": seamless["launches"],
                "serve_pixtral": pixtral["launches"],
                "serve_pixtral_patches": pixtral["launches_patches"],
-               **step_graphs, "launcher_train_gemma2": launcher, **booted,
+               **step_graphs, "launcher_train_pixtral": launcher, **booted,
                "analysis": analysis}
     launches = {name: sum(p[name] for p in by_path.values()) for name in counts()}
     for path, n in by_path.items():

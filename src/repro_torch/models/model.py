@@ -10,8 +10,9 @@ sliding-window), mamba, shared-attention (zamba2), mixture-of-experts
 (deepseek-v3's ``mla_dense``/``mla_moe``; serving only, since its loss
 needs multi-token prediction) layers, for the encoder-decoder seamless-m4t (serving
 only, through :func:`prefill` with ``enc_in`` and :func:`decode_step`) and
-for the vlm pixtral (serving only; its patch embeddings through
-:func:`prefill` with ``patch_embeds``, its decodes as a text model's).
+for the vlm pixtral (its patch embeddings through :func:`prefill` with
+``patch_embeds``, its decodes as a text model's; its loss masks the patch
+positions out of the cross-entropy).
 """
 
 from __future__ import annotations
@@ -55,16 +56,26 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, *, aux_weight: float = 0
     the routers' load-balance loss summed over the layers
     (:func:`~repro_torch.models.transformer.forward_with_aux`; 0 for a
     config without experts).  batch: ``tokens`` and ``labels`` (tokens
-    shifted by the caller), optional ``mask``.  The enc-dec and vlm losses
-    and multi-token prediction (deepseek-v3, whose second loss runs the
-    ``mtp`` module, ``repro/models/model.py:73-83``) are refused."""
-    if cfg.is_encdec or cfg.frontend or cfg.mtp_depth:
+    shifted by the caller), optional ``mask``; a vlm's ``patch_embeds``
+    (B, npatch, frontend_dim) go through the vision stub over the first
+    npatch slots, and without a ``mask`` of the batch's own those slots
+    leave the loss (``pos >= npatch``, :63-69): a caller's ``mask`` wins,
+    as in the reference.  The enc-dec loss and multi-token prediction
+    (deepseek-v3, whose second loss runs the ``mtp`` module,
+    ``repro/models/model.py:73-83``) are refused."""
+    if cfg.is_encdec or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: the loss of the enc-dec, vlm and multi-token-prediction "
+            f"{cfg.name}: the loss of the enc-dec and multi-token-prediction "
             f"families is not ported yet (ROADMAP queue 1, \"The losses the port refuses\")")
-    h, aux = tfm.forward_with_aux(params, cfg, batch["tokens"])
+    patches = batch.get("patch_embeds")
+    h, aux = tfm.forward_with_aux(params, cfg, batch["tokens"], patch_embeds=patches)
     logits = tfm.unembed(params, h, cfg)
-    ce, acc = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    mask = batch.get("mask")
+    if mask is None and patches is not None:
+        pos = torch.arange(batch["tokens"].shape[1], device=batch["tokens"].device)[None]
+        mask = (pos >= patches.shape[1]).float() * torch.ones_like(batch["labels"],
+                                                                    dtype=torch.float32)
+    ce, acc = cross_entropy(logits, batch["labels"], mask)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + aux_weight * aux, {"ce": ce, "acc": acc, "aux": aux}

@@ -118,14 +118,17 @@ def test_cross_entropy_matches_jax_with_mask():
     np.testing.assert_allclose(ta.item(), float(ja), rtol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "gemma2-27b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "gemma2-27b", "granite-moe-1b-a400m",
+                                  "pixtral-12b"])
 def test_remat_policies_give_bit_identical_loss_and_gradients(arch):
     """``"full"``, ``"dots"`` and ``"none"`` run the same ops on the same
     inputs, the first two again in the backward: loss and every gradient
     bit-identical (gemma2: its local and global layers, window 32 against
     seq 128, softcaps and post norms; granite: the routers' aux loss, each
     checkpointed layer returning its own, and the backward through the
-    sort-based dispatch)."""
+    sort-based dispatch; pixtral: the vision stub's ``frontend_proj``
+    outside the checkpointed layers, its 64 patch positions masked out of
+    the loss)."""
     tcfg = smoke_config(arch).scaled(dtype="bfloat16", **SMALL)
     if arch == "gemma2-27b":
         tcfg = tcfg.scaled(query_pre_attn_scalar=32.0, sliding_window=32)
@@ -133,6 +136,11 @@ def test_remat_policies_give_bit_identical_loss_and_gradients(arch):
     batch = tpipe.make_batch(tcfg, 1, SEQ, device="cpu")
     outs = [train_cli._loss_and_grads(tcfg.scaled(remat=r), params, batch)
             for r in ("full", "dots", "none")]
+    if arch == "pixtral-12b":
+        assert tuple(batch["patch_embeds"].shape) == (1, 64, tcfg.frontend_dim)
+        stub = next(i for i, t in enumerate(pytree.tree_leaves(params))
+                    if t is params["frontend_proj"])
+        assert bool(outs[0][2][stub].abs().max() > 0)
     for out in outs[1:]:
         assert torch.equal(outs[0][0], out[0])
         assert torch.equal(outs[0][1]["aux"], out[1]["aux"])
