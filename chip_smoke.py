@@ -16,7 +16,9 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
    tensor-core kernel for bf16 with a head dim that is a multiple of 16, the
    CUDA-core kernel otherwise; not causal with as many queries as keys at
    seamless's encoder shape, and with 16 queries over 4096 keys; causal
-   with 32 query heads over 8 kv heads at pixtral's shape), ssd_chunk
+   with 32 query heads over 8 kv heads at pixtral's shape, and with 128
+   heads of 56 over 2047 positions at deepseek's MTP layer's, on the
+   CUDA-core kernel), ssd_chunk
    every variant that takes each case; checks with ``torch.profiler``
    that one vmul_reduce call and one rmsnorm call each run exactly one CUDA
    kernel, on every variant;
@@ -53,7 +55,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
    finite losses, and the flash_attention and rmsnorm launches each step
    must make (forward plus the remat recompute), every flash_attention
    launch on the tensor-core kernel;
-6. ``[train-overlay]`` trains full-width phi3 (all 32 layers) at seq 1024
+6. ``[train-overlay]`` trains full-width phi3 (16 of its 32 layers) at seq 1024
    for 2 steps through ``Overlay(3, 3).jit(train_step,
    donate_argnums=(0,))`` and eagerly in place from the same seed: equal
    losses and every state leaf bit-identical, every returned state leaf in
@@ -108,7 +110,19 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the optimizer; other labels under the patches give the same loss and
     grad norm bit for bit, and ``frontend_proj``'s gradient is finite and
     nonzero;
-13. ``[serve-gemma2]``: serves gemma2-27b at full width cut to 8 of its 46
+13. ``[train-deepseek]``: trains deepseek-v3-671b at full width cut to its
+    3 ``mla_dense`` layers of 61 (d 7168, Multi-head Latent Attention over
+    128 heads, d_ff 18432, untied vocab 129280, the multi-token-prediction
+    module ``mtp``: random bf16 weights from the seed) at batch 1 x seq
+    2048, 3 steps under remat ``"full"`` on the reference's loss ``ce +
+    0.01 * aux + 0.3 * ce2``: finite losses, aux 0, ``ce2`` finite and
+    positive, 1 flash_attention launch a step (the MTP layer's, 128 heads
+    of 56 over 2047 positions, on the CUDA-core kernel), 16 rmsnorm
+    launches on the block kernel and 12 on the warp kernel; a profiled step
+    split into the two f32 unembeds, MLA's plain attention, the MTP layer
+    and the optimizer; after the steps every gradient leaf under ``mtp``
+    finite and nonzero, and ``embed``'s gradient moved by the MTP term;
+14. ``[serve-gemma2]``: serves gemma2-27b at full width cut to 8 of its 46
     layers (4 units of local and global attention, softcaps, post norms,
     tied embeddings; random bf16 weights from the seed) at batch 2,
     max_len 4608: four (16, 8) requests and one (4352, 16), whose prompt
@@ -118,10 +132,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     check), 33 rmsnorm launches a call, every one on the block kernel
     (d 4608); a plain prefill of the long prompt and the decode after it,
     again with no window, must give other logits; under 1 GiB left;
-14. ``[serve-archs]``: the same for minicpm-2b cut to 8 of its 40 layers
+15. ``[serve-archs]``: the same for minicpm-2b cut to 8 of its 40 layers
     (17 warp launches a call) and mistral-large-123b cut to 8 of its 88
     layers (17 block launches a call), four (16, 8) requests each;
-15. ``[serve-zamba2]``: serves the hybrid zamba2-7b at full width cut to
+16. ``[serve-zamba2]``: serves the hybrid zamba2-7b at full width cut to
     15 of its 81 layers (the leading 3 mamba layers and 2 of its 13 (5
     mamba, shared_attn) units: 13 mamba layers at state 64 and 2
     occurrences of ONE shared attention+MLP weight set, each with its own
@@ -131,7 +145,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     identical streams, 18 rmsnorm launches a call on the warp kernel (d
     3584), ssd_chunk 13 times a prefill on the CUDA-core kernel (state 64)
     and never in decode; under 1 GiB left;
-16. ``[serve-granite]``: serves the mixture-of-experts granite-moe-1b-a400m
+17. ``[serve-granite]``: serves the mixture-of-experts granite-moe-1b-a400m
     at full width and depth (24 layers, 32 experts, top-8, capacity factor
     1.25, tied embeddings; random bf16 weights from the seed, 2.67 GB) at
     batch 2, max_len 4128: four (16, 8) requests and one (4096, 16) through
@@ -140,7 +154,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the warp kernel (d 1024), no ssd_chunk and no flash_attention (cached
     attention is plain code); prints total against active parameters;
     under 1 GiB left;
-17. ``[serve-deepseek]``: serves deepseek-v3-671b at full width cut to its
+18. ``[serve-deepseek]``: serves deepseek-v3-671b at full width cut to its
     first 4 of 61 layers (3 ``mla_dense`` and 1 ``mla_moe``: Multi-head
     Latent Attention over a bf16 latent cache, 256 experts, top-8, one
     shared expert, sigmoid scoring; random bf16 weights from the seed,
@@ -155,7 +169,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     left; then times the plain 2048-token prefill and a batch-2 decode,
     each to a synchronize, the decode beside the time to read its
     weights once;
-18. ``[serve-seamless]``: serves the encoder-decoder seamless-m4t-medium
+19. ``[serve-seamless]``: serves the encoder-decoder seamless-m4t-medium
     at full width and depth (12 ``enc`` + 12 ``dec`` layers, the audio
     stub's ``frontend_proj``; random bf16 weights from the seed, 1.96 GB)
     through the model API (``prefill(enc_in=frames)``, then greedy
@@ -170,7 +184,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the two traced prefills; under 1 GiB left; then times the plain
     4096-frame prefill and a batch-2 decode, each to a synchronize, the
     decode beside the time to read its weights and caches once;
-19. ``[serve-pixtral]``: serves the vlm pixtral-12b at full width cut to
+20. ``[serve-pixtral]``: serves the vlm pixtral-12b at full width cut to
     8 of its 40 ``dense`` layers (d 5120, 32 heads over 8 kv heads of 128,
     untied vocab 131072, the vision stub's ``frontend_proj``; random bf16
     weights from the seed) two ways, each through
@@ -190,7 +204,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     patches do not (new ids there give the same bits); under 1 GiB left;
     then times the plain 2048-token prefill and a batch-2 decode, each to
     a synchronize, the decode beside the time to read its weights once;
-20. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
+21. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
     assembled on an all-LARGE ``Overlay(3, 3)``: logits bit-identical to
     ``forward`` + ``unembed``, 65 rmsnorm and 32 flash_attention launches;
     then zamba2-7b's at (1, 4096): bit-identical, 95 rmsnorm (warp), 68
@@ -203,12 +217,14 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     width 128: plain code, as the reference's); then pixtral-12b's at (1,
     2048): bit-identical, 81 rmsnorm (block) and 40 flash_attention
     launches (tensor-core, head dim 128, 32 heads over 8);
-21. checks the models' outputs: finite full-width logits, small float32
+22. checks the models' outputs: finite full-width logits, small float32
     phi3, mamba2, gemma2 (window 8: prefill, three decodes and a
     cache-free forward through the flash kernel), zamba2 (state 64: the
     same), granite-moe (32 experts, top-8, capacity 1 at a batch-2
     decode: the same), deepseek (MLA over latents of 128, 32 experts,
-    sigmoid scoring: the same, and a ragged decode) and seamless (d 256,
+    sigmoid scoring: the same, and a ragged decode; the MTP loss and its
+    gradients, the MTP layer's one flash launch on the CUDA-core kernel)
+    and seamless (d 256,
     2 + 2 layers, 256 frames: prefill, three decodes and a cache-free
     forward, whose flash launches are not causal with Sq = Sk in the
     encoder and Sq != Sk in the cross-attention) and pixtral (d 256, 2
@@ -216,14 +232,14 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     and a cache-free forward with the patches; the vlm loss and its
     gradients) models on the card (kernels) against the same models on
     the CPU (plain versions), serving and one train step;
-22. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
+23. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
     the event loop, gemma2 (smoke) through the overlay, and the train
     launcher on pixtral-12b at full width cut to 2 layers (seq 1024 under
     256 patches) with an injected failure at step 3: it restores its 18.9
     GB step-2 checkpoint, replays and ends with rc 0 and finite losses (free disk
     and host memory before it, the seconds of each host copy, write and
     restore, the bytes on disk);
-23. ``[warm-restart]``: boots the serve launcher in fresh processes on one
+24. ``[warm-restart]``: boots the serve launcher in fresh processes on one
     persistent bitstream store directory — phi3-mini-3.8b at full width
     cut to 2 of its 32 layers (``--layers 2``; the ``[serve]`` requests)
     plain, cold (``--store`` on an empty
@@ -239,10 +255,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     assembly or load, the first call), bytes on disk and load-vs-build ms
     per entry, the sanitizer's host ms per check, mamba2's downloads cold
     and warm;
-24. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
+25. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
     (lock lint, live checkers under the sanitizer, a two-member fleet's
     records and ``describe()``, the store, injected faults) must exit 0;
-25. prints the kernels line (time per call, host included, and device time
+26. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
     and ssd_chunk's CUDA-core kernels' times), timings at other shapes
@@ -255,7 +271,8 @@ Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, the overlay-served runs, the relocation
 and specialization rounds, the fleet runs, the full-width training runs
 (the train launcher's too),
-the dense family's, zamba2's, granite's (training too), deepseek's, seamless's and
+the dense family's, zamba2's, granite's (training too), deepseek's (training
+too), seamless's and
 pixtral's runs (training too) and the step graphs' calls)
 and read just
 after; launches made to compare or time a kernel are not counted.  A
@@ -328,7 +345,9 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM float32 peak outside the tensor core
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 peak in the tensor cores
 BATCH, PROMPT, MAX_NEW, MAX_LEN, REQUESTS = 2, 16, 8, 128, 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 4        # the reference's train_4k shape
-OVERLAY_LAYERS, OVERLAY_SEQ, OVERLAY_STEPS = 32, 1024, 2
+# [train-overlay]: phi3 at full width cut to 16 of its 32 layers (the trace
+# and the walk grow with depth; 16 keeps the script within its time)
+OVERLAY_LAYERS, OVERLAY_SEQ, OVERLAY_STEPS = 16, 1024, 2
 MAMBA = "mamba2-130m"
 MAMBA_BATCH, MAMBA_REQUESTS, MAMBA_NEW = 4, 6, 16
 MAMBA_PROMPTS = (37, 500, 4096)       # one ragged chunk, a padded tail, 64 full chunks
@@ -430,6 +449,14 @@ GRANITE_TRAIN_STEPS = 4
 # restart: pixtral at 2 layers, seq 1024 (256 patches), a failure at step 3
 PIXTRAL_TRAIN_LAYERS, PIXTRAL_TRAIN_STEPS = 8, 4
 PIXTRAL_TRAIN_FLASH = (TRAIN_BATCH, 32, 8, TRAIN_SEQ, 128)   # (B, Hq, Hkv, S, D) in training
+# multi-token-prediction training: deepseek-v3-671b at full width cut to its
+# 3 mla_dense layers of 61 (any mla_moe layer is 11.3 B parameters, 135 GB of
+# state), 1 x 2048 (MLA's plain attention and the MTP layer's attention VJP
+# hold (1, 128, S, S) f32 tensors, 2.15 GB each at 2048), 3 steps under
+# remat "full"; its MTP layer is a dense one, 128 heads of 7168 / 128 = 56
+# over the 2047 positions that have a next label
+DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_SEQ, DEEPSEEK_TRAIN_STEPS = 3, 2048, 3
+DEEPSEEK_MTP_FLASH = (TRAIN_BATCH, 128, 128, DEEPSEEK_TRAIN_SEQ - 1, 56)  # (B, Hq, Hkv, S, D)
 LAUNCHER_LAYERS, LAUNCHER_SEQ = 2, 1024
 LAUNCHER_TRAIN = ["--arch", PIXTRAL, "--layers", str(LAUNCHER_LAYERS), "--batch", "1",
                   "--seq", str(LAUNCHER_SEQ), "--steps", "4", "--ckpt-every", "2",
@@ -460,7 +487,9 @@ RMSNORM_SHAPES = ((PROMPT, 3072), (BATCH * PROMPT, 3072), (BATCH, 3072), (1, LOO
                   # and the launcher's 1024 (block), minicpm's at 4096 (warp)
                   (TRAIN_BATCH, GEMMA_TRAIN_SEQ, GEMMA_D), (1, 1024, GEMMA_D),
                   (TRAIN_BATCH, TRAIN_SEQ, PIXTRAL_D), (1, LAUNCHER_SEQ, PIXTRAL_D),
-                  (TRAIN_BATCH, TRAIN_SEQ, MINICPM_D))
+                  (TRAIN_BATCH, TRAIN_SEQ, MINICPM_D),
+                  # deepseek's MTP layer and its norm at 2047 rows (block)
+                  (TRAIN_BATCH, DEEPSEEK_MTP_FLASH[3], DEEPSEEK_D))
 
 
 def log(msg: str) -> None:
@@ -712,6 +741,9 @@ FLASH_CASES = [   # (B, Hq, Hkv, Sq, Sk, D, dtype, options)
     (*PIXTRAL_FLASH[:4], PIXTRAL_FLASH[3], PIXTRAL_FLASH[4], torch.bfloat16, {}),
     *((*PIXTRAL_TRAIN_FLASH[:3], s, s, PIXTRAL_TRAIN_FLASH[4], torch.bfloat16, {})
       for s in (TRAIN_SEQ, LAUNCHER_SEQ)),
+    # deepseek-v3's MTP layer in training: 128 heads of 56 (the CUDA-core
+    # kernel: 56 is no multiple of 16) over 2047 positions (ragged tiles)
+    (*DEEPSEEK_MTP_FLASH[:4], DEEPSEEK_MTP_FLASH[3], DEEPSEEK_MTP_FLASH[4], torch.bfloat16, {}),
 ]
 
 
@@ -1965,7 +1997,7 @@ def phase_train_overlay() -> dict:
     donate_argnums=(0,))`` (functional: forward, the backward and the
     optimizer traced into one accelerator, the state donated) against the
     eager in-place step from the same state, at phi3-mini's published
-    widths and all 32 layers, batch 1 x seq 1024, 2 steps.  Two full states
+    widths cut to 16 of its 32 layers, batch 1 x seq 1024, 2 steps.  Two full states
     do not fit on the card, so the traced run goes first, its final state
     goes to the host, and the eager run starts again from the seed.  The
     traced graph replays the eager run's aten ops, so losses and every state
@@ -2526,6 +2558,129 @@ def phase_train_pixtral() -> dict:
         f"frontend_proj's gradient finite, max |g| {top:.4g}")
     out = {k: run[k] for k in ("launches", "step_ms", "peak_bytes", "tok_s")}
     del run, state, batch, other
+    _free()
+    return out
+
+
+def _has_square(ev, n: int) -> bool:
+    """Whether one of a profiler event's recorded input shapes has ``n``
+    in two of its dimensions (an (n, n) score block)."""
+    return any(isinstance(shape, (list, tuple)) and list(shape).count(n) >= 2
+               for shape in (ev.input_shapes or ()))
+
+
+def deepseek_op_groups(vocab: int, seq: int) -> tuple:
+    """``pixtral_op_groups``' groups for deepseek's training step (the f32
+    unembed's ``mm`` are those of its two unembeds; the attention VJP is
+    the MTP layer's, the one layer that takes the attention op), with two
+    more before the last two: MLA's plain attention (its bmm and the ops
+    on its (seq, seq) scores: forward, recompute and VJP), then the rest
+    of the MTP module (ops on its ``seq - 1`` positions: the concat,
+    ``proj``, its layer, its norm, the second cross-entropy)."""
+    base = pixtral_op_groups(vocab)
+    return base[:3] + (
+        ("MLA's plain attention", lambda ev: ev.name.startswith("aten::") and (
+            _has_square(ev, seq) or (ev.name == "aten::bmm" and _has_dim(ev, seq)))),
+        ("the rest of the MTP module",
+         lambda ev: ev.name.startswith("aten::") and _has_dim(ev, seq - 1)),
+    ) + base[3:]
+
+
+def phase_train_deepseek() -> dict:
+    """[train-deepseek]: deepseek-v3-671b at its published widths (d 7168,
+    MLA with q_lora 1536, kv_lora 512, nope 128, rope 64, v 128 over 128
+    heads, d_ff 18432, untied vocab 129280, ``mtp_depth`` 1) cut to its
+    first 3 of 61 layers (``cut_layers``: its three ``mla_dense`` layers;
+    random bf16 weights from the seed), 3 eager in-place steps at batch 1 x
+    seq 2048 under remat ``"full"`` on ``cosine(3e-4, warmup=1, total=3)``
+    and the reference's loss ``ce + 0.01 * aux + 0.3 * ce2``, where ``ce2``
+    is the multi-token prediction's (the ``mtp`` module: ``proj``, one
+    ``dense`` layer of 128 heads of 56 over 2047 positions, its norm, the
+    second unembedding); then one more step under ``torch.profiler`` (input
+    shapes recorded, the optimizer in a range of its own).  Each step: a
+    finite loss, aux 0 (no router), ``ce2 = (loss - ce) / 0.3`` finite and
+    positive; flash_attention once (the MTP layer's forward, outside the
+    rematerialized stack; its backward is the plain VJP; MLA's attention
+    is plain code) on the CUDA-core kernel; rmsnorm 16 times on the block
+    kernel (ln1 and ln2 of each layer in the forward and the recompute,
+    the final norm, the MTP layer's two norms and ``mtp.norm``) and 12 on
+    the warp kernel (the query and key/value latents' norms, forward and
+    recompute).  Then, on the state after those steps: every gradient leaf
+    under ``mtp`` finite and nonzero, and ``embed``'s gradient other than
+    the one the same batch gives with the MTP term taken out (its label
+    embeddings)."""
+    full = get_config(DEEPSEEK)
+    cfg = cut_layers(full, DEEPSEEK_TRAIN_LAYERS)
+    n, steps, seq = cfg.num_layers, DEEPSEEK_TRAIN_STEPS, DEEPSEEK_TRAIN_SEQ
+    check(pm.layer_kinds(cfg) == ["mla_dense"] * DEEPSEEK_TRAIN_LAYERS and cfg.mtp_depth == 1
+          and cfg.d_model == DEEPSEEK_D and not cfg.tie_embeddings and cfg.remat == "full"
+          and (TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads, seq - 1, cfg.resolved_head_dim)
+          == DEEPSEEK_MTP_FLASH, f"{DEEPSEEK} config {cfg}")
+    spec = pm.model_spec(cfg)
+    sizes = {k: sum(math.prod(leaf.shape) for leaf in pytree.tree_leaves(spec[k]))
+             for k in spec}
+    total = sum(sizes.values())
+    log(f"[train-deepseek] {cfg.name}: {total / 1e9:.3f} B parameters at {n} of "
+        f"{full.num_layers} layers (" + ", ".join(f"{k} {v / 1e9:.3f} B"
+                                                    for k, v in sizes.items())
+        + f"), vocab {cfg.vocab_size} untied; state (bf16 parameters and gradients, f32 "
+        f"moments) {12 * total / 1e9:.2f} GB; the MTP layer's attention q, k, v "
+        f"{DEEPSEEK_MTP_FLASH[:2] + DEEPSEEK_MTP_FLASH[3:]} over {cfg.num_kv_heads} kv heads")
+    run = train_steps("train-deepseek", cfg, cosine(3e-4, warmup=1, total=steps), steps, seq)
+    ce2s = []
+    for i, (loss, ce, aux) in enumerate(zip(run["losses"], run["ces"], run["auxs"])):
+        ce2 = (loss - ce).item() / 0.3
+        ce2s.append(ce2)
+        check(aux.item() == 0.0 and math.isfinite(ce2) and ce2 > 0,
+              f"[train-deepseek] step {i + 1}: aux {aux.item()} (must be 0), ce2 = (loss - ce) "
+              f"/ 0.3 = {ce2} (must be finite and > 0)")
+    log(f"[train-deepseek] aux 0 on every step; ce by step "
+        f"{[round(c.item(), 4) for c in run['ces']]}, ce2 = (loss - ce) / 0.3 by step "
+        f"{[round(c, 4) for c in ce2s]} (ln V = {math.log(cfg.vocab_size):.4f})")
+    check_launches("train-deepseek", run["launches"], {"flash_attention": steps},
+                   {"flash_attention": "simt"})
+    blocks, warps = steps * ((2 * n + 1) + 2 * n + 3), steps * 2 * (2 * n)
+    check(run["launches"]["rmsnorm/block"] == blocks and run["launches"]["rmsnorm/warp"] == warps
+          and run["launches"]["rmsnorm"] == blocks + warps,
+          f"[train-deepseek] rmsnorm launches {run['launches']} (want {blocks} block and {warps} "
+          f"warp)")
+    state, step_fn, batch = run.pop("state"), run.pop("step_fn"), run["batches"][0]
+    with recorded_optimizer():
+        profile_step(lambda: step_fn(state, batch), tag="train-deepseek",
+                     op_groups=deepseek_op_groups(cfg.vocab_size, seq), shapes=True)
+    del step_fn
+    _free()
+    params = state[0]
+    leaves = pytree.tree_leaves(params)
+    mtp_ids = {id(t) for t in pytree.tree_leaves(params["mtp"])}
+    mtp = [i for i, t in enumerate(leaves) if id(t) in mtp_ids]
+    embed = next(i for i, t in enumerate(leaves) if t is params["embed"])
+    loss, metrics, grads, _ = train_cli._loss_and_grads(cfg, params, batch)
+    mtp_tops = [(grads[i].abs().max().float().item(), bool(torch.isfinite(grads[i]).all()))
+                for i in mtp]
+    g_embed = grads[embed]
+    del grads
+    _free()
+    params0 = {k: v for k, v in params.items() if k != "mtp"}
+    leaves0 = pytree.tree_leaves(params0)
+    loss0, metrics0, grads0, _ = train_cli._loss_and_grads(cfg.scaled(mtp_depth=0), params0,
+                                                           batch)
+    g_embed0 = grads0[next(i for i, t in enumerate(leaves0) if t is params["embed"])]
+    del grads0
+    moved = (g_embed - g_embed0).abs().max().float().item()
+    top = g_embed.abs().max().float().item()
+    check(all(finite and t > 0 for t, finite in mtp_tops),
+          f"[train-deepseek] mtp's gradients (max |g|, finite) {mtp_tops}")
+    check(moved > 0, "[train-deepseek] embed's gradient is the same without the MTP term")
+    log(f"[train-deepseek] on the state after {steps} steps: the {len(mtp)} gradient leaves under "
+        f"mtp finite and nonzero (max |g| from {min(t for t, _ in mtp_tops):.4g} to "
+        f"{max(t for t, _ in mtp_tops):.4g}); embed's gradient moves by up to {moved:.4g} "
+        f"(its largest |g| {top:.4g}) when the MTP term is taken out; loss {loss.item():.6f} "
+        f"with it, {loss0.item():.6f} without (ce {metrics['ce'].item():.6f} and "
+        f"{metrics0['ce'].item():.6f})")
+    out = {k: run[k] for k in ("launches", "step_ms", "peak_bytes", "tok_s")}
+    out["ce2"] = ce2s
+    del run, state, params, params0, batch, g_embed, g_embed0
     _free()
     return out
 
@@ -3639,6 +3794,30 @@ def phase_small_deepseek_reference() -> None:
         f"{cfg.router_scoring}) logits card (kernels) vs CPU (plain) max err: "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; the cache-free forward launched rmsnorm {n['rmsnorm']} times")
+    # the training loss ce + 0.01 * aux + 0.3 * ce2 and its gradients: the
+    # MTP layer launches flash once, f32 on the CUDA-core kernel, over 31
+    # positions (a ragged tile); rmsnorm 4 a layer in the forward and the
+    # recompute, the final norm and the MTP module's 3
+    batch = make_batch(cfg, 2, 32, step=0, seed=SEED, device="cpu")
+    lc, mc, gc_, _ = train_cli._loss_and_grads(cfg, cpu, batch)
+    reset_counters()
+    lg, mg, gg, _ = train_cli._loss_and_grads(cfg, cuda, {k: v.to(DEV) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    n = counts()
+    check(n["flash_attention"] == 1 and n["flash_attention/simt"] == 1
+          and n["rmsnorm"] == 8 * cfg.num_layers + 1 + 3,
+          f"small deepseek train: launches {n}")
+    worst = max(((g.cpu() - w).abs().max() / w.abs().max()).item() for g, w in zip(gg, gc_))
+    check(math.isclose(lg.item(), lc.item(), rel_tol=1e-4)
+          and math.isclose(mg["aux"].item(), mc["aux"].item(), rel_tol=1e-4) and worst < 1e-3,
+          f"small deepseek train: card vs CPU loss {lg.item()} vs {lc.item()}, aux "
+          f"{mg['aux'].item()} vs {mc['aux'].item()}, worst gradient error {worst} of a leaf's "
+          f"largest")
+    log(f"[reference] small f32 deepseek-v3-671b loss ce + 0.01 * aux + 0.3 * ce2 card vs CPU: "
+        f"{lg.item():.6f} vs {lc.item():.6f} (aux {mg['aux'].item():.6f} vs "
+        f"{mc['aux'].item():.6f}); worst gradient error {worst:.3g} of a leaf's largest; the "
+        f"MTP layer launched flash_attention {n['flash_attention/simt']} time on simt (head dim "
+        f"{cfg.resolved_head_dim}, 31 positions)")
 
 
 def phase_small_seamless_reference() -> None:
@@ -4433,6 +4612,9 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
     out[-1]["pixtral_train_shape"] = flash_timing(gen, *PIXTRAL_TRAIN_FLASH)
     out[-1]["minicpm_shape"] = flash_timing(gen, MINICPM_FLASH[0], MINICPM_FLASH[1],
                                             *MINICPM_FLASH[1:])
+    # deepseek's MTP layer in training: 128 heads of 56 over 2047 positions,
+    # on the CUDA-core kernel
+    out[-1]["deepseek_mtp_shape"] = flash_timing(gen, *DEEPSEEK_MTP_FLASH)
     # seamless's encoder at 4096 and 1024 frames and a cache-free
     # cross-attention of 16 queries over 4096 keys: not causal, every (query,
     # key) pair; SDPA with is_causal=False beside each
@@ -4612,14 +4794,17 @@ SIMT_SSD_PATHS = ("serve_zamba2", "step_graph_zamba2")
 # (every other path's are all on the warp kernel): gemma2's (serving and
 # training) and mistral's all on the block kernel (d > MAX_WARP_D), as are
 # pixtral's (d 5120: serving, training, the train launcher),
-# deepseek's 9 on block (d 7168) and 8 on warp (its latents)
+# deepseek's 9 on block (d 7168) and 8 on warp (its latents); deepseek's
+# training step 16 on block (its 3 layers' ln1 and ln2 twice, the final norm,
+# the MTP module's 3) and 12 on warp (the latents' norms twice)
 NORM_SPLITS = {"serve_gemma2": {"block": 1}, "serve_mistral": {"block": 1},
                "train_gemma2": {"block": 1}, "train_gemma2_dots": {"block": 1},
                "train_pixtral": {"block": 1}, "launcher_train_pixtral": {"block": 1},
                "serve_pixtral": {"block": 1}, "serve_pixtral_patches": {"block": 1},
                "step_graph_pixtral": {"block": 1},
                "serve_deepseek": {"block": 9, "warp": 8},
-               "step_graph_deepseek": {"block": 9, "warp": 8}}
+               "step_graph_deepseek": {"block": 9, "warp": 8},
+               "train_deepseek": {"block": 16, "warp": 12}}
 
 
 def main() -> int:
@@ -4644,6 +4829,7 @@ def main() -> int:
     trained_minicpm = run_phase("[train-minicpm]", phase_train_minicpm)
     trained_granite = run_phase("[train-granite]", phase_train_granite)
     trained_pixtral = run_phase("[train-pixtral]", phase_train_pixtral)
+    trained_deepseek = run_phase("[train-deepseek]", phase_train_deepseek)
     gemma2 = run_phase("[serve-gemma2]", phase_serve_gemma2, gen)
     archs = run_phase("[serve-archs]", phase_serve_archs, gen)
     zamba2 = run_phase("[serve-zamba2]", phase_serve_zamba2, gen)
@@ -4679,6 +4865,7 @@ def main() -> int:
                "train_minicpm": trained_minicpm["launches"],
                "train_granite": trained_granite["launches"],
                "train_pixtral": trained_pixtral["launches"],
+               "train_deepseek": trained_deepseek["launches"],
                "serve_gemma2": gemma2["launches"],
                "serve_minicpm": archs["minicpm-2b"]["launches"],
                "serve_mistral": archs["mistral-large-123b"]["launches"],

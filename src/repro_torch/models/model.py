@@ -7,9 +7,10 @@ Port of ``repro/models/model.py`` (``cross_entropy`` :25, ``loss_fn`` :51,
 :203, ``_fill_cross_caches`` :114) for decoder LMs of dense (full or
 sliding-window), mamba, shared-attention (zamba2), mixture-of-experts
 (granite; its loss adds the routers' load-balance loss) and MLA
-(deepseek-v3's ``mla_dense``/``mla_moe``; serving only, since its loss
-needs multi-token prediction) layers, for the encoder-decoder seamless-m4t (serving
-only, through :func:`prefill` with ``enc_in`` and :func:`decode_step`) and
+(deepseek-v3's ``mla_dense``/``mla_moe``; its loss adds the
+multi-token-prediction term, which runs the ``mtp`` module) layers, for
+the encoder-decoder seamless-m4t (serving only, through :func:`prefill`
+with ``enc_in`` and :func:`decode_step`) and
 for the vlm pixtral (its patch embeddings through :func:`prefill` with
 ``patch_embeds``, its decodes as a text model's; its loss masks the patch
 positions out of the cross-entropy).
@@ -60,13 +61,14 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, *, aux_weight: float = 0
     (B, npatch, frontend_dim) go through the vision stub over the first
     npatch slots, and without a ``mask`` of the batch's own those slots
     leave the loss (``pos >= npatch``, :63-69): a caller's ``mask`` wins,
-    as in the reference.  The enc-dec loss and multi-token prediction
-    (deepseek-v3, whose second loss runs the ``mtp`` module,
-    ``repro/models/model.py:73-83``) are refused."""
-    if cfg.is_encdec or cfg.mtp_depth:
+    as in the reference.  A config with ``mtp_depth`` (deepseek-v3) adds
+    ``0.3 * ce2``, the multi-token-prediction term (:func:`_mtp_ce`,
+    :73-85); the metrics keep their three keys.  The enc-dec loss is
+    refused."""
+    if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: the loss of the enc-dec and multi-token-prediction "
-            f"families is not ported yet (ROADMAP queue 1, \"The losses the port refuses\")")
+            f"{cfg.name}: the loss of the enc-dec family is not ported yet (ROADMAP "
+            f"queue 1, \"The losses the port refuses\")")
     patches = batch.get("patch_embeds")
     h, aux = tfm.forward_with_aux(params, cfg, batch["tokens"], patch_embeds=patches)
     logits = tfm.unembed(params, h, cfg)
@@ -78,7 +80,29 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, *, aux_weight: float = 0
     ce, acc = cross_entropy(logits, batch["labels"], mask)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-    return ce + aux_weight * aux, {"ce": ce, "acc": acc, "aux": aux}
+    loss = ce + aux_weight * aux
+    if cfg.mtp_depth:
+        loss = loss + 0.3 * _mtp_ce(params, h, batch["labels"], cfg)
+    return loss, {"ce": ce, "acc": acc, "aux": aux}
+
+
+def _mtp_ce(params: dict, h: torch.Tensor, labels: torch.Tensor, cfg: ArchConfig):
+    """deepseek-v3's multi-token prediction at depth 1
+    (``repro/models/model.py:73-85``): position t sees ``[h_t ; emb(label_t)]``
+    (``h`` the decoder's output after the final norm), mapped by
+    ``mtp.proj`` in one ``mm``, through one ``dense`` layer at positions
+    0..S-2 (outside the rematerialized stack, as in the reference; its aux
+    is None), ``mtp.norm`` and the unembedding, and predicts ``label_{t+1}``.
+    Returns that cross-entropy, ``ce2``, over every position: it takes no
+    mask, not even the batch's own."""
+    mtp = params["mtp"]
+    lbl_emb = tfm.embed_tokens(params, labels, cfg)
+    h_in = linear(torch.cat([h[:, :-1], lbl_emb[:, :-1]], -1).to(lbl_emb.dtype), mtp["proj"])
+    positions = torch.arange(h_in.shape[1], device=h_in.device)
+    h2 = tfm.layer_fwd(mtp["layer"], h_in, "dense", cfg, positions=positions, cache=None)[0]
+    h2 = tfm.rmsnorm_fwd(mtp["norm"], h2, cfg.norm_eps)
+    ce2, _ = cross_entropy(tfm.unembed(params, h2, cfg), labels[:, 1:], None)
+    return ce2
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,8 @@ LAYERS = {"zamba2-7b": 81, "mistral-large-123b": 88, "phi3-mini-3.8b": 32, "gemm
           "minicpm-2b": 40, "mamba2-130m": 24, "granite-moe-1b-a400m": 24,
           "deepseek-v3-671b": 61, "seamless-m4t-medium": 24, "pixtral-12b": 40}
 TRAINED = ("phi3-mini-3.8b", "mamba2-130m", "gemma2-27b", "minicpm-2b",
-           "mistral-large-123b", "zamba2-7b", "granite-moe-1b-a400m", "pixtral-12b")
+           "mistral-large-123b", "zamba2-7b", "granite-moe-1b-a400m", "pixtral-12b",
+           "deepseek-v3-671b")
 DECODER_ARCHS = [a for a in ARCHS if not get_config(a).is_encdec]
 
 
@@ -207,9 +208,9 @@ def test_loss_matches_jax_and_one_adamw_step_updates_finitely(arch):
 
 @pytest.mark.parametrize("arch", [a for a in ARCHS if a not in TRAINED])
 def test_loss_fn_refuses_the_families_it_does_not_train(arch):
-    """deepseek (the MTP loss) and seamless (the enc-dec loss) are
-    refused, naming the item that ports them; pixtral's vlm loss is
-    trained (its patches masked out of the loss) and left this list."""
+    """seamless (the enc-dec loss) is refused, naming the item that
+    ports it; pixtral's vlm loss (its patches masked out of the loss) and
+    deepseek's (the MTP term added) are trained and left this list."""
     cfg = smoke_config(arch)
     batch = tpipeline.make_batch(cfg, B, S, device="cpu")
     with pytest.raises(NotImplementedError, match="The losses the port refuses"):

@@ -354,6 +354,25 @@ def test_flash_kernel_ragged_lengths_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_flash_simt_at_head_dim_56_and_a_ragged_length_on_card(cuda):
+    """deepseek-v3's multi-token-prediction layer in training: bf16, 128
+    heads of 56 (not a multiple of 16, so the wrapper picks the CUDA-core
+    kernel), causal over 2047 positions (the last query and key tiles
+    ragged); within ``tolerance(plain, v, "simt")`` of the plain version
+    (one bf16 ulp of the output, 2^-7 |plain| + 1e-5), the same bits on a
+    repeat, one launch a call on ``simt``."""
+    q, k, v = (t.to(cuda) for t in _torch(_qkv(56, 1, 128, 128, 2047, 56), "bfloat16"))
+    assert tfa.variant(q.dtype, 56) == "simt"
+    before = tfa.launches.by_variant["simt"]
+    out = tfa.flash_attention(q, k, v)
+    assert torch.equal(out, tfa.flash_attention(q, k, v))
+    assert tfa.launches.by_variant["simt"] == before + 2
+    plain = ref.attention(q, k, v)
+    assert bool(((out.float() - plain.float()).abs()
+                 <= tfa.tolerance(plain, v, "simt")).all())
+
+
+@pytest.mark.cuda
 def test_flash_kernel_rejects_misaligned_views_on_card(cuda):
     """TMA needs 16-byte aligned tensors: a contiguous view one element into
     its storage is refused, not read wrongly."""

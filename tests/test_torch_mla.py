@@ -496,16 +496,6 @@ def test_step_graph_matches_forward():
     assert got.shape == (2, 16, tcfg.vocab_size) and torch.equal(got, want)
 
 
-def test_loss_fn_refuses_deepseek():
-    """The reference's loss adds the routers' load-balance loss and the MTP
-    loss (``0.3 * ce2``); the port trains neither yet."""
-    _, tcfg = _configs(dtype="bfloat16")
-    params = tparams.init(tcfg, torch.Generator().manual_seed(0), "cpu")
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="The losses the port refuses"):
-        tmodel.loss_fn(params, {"tokens": toks, "labels": toks}, tcfg)
-
-
 def test_serve_launcher_gives_equal_tokens_with_and_without_the_overlay(capsys):
     args = ["--arch", ARCH, "--smoke", "--requests", "3", "--batch", "2", "--max-new", "3",
             "--prompt-lens", "5,12", "--device", "cpu"]

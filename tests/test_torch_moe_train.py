@@ -362,15 +362,3 @@ def test_a_dense_config_reports_aux_zero():
         assert tfm.forward_with_aux(params, cfg, batch["tokens"])[1] is None
     assert m["aux"].item() == 0.0 and torch.equal(loss, m["ce"])
 
-
-def test_deepseek_is_still_refused_for_its_multi_token_prediction():
-    """deepseek's layers have experts too, but its loss adds the ``mtp``
-    module's second cross-entropy, which the port does not run: the
-    refusal names multi-token prediction and ROADMAP's item."""
-    cfg = smoke_config("deepseek-v3-671b")
-    assert cfg.num_experts and cfg.mtp_depth
-    batch = tpipe.make_batch(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-token-prediction families is not "
-                                                  "ported yet .ROADMAP queue 1, \"The losses "
-                                                  "the port refuses\""):
-        tmodel.loss_fn({}, batch, cfg)
