@@ -122,7 +122,19 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     split into the two f32 unembeds, MLA's plain attention, the MTP layer
     and the optimizer; after the steps every gradient leaf under ``mtp``
     finite and nonzero, and ``embed``'s gradient moved by the MTP term;
-14. ``[serve-gemma2]``: serves gemma2-27b at full width cut to 8 of its 46
+14. ``[train-seamless]``: trains the encoder-decoder seamless-m4t-medium
+    at full width and depth (12 ``enc`` + 12 ``dec`` layers, d 1024, 16
+    heads of 64, untied vocab 256206; random bf16 weights from the seed)
+    at batch 1 x 4096 tokens over 4096 frames, 3 steps under remat
+    ``"full"`` on the reference's enc-dec loss: finite losses equal to ce,
+    72 flash_attention launches a step (tensor-core kernel; 24 causal, the
+    decoder's self-attentions, 48 not, the encoder's and the
+    cross-attentions) and 122 rmsnorm launches (warp kernel); a profiled
+    step split into the f32 unembed, the attention VJP, the optimizer and
+    the bf16 products; after the steps every gradient leaf of the stub, the
+    encoder and the cross-attentions finite and nonzero, and other frames
+    move the loss;
+15. ``[serve-gemma2]``: serves gemma2-27b at full width cut to 8 of its 46
     layers (4 units of local and global attention, softcaps, post norms,
     tied embeddings; random bf16 weights from the seed) at batch 2,
     max_len 4608: four (16, 8) requests and one (4352, 16), whose prompt
@@ -132,10 +144,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     check), 33 rmsnorm launches a call, every one on the block kernel
     (d 4608); a plain prefill of the long prompt and the decode after it,
     again with no window, must give other logits; under 1 GiB left;
-15. ``[serve-archs]``: the same for minicpm-2b cut to 8 of its 40 layers
+16. ``[serve-archs]``: the same for minicpm-2b cut to 8 of its 40 layers
     (17 warp launches a call) and mistral-large-123b cut to 8 of its 88
     layers (17 block launches a call), four (16, 8) requests each;
-16. ``[serve-zamba2]``: serves the hybrid zamba2-7b at full width cut to
+17. ``[serve-zamba2]``: serves the hybrid zamba2-7b at full width cut to
     15 of its 81 layers (the leading 3 mamba layers and 2 of its 13 (5
     mamba, shared_attn) units: 13 mamba layers at state 64 and 2
     occurrences of ONE shared attention+MLP weight set, each with its own
@@ -145,7 +157,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     identical streams, 18 rmsnorm launches a call on the warp kernel (d
     3584), ssd_chunk 13 times a prefill on the CUDA-core kernel (state 64)
     and never in decode; under 1 GiB left;
-17. ``[serve-granite]``: serves the mixture-of-experts granite-moe-1b-a400m
+18. ``[serve-granite]``: serves the mixture-of-experts granite-moe-1b-a400m
     at full width and depth (24 layers, 32 experts, top-8, capacity factor
     1.25, tied embeddings; random bf16 weights from the seed, 2.67 GB) at
     batch 2, max_len 4128: four (16, 8) requests and one (4096, 16) through
@@ -154,7 +166,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the warp kernel (d 1024), no ssd_chunk and no flash_attention (cached
     attention is plain code); prints total against active parameters;
     under 1 GiB left;
-18. ``[serve-deepseek]``: serves deepseek-v3-671b at full width cut to its
+19. ``[serve-deepseek]``: serves deepseek-v3-671b at full width cut to its
     first 4 of 61 layers (3 ``mla_dense`` and 1 ``mla_moe``: Multi-head
     Latent Attention over a bf16 latent cache, 256 experts, top-8, one
     shared expert, sigmoid scoring; random bf16 weights from the seed,
@@ -169,7 +181,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     left; then times the plain 2048-token prefill and a batch-2 decode,
     each to a synchronize, the decode beside the time to read its
     weights once;
-19. ``[serve-seamless]``: serves the encoder-decoder seamless-m4t-medium
+20. ``[serve-seamless]``: serves the encoder-decoder seamless-m4t-medium
     at full width and depth (12 ``enc`` + 12 ``dec`` layers, the audio
     stub's ``frontend_proj``; random bf16 weights from the seed, 1.96 GB)
     through the model API (``prefill(enc_in=frames)``, then greedy
@@ -184,7 +196,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the two traced prefills; under 1 GiB left; then times the plain
     4096-frame prefill and a batch-2 decode, each to a synchronize, the
     decode beside the time to read its weights and caches once;
-20. ``[serve-pixtral]``: serves the vlm pixtral-12b at full width cut to
+21. ``[serve-pixtral]``: serves the vlm pixtral-12b at full width cut to
     8 of its 40 ``dense`` layers (d 5120, 32 heads over 8 kv heads of 128,
     untied vocab 131072, the vision stub's ``frontend_proj``; random bf16
     weights from the seed) two ways, each through
@@ -204,7 +216,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     patches do not (new ids there give the same bits); under 1 GiB left;
     then times the plain 2048-token prefill and a batch-2 decode, each to
     a synchronize, the decode beside the time to read its weights once;
-21. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
+22. ``[step-graph]``: ``build_step_graph`` of full-width phi3 at (2, 16)
     assembled on an all-LARGE ``Overlay(3, 3)``: logits bit-identical to
     ``forward`` + ``unembed``, 65 rmsnorm and 32 flash_attention launches;
     then zamba2-7b's at (1, 4096): bit-identical, 95 rmsnorm (warp), 68
@@ -217,7 +229,7 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     width 128: plain code, as the reference's); then pixtral-12b's at (1,
     2048): bit-identical, 81 rmsnorm (block) and 40 flash_attention
     launches (tensor-core, head dim 128, 32 heads over 8);
-22. checks the models' outputs: finite full-width logits, small float32
+23. checks the models' outputs: finite full-width logits, small float32
     phi3, mamba2, gemma2 (window 8: prefill, three decodes and a
     cache-free forward through the flash kernel), zamba2 (state 64: the
     same), granite-moe (32 experts, top-8, capacity 1 at a batch-2
@@ -232,14 +244,14 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     and a cache-free forward with the patches; the vlm loss and its
     gradients) models on the card (kernels) against the same models on
     the CPU (plain versions), serving and one train step;
-23. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
+24. runs the serve launcher on mamba2-130m at full width, phi3 (smoke) on
     the event loop, gemma2 (smoke) through the overlay, and the train
     launcher on pixtral-12b at full width cut to 2 layers (seq 1024 under
     256 patches) with an injected failure at step 3: it restores its 18.9
     GB step-2 checkpoint, replays and ends with rc 0 and finite losses (free disk
     and host memory before it, the seconds of each host copy, write and
     restore, the bytes on disk);
-24. ``[warm-restart]``: boots the serve launcher in fresh processes on one
+25. ``[warm-restart]``: boots the serve launcher in fresh processes on one
     persistent bitstream store directory — phi3-mini-3.8b at full width
     cut to 2 of its 32 layers (``--layers 2``; the ``[serve]`` requests)
     plain, cold (``--store`` on an empty
@@ -255,10 +267,10 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     assembly or load, the first call), bytes on disk and load-vs-build ms
     per entry, the sanitizer's host ms per check, mamba2's downloads cold
     and warm;
-25. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
+26. ``[analysis]``: ``python -m repro_torch.analysis report`` on the card
     (lock lint, live checkers under the sanitizer, a two-member fleet's
     records and ``describe()``, the store, injected faults) must exit 0;
-26. prints the kernels line (time per call, host included, and device time
+27. prints the kernels line (time per call, host included, and device time
     alone from CUDA-graph replays, for each kernel and its library call;
     bound, plain time, launches by path and by variant, flash_attention's
     and ssd_chunk's CUDA-core kernels' times), timings at other shapes
@@ -272,7 +284,7 @@ driven path (the paper workload, the overlay-served runs, the relocation
 and specialization rounds, the fleet runs, the full-width training runs
 (the train launcher's too),
 the dense family's, zamba2's, granite's (training too), deepseek's (training
-too), seamless's and
+too), seamless's (training too) and
 pixtral's runs (training too) and the step graphs' calls)
 and read just
 after; launches made to compare or time a kernel are not counted.  A
@@ -329,6 +341,7 @@ from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels import vmul_reduce as vr_mod  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.models import params as pm  # noqa: E402
@@ -457,6 +470,13 @@ PIXTRAL_TRAIN_FLASH = (TRAIN_BATCH, 32, 8, TRAIN_SEQ, 128)   # (B, Hq, Hkv, S, D
 # over the 2047 positions that have a next label
 DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_SEQ, DEEPSEEK_TRAIN_STEPS = 3, 2048, 3
 DEEPSEEK_MTP_FLASH = (TRAIN_BATCH, 128, 128, DEEPSEEK_TRAIN_SEQ - 1, 56)  # (B, Hq, Hkv, S, D)
+# enc-dec training: seamless-m4t-medium at full width and depth (12 enc + 12
+# dec layers, d 1024, 16 heads of 64, untied vocab 256206), 1 x 4096 tokens
+# over make_batch's 4096 frames, 3 steps under remat "full"; its attention is
+# q, k, v (1, 16, 4096, 64): the encoder's and the cross-attention not
+# causal, the decoder's self-attention causal; its rows (4096, 1024), warp
+SEAMLESS_TRAIN_STEPS = 3
+SEAMLESS_TRAIN_FLASH = (TRAIN_BATCH, SEAMLESS_HEADS, SEAMLESS_HEADS, TRAIN_SEQ, SEAMLESS_HEAD_DIM)
 LAUNCHER_LAYERS, LAUNCHER_SEQ = 2, 1024
 LAUNCHER_TRAIN = ["--arch", PIXTRAL, "--layers", str(LAUNCHER_LAYERS), "--batch", "1",
                   "--seq", str(LAUNCHER_SEQ), "--steps", "4", "--ckpt-every", "2",
@@ -744,6 +764,11 @@ FLASH_CASES = [   # (B, Hq, Hkv, Sq, Sk, D, dtype, options)
     # deepseek-v3's MTP layer in training: 128 heads of 56 (the CUDA-core
     # kernel: 56 is no multiple of 16) over 2047 positions (ragged tiles)
     (*DEEPSEEK_MTP_FLASH[:4], DEEPSEEK_MTP_FLASH[3], DEEPSEEK_MTP_FLASH[4], torch.bfloat16, {}),
+    # seamless-m4t-medium in training: the decoder's self-attention (causal),
+    # the encoder's and the cross-attention (not causal; 4096 queries over
+    # 4096 frames); its (4096, 1024) rmsnorm rows are granite's long prefill's
+    *((*SEAMLESS_TRAIN_FLASH[:4], SEAMLESS_TRAIN_FLASH[3], SEAMLESS_TRAIN_FLASH[4],
+       torch.bfloat16, kw) for kw in ({}, dict(causal=False))),
 ]
 
 
@@ -2224,14 +2249,16 @@ def phase_train_mamba() -> dict:
 
 
 @contextlib.contextmanager
-def flash_options(record: dict):
-    """Counts each flash_attention launch by (Sq, window, softcap) while
-    open: the custom op's CUDA kernel calls ``fa_mod.flash_attention``."""
+def flash_options(record: dict, key=lambda q, k, kw: (q.shape[2], kw.get("window"),
+                                                      kw.get("softcap"))):
+    """Counts each flash_attention launch by ``key(q, k, options)``, (Sq,
+    window, softcap) by default, while open: the custom op's CUDA kernel
+    calls ``fa_mod.flash_attention``."""
     wrapped = fa_mod.flash_attention
 
     def recording(q, k, v, **kw):
-        key = (q.shape[2], kw.get("window"), kw.get("softcap"))
-        record[key] = record.get(key, 0) + 1
+        at = key(q, k, kw)
+        record[at] = record.get(at, 0) + 1
         return wrapped(q, k, v, **kw)
 
     fa_mod.flash_attention = recording
@@ -2681,6 +2708,103 @@ def phase_train_deepseek() -> dict:
     out = {k: run[k] for k in ("launches", "step_ms", "peak_bytes", "tok_s")}
     out["ce2"] = ce2s
     del run, state, params, params0, batch, g_embed, g_embed0
+    _free()
+    return out
+
+
+def phase_train_seamless() -> dict:
+    """[train-seamless]: the encoder-decoder seamless-m4t-medium at its
+    published widths and full depth (12 ``enc`` + 12 ``dec`` layers, d
+    1024, 16 heads of 64 over 16 kv heads, d_ff 4096, untied vocab 256206,
+    the audio stub's ``frontend_proj`` (1024, 1024); random bf16 weights
+    from the seed), 3 eager in-place steps at batch 1 x 4096 tokens over
+    ``make_batch``'s 4096 frames under remat ``"full"`` on
+    ``cosine(3e-4, warmup=1, total=3)`` and the reference's enc-dec loss
+    (the encoder on the frames, every ``dec`` layer cross-attending to its
+    output); then one more step under ``torch.profiler`` (input shapes
+    recorded, the optimizer in a range of its own).  Each step: a finite
+    loss equal to ``ce`` (aux 0: no router); flash_attention twice (the
+    forward and the recompute) for each encoder self-attention (not
+    causal), each decoder self-attention (causal) and each cross-attention
+    (not causal), 72 a step, all on the tensor-core kernel; rmsnorm twice
+    for each of the encoder's 2 norms a layer and the decoder's 3, and
+    once each for ``enc_norm`` and the final norm, 122 a step, all on the
+    warp kernel (d 1024).  Then, on the state after those steps: every
+    gradient leaf of ``frontend_proj``, the encoder layers, ``enc_norm``
+    and each ``dec`` layer's ``cross`` weights finite and nonzero (the loss
+    reaches the encoder only through the cross-attention), and the loss
+    moved by other frames under the same tokens."""
+    cfg = get_config(SEAMLESS)
+    ne, nd, steps = len(pm.encoder_kinds(cfg)), len(pm.layer_kinds(cfg)), SEAMLESS_TRAIN_STEPS
+    check(pm.encoder_kinds(cfg) == ["enc"] * 12 and pm.layer_kinds(cfg) == ["dec"] * 12
+          and cfg.d_model == SEAMLESS_D and not cfg.tie_embeddings and cfg.remat == "full"
+          and (TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ, cfg.resolved_head_dim)
+          == SEAMLESS_TRAIN_FLASH, f"{SEAMLESS} config {cfg}")
+    spec = pm.model_spec(cfg)
+    sizes = {k: sum(math.prod(leaf.shape) for leaf in pytree.tree_leaves(spec[k]))
+             for k in spec}
+    total = sum(sizes.values())
+    log(f"[train-seamless] {cfg.name}: {total / 1e9:.6f} B parameters (param_count() "
+        f"{cfg.param_count() / 1e9:.6f} B), {ne} enc + {nd} dec layers ("
+        + ", ".join(f"{k} {v / 1e9:.4f} B" for k, v in sizes.items())
+        + f"), vocab {cfg.vocab_size} untied; state (bf16 parameters and gradients, f32 "
+        f"moments) {12 * total / 1e9:.2f} GB")
+    with flash_options({}, key=lambda q, k, kw: (q.shape[2], k.shape[2],
+                                                 kw.get("causal", True))) as opts:
+        run = train_steps("train-seamless", cfg, cosine(3e-4, warmup=1, total=steps), steps,
+                          TRAIN_SEQ)
+    check(all(tuple(b["frames"].shape) == (TRAIN_BATCH, TRAIN_SEQ, cfg.frontend_dim)
+              for b in run["batches"]),
+          f"[train-seamless] frames {[tuple(b['frames'].shape) for b in run['batches']]}")
+    for i, (loss, ce, aux) in enumerate(zip(run["losses"], run["ces"], run["auxs"])):
+        check(torch.equal(loss, ce) and aux.item() == 0.0,
+              f"[train-seamless] step {i + 1}: loss {loss.item()!r} != ce {ce.item()!r} or aux "
+              f"{aux.item()} != 0")
+    log(f"[train-seamless] loss = ce on every step (aux 0); losses "
+        f"{[round(x.item(), 4) for x in run['losses']]} (ln V = {math.log(cfg.vocab_size):.4f})")
+    check_launches("train-seamless", run["launches"],
+                   {"flash_attention": steps * 2 * (ne + 2 * nd),
+                    "rmsnorm": steps * (2 * (2 * ne + 3 * nd) + 2)},
+                   {"flash_attention": "wgmma", "rmsnorm": "warp"})
+    want = {(TRAIN_SEQ, TRAIN_SEQ, True): steps * 2 * nd,
+            (TRAIN_SEQ, TRAIN_SEQ, False): steps * 2 * (ne + nd)}
+    check(opts == want, f"[train-seamless] flash launches by (Sq, Sk, causal) {opts} != {want}")
+    log(f"[train-seamless] flash launches by (Sq, Sk, causal): {opts}")
+    state, step_fn, batch = run.pop("state"), run.pop("step_fn"), run["batches"][0]
+    with recorded_optimizer():
+        profile_step(lambda: step_fn(state, batch), tag="train-seamless",
+                     op_groups=pixtral_op_groups(cfg.vocab_size), shapes=True)
+    del step_fn
+    _free()
+    params = state[0]
+    flat, _ = pytree.tree_flatten_with_path(params)
+    names = ["/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+             for path, _ in flat]
+    watched = [i for i, n in enumerate(names)
+               if n.split("/")[0] in ("frontend_proj", "enc_layers", "enc_norm")
+               or (n.startswith("layers/") and n.split("/")[2] == "cross")]
+    loss, _, grads, _ = train_cli._loss_and_grads(cfg, params, batch)
+    tops = [(names[i], grads[i].abs().max().float().item(), bool(torch.isfinite(grads[i]).all()))
+            for i in watched]
+    del grads
+    _free()
+    bad = [(n, t, f) for n, t, f in tops if not (f and t > 0)]
+    check(not bad and len(tops) == 1 + 9 * ne + 1 + 4 * nd,
+          f"[train-seamless] gradients of the encoder, the stub and the cross-attention that are "
+          f"zero or not finite: {bad} ({len(tops)} leaves watched)")
+    other = dict(batch, frames=torch.roll(batch["frames"], 1, dims=1))
+    with torch.no_grad():
+        moved, _ = mdl.loss_fn(params, other, cfg)
+    check(math.isfinite(moved.item()) and moved.item() != loss.item(),
+          f"[train-seamless] other frames under the same tokens: loss {moved.item()!r} vs "
+          f"{loss.item()!r}")
+    log(f"[train-seamless] on the state after {steps} steps: the {len(tops)} gradient leaves of "
+        f"frontend_proj, the encoder, enc_norm and the {nd} cross-attentions finite and nonzero "
+        f"(max |g| from {min(t for _, t, _ in tops):.4g} to {max(t for _, t, _ in tops):.4g}); "
+        f"the frames rolled by one position under the same tokens move the loss from "
+        f"{loss.item():.6f} to {moved.item():.6f}")
+    out = {k: run[k] for k in ("launches", "step_ms", "peak_bytes", "tok_s")}
+    del run, state, params, batch, other
     _free()
     return out
 
@@ -3878,6 +4002,49 @@ def phase_small_seamless_reference() -> None:
         f"(plain) max err: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; the cache-free forward launched flash_attention {n['flash_attention']} times "
         f"(simt), rmsnorm {n['rmsnorm']} times")
+    # the enc-dec training loss and every gradient over 24 tokens and 40
+    # frames (the cross-attention's Sq != Sk on a training path), then one
+    # functional train step of launch.steps; 1e-3 * (1 + |x|) for every value
+    batch = make_batch(cfg, 2, 24, step=0, seed=SEED, device="cpu")
+    batch["frames"] = torch.from_numpy(
+        rng.standard_normal((2, 40, cfg.frontend_dim)).astype(np.float32)).to(torch.bfloat16)
+    on_card = {k: v.to(DEV) for k, v in batch.items()}
+
+    def close(got, want) -> bool:
+        return bool((got.cpu() - want).abs().le(1e-3 * (1 + want.abs())).all())
+
+    lc, mc, gc_, _ = train_cli._loss_and_grads(cfg, cpu, batch)
+    reset_counters()
+    lg, mg, gg, _ = train_cli._loss_and_grads(cfg, cuda, on_card)
+    torch.cuda.synchronize()
+    n = counts()
+    check(n["flash_attention"] == n["flash_attention/simt"] == 12
+          and n["rmsnorm"] == n["rmsnorm/warp"] == 22,
+          f"small seamless train: launches {n} (want 12 flash simt: 6 in the forward, 6 in the "
+          f"recompute; 22 rmsnorm warp: 12 and 10)")
+    worst = max(((g.cpu() - w).abs().max() / w.abs().max()).item() for g, w in zip(gg, gc_))
+    check(close(lg, lc) and close(mg["ce"], mc["ce"]) and all(close(g, w) for g, w in zip(gg, gc_))
+          and all(bool(w.abs().max() > 0) for w in gc_),
+          f"small seamless train: card vs CPU loss {lg.item()} vs {lc.item()}, worst gradient "
+          f"error {worst} of a leaf's largest")
+    log(f"[reference] small f32 seamless-m4t-medium enc-dec loss (24 tokens over 40 frames) card "
+        f"vs CPU: {lg.item():.6f} vs {lc.item():.6f}; every one of the {len(gc_)} gradient leaves "
+        f"nonzero and within 1e-3 * (1 + |g|), worst error {worst:.3g} of a leaf's largest; "
+        f"flash_attention {n['flash_attention']} launches (simt), rmsnorm {n['rmsnorm']}")
+    del gc_, gg
+    step = steps_lib.make_train_step(cfg)
+    pc, oc, mc = step(_to(cpu, "cpu"), adamw_init(cpu), batch)
+    pg, og, mg = step(_to(cuda, DEV), adamw_init(cuda), on_card)
+    pairs = [(k, mg[k], mc[k]) for k in ("loss", "ce", "aux", "grad_norm")]
+    pairs += [("params", a, b) for a, b in zip(pytree.tree_leaves(pg), pytree.tree_leaves(pc))]
+    pairs += [("mu", a, b) for a, b in zip(pytree.tree_leaves(og.mu), pytree.tree_leaves(oc.mu))]
+    wrong = [k for k, got, want in pairs if not close(got, want)]
+    check(not wrong and int(og.step) == int(oc.step) == 1,
+          f"small seamless launch.steps train step: card vs CPU differ in {wrong}")
+    log(f"[reference] small f32 seamless-m4t-medium launch.steps.make_train_step: card vs CPU "
+        f"loss {mg['loss'].item():.6f} vs {mc['loss'].item():.6f}, grad norm "
+        f"{mg['grad_norm'].item():.6f} vs {mc['grad_norm'].item():.6f}; every parameter and "
+        f"first moment within 1e-3 * (1 + |x|)")
 
 
 def phase_small_pixtral_reference() -> None:
@@ -4443,23 +4610,27 @@ def time_chunk_states(gen: torch.Generator) -> None:
         f"difference {err:.3g}")
 
 
-def flash_timing(gen: torch.Generator, b: int, hq: int, hkv: int, sq: int, hd: int) -> dict:
-    """flash_attention at q (b, hq, sq, hd) over k, v (b, hkv, sq, hd), bf16
-    causal: ms a call and on the device alone, beside its bound, the plain
-    version and SDPA (``enable_gqa`` where hq != hkv); logs a [timing] line."""
+def flash_timing(gen: torch.Generator, b: int, hq: int, hkv: int, sq: int, hd: int, *,
+                 causal: bool = True) -> dict:
+    """flash_attention at q (b, hq, sq, hd) over k, v (b, hkv, sq, hd), bf16,
+    causal unless ``causal`` is False: ms a call and on the device alone,
+    beside its bound, the plain version and SDPA (``enable_gqa`` where hq !=
+    hkv); logs a [timing] line."""
     import torch.nn.functional as F
     q = torch.randn(b, hq, sq, hd, generator=gen, device=DEV).bfloat16()
     k, v = (torch.randn(b, hkv, sq, hd, generator=gen, device=DEV).bfloat16() for _ in range(2))
-    bound, by = flash_bound_ms(b, hq, hkv, sq, hd)
-    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+    bound, by = flash_bound_ms(b, hq, hkv, sq, hd, causal=causal)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,  # noqa: E731
                                                   enable_gqa=hq != hkv)
+    mask = "causal" if causal else "not causal"
     row = {
-        "shape": (f"q, k, v: ({b}, {hq}, {sq}, {hd}) bfloat16, causal" if hq == hkv else
-                  f"q ({b}, {hq}, {sq}, {hd}), k, v ({b}, {hkv}, {sq}, {hd}) bfloat16, causal"),
+        "shape": (f"q, k, v: ({b}, {hq}, {sq}, {hd}) bfloat16, {mask}" if hq == hkv else
+                  f"q ({b}, {hq}, {sq}, {hd}), k, v ({b}, {hkv}, {sq}, {hd}) bfloat16, {mask}"),
         "variant": fa_mod.variant(q.dtype, hd),
-        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v), 50, warmup=5),
-        "device_ms": device_ms(lambda: fa_mod.flash_attention(q, k, v), calls=20, replays=3),
-        "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v), 3, warmup=1),
+        "ms": time_ms(lambda: fa_mod.flash_attention(q, k, v, causal=causal), 50, warmup=5),
+        "device_ms": device_ms(lambda: fa_mod.flash_attention(q, k, v, causal=causal),
+                               calls=20, replays=3),
+        "plain_ms": time_ms(lambda: fa_mod.plain(q, k, v, causal=causal), 3, warmup=1),
         "bound_ms": bound, "bound_by": by,
         "library_ms": time_ms(sdpa, 50, warmup=5),
         "library_device_ms": device_ms(sdpa, calls=20, replays=3)}
@@ -4615,6 +4786,10 @@ def phase_kernel_line(gen: torch.Generator, errs: dict, launches: dict) -> list[
     # deepseek's MTP layer in training: 128 heads of 56 over 2047 positions,
     # on the CUDA-core kernel
     out[-1]["deepseek_mtp_shape"] = flash_timing(gen, *DEEPSEEK_MTP_FLASH)
+    # seamless's training attention, 16 heads of 64 over 4096 positions: the
+    # decoder's self-attention (causal), the encoder's and the cross (not)
+    out[-1]["seamless_train_shapes"] = [flash_timing(gen, *SEAMLESS_TRAIN_FLASH, causal=c)
+                                        for c in (True, False)]
     # seamless's encoder at 4096 and 1024 frames and a cache-free
     # cross-attention of 16 queries over 4096 keys: not causal, every (query,
     # key) pair; SDPA with is_causal=False beside each
@@ -4830,6 +5005,7 @@ def main() -> int:
     trained_granite = run_phase("[train-granite]", phase_train_granite)
     trained_pixtral = run_phase("[train-pixtral]", phase_train_pixtral)
     trained_deepseek = run_phase("[train-deepseek]", phase_train_deepseek)
+    trained_seamless = run_phase("[train-seamless]", phase_train_seamless)
     gemma2 = run_phase("[serve-gemma2]", phase_serve_gemma2, gen)
     archs = run_phase("[serve-archs]", phase_serve_archs, gen)
     zamba2 = run_phase("[serve-zamba2]", phase_serve_zamba2, gen)
@@ -4866,6 +5042,7 @@ def main() -> int:
                "train_granite": trained_granite["launches"],
                "train_pixtral": trained_pixtral["launches"],
                "train_deepseek": trained_deepseek["launches"],
+               "train_seamless": trained_seamless["launches"],
                "serve_gemma2": gemma2["launches"],
                "serve_minicpm": archs["minicpm-2b"]["launches"],
                "serve_mistral": archs["mistral-large-123b"]["launches"],

@@ -119,6 +119,12 @@ class ArchConfig:
     def is_encdec(self) -> bool:
         return bool(self.encoder_blocks)
 
+    @property
+    def subquadratic(self) -> bool:
+        """True if long-context decode is viable: a unit of the decoder holds
+        a ``mamba`` layer (SSM or hybrid; ``repro/configs/base.py:123-126``)."""
+        return any("mamba" in unit for unit, _ in self.blocks)
+
     def param_count(self) -> int:
         """Analytic parameter count (total, incl. all experts)."""
         return _count_params(self)

@@ -9,7 +9,9 @@ number of the config's units (``configs.cut_layers``, as the serve
 launcher): gemma2-27b's 46 layers with their f32 moments need ~330 GB,
 2 of them fit one card.  A vlm (pixtral-12b) trains on ``make_batch``'s
 patches, min(256, seq // 2) of them over the leading slots, which leave
-the loss; its 40 layers need ~147 GB, 8 of them fit::
+the loss; its 40 layers need ~147 GB, 8 of them fit.  An encoder-decoder
+(seamless-m4t-medium) trains on ``make_batch``'s frames, ``--seq`` of them
+a row, which its encoder reads; its 12 + 12 layers fit whole::
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch phi3-mini-3.8b --smoke --steps 50 --batch 8 --seq 128
@@ -19,6 +21,10 @@ the loss; its 40 layers need ~147 GB, 8 of them fit::
         --arch pixtral-12b --smoke --device cpu --steps 4 --batch 2 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch pixtral-12b --layers 8 --steps 4 --batch 1 --seq 4096
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch seamless-m4t-medium --smoke --device cpu --steps 4 --batch 2 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch seamless-m4t-medium --steps 4 --batch 1 --seq 4096
 
 Mirrors ``repro/launch/train.py:29-121``.
 """

@@ -2,16 +2,18 @@
 decode, and the model step as an overlay graph.
 
 Port of ``repro/models/model.py`` (``cross_entropy`` :25, ``loss_fn`` :51,
-``init_cache`` :92, ``prefill`` :96, ``decode_step`` :150,
+``init_cache`` :92 (and ``cache_spec``, ``repro/models/transformer.py:115``),
+``prefill`` :96, ``decode_step`` :150,
 ``prefill_chunk`` :164, ``_current_index`` :185, ``build_step_graph``
 :203, ``_fill_cross_caches`` :114) for decoder LMs of dense (full or
 sliding-window), mamba, shared-attention (zamba2), mixture-of-experts
 (granite; its loss adds the routers' load-balance loss) and MLA
 (deepseek-v3's ``mla_dense``/``mla_moe``; its loss adds the
 multi-token-prediction term, which runs the ``mtp`` module) layers, for
-the encoder-decoder seamless-m4t (serving only, through :func:`prefill`
-with ``enc_in`` and :func:`decode_step`) and
-for the vlm pixtral (its patch embeddings through :func:`prefill` with
+the encoder-decoder seamless-m4t (served through :func:`prefill` with
+``enc_in`` and :func:`decode_step`; its loss runs the encoder on the
+batch's frames, then the decoder cross-attending to the encoder's output)
+and for the vlm pixtral (its patch embeddings through :func:`prefill` with
 ``patch_embeds``, its decodes as a text model's; its loss masks the patch
 positions out of the cross-entropy).
 """
@@ -19,6 +21,7 @@ positions out of the cross-entropy).
 from __future__ import annotations
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -52,7 +55,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params: dict, batch: dict, cfg: ArchConfig, *, aux_weight: float = 0.01):
-    """Returns (loss, metrics) for a decoder LM: ``ce + aux_weight * aux``
+    """Returns (loss, metrics) for every family: ``ce + aux_weight * aux``
     and ``{"ce", "acc", "aux"}`` (``repro/models/model.py:49-86``), ``aux``
     the routers' load-balance loss summed over the layers
     (:func:`~repro_torch.models.transformer.forward_with_aux`; 0 for a
@@ -63,14 +66,16 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, *, aux_weight: float = 0
     leave the loss (``pos >= npatch``, :63-69): a caller's ``mask`` wins,
     as in the reference.  A config with ``mtp_depth`` (deepseek-v3) adds
     ``0.3 * ce2``, the multi-token-prediction term (:func:`_mtp_ce`,
-    :73-85); the metrics keep their three keys.  The enc-dec loss is
-    refused."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the loss of the enc-dec family is not ported yet (ROADMAP "
-            f"queue 1, \"The losses the port refuses\")")
+    :73-85); the metrics keep their three keys.  An encoder-decoder
+    (seamless-m4t) first runs the encoder on the batch's ``frames`` (B, Sk,
+    frontend_dim) (:func:`~repro_torch.models.transformer.encode`, its
+    layers rematerialized as the decoder's), and every ``dec`` layer
+    cross-attends to the encoder's output (:56-60); Sk need not be the
+    tokens' S."""
+    enc_out = tfm.encode(params, cfg, batch["frames"]) if cfg.is_encdec else None
     patches = batch.get("patch_embeds")
-    h, aux = tfm.forward_with_aux(params, cfg, batch["tokens"], patch_embeds=patches)
+    h, aux = tfm.forward_with_aux(params, cfg, batch["tokens"], enc_out=enc_out,
+                                  patch_embeds=patches)
     logits = tfm.unembed(params, h, cfg)
     mask = batch.get("mask")
     if mask is None and patches is not None:
@@ -140,6 +145,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         return kv()
 
     return [one(kind) for kind in layer_kinds(cfg)]
+
+
+def cache_spec(cfg: ArchConfig, batch: int, max_len: int,
+               device: "str | torch.device | None" = None) -> list[dict]:
+    """:func:`init_cache`'s caches as :class:`~repro_torch.core.graph.
+    TensorSpec` on ``device`` (default ``cuda``), allocating nothing: they
+    are built on the meta device (the counterpart of
+    ``repro/models/transformer.py::cache_spec``, :115, whose stacked tree
+    holds the same leaves per layer)."""
+    from repro_torch.core.graph import TensorSpec
+    dev = resolve_device(device)
+    return pytree.tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype, dev),
+                           init_cache(cfg, batch, max_len, "meta"))
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, caches: list, *,

@@ -52,6 +52,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -187,18 +188,18 @@ def model_spec(cfg: ArchConfig) -> dict:
 def abstract(spec: Any, device: "str | torch.device | None" = None) -> Any:
     """The spec tree's leaves as :class:`~repro_torch.core.graph.TensorSpec`
     on ``device`` (default ``cuda``): the avals of a graph input that takes
-    the parameters (``repro/models/params.py::abstract``)."""
+    the parameters (``repro/models/params.py::abstract``).  Any pytree of
+    specs will do: :func:`~repro_torch.optim.adamw.opt_state_spec`'s
+    ``OptState`` too."""
     from repro_torch.core.graph import TensorSpec
     dev = resolve_device(device)
     return _map_spec(spec, lambda s: TensorSpec(s.shape, s.dtype, dev))
 
 
 def _map_spec(spec: Any, fn) -> Any:
-    if isinstance(spec, ParamSpec):
-        return fn(spec)
-    if isinstance(spec, list):
-        return [_map_spec(s, fn) for s in spec]
-    return {k: _map_spec(v, fn) for k, v in spec.items()}
+    """``fn`` of every :class:`ParamSpec` leaf of a pytree (dicts, lists,
+    ``OptState``), the tree's structure kept."""
+    return pytree.tree_map(fn, spec)
 
 
 def init(cfg: ArchConfig, generator: torch.Generator,

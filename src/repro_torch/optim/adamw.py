@@ -56,6 +56,19 @@ def adamw_init(params: Any) -> OptState:
                     nu=pytree.tree_map(f32, params))
 
 
+def opt_state_spec(param_spec: Any) -> OptState:
+    """The optimizer state of a :class:`~repro_torch.models.params.ParamSpec`
+    tree as specs, allocating nothing (``repro/optim/adamw.py:42-48``): an
+    int32 step and f32 moments of the parameters' shapes, zero-initialized.
+    ``params.abstract`` turns it into the avals of :func:`adamw_init`'s
+    state."""
+    from repro_torch.models.params import ParamSpec
+    as_f32 = lambda s: dataclasses.replace(s, init="zeros", dtype=torch.float32)  # noqa: E731
+    return OptState(step=ParamSpec((), "zeros", dtype=torch.int32),
+                    mu=pytree.tree_map(as_f32, param_spec),
+                    nu=pytree.tree_map(as_f32, param_spec))
+
+
 def _slices(t: torch.Tensor) -> list[torch.Tensor]:
     """``t``'s flat view (a copy if ``t`` is strided) in slices of at most
     ``SLICE_ELEMENTS`` elements."""

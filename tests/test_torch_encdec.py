@@ -622,16 +622,6 @@ def test_prefill_refuses_a_missing_or_too_long_encoder_input():
                        enc_in=torch.from_numpy(_frames(tcfg, 17)))
 
 
-def test_loss_fn_refuses_an_encoder_decoder():
-    """The reference's loss takes ``frames``; the port's does not train
-    the enc-dec family yet."""
-    _, tcfg, _, tp, _ = _models()
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="The losses the port refuses"):
-        tmodel.loss_fn(tp, {"tokens": toks, "labels": toks,
-                            "frames": torch.zeros(1, 8, tcfg.frontend_dim)}, tcfg)
-
-
 # ---------------------------------------------------------------------------
 # the code itself
 # ---------------------------------------------------------------------------

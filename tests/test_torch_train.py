@@ -148,13 +148,6 @@ def test_remat_policies_give_bit_identical_loss_and_gradients(arch):
             assert torch.equal(a, b)
 
 
-def test_loss_of_other_families_is_not_ported():
-    cfg = smoke_config("seamless-m4t-medium")
-    batch = tpipe.make_batch(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.loss_fn({}, batch, cfg)
-
-
 # ---------------------------------------------------------------------------
 # AdamW and schedules
 # ---------------------------------------------------------------------------

@@ -237,17 +237,6 @@ def test_a_callers_mask_wins_over_the_patches():
     assert abs(loss.item() - run["got"][0].item()) > 1e-3
 
 
-def test_the_enc_dec_loss_of_seamless_is_still_refused():
-    """The vlm loss is ported (deepseek's MTP loss too); the enc-dec
-    seamless still raises, naming ROADMAP's item."""
-    cfg = smoke_config("seamless-m4t-medium")
-    batch = tpipe.make_batch(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="the loss of the enc-dec family is not "
-                                                  "ported yet .ROADMAP queue 1, \"The losses "
-                                                  "the port refuses\""):
-        tmodel.loss_fn({}, batch, cfg)
-
-
 # ---------------------------------------------------------------------------
 # the traced step, the launcher, serving
 # ---------------------------------------------------------------------------
