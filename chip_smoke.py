@@ -28,7 +28,21 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
    placement (0 pass-through tiles, or the run fails) — outputs
    bit-identical across placements — and the LARGE ``vmul_reduce``
    bitstream; prints every row's pass-through count and ms per call, and
-   the host time of each layer of the LARGE row at 4096;
+   the host time of each layer of the LARGE row at 4096.  ``[mesh]`` (after
+   ``[async-fig3]``) starts an NCCL group of world 1 on a ``FileStore`` and
+   runs fig3's ``sum(a * b)`` as ``vmul_reduce(a * b, 1)`` (the product
+   vector crosses the hops to the kernel's tile) through ``Overlay(3, 3,
+   mesh=)`` over a 1-rank ``"tiles"`` mesh, static with 0-3 pass-through
+   tiles and dynamic, at 4096 and 2^24: outputs bit-identical to the local
+   overlay's, one vmul_reduce launch a call, as many NCCL kernels a call as
+   the placement's hops (``torch.profiler``), the specialized tier (a CUDA
+   graph captured through NCCL) bit-identical to the generic one, ms per
+   call beside the local rows; then ``moe_fwd_ep`` at granite-moe-1b-a400m's
+   full width on 4096 bf16 tokens over a ``(1, 1)`` mesh against the local
+   MoE, and ``CompressedReducer`` two steps on an f32 tree of granite's
+   parameter shapes reduced through NCCL ``all_reduce`` (the int8 bound a
+   step, the error-feedback sum within one step's bound of the true sum);
+   every number a world-1 number;
 4. serves phi3-mini-3.8b at full width (random bf16 weights from a seed,
    32 layers) through ``Overlay(3, 3)`` and with ``overlay=None``: identical
    greedy token streams, and one rmsnorm launch per norm call;
@@ -280,7 +294,8 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
     the card's name and power limit, and last the result line.
 
 Launch counts come from the wrappers' counters, set to 0 just before each
-driven path (the paper workload, the overlay-served runs, the relocation
+driven path (the paper workload, its calls on the mesh and local overlays
+in ``[mesh]``, the overlay-served runs, the relocation
 and specialization rounds, the fleet runs, the full-width training runs
 (the train launcher's too),
 the dense family's, zamba2's, granite's (training too), deepseek's (training
@@ -317,6 +332,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
@@ -328,6 +344,7 @@ if not torch.cuda.is_available():
 
 from torch.utils import _pytree as pytree  # noqa: E402
 
+from repro_torch import sharding as shd  # noqa: E402
 from repro_torch.configs import (PAPER_VECTOR_LEN, cut_layers, get_config,  # noqa: E402
                                  smoke_config)
 from repro_torch.core import (FaultPlan, FleetOverlay, Overlay, PlacementPolicy,  # noqa: E402
@@ -340,14 +357,17 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels import vmul_reduce as vr_mod  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import params as pm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.optim import adamw_init, adamw_update_, constant, cosine  # noqa: E402
+from repro_torch.optim import adamw_init, adamw_update_, constant, cosine, decay_mask  # noqa: E402
 from repro_torch.optim.adamw import SLICE_ELEMENTS  # noqa: E402
+from repro_torch.optim.compression import CompressedReducer, make_reduce_fn  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serving.loop import EventLoopEngine  # noqa: E402
 
@@ -953,6 +973,222 @@ def _fig3_dot(a, b):
 
 def _fig3_large(a, b):
     return ops.vmul_reduce(a, b)
+
+
+def _fig3_mesh(a, b, one):
+    """fig3's ``sum(a * b)`` with the reduction on the LARGE kernel: VMUL
+    (an elementwise mul on a SMALL tile) streams its product vector through
+    the pass-through tiles to ``vmul_reduce`` (times 1, exact) on a LARGE
+    tile, as the paper's VMUL -> Reduce."""
+    return ops.vmul_reduce(a * b, one)
+
+
+# trace node ids of _fig3_mesh: inputs 0-2, mul 3, kernels/vmul_reduce 4
+FIG3_MESH_STATIC = tuple((name, {3: vmul, 4: (0, 0)}) for name, vmul in FIG3_STATIC)
+MESH_TIME_ITERS = {PAPER_VECTOR_LEN: 100, 1 << 24: 20}
+
+
+def nccl_kernels(fn) -> int:
+    """NCCL kernels the card runs for one call of ``fn`` (``torch.profiler``;
+    ``ncclDevKernel_*``, ``ncclKernel_*`` before NCCL 2.19), not the device
+    ranges the collectives annotate (``nccl:all_to_all``)."""
+    return sum(1 for name in kernels_launched(fn, calls=1)
+               if name.startswith(("ncclDevKernel", "ncclKernel")))
+
+
+def phase_mesh(gen: torch.Generator) -> dict:
+    """[mesh] The port's multi-device paths at world 1 over NCCL (the card's
+    machine has one GPU): the overlay across a 1-rank ``"tiles"`` mesh
+    (each hop a ring shift, ``dist.all_to_all_single``), expert-parallel
+    MoE at granite's full width over a ``(1, 1)`` mesh, and int8 gradient
+    compression reduced through ``all_reduce``.  The group lives on a
+    ``FileStore`` in a temporary directory and is destroyed at the end,
+    after the overlays' ``close()``, which releases every CUDA graph that
+    captured a collective (a live one makes ``destroy_process_group``
+    hang).  Returns the launches of the overlay rows."""
+    log(f"[mesh] NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, world 1 on "
+        f"{torch.cuda.get_device_name(0)}")
+    store_dir = tempfile.mkdtemp(prefix="mesh_store_")
+    backend = mesh_lib.init_group("cuda", os.path.join(store_dir, "store"))
+    check(backend == "nccl" and dist.get_backend() == "nccl",
+          f"[mesh] the group's backend is {dist.get_backend()}, not nccl")
+    overlays, alive = [], []
+    try:
+        tiles = mesh_lib.make_mesh("cuda", (1,), ("tiles",))
+        host = mesh_lib.make_host_mesh("cuda")
+        launches = _mesh_overlay_rows(gen, tiles, overlays)
+        _mesh_ep(gen, host)
+        _mesh_compression(gen, host)
+    finally:
+        for ov in overlays:         # a mesh overlay's close frees its captured graphs
+            ov.close()
+        overlays.clear()
+        torch.cuda.synchronize()
+        gc.collect()
+        alive = [o for o in gc.get_objects() if isinstance(o, interp.GraphKernel)
+                 and o.kernel.hop_fn is not interp.local_hop and o._graph is not None]
+        for o in alive:             # so that a failed check below cannot hang the teardown
+            o.release()
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    check(not alive, f"[mesh] Overlay.close() left {len(alive)} captured graph(s) of the "
+          f"mesh alive")
+    check(not dist.is_initialized(), "[mesh] the process group outlived the phase")
+    return launches
+
+
+def _mesh_overlay_rows(gen: torch.Generator, tiles, overlays: list) -> dict:
+    """fig3 through ``Overlay(3, 3, mesh=tiles)`` and the local overlay at
+    every placement and both sizes: bit-identical outputs, one vmul_reduce
+    launch a call, NCCL kernels a call = hops; then ms per call."""
+    rows = {}
+    reset_counters()                           # the driven path starts here
+    calls = 0
+    for size in FIG3_SIZES:
+        a = torch.randn(size, generator=gen, device=DEV)
+        b = torch.randn(size, generator=gen, device=DEV)
+        one = torch.ones(size, device=DEV)
+        fns = {}
+        for where, kw in (("mesh", {"mesh": tiles}), ("local", {})):
+            static_ov = Overlay(3, 3, policy=PlacementPolicy.STATIC, **kw)
+            dyn_ov = Overlay(3, 3, **kw)
+            overlays += [static_ov, dyn_ov]
+            for name, fixed in FIG3_MESH_STATIC:
+                fns[(where, name)] = static_ov.jit(_fig3_mesh, name="vmul_reduce_mesh",
+                                                   fixed=fixed)
+            fns[(where, "dynamic")] = dyn_ov.jit(_fig3_mesh, name="vmul_reduce_mesh")
+        outs = {key: f(a, b, one) for key, f in fns.items()}
+        calls += len(fns)
+        for (where, name), y in outs.items():
+            check(torch.equal(y, outs[("local", name)]),
+                  f"[mesh] n={size} {name}: the mesh overlay's {y.item()!r} != the local "
+                  f"overlay's {outs[('local', name)].item()!r}")
+        check(abs(outs[("mesh", "dynamic")].item() - torch.dot(a, b).item())
+              <= 1e-5 * (a * b).abs().sum().item(), f"[mesh] n={size}: sum(a*b) disagrees "
+              f"with torch.dot")
+        rows[size] = (fns, a, b, one)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches["vmul_reduce"] == calls,
+          f"[mesh] vmul_reduce launched {launches['vmul_reduce']} for {calls} calls (want one a call)")
+    log(f"[mesh] fig3 as vmul_reduce(a * b, 1) on Overlay(3, 3, mesh=<1-rank 'tiles' mesh>) "
+        f"and on the local overlay, static 0-3 pass-through and dynamic, n = "
+        f"{', '.join(map(str, FIG3_SIZES))}: bit-identical; launches {launches}")
+
+    fns, a, b, one = rows[PAPER_VECTOR_LEN]
+    hops = {}
+    for (where, name), f in fns.items():
+        if where != "mesh":
+            continue
+        h = int(f.accelerator(a, b, one).routes.sum())
+        k = nccl_kernels(lambda f=f: f(a, b, one))
+        hops[name] = (h, k, f.accelerator(a, b, one).placement.total_passthrough)
+        check(k == h, f"[mesh] {name}: {k} NCCL kernels for one call of {h} hops")
+    log("[mesh] n=4096 one call: (hops, NCCL kernels, pass-through tiles) " +
+        ", ".join(f"{name} {v}" for name, v in hops.items()))
+
+    times = {}
+    for size, (fns, a, b, one) in rows.items():
+        iters = MESH_TIME_ITERS[size]
+        times[size] = {f"{where}/{name}": time_ms(lambda f=f: f(a, b, one), iters)
+                       for (where, name), f in fns.items()}
+        log(f"[mesh] n={size} ms per call (world 1, NCCL; CUDA events over {iters} calls): " +
+            ", ".join(f"{k}={v:.4f}" for k, v in times[size].items()))
+
+    # the route-constant tier on the mesh: a CUDA graph captured through NCCL
+    fns, a, b, one = rows[PAPER_VECTOR_LEN]
+    f = fns[("mesh", "static_3pass")]
+    generic = f(a, b, one)
+    builds = count_spec_builds(f.overlay)
+    f.specialize(a, b, one)
+    (entry,) = f._entries.values()
+    spec = f(a, b, one)
+    torch.cuda.synchronize()
+    check(entry.record.tier == "specialized" and builds[0] == 1,
+          f"[mesh] static_3pass did not specialize (tier {entry.record.tier}, builds {builds})")
+    check(torch.equal(spec, generic), f"[mesh] the specialized tier's {spec.item()!r} != the "
+          f"generic tier's {generic.item()!r}")
+    spec_nccl = nccl_kernels(lambda: f(a, b, one))
+    check(spec_nccl == hops["static_3pass"][0],
+          f"[mesh] a replay ran {spec_nccl} NCCL kernels for {hops['static_3pass'][0]} hops")
+    spec_ms = time_ms(lambda: f(a, b, one), MESH_TIME_ITERS[PAPER_VECTOR_LEN])
+    log(f"[mesh] n={PAPER_VECTOR_LEN} static_3pass specialized (the walk captured as a CUDA "
+        f"graph, NCCL's kernels in it): bit-identical to generic, {spec_nccl} NCCL kernels a "
+        f"replay, {spec_ms:.4f} ms per call (generic "
+        f"{times[PAPER_VECTOR_LEN]['mesh/static_3pass']:.4f}, world 1)")
+    return launches
+
+
+def _mesh_ep(gen: torch.Generator, host) -> None:
+    """``moe_fwd_ep`` at granite-moe-1b-a400m's full width on 4096 bf16
+    tokens over the ``(1, 1)`` host mesh, held to ``_moe_fwd_local``."""
+    cfg = get_config(GRANITE)
+    e, d, f, t = cfg.num_experts, cfg.d_model, cfg.moe_d_ff, 4096
+    w = lambda *shape, fan: (torch.randn(*shape, generator=gen, device=DEV)  # noqa: E731
+                             * fan ** -0.5).to(torch.bfloat16)
+    p = {"router": w(d, e, fan=d), "w_gate": w(e, d, f, fan=d), "w_up": w(e, d, f, fan=d),
+         "w_down": w(e, f, d, fan=f)}
+    x = torch.randn(t, d, generator=gen, device=DEV).to(torch.bfloat16)
+    rules = shd.DEFAULT_RULES
+    lay = moe_mod.ep_layout(cfg, host, rules, t, d)
+    shards = moe_mod.ep_shards(p, cfg, host, rules, t)
+    y_ep, aux_ep = moe_mod.moe_fwd_ep(shards, x, cfg, host, rules)
+    y_loc, aux_loc = moe_mod._moe_fwd_local(p, x, cfg)
+    torch.cuda.synchronize()
+    diff = (y_ep.float() - y_loc.float()).abs().max().item()
+    scale = y_loc.float().abs().max().item()
+    check(y_ep.shape == y_loc.shape and bool(torch.isfinite(y_ep).all()),
+          f"[mesh] EP output {tuple(y_ep.shape)} (want {tuple(y_loc.shape)}, finite)")
+    check(diff <= 1e-2 * scale and abs(aux_ep.item() - aux_loc.item()) <= 1e-5 * aux_loc.item(),
+          f"[mesh] EP differs from the local MoE by {diff} (max |y| {scale}), aux "
+          f"{aux_ep.item()} vs {aux_loc.item()}")
+    ep_ms = time_ms(lambda: moe_mod.moe_fwd_ep(shards, x, cfg, host, rules), 10)
+    local_ms = time_ms(lambda: moe_mod._moe_fwd_local(p, x, cfg), 10)
+    log(f"[mesh] moe_fwd_ep at {GRANITE}'s full width (d {d}, {e} experts, top-"
+        f"{cfg.experts_per_token}, expert d_ff {f}) on {t} bf16 tokens over a (1, 1) mesh "
+        f"(capacity {lay.cap}, {lay.e_loc} experts a rank): max |EP - local| {diff:.3e} "
+        f"(max |y| {scale:.3e}; bit-identical {torch.equal(y_ep, y_loc)}), aux {aux_ep.item():.6f} "
+        f"vs {aux_loc.item():.6f}; {ep_ms:.3f} ms per call, local {local_ms:.3f} ms (world 1)")
+
+
+def _mesh_compression(gen: torch.Generator, host) -> None:
+    """Two ``CompressedReducer`` steps on an f32 tree of granite's
+    parameter shapes, reduced through NCCL ``all_reduce`` over the host
+    mesh's ``"data"`` axis: each step's per-element error within the int8
+    bound (half a scale, ``max|g| / 254`` a leaf), and the two steps' sum
+    within one step's bound of the true sum (error feedback leaves only
+    the last step's residual)."""
+    spec = pm.model_spec(get_config(GRANITE))
+    leaves = pytree.tree_leaves(spec)
+    grads = [[torch.randn(s.shape, generator=gen, device=DEV) * 1e-2 for s in leaves]
+             for _ in range(2)]
+    n = sum(g.numel() for g in grads[0])
+    reduce_fn = make_reduce_fn(host, "data")
+    red = CompressedReducer()
+    sums, ms, worst = None, [], []
+    for g in grads:
+        fed = g if red.error is None else [x + e for x, e in zip(g, red.error)]
+        half_scales = [x.abs().max() / 254.0 for x in fed]
+        t_ms, back = _sync_ms(lambda g=g: red.step(g, reduce_fn))
+        ms.append(t_ms)
+        worst.append(max(((y - x).abs().max() / h).item()
+                         for y, x, h in zip(back, fed, half_scales)))
+        sums = back if sums is None else [t + y for t, y in zip(sums, back)]
+        del fed, back
+    drift = max(((t - (g0 + g1)).abs().max() / h).item()
+                for t, g0, g1, h in zip(sums, grads[0], grads[1], half_scales))
+    # f32 rounding of g / scale and q * scale: ~1e-5 of a scale
+    check(max(worst) <= 1 + 1e-3, f"[mesh] compression: errors of {worst} half-scales "
+          f"(the int8 bound is 1)")
+    check(drift <= 1 + 1e-3, f"[mesh] compression: the two steps' sum is {drift} half-scales "
+          f"of the last step from the true sum (the bound is 1)")
+    log(f"[mesh] CompressedReducer on {len(leaves)} f32 leaves of {GRANITE}'s parameter "
+        f"shapes ({n} elements), reduced through NCCL all_reduce: worst error "
+        f"{', '.join(f'{w:.6f}' for w in worst)} half-scales by step (bound 1); the sum of "
+        f"both steps {drift:.6f} half-scales of step 2 from the true sum (bound 1); ms per "
+        f"step {', '.join(f'{v:.1f}' for v in ms)} (world 1)")
+    del grads, sums, red
+    _free()
 
 
 def phase_overlay_paper(gen: torch.Generator) -> dict:
@@ -2309,7 +2545,8 @@ def phase_train_gemma2() -> dict:
     start = torch.cuda.memory_allocated()
     grad_bytes = sum(g.numel() * g.element_size() for g in grads)
     torch.cuda.reset_peak_memory_stats()
-    ms, _ = _sync_ms(lambda: adamw_update_(state[0], grads, state[1], lr=3e-4))
+    ms, _ = _sync_ms(lambda: adamw_update_(state[0], grads, state[1], lr=3e-4,
+                                           decay=decay_mask(state[0])))
     extra = torch.cuda.max_memory_allocated() - start
     largest = max(p.numel() for p in pytree.tree_leaves(state[0]))
     log(f"[train-gemma2] optimizer step alone: {ms:.1f} ms, peak {extra / 2**30:.3f} GiB above "
@@ -4995,6 +5232,7 @@ def main() -> int:
     phase_one_launch(gen)
     paper = run_phase("[overlay]", phase_overlay_paper, gen)
     async_fig3 = run_phase("[async-fig3]", phase_async_fig3, gen)
+    mesh = run_phase("[mesh]", phase_mesh, gen)
     served = run_phase("[serve]", phase_serve, gen)
     trained = run_phase("[train]", phase_train)
     train_overlay = run_phase("[train-overlay]", phase_train_overlay)
@@ -5026,7 +5264,7 @@ def main() -> int:
     booted = run_phase("[warm-restart]", phase_warm_restart)
     analysis = run_phase("[analysis]", phase_analysis)
     gpu_state("[timing]")
-    by_path = {"fig3": paper["launches"], "async_fig3": async_fig3,
+    by_path = {"fig3": paper["launches"], "async_fig3": async_fig3, "mesh": mesh,
                "serve": served["launches"],
                "relocate": served["relocate"], "specialize": served["specialize"],
                "serve_loop": served["serve_loop"]["launches"],

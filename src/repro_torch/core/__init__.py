@@ -16,6 +16,8 @@ Public API (frontend first — the paper's programming model):
   isa.compile_graph / Program / Opcode / Instruction — 42-instruction
       controller ISA
   interpreter.run_program / assemble       — eager ISA + JIT assembly
+  interpreter.assemble_sharded / wrap_sharded* — the sharded mode: each
+      hop a ring shift over a ``DeviceMesh`` axis (torch.distributed)
   interpreter.specialize_kernel / GraphKernel — the route-constant tier
       (on the card: a CUDA-graph replay of the walk)
   placement.score_placement / check_assignment — the cost-model planner's
@@ -42,9 +44,12 @@ from repro_torch.core.graph import (Graph, NodeRef, TensorSpec, branchy_graph,
                                     saxpy_graph, vmul_reduce_graph)
 from repro_torch.core.interpreter import (AssembledAccelerator, GraphKernel,
                                           Kernel, SpecializedKernel, assemble,
-                                          bind_routes, build_kernel,
-                                          route_hops, route_vector, run_program,
-                                          specialize_kernel, zero_hop)
+                                          assemble_sharded, bind_routes,
+                                          build_kernel, route_hops,
+                                          route_vector, run_program,
+                                          specialize_kernel, wrap_sharded,
+                                          wrap_sharded_kernel,
+                                          wrap_sharded_specialized, zero_hop)
 from repro_torch.core.isa import (Instruction, Opcode, Program,
                                   compile_compute, compile_graph,
                                   compile_routes)
@@ -74,7 +79,8 @@ __all__ = [
     "PlacementError", "PlacementPolicy", "Program", "ResidentAccelerator",
     "SpecializationStats", "SpecializedKernel", "StoreStats", "TensorSpec",
     "TileClass",
-    "TileGrid", "TraceError", "assemble", "bind_routes", "branchy_graph",
+    "TileGrid", "TraceError", "assemble", "assemble_sharded", "bind_routes",
+    "branchy_graph",
     "build_kernel", "cache_key", "candidate_placements", "check_assignment",
     "compile_compute", "compile_graph", "compile_routes", "default_overlay",
     "jit", "jit_assemble", "kernel_key",
@@ -83,5 +89,6 @@ __all__ = [
     "placement_footprint", "register_call", "register_op", "route_hops",
     "route_vector", "run_program", "saxpy_graph", "score_placement",
     "signature_of", "spec_key", "specialize_kernel", "trace_to_graph",
-    "vmul_reduce_graph", "zero_hop",
+    "vmul_reduce_graph", "wrap_sharded", "wrap_sharded_kernel",
+    "wrap_sharded_specialized", "zero_hop",
 ]

@@ -70,11 +70,14 @@ def cache_key(name: str, signature: tuple, placement_desc: str = "",
 
 
 def kernel_key(name: str, signature: tuple, fingerprint: str = "",
-               extra: str = "") -> str:
+               extra: str = "", mesh_desc: str = "") -> str:
     """Placement-free identity of a kernel artifact: (graph name, input
     signature, graph content fingerprint, ``extra`` — the jit kwargs the
-    kernel honors, such as its donated inputs).  Two placements of one
-    graph share ONE kernel."""
+    kernel honors, such as its donated inputs — and ``mesh_desc``, the mesh
+    axis a sharded kernel's hops cross, empty for a local kernel).  Two
+    placements of one graph share ONE kernel."""
+    if mesh_desc:
+        extra = f"{extra}|mesh:{mesh_desc}"
     # no extra: the key of a kernel without jit kwargs stays what it was
     # before donation existed, so existing store entries keep loading
     key = (name, signature, fingerprint, extra) if extra else \
@@ -272,6 +275,15 @@ class BitstreamCache:
             return 0
         release_artifact(exe)
         return 1
+
+    def drop_all_specialized(self) -> int:
+        """Drop every specialized artifact (a mesh overlay's close).
+        Returns entries removed."""
+        n = len(self._specialized)
+        for exe in self._specialized.values():
+            release_artifact(exe)
+        self._specialized.clear()
+        return n
 
     def specialized_count(self) -> int:
         """Specialized artifacts currently held (introspection)."""

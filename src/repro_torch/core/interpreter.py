@@ -43,8 +43,20 @@ descriptor, which the bitstream store writes and a later process rebuilds
 without running anything it reads.  :func:`kernel_builds` counts the
 kernels a process built and loaded.
 
-Port of the local mode and both tiers of ``repro/core/interpreter.py``; the
-sharded mode (``assemble_sharded``) waits for a later slice.
+Sharded mode (:func:`assemble_sharded`): every tile is a rank of one axis
+of a ``DeviceMesh`` and each hop is a real transfer to the next rank.  An
+edge of ``h`` hops is ``h`` forward ring shifts by one rank along the
+axis's process group, then one return shift by ``h mod n`` (the reference's
+``ppermute`` ring at ``repro/core/interpreter.py:224-249``), so downstream
+ops see position-independent data.  Every rank runs the walk SPMD on
+replicated inputs and returns the same output, equal to the local walk's.
+A shift is one ``dist.all_to_all_single`` with a single non-zero split:
+gloo and NCCL both take it at any world size, a world of one included,
+where torch refuses a send to one's own rank.  The store keeps no sharded
+kernel: its hops name a process group.
+
+Port of ``repro/core/interpreter.py``: the local mode, both tiers, and the
+sharded mode.
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ from functools import partial
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from repro_torch.core.graph import Graph
@@ -197,6 +210,55 @@ def copy_passes(v: Any, passes: int) -> Any:
     return v
 
 
+def local_hop(v: Any, h: int) -> Any:
+    """The local mode's hop: an edge of ``h`` hops crosses ``h - 1``
+    pass-through tiles, each one copy pass (:func:`copy_passes`)."""
+    return copy_passes(v, h - 1) if h >= 2 else v
+
+
+def _ring_shift(v: Any, group: Any, k: int) -> Any:
+    """``v`` moved ``k`` ranks along ``group``'s ring (rank r's value lands
+    on rank r + k): one ``dist.all_to_all_single`` of the bytes of the
+    memory span a tensor views, every split zero but the one to r + k, into
+    fresh memory of the same layout (:func:`_copy_pass`'s).  Tuples move as
+    a bundle, one shift a tensor; scalars carry no data."""
+    if isinstance(v, tuple):
+        return tuple(_ring_shift(x, group, k) for x in v)
+    if not isinstance(v, torch.Tensor):
+        return v
+    n = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    span = 1 + sum((m - 1) * st for m, st in zip(v.shape, v.stride())) if v.numel() else 0
+    pad = v.storage_offset() % max(1, 256 // v.element_size())
+    raw = torch.empty(pad + span, dtype=v.dtype, device=v.device)
+    src = v.as_strided((span,), (1,), v.storage_offset()).view(torch.uint8)
+    nbytes = span * v.element_size()
+    out_splits, in_splits = [0] * n, [0] * n
+    in_splits[(r + k) % n] = nbytes
+    out_splits[(r - k) % n] = nbytes
+    dist.all_to_all_single(raw[pad:].view(torch.uint8), src, out_splits, in_splits,
+                           group=group)
+    return raw.as_strided(v.shape, v.stride(), pad)
+
+
+def ring_hops(group: Any) -> Callable[[Any, int], Any]:
+    """The sharded mode's hop: ``hop(v, h)`` moves ``v`` ``h`` forward
+    shifts by one rank (the pass-through latency actually paid), then one
+    return shift by ``h mod n`` back to its origin, as the reference's
+    ``_dyn_ici_hops`` and ``_static_ici_hops``.  ``h`` is 0 for a
+    co-located edge: nothing moves."""
+    n = dist.get_world_size(group)
+
+    def hop(v: Any, h: int) -> Any:
+        for _ in range(h):
+            v = _ring_shift(v, group, 1)
+        if h % n:
+            v = _ring_shift(v, group, -(h % n))
+        return v
+
+    return hop
+
+
 def _aval_key(aval: Any) -> "tuple | None":
     """What a donated input and an output must share to alias: shape and
     dtype (a traced graph records no device on op outputs)."""
@@ -278,9 +340,15 @@ class Kernel:
     step drops the values it read last (and an unread result of its own),
     so a walk holds only live values, as eager execution does: a traced
     train step's activations and optimizer temporaries would not fit on the
-    card otherwise."""
+    card otherwise.
 
-    def __init__(self, graph: Graph, donate_argnums: "tuple[int, ...]" = ()) -> None:
+    An edge of ``h >= 1`` hops is ``hop_fn(v, h)``: :func:`local_hop`'s
+    copy passes, or :func:`ring_hops`'s shifts in a sharded kernel."""
+
+    hop_fn = staticmethod(local_hop)   # a kernel rebuilt from its serial form is local
+
+    def __init__(self, graph: Graph, donate_argnums: "tuple[int, ...]" = (),
+                 hop_fn: "Callable[[Any, int], Any]" = local_hop) -> None:
         order = edge_order(graph)
         # an op reading one value twice (x * x) has the edge twice; both
         # entries carry the same hop count, so either index serves
@@ -311,6 +379,7 @@ class Kernel:
             raise ValueError(f"kernel {self.name!r}: donate_argnums "
                              f"{self.donate_argnums} outside inputs 1..{len(self.input_ids)}")
         self.aliases = donation_aliases(graph, tuple(a - 1 for a in self.donate_argnums))
+        self.hop_fn = hop_fn
         _count_build(type(self).__name__)
 
     # -- serial form (the bitstream store's payload) -------------------------
@@ -322,6 +391,9 @@ class Kernel:
         none."""
         from repro_torch.core.trace import SerialError
 
+        if self.hop_fn is not local_hop:
+            raise SerialError(f"kernel {self.name!r} is sharded: its hops name a "
+                              f"process group")
         # each distinct operator once (a 32-layer step repeats each of its
         # few dozen operators once a layer); a step names it by index
         ops: dict[str, int] = {}
@@ -429,12 +501,13 @@ class Kernel:
         for nid, payload in self.consts:
             vals[nid] = payload
         landing = _Landing(self, inputs, vals) if donate and self.aliases else None
+        hop_fn = self.hop_fn
         for n, step in enumerate(self.steps):
             args = []
             for src, e in step.srcs:
                 v = vals[src]
-                if hops[e] >= 2:
-                    v = copy_passes(v, hops[e] - 1)
+                if hops[e]:
+                    v = hop_fn(v, hops[e])
                 args.append(v)
             if step.fn is not None:
                 vals[step.node_id] = step.fn(*args)
@@ -548,12 +621,14 @@ def kernel_builds() -> dict[str, int]:
         return dict(_builds)
 
 
-def build_kernel(graph: Graph, donate_argnums: "tuple[int, ...]" = ()) -> Kernel:
+def build_kernel(graph: Graph, donate_argnums: "tuple[int, ...]" = (),
+                 hop_fn: "Callable[[Any, int], Any]" = local_hop) -> Kernel:
     """The placement-invariant compute body of ``graph`` (a download);
     ``donate_argnums`` in the kernel's calling convention
-    (:func:`~repro_torch.core.cache.kernel_jit_kwargs`)."""
+    (:func:`~repro_torch.core.cache.kernel_jit_kwargs`); ``hop_fn`` for the
+    sharded mode (:func:`ring_hops`)."""
     graph.validate()
-    return Kernel(graph, donate_argnums)
+    return Kernel(graph, donate_argnums, hop_fn)
 
 
 class SpecializedKernel(Kernel):
@@ -564,8 +639,9 @@ class SpecializedKernel(Kernel):
     reads nothing on the host and can be captured as a CUDA graph."""
 
     def __init__(self, graph: Graph, hops: "tuple[int, ...]",
-                 donate_argnums: "tuple[int, ...]" = ()) -> None:
-        super().__init__(graph, donate_argnums)
+                 donate_argnums: "tuple[int, ...]" = (),
+                 hop_fn: "Callable[[Any, int], Any]" = local_hop) -> None:
+        super().__init__(graph, donate_argnums, hop_fn)
         if len(hops) != self.num_edges:
             raise ValueError(
                 f"hop vector has {len(hops)} entries for {self.num_edges} edges")
@@ -579,7 +655,8 @@ class SpecializedKernel(Kernel):
 
 
 def specialize_kernel(graph: Graph, hops: "tuple[int, ...]",
-                      donate_argnums: "tuple[int, ...]" = ()) -> SpecializedKernel:
+                      donate_argnums: "tuple[int, ...]" = (),
+                      hop_fn: "Callable[[Any, int], Any]" = local_hop) -> SpecializedKernel:
     """The route-constant body of ``graph`` for one hop vector
     (:func:`route_hops`) — the specialized artifact tier.  Edges with
     ``h >= 2`` keep their ``h - 1`` copy passes (the pass-through cost
@@ -588,9 +665,10 @@ def specialize_kernel(graph: Graph, hops: "tuple[int, ...]",
     an opaque exact 1.0 (``_contraction_guard_needed``): XLA fuses across
     the edges of its route-constant body and LLVM could form FMAs there.
     Eager PyTorch runs each op on its own and fuses nothing, so the port
-    needs no guard."""
+    needs no guard.  With ``hop_fn`` (the sharded mode) each edge of ``h``
+    hops keeps its ``h`` forward shifts and one return shift."""
     graph.validate()
-    return SpecializedKernel(graph, hops, donate_argnums)
+    return SpecializedKernel(graph, hops, donate_argnums, hop_fn)
 
 
 @functools.cache
@@ -753,17 +831,75 @@ class AssembledAccelerator:
 
 def assemble(graph: Graph, placement: Placement, *,
              program: Program | None = None, routes: Any = None,
-             kernel: Kernel | None = None) -> AssembledAccelerator:
-    """JIT-assemble the accelerator for single-device execution.
+             kernel: Kernel | None = None,
+             hop_fn: "Callable[[Any, int], Any]" = local_hop,
+             donate_argnums: "tuple[int, ...]" = ()) -> AssembledAccelerator:
+    """JIT-assemble the accelerator: single-device execution with the
+    default ``hop_fn``, ring shifts with :func:`assemble_sharded`'s.
 
     The returned accelerator carries the placement-invariant ``kernel`` and
     this placement's ``routes`` separately; ``fn`` is the bound pair."""
     graph.validate()
     program = program or compile_graph(graph, placement)
-    kernel = kernel or build_kernel(graph)
+    kernel = kernel or build_kernel(graph, donate_argnums, hop_fn)
     if routes is None:
         routes = route_vector(graph, placement)
     return AssembledAccelerator(
         name=graph.name, fn=bind_routes(kernel, routes), program=program,
         placement=placement, total_hops=placement.total_hops,
         instruction_mix=program.mix(), kernel=kernel, routes=routes)
+
+
+def tile_group(mesh: Any, axis: str) -> Any:
+    """The process group of the mesh axis whose ranks are the tiles."""
+    names = mesh.mesh_dim_names or ()
+    if axis not in names:
+        raise ValueError(f"the mesh has no {axis!r} axis (its axes: {names})")
+    return mesh.get_group(axis)
+
+
+def assemble_sharded(graph: Graph, placement: Placement, mesh: Any,
+                     axis: str = "tiles", **kwargs: Any) -> AssembledAccelerator:
+    """JIT-assemble with *real* transfers between devices: each hop is one
+    ring shift along the ranks of ``axis`` of the ``DeviceMesh`` ``mesh``
+    (:func:`ring_hops`); ``kwargs`` as :func:`assemble`'s.
+
+    Every rank runs the operators SPMD-style on replicated inputs, but every
+    dataflow edge whose endpoints are k tiles apart moves its operand k
+    nearest-neighbour steps: the cost structure of the paper's pass-through
+    tiles.  Each rank of the mesh must call the returned accelerator, with
+    the same inputs, as each takes part in every shift."""
+    acc = assemble(graph, placement, hop_fn=ring_hops(tile_group(mesh, axis)), **kwargs)
+    return dataclasses.replace(acc, name=f"{graph.name}@{axis}")
+
+
+def wrap_sharded_kernel(acc: AssembledAccelerator, graph: Graph) -> Callable[..., Any]:
+    """The *placement-invariant* sharded kernel of ``acc``: it takes
+    ``(routes, *inputs)``, the relocatable artifact the overlay caches.
+    In and out are replicated: the overlay streams whole vectors *through*
+    tiles and does not shard the data (that belongs to the model layer).
+    The reference wraps its kernel in ``shard_map`` and ``jax.jit`` over a
+    mesh; the port's kernel already runs SPMD on every rank of its own."""
+    if acc.kernel is None or acc.kernel.hop_fn is local_hop:
+        raise ValueError(f"{acc.name!r} was not assembled for a mesh "
+                         f"(use assemble_sharded)")
+    if len(graph.input_ids) != len(acc.kernel.input_ids):
+        raise ValueError(f"{acc.name!r} takes {len(acc.kernel.input_ids)} inputs; "
+                         f"the graph has {len(graph.input_ids)}")
+    return acc.kernel
+
+
+def wrap_sharded(acc: AssembledAccelerator, graph: Graph) -> Callable[..., Any]:
+    """Ready-to-call sharded accelerator for ``acc``'s own placement (the
+    routes-bound convenience over :func:`wrap_sharded_kernel`)."""
+    return bind_routes(wrap_sharded_kernel(acc, graph), acc.routes)
+
+
+def wrap_sharded_specialized(graph: Graph, hops: "tuple[int, ...]", mesh: Any,
+                             axis: str = "tiles",
+                             donate_argnums: "tuple[int, ...]" = ()) -> SpecializedKernel:
+    """The route-CONSTANT sharded kernel, the specialized tier on a mesh:
+    takes ``(routes, *inputs)`` like the generic tier, with each static hop
+    an unrolled run of ring shifts (no hop count read at run time)."""
+    return specialize_kernel(graph, hops, donate_argnums,
+                             ring_hops(tile_group(mesh, axis)))

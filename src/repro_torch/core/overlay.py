@@ -77,9 +77,12 @@ after a relocation), the port does it inline there and queues it only on an
 asynchronous overlay; persists ride the low lane on both, as in the
 reference.  The trace stays on the caller, as in the reference: the
 asynchronous pipeline hides the assembly, and the store the kernel build,
-not the trace.  Sharded assembly (``mesh``) waits for a later slice: the
-port's :class:`Overlay` raises on the keyword arguments that ask for it
-instead of ignoring them.
+not the trace.  ``Overlay(mesh=, tile_axis=)`` assembles across devices,
+as the reference: every tile is a rank of that ``DeviceMesh`` axis and
+every hop a ring shift over ``torch.distributed``
+(:func:`~repro_torch.core.interpreter.assemble_sharded`).  Each rank runs
+the overlay SPMD on the same calls.  A mesh forces the synchronous mode
+and skips the store, whose kernels name no process group.
 """
 
 from __future__ import annotations
@@ -94,6 +97,7 @@ import weakref
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import cache as cache_lib
@@ -120,14 +124,6 @@ logger = logging.getLogger(__name__)
 # failing stops being retried at its routes after as many (the cap resets on
 # relocation)
 _MAX_DOWNLOAD_FAILURES = 3
-
-# Overlay keyword arguments of the reference that belong to later slices of
-# the port, and the subsystem each asks for.
-_DEFERRED = {
-    "mesh": "sharded assembly across devices",
-    "tile_axis": "sharded assembly across devices",
-}
-
 
 @dataclasses.dataclass
 class OverlayStats:
@@ -746,6 +742,12 @@ class Overlay:
       rows/cols: tile grid dimensions (paper evaluates 3×3).
       policy: DYNAMIC (paper's contribution) or STATIC (baseline).
       large_fraction: fraction of LARGE tiles (paper: 1/4).
+      mesh / tile_axis: a ``torch.distributed`` ``DeviceMesh`` whose
+        ``tile_axis`` ranks are the tiles: each hop is then a ring shift to
+        the next rank (:func:`~repro_torch.core.interpreter.assemble_sharded`),
+        every rank of the mesh must make the same calls, and the overlay
+        is synchronous and keeps no store entries; otherwise local
+        assembly (hops as copy passes).
       cache_capacity: bitstream cache slots.
       auto_defragment: re-place surviving residents contiguously after every
         pressure reclaim (moves are relocations: no re-download).
@@ -753,7 +755,8 @@ class Overlay:
         :class:`~repro_torch.core.scheduler.DownloadScheduler` and serve
         jit misses from a fallback until the kernel swaps in.  The default
         (False) is the deterministic synchronous mode: every miss pays its
-        download on the critical path.
+        download on the critical path.  Forced off with a mesh: a sharded
+        kernel's collectives run in step on every rank, on the caller.
       download_workers: scheduler worker threads (asynchronous mode).
       cost_aware_reclaim: reclaim the resident with the best
         age/re-download-cost ratio instead of pure LRU.  Defaults to
@@ -775,7 +778,8 @@ class Overlay:
         serialized to disk on the scheduler's low lane, and a later overlay
         pointed at the same directory loads them instead of building (warm
         restarts).  Pass an existing ``store`` instance to share it, or
-        ``store_path`` to open or create one; not both.
+        ``store_path`` to open or create one; not both.  With a mesh the
+        store is neither read nor written.
       cost_model_placement: replace first-fit packing with the cost-model
         planner — candidate placements at several footprint budgets scored
         in seconds-equivalent cost (measured per-hop dispatch latency,
@@ -801,6 +805,8 @@ class Overlay:
     def __init__(self, rows: int = 3, cols: int = 3, *,
                  policy: PlacementPolicy = PlacementPolicy.DYNAMIC,
                  large_fraction: float = 0.25,
+                 mesh: Any = None,
+                 tile_axis: str = "tiles",
                  cache_capacity: int = 256,
                  auto_defragment: bool = False,
                  async_downloads: bool = False,
@@ -818,16 +824,7 @@ class Overlay:
                  retry_backoff: int = 1,
                  breaker_probe_after: int = 8,
                  download_deadline: float | None = None,
-                 drain_timeout: float = 30.0,
-                 **deferred: Any) -> None:
-        unknown = sorted(set(deferred) - set(_DEFERRED))
-        if unknown:
-            raise TypeError(f"Overlay() got unexpected keyword arguments {unknown}")
-        if deferred:
-            k = sorted(deferred)[0]
-            raise NotImplementedError(
-                f"Overlay({k}=...) asks for {_DEFERRED[k]}, which a later "
-                f"slice of the port brings")
+                 drain_timeout: float = 30.0) -> None:
         if specialize_after < 1:
             raise ValueError("specialize_after must be >= 1")
         if breaker_threshold < 1 or retry_backoff < 1 or breaker_probe_after < 1:
@@ -837,11 +834,18 @@ class Overlay:
             raise ValueError("pass store= or store_path=, not both")
         self.grid = TileGrid(rows, cols, large_fraction)
         self.policy = policy
+        self.mesh = mesh
+        self.tile_axis = tile_axis
+        # a kernel's hop: ring shifts over the tile axis's group on a mesh,
+        # copy passes otherwise
+        self._hop_fn = (interp.ring_hops(interp.tile_group(mesh, tile_axis))
+                        if mesh is not None else interp.local_hop)
         self.cache = BitstreamCache(cache_capacity)
         self.fabric = Fabric(self.grid)
         self.stats = OverlayStats()
         self.auto_defragment = auto_defragment
-        self.async_downloads = bool(async_downloads)
+        # sharded assembly runs its collectives on the caller, in step
+        self.async_downloads = bool(async_downloads) and mesh is None
         # None follows async_downloads, as in the reference
         self.cost_aware_reclaim = (self.async_downloads if cost_aware_reclaim is None
                                    else bool(cost_aware_reclaim))
@@ -1025,11 +1029,19 @@ class Overlay:
         """Placement-FREE identity of the kernel artifact: one kernel serves
         every placement of this graph (routes are a runtime argument).  The
         jit kwargs (donation) are part of it: a donated and an undonated
-        kernel of one graph never share a cache or store entry."""
+        kernel of one graph never share a cache or store entry; so is the
+        mesh axis a sharded kernel's hops cross."""
         return cache_lib.kernel_key(graph.name, cache_lib.signature_of(avals),
                                     fingerprint=graph.fingerprint(),
                                     extra=repr(sorted((jit_kwargs or {}).items()))
-                                    if jit_kwargs else "")
+                                    if jit_kwargs else "",
+                                    mesh_desc=self._mesh_desc())
+
+    def _mesh_desc(self) -> str:
+        """The tile axis and the mesh's shape, or "" for a local overlay."""
+        if self.mesh is None:
+            return ""
+        return f"{self.tile_axis}@{dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))}"
 
     def resident_current(self, acc: interp.AssembledAccelerator) -> bool:
         """Whether an assembled accelerator still holds its PR regions."""
@@ -1249,8 +1261,7 @@ class Overlay:
         resident.route_cost = int(sum(hops))
         self.route_cost_hist.record(resident.route_cost)
 
-    @staticmethod
-    def _bind_acc(resident: ResidentAccelerator,
+    def _bind_acc(self, resident: ResidentAccelerator,
                   kernel: interp.Kernel) -> interp.AssembledAccelerator:
         """The resident's accelerator: ``kernel`` bound to its current
         routes (rebuilt only after a move or a kernel change)."""
@@ -1394,7 +1405,8 @@ class Overlay:
         self._inject_download_fault(key)
         t0 = time.perf_counter()
         kernel = interp.build_kernel(
-            graph, cache_lib.kernel_jit_kwargs(jit_kwargs).get("donate_argnums", ()))
+            graph, cache_lib.kernel_jit_kwargs(jit_kwargs).get("donate_argnums", ()),
+            self._hop_fn)
         return kernel, time.perf_counter() - t0, False
 
     def _book_kernel_locked(self, rid: str, key: str, kernel: interp.Kernel,
@@ -1452,7 +1464,13 @@ class Overlay:
         With a store attached, queued persists drain FIRST (shutdown
         cancels what is queued) and the measurement ledger gets a final
         save: a clean close is what lets the next boot find everything on
-        disk."""
+        disk.
+
+        A mesh overlay also drops every resident's specialized tier and
+        frees its captured CUDA graphs, and captures none after: a live
+        graph that captured an NCCL collective makes
+        ``torch.distributed.destroy_process_group`` hang.  Its residents
+        keep serving on the generic tier."""
         limit = self.drain_timeout if drain_timeout is None else drain_timeout
         if self.store is not None and not self.scheduler.closed:
             if not self.scheduler.drain(timeout=limit):
@@ -1462,6 +1480,24 @@ class Overlay:
                     self.scheduler.outstanding(), limit)
             self.store.save_ledger(self.fabric.export_ledger())
         self.scheduler.shutdown(wait=True, timeout=limit)
+        if self.mesh is not None:
+            self._release_captures()
+
+    def _release_captures(self) -> None:
+        """Every resident back on its generic tier, every specialized
+        artifact released (:func:`~repro_torch.core.cache.release_artifact`)
+        and every dispatch record republished on the generic kernel."""
+        with self._lock:
+            for res in self.fabric.residents.values():
+                if res.tier == "specialized":
+                    self.cache.spec_stats.despecializations += 1
+                res.tier = "generic"
+                res.spec_fn = res.spec_job = None
+                res.spec_pending = False
+            self.cache.drop_all_specialized()
+            for wrapper in list(self._wrappers):
+                for entry in list(wrapper._entries.values()):
+                    self._publish_record(entry)
 
     # -- persistent bitstream store -------------------------------------------
     def _store_load(self, key: str) -> "interp.Kernel | None":
@@ -1470,8 +1506,9 @@ class Overlay:
         validation, or a payload that does not rebuild — and the caller
         builds cold.  A payload that passes the checksum but does not
         rebuild (an operator or a tag this build cannot resolve) is
-        expunged so the next boot does not trip over it again."""
-        if self.store is None:
+        expunged so the next boot does not trip over it again.  A mesh
+        overlay reads nothing from the store."""
+        if self.store is None or self.mesh is not None:
             return None
         blob = self.store.load_blob(key)
         if blob is None:
@@ -1488,8 +1525,10 @@ class Overlay:
         """Queue ``kernel`` for persistence on the scheduler's LOW lane (the
         caller holds the lock): a persist never delays a download.
         Serialization runs on a worker with no lock held; the disk write
-        commits back under the lock only if the kernel is still cached."""
-        if self.store is None or self.scheduler.closed or key in self.store:
+        commits back under the lock only if the kernel is still cached.
+        A sharded kernel is not written: its hops name a process group."""
+        if self.store is None or self.mesh is not None or self.scheduler.closed \
+                or key in self.store:
             return
         self.scheduler.submit(
             f"persist:{key}", lambda: self._pack(key, kernel),
@@ -1532,8 +1571,8 @@ class Overlay:
         """Queue the route-constant tier for persistence (the caller holds
         the lock).  A CUDA graph does not serialize: what is written is the
         walk it captured (the hop vector plus the step list), from which a
-        warm boot captures again."""
-        if self.store is None or self.scheduler.closed \
+        warm boot captures again.  A mesh overlay writes none."""
+        if self.store is None or self.mesh is not None or self.scheduler.closed \
                 or pending.spec_key in self.store:
             return
         kernel = getattr(exe, "kernel", exe)
@@ -1862,16 +1901,21 @@ class Overlay:
         capture, on the given inputs or zeros of the signature — see
         :class:`~repro_torch.core.interpreter.GraphKernel` for how a worker
         captures while the serving thread runs); on the CPU the walk
-        itself."""
+        itself.  On a mesh the walk's hops are ring shifts
+        (:func:`~repro_torch.core.interpreter.ring_hops`), captured only
+        where the group's backend is NCCL, which takes a capture of its
+        collectives, and only until :meth:`close`; over gloo the walk runs
+        eagerly."""
         kernel = self._store_load_spec(pending)
         if kernel is None:
-            kernel = interp.specialize_kernel(
-                pending.graph, pending.hops,
-                cache_lib.kernel_jit_kwargs(pending.jit_kwargs).get("donate_argnums", ()))
+            donate = cache_lib.kernel_jit_kwargs(pending.jit_kwargs).get("donate_argnums", ())
+            kernel = interp.specialize_kernel(pending.graph, pending.hops, donate,
+                                              self._hop_fn)
         avals = pending.graph.input_avals()
         cuda = [torch.device(a.device) for a in avals
                 if a.device is not None and torch.device(a.device).type == "cuda"]
-        if not cuda:
+        if not cuda or (self.mesh is not None and (self.scheduler.closed or dist.get_backend(
+                interp.tile_group(self.mesh, self.tile_axis)) != "nccl")):
             return kernel
         with torch.cuda.device(cuda[0]):
             inputs = tuple(x if x is not None else
@@ -1882,8 +1926,9 @@ class Overlay:
     def _store_load_spec(self, pending: _PendingSpecialize
                          ) -> "interp.SpecializedKernel | None":
         """The route-constant walk off disk, if the store holds it for these
-        exact hops (a warm boot then skips the build and captures again)."""
-        if self.store is None:
+        exact hops (a warm boot then skips the build and captures again).
+        A mesh overlay reads nothing from the store."""
+        if self.store is None or self.mesh is not None:
             return None
         blob = self.store.load_blob(pending.spec_key)
         if blob is None:

@@ -34,7 +34,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.train import _loss_and_grads
 from repro_torch.models import model as mdl
 from repro_torch.models import params as pm
-from repro_torch.optim import adamw_update, opt_state_spec
+from repro_torch.optim import adamw_update, decay_mask, opt_state_spec
 
 SHAPES = {
     "train_4k": dict(seq=4096, batch=256, kind="train"),
@@ -100,7 +100,7 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4):
     def train_step(params, opt_state, batch):
         loss, metrics, grads, spec = _loss_and_grads(cfg, params, batch)
         params, opt_state, om = adamw_update(params, pytree.tree_unflatten(grads, spec),
-                                             opt_state, lr=lr)
+                                             opt_state, lr=lr, decay=decay_mask(params))
         return params, opt_state, {"loss": loss, **metrics, **om}
     return train_step
 

@@ -44,7 +44,8 @@ from repro_torch.data.pipeline import make_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import model as mdl
 from repro_torch.models import params as pm
-from repro_torch.optim import adamw_init, adamw_update, adamw_update_, cosine, wsd
+from repro_torch.optim import (adamw_init, adamw_update, adamw_update_, cosine, decay_mask,
+                               wsd)
 from repro_torch.runtime import FailureInjector, Supervisor, TrainLoopConfig
 
 
@@ -83,7 +84,8 @@ def make_step(cfg, schedule, *, overlay=None):
         loss, metrics, grads, spec = _loss_and_grads(cfg, params, batch)
         lr = schedule(opt_state.step)
         params, opt_state, om = adamw_update(
-            params, pytree.tree_unflatten(grads, spec), opt_state, lr=lr)
+            params, pytree.tree_unflatten(grads, spec), opt_state, lr=lr,
+            decay=decay_mask(params))
         return (params, opt_state), {"loss": loss, "lr": lr, **metrics, **om}
 
     if overlay is not None:
@@ -94,7 +96,7 @@ def make_step(cfg, schedule, *, overlay=None):
         params, opt_state = state
         loss, metrics, grads, _ = _loss_and_grads(cfg, params, batch)
         lr = schedule(opt_state.step)
-        om = adamw_update_(params, grads, opt_state, lr=lr)
+        om = adamw_update_(params, grads, opt_state, lr=lr, decay=decay_mask(params))
         return state, {"loss": loss, "lr": lr, **metrics, **om}
 
     return train_step_inplace

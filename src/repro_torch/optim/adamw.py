@@ -2,8 +2,11 @@
 
 The moments mirror the parameter tree and are f32 whatever the parameter
 dtype; the update is computed in f32 and cast back to the parameter's dtype;
-decoupled weight decay applies to matrices only (ndim >= 2).  Trees are
-nested dicts and lists of tensors (``torch.utils._pytree``).
+decoupled weight decay applies to matrices only (ndim >= 2) unless a decay
+mask says otherwise.  A model's mask is :func:`decay_mask`: the reference
+stacks each scanned layer's leaves over its block's repeats, so a layer's
+norm scales and 1-D parameters are matrices there and get decayed.  Trees
+are nested dicts and lists of tensors (``torch.utils._pytree``).
 
 Two forms of one step, with the same arithmetic per leaf:
 
@@ -93,16 +96,41 @@ def clip_by_global_norm(grads: Any, max_norm: float):
     return pytree.tree_map(lambda g: g.float() * scale, grads), gnorm
 
 
+# the subtrees whose leaves the reference stacks over a block's repeats
+STACKED_SUBTREES = ("layers", "enc_layers")
+
+
+def decay_mask(params: Any) -> Any:
+    """Which leaves of a model's parameter tree AdamW decays, as a tree of
+    bools: the leaves the reference holds as matrices.  That is every leaf
+    with ndim >= 2, and every 1-D leaf of a scanned layer (under
+    ``STACKED_SUBTREES``), which the reference holds as ``(repeats, d)``.
+    The shared set and the ``mtp`` module are unstacked in both packages,
+    so their vectors stay undecayed."""
+    def decays(path, p) -> bool:
+        stacked = bool(path) and getattr(path[0], "key", None) in STACKED_SUBTREES
+        return p.dim() + stacked >= 2
+    return pytree.tree_map_with_path(decays, params)
+
+
+def _decays(params: Any, spec, decay: Any) -> list[bool]:
+    """The decay flag of each leaf of ``params`` (leaf order): ``decay``'s
+    where given, else ndim >= 2."""
+    if decay is None:
+        return [p.dim() >= 2 for p in pytree.tree_leaves(params)]
+    return [bool(d) for d in spec.flatten_up_to(decay)]
+
+
 def _leaf_update(p, g, m, v, *, lr, b1, b2, eps, weight_decay, b1c, b2c, matrix):
     """One leaf's AdamW update from its clipped f32 gradient ``g``
-    (``matrix``: the leaf has ndim >= 2; ``p`` may be a slice of its flat
+    (``matrix``: the leaf is decayed; ``p`` may be a slice of its flat
     view).  Returns (new_p, new_m, new_v)."""
     m = b1 * m + (1 - b1) * g
     v = b2 * v + (1 - b2) * torch.square(g)
     mhat = m / b1c
     vhat = v / b2c
     delta = mhat / (torch.sqrt(vhat) + eps)
-    # decoupled weight decay on matrices only (ndim >= 2)
+    # decoupled weight decay on matrices only (the reference's ndim >= 2)
     if matrix:
         delta = delta + weight_decay * p.float()
     new_p = (p.float() - lr * delta).to(p.dtype)
@@ -117,17 +145,20 @@ def _bias_corrections(step: torch.Tensor, b1: float, b2: float):
 def adamw_update(params: Any, grads: Any, state: OptState, *,
                  lr: "float | torch.Tensor", b1: float = 0.9, b2: float = 0.95,
                  eps: float = 1e-8, weight_decay: float = 0.1,
-                 max_grad_norm: float = 1.0):
-    """One AdamW step. Returns (new_params, new_state, metrics)."""
+                 max_grad_norm: float = 1.0, decay: Any = None):
+    """One AdamW step. Returns (new_params, new_state, metrics).
+    ``decay``: a tree of bools like ``params`` naming the leaves to decay
+    (a model's is :func:`decay_mask`); None decays those with ndim >= 2."""
     grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
     step = state.step + 1
     b1c, b2c = _bias_corrections(step, b1, b2)
     flat_p, spec = pytree.tree_flatten(params)
     out = [_leaf_update(p, g, m, v, lr=lr, b1=b1, b2=b2, eps=eps,
-                        weight_decay=weight_decay, b1c=b1c, b2c=b2c, matrix=p.dim() >= 2)
-           for p, g, m, v in zip(flat_p, spec.flatten_up_to(grads),
+                        weight_decay=weight_decay, b1c=b1c, b2c=b2c, matrix=dec)
+           for p, g, m, v, dec in zip(flat_p, spec.flatten_up_to(grads),
                                  spec.flatten_up_to(state.mu),
-                                 spec.flatten_up_to(state.nu))]
+                                 spec.flatten_up_to(state.nu),
+                                 _decays(params, spec, decay))]
     new = [pytree.tree_unflatten([o[i] for o in out], spec) for i in range(3)]
     return new[0], OptState(step, new[1], new[2]), {"grad_norm": gnorm}
 
@@ -136,18 +167,20 @@ def adamw_update(params: Any, grads: Any, state: OptState, *,
 def adamw_update_(params: Any, grads: list, state: OptState, *,
                   lr: "float | torch.Tensor", b1: float = 0.9, b2: float = 0.95,
                   eps: float = 1e-8, weight_decay: float = 0.1,
-                  max_grad_norm: float = 1.0) -> dict:
+                  max_grad_norm: float = 1.0, decay: Any = None) -> dict:
     """:func:`adamw_update` in place: ``params``, ``state.mu``, ``state.nu``
     and ``state.step`` are overwritten with the values adamw_update would
     return.  ``grads`` is the list of the parameters' gradients in leaf
     order; each entry is dropped once its leaf is updated.  A leaf of more
     than ``SLICE_ELEMENTS`` elements is updated in slices of that many
-    elements of its flat view.  Returns the metrics."""
+    elements of its flat view.  ``decay`` as in :func:`adamw_update`.
+    Returns the metrics."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, max_grad_norm)
     state.step.add_(1)
     b1c, b2c = _bias_corrections(state.step, b1, b2)
     flat_p, spec = pytree.tree_flatten(params)
+    decays = _decays(params, spec, decay)
     for i, (p, m, v) in enumerate(zip(flat_p, spec.flatten_up_to(state.mu),
                                       spec.flatten_up_to(state.nu))):
         # view(-1): the slices of p, m and v are written in place
@@ -155,7 +188,7 @@ def adamw_update_(params: Any, grads: list, state: OptState, *,
                                                  v.view(-1)))):
             new_p, new_m, new_v = _leaf_update(
                 ps, gs.float() * scale, ms, vs, lr=lr, b1=b1, b2=b2, eps=eps,
-                weight_decay=weight_decay, b1c=b1c, b2c=b2c, matrix=p.dim() >= 2)
+                weight_decay=weight_decay, b1c=b1c, b2c=b2c, matrix=decays[i])
             ps.copy_(new_p)
             ms.copy_(new_m)
             vs.copy_(new_v)

@@ -13,8 +13,10 @@ The policies are real, the failure source is injected:
     ``straggler_factor``× the EWMA is logged and counted.
 
 The reference's elastic re-mesh hook and its slow-step and repeated-failure
-injection are left to the slice that brings a multi-device mesh (ROADMAP
-queue 1, "Multi-device, last"): the port trains on one device.
+injection are left to the sharded train step (ROADMAP queue 1,
+"Multi-device"), the slice that trains across a mesh: the port's meshes
+(``launch/mesh.py``) run the overlay, expert-parallel MoE and gradient
+compression, but its train step still runs on one device.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ from repro_torch.core import (Graph, Overlay, PlacementError, PlacementPolicy,
                               trace_to_graph, vmul_reduce_graph)
 from repro_torch.core.isa import Opcode
 from repro_torch.kernels import ops
+from tests.torch_ranks import mesh_overlay_modes, spawn
 
 N = 4096          # the paper's 16 KB of f32 (PAPER_VECTOR_LEN)
 # fig. 2 scenarios: Reduce (node 3, LARGE) pinned at (0,0), VMUL (node 2)
@@ -284,11 +285,10 @@ def test_overlay_lru_reclaim_under_pressure():
 
 
 def test_overlay_raises_on_deferred_options(tmp_path):
-    # the store and the sanitizer are ported; sharded assembly is not yet
-    with pytest.raises(NotImplementedError, match="sharded"):
-        Overlay(3, 3, mesh=object())
-    with pytest.raises(NotImplementedError, match="sharded"):
-        Overlay(3, 3, tile_axis="tiles")
+    # the store, the sanitizer and sharded assembly are ported: mesh= and
+    # tile_axis= run on a 1-rank gloo mesh; an unknown option still raises
+    (res,) = spawn(1, mesh_overlay_modes, tmp_path, str(tmp_path / "mesh_store"))
+    assert res["tile_axis"] == "tiles" and torch.equal(res["y"], res["local"])
     assert Overlay(3, 3, sanitize=True).sanitize is True
     assert Overlay(3, 3, store_path=str(tmp_path)).store is not None
     with pytest.raises(TypeError):

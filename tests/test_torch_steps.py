@@ -39,7 +39,7 @@ from repro_torch.data import pipeline as tpipeline
 from repro_torch.launch import steps
 from repro_torch.models import model as tmodel
 from repro_torch.models import params as tparams
-from repro_torch.optim import adamw_init
+from repro_torch.optim import adamw_init, decay_mask
 
 ARCHS = list_archs()
 SHAPES = tuple(steps.SHAPES)
@@ -218,13 +218,32 @@ def _close_normwise(got, want, what, extra=0.0):
 
 
 LR = 3e-4
-WEIGHT_DECAY = 0.1     # both packages' AdamW default
 
 
-def _stacked_vector(name: str, t: torch.Tensor) -> bool:
-    """A 1-D leaf of a layer: stacked over its block's repeats in the
-    reference, where it is 2-D."""
+def _layer_vector(name: str, t: torch.Tensor) -> bool:
+    """A 1-D leaf of a scanned layer: the reference stacks it over its
+    block's repeats, where it is 2-D and decayed."""
     return t.dim() == 1 and name.split("/")[0] in ("layers", "enc_layers")
+
+
+@pytest.mark.parametrize("arch,undecayed", [
+    ("phi3-mini-3.8b", {"final_norm/"}),
+    ("seamless-m4t-medium", {"enc_norm/", "final_norm/"}),
+    ("deepseek-v3-671b", {"final_norm/", "mtp/layer/ln1/", "mtp/layer/ln2/", "mtp/norm/"}),
+])
+def test_decay_mask_decays_what_the_reference_stacks(arch, undecayed):
+    """``adamw.decay_mask`` on a model's tree: every matrix and every
+    vector of a scanned layer (``layers/``, ``enc_layers/``) is decayed;
+    the shared set's vectors and the unstacked ``mtp`` module's are not."""
+    cfg = smoke_config(arch)
+    params = tparams.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    mask = _flat(decay_mask(params), lambda d: d)
+    leaves = _flat(params, lambda t: t)
+    assert mask.keys() == leaves.keys()
+    assert {name for name, d in mask.items() if not d} == undecayed
+    vectors = {name for name, t in leaves.items() if _layer_vector(name, t)}
+    assert vectors and all(mask[name] for name in vectors)
+    assert all(mask[name] for name, t in leaves.items() if t.dim() >= 2)
 
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium", "phi3-mini-3.8b"])
@@ -233,12 +252,14 @@ def test_make_train_step_matches_the_references(arch):
     and batch (seamless's frames included): the reference's metric keys
     and values, the step count, every new parameter and both moments.
 
-    Both packages decay matrices only (``ndim >= 2``), but the reference
-    asks that of its stacked leaves: a layer's norm scales and biases are
-    (repeats, d) there, so it decays them too, ``lr * 0.1 * p`` more than
-    the port, which asks it of each layer's own (d,) leaf.  The comparison
-    adds that term back to the reference's value of those leaves, and of no
-    other (ROADMAP queue 3 names the deviation)."""
+    Both packages decay the leaves the reference holds as matrices: a
+    layer's norm scales and biases are stacked over repeats there, and the
+    port's decay mask (``adamw.decay_mask``) decays them too, so every
+    leaf, vectors included, is held to the reference with no added term.
+    A parameter's tolerance carries ``0.1 * lr`` (the first step is ``lr *
+    g / (|g| + eps)``, which turns on a gradient near ``eps``), except on a
+    layer's vectors, where it would hide the decay (``lr * 0.1 * p``, |p|
+    near 1) if the port missed it."""
     jcfg, tcfg, tree, tp = _models(arch)
     jbatch = jpipeline.make_batch(jcfg, 2, 24, step=0, seed=0)
     tbatch = tpipeline.make_batch(tcfg, 2, 24, step=0, seed=0, device="cpu")
@@ -250,7 +271,6 @@ def test_make_train_step_matches_the_references(arch):
         np.testing.assert_allclose(m[k].item(), float(jm[k]), rtol=1e-5, err_msg=k)
     assert m["acc"].item() == float(jm["acc"])
     assert int(opt.step) == int(jopt.step) == 1
-    old = _flat(tp, lambda t: t)
     for which, got, ref in (("params", new, jnew), ("mu", opt.mu, jopt.mu),
                             ("nu", opt.nu, jopt.nu)):
         want = tparams.from_jax_numpy(jax.tree.map(np.asarray, ref), tcfg, "cpu",
@@ -259,9 +279,8 @@ def test_make_train_step_matches_the_references(arch):
         assert got_flat.keys() == want_flat.keys()
         for name, t in got_flat.items():
             w = want_flat[name]
-            if which == "params" and _stacked_vector(name, t):
-                w = w + LR * WEIGHT_DECAY * old[name]      # the reference's extra decay
-            _close_normwise(t.numpy(), w.numpy(), name, 0.1 * LR if which == "params" else 0.0)
+            extra = 0.1 * LR if which == "params" and not _layer_vector(name, t) else 0.0
+            _close_normwise(t.numpy(), w.numpy(), name, extra)
     moved = [not torch.equal(a, b) for a, b in zip(pytree.tree_leaves(tp),
                                                     pytree.tree_leaves(new))]
     assert all(moved)
