@@ -42,7 +42,18 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
    MoE, and ``CompressedReducer`` two steps on an f32 tree of granite's
    parameter shapes reduced through NCCL ``all_reduce`` (the int8 bound a
    step, the error-feedback sum within one step's bound of the true sum);
-   every number a world-1 number;
+   every number a world-1 number.  ``[train-mesh]`` then trains
+   phi3-mini-3.8b at full width cut to 2 of its 32 layers, batch 1 x seq
+   4096, through the sharded train step (``make_sharded_train_step``:
+   ``make_train_step`` on DTensor state placed by ``cell_shardings``) on
+   the ``(data 1, model 1)`` mesh of an NCCL group of world 1, 2 steps,
+   against 2 single-device steps of ``make_train_step`` from the same
+   seeded bf16 weights and batches: every state leaf a DTensor at its
+   cell placements before and after, losses, grad norms and every new
+   parameter and moment bit-identical, 4 flash_attention launches a step
+   (tensor-core kernel) and 9 rmsnorm launches in both; both step times
+   beside the card's name and power limit; no CUDA graph captured, the
+   group destroyed after;
 4. serves phi3-mini-3.8b at full width (random bf16 weights from a seed,
    32 layers) through ``Overlay(3, 3)`` and with ``overlay=None``: identical
    greedy token streams, and one rmsnorm launch per norm call;
@@ -295,7 +306,8 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 
 Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, its calls on the mesh and local overlays
-in ``[mesh]``, the overlay-served runs, the relocation
+in ``[mesh]``, the sharded and single-device steps of ``[train-mesh]``,
+the overlay-served runs, the relocation
 and specialization rounds, the fleet runs, the full-width training runs
 (the train launcher's too),
 the dense family's, zamba2's, granite's (training too), deepseek's (training
@@ -1035,6 +1047,124 @@ def phase_mesh(gen: torch.Generator) -> dict:
           f"mesh alive")
     check(not dist.is_initialized(), "[mesh] the process group outlived the phase")
     return launches
+
+
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, MESH_TRAIN_LR = 2, 2, 3e-4   # [train-mesh]
+
+
+def card_name_power() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole; any other tensor as it is."""
+    return t.full_tensor() if shd.is_dtensor(t) else t
+
+
+def _scalar(t: torch.Tensor) -> float:
+    return _whole(t).item()
+
+
+def _leaf_diffs(got, want) -> list[float]:
+    """Largest |got - want| of each leaf pair."""
+    return [(_whole(a).float() - _whole(b).float()).abs().max().item()
+            for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want))]
+
+
+def _placed_as_cell(tag: str, cfg, params, opt, mesh) -> None:
+    """Every leaf of the state is a DTensor on ``mesh`` at its
+    ``cell_shardings`` placements."""
+    (p_sh, o_sh, _), _ = steps_lib.cell_shardings(cfg, "train_4k", mesh)
+
+    def placed(t, s) -> None:
+        check(shd.is_dtensor(t) and t.device_mesh == mesh
+              and tuple(t.placements) == s.placements(),
+              f"[{tag}] a state leaf is {type(t).__name__} "
+              f"{getattr(t, 'placements', None)}, not a DTensor at {s.placements()}")
+
+    pytree.tree_map(placed, (params, opt), (p_sh, o_sh))
+
+
+def phase_train_mesh() -> dict:
+    """[train-mesh] The sharded train step (``launch/steps.py::
+    make_sharded_train_step``: ``make_train_step`` on DTensor state) of
+    phi3-mini-3.8b at full width cut to 2 of its 32 layers, batch 1 x seq
+    4096, on the ``(data 1, model 1)`` host mesh over an NCCL group of
+    world 1, against 2 single-device steps of ``make_train_step`` from the
+    same seeded bf16 weights and batches.  At world 1 every rule maps to a
+    size-1 axis, so every leaf is replicated and each op runs on the whole
+    tensor: the losses, grad norms and every new leaf must be bit-identical
+    (what differs is printed first).  Per step 4 flash_attention launches
+    on the tensor-core kernel (2 layers, forward and remat recompute) and
+    9 rmsnorm launches, in both steps alike.  No CUDA graph is captured;
+    the group is destroyed at the end.  Returns both paths' launches."""
+    cfg = cut_layers(get_config("phi3-mini-3.8b"), MESH_TRAIN_LAYERS)
+    params = pm.init(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    batches = [make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, step=i, seed=SEED, device=DEV)
+               for i in range(MESH_TRAIN_STEPS)]
+    card = card_name_power()
+
+    def run(step, state, tag):
+        ms, host_ms, metrics = [], [], []
+        reset_counters()                       # the driven path starts here
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = step(*state, batch)
+            host_ms.append((time.perf_counter() - t0) * 1e3)   # the host's issue time
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            state = (p, o)
+            metrics.append(m)
+        launches = counts()
+        log(f"[train-mesh] {tag}: step ms to a synchronize {[round(t, 1) for t in ms]}, "
+            f"host ms to return {[round(t, 1) for t in host_ms]} ({card}); losses "
+            f"{[round(_scalar(m['loss']), 4) for m in metrics]}; launches {launches}")
+        return state, ms, metrics, launches, host_ms
+
+    want, single_ms, single_m, single_n, single_host = run(
+        steps_lib.make_train_step(cfg, lr=MESH_TRAIN_LR), (params, adamw_init(params)),
+        "single device")
+    store_dir = tempfile.mkdtemp(prefix="train_mesh_store_")
+    mesh_lib.init_group("cuda", os.path.join(store_dir, "store"))
+    try:
+        mesh = mesh_lib.make_host_mesh("cuda")
+        state = steps_lib.shard_train_state(cfg, params, adamw_init(params), mesh)
+        _placed_as_cell("train-mesh", cfg, *state, mesh)
+        step = steps_lib.make_sharded_train_step(cfg, mesh, lr=MESH_TRAIN_LR)
+        got, mesh_ms, mesh_m, mesh_n, mesh_host = run(step, state, "sharded (DTensor)")
+        _placed_as_cell("train-mesh", cfg, *got, mesh)
+        diffs = {name: max(_leaf_diffs(g, w)) for name, g, w in
+                 (("params", got[0], want[0]), ("mu", got[1].mu, want[1].mu),
+                  ("nu", got[1].nu, want[1].nu))}
+        diffs["step"] = abs(_scalar(got[1].step) - _scalar(want[1].step))
+        for k in ("loss", "ce", "acc", "grad_norm"):
+            diffs[k] = max(abs(_scalar(a[k]) - _scalar(b[k])) for a, b in zip(mesh_m, single_m))
+    finally:
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    check(not dist.is_initialized(), "[train-mesh] the process group outlived the phase")
+    log(f"[train-mesh] {cfg.name}, {cfg.num_layers} of 32 layers, batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}, world 1 (data 1, model 1) over NCCL: largest difference sharded vs "
+        f"single device {diffs}; step ms sharded {[round(t, 1) for t in mesh_ms]} vs single "
+        f"{[round(t, 1) for t in single_ms]}, host ms to return sharded "
+        f"{[round(t, 1) for t in mesh_host]} vs single {[round(t, 1) for t in single_host]} "
+        f"({card})")
+    check(all(v == 0 for v in diffs.values()),
+          f"[train-mesh] the sharded step is not bit-identical to the single-device one: {diffs}")
+    per_step = {"flash_attention": MESH_TRAIN_STEPS * 2 * cfg.num_layers,
+                "rmsnorm": MESH_TRAIN_STEPS * ((2 * cfg.num_layers + 1) + 2 * cfg.num_layers)}
+    variants = {"flash_attention": "wgmma", "rmsnorm": "warp"}
+    check_launches("train-mesh", mesh_n, per_step, variants)
+    check_launches("train-mesh", single_n, per_step, variants)
+    del want, got, state, params
+    _free()
+    return {"launches": mesh_n, "single_launches": single_n, "ms": mesh_ms,
+            "single_ms": single_ms, "host_ms": mesh_host, "single_host_ms": single_host}
 
 
 def _mesh_overlay_rows(gen: torch.Generator, tiles, overlays: list) -> dict:
@@ -5233,6 +5363,7 @@ def main() -> int:
     paper = run_phase("[overlay]", phase_overlay_paper, gen)
     async_fig3 = run_phase("[async-fig3]", phase_async_fig3, gen)
     mesh = run_phase("[mesh]", phase_mesh, gen)
+    train_mesh = run_phase("[train-mesh]", phase_train_mesh)
     served = run_phase("[serve]", phase_serve, gen)
     trained = run_phase("[train]", phase_train)
     train_overlay = run_phase("[train-overlay]", phase_train_overlay)
@@ -5265,6 +5396,8 @@ def main() -> int:
     analysis = run_phase("[analysis]", phase_analysis)
     gpu_state("[timing]")
     by_path = {"fig3": paper["launches"], "async_fig3": async_fig3, "mesh": mesh,
+               "train_mesh": train_mesh["launches"],
+               "train_mesh_single": train_mesh["single_launches"],
                "serve": served["launches"],
                "relocate": served["relocate"], "specialize": served["specialize"],
                "serve_loop": served["serve_loop"]["launches"],
@@ -5304,9 +5437,7 @@ def main() -> int:
     kernels = phase_kernel_line(gen, errs, launches)
     for entry in kernels:
         entry["launches_by_path"] = {path: n[entry["name"]] for path, n in by_path.items()}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = card_name_power()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase "
         + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     print(json.dumps({"kernels": kernels}))

@@ -14,9 +14,14 @@ Port of ``repro/checkpoint/ckpt.py:41-199``:
   * **retention** — keep_n newest checkpoints garbage-collected.
 
 Trees are nested dicts, lists, tuples and dataclasses (the optimizer state)
-of tensors.  numpy has no bfloat16, so a bf16 leaf is stored as its uint16
-bit pattern and the manifest records the logical dtype: a round trip is
-bit-exact.
+of tensors.  A DTensor leaf (the sharded train step) is saved whole, one
+file a leaf as the reference saves each array (``repro/checkpoint/ckpt.py:
+73, 153``): gathering it is a collective, so every rank of its mesh saves,
+each into a directory of its own.  It is restored into the placement of
+the tree it is restored into, whatever mesh that is: each rank keeps its
+own shard of the leaf it read whole.  numpy has no bfloat16, so a bf16
+leaf is stored as its uint16 bit pattern and the manifest records the
+logical dtype: a round trip is bit-exact.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import is_dtensor
 
 MANIFEST = "manifest.json"
 
@@ -69,14 +76,34 @@ def _rebuild(tree: Any, leaves) -> Any:
                                         for f in dataclasses.fields(tree)})
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (every rank of its mesh must call this);
+    any other tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def _to_host(tree: Any) -> Any:
-    """A host copy of every tensor leaf (a copy even of CPU tensors)."""
-    return _rebuild(tree, iter(t.detach().to("cpu", copy=True)
+    """A host copy of every tensor leaf, a DTensor's whole (a copy even of
+    CPU tensors)."""
+    return _rebuild(tree, iter(_whole(t.detach()).to("cpu", copy=True)
                                for _, t in _leaf_paths(tree)))
 
 
+def _copy_into(like: torch.Tensor, whole: torch.Tensor) -> None:
+    """Write the whole leaf ``whole`` into ``like``: a DTensor keeps its
+    placements, each rank copying its own shard (no collective)."""
+    if not is_dtensor(like):
+        like.copy_(whole)
+        return
+    from torch.distributed.tensor import distribute_tensor
+    mesh = like.device_mesh
+    local = distribute_tensor(whole.to(mesh.device_type), mesh, like.placements,
+                              src_data_rank=None)
+    like.copy_(local)
+
+
 def _to_savable(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    t = t.detach().cpu()
+    t = _whole(t.detach()).cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     return t.numpy(), str(t.dtype).removeprefix("torch.")
@@ -131,9 +158,10 @@ def _load_manifest(ckpt_dir: str) -> dict:
 def load_checkpoint(ckpt_dir: str, tree_like: Any, *,
                     verify: bool = True) -> tuple[Any, dict]:
     """Restore into ``tree_like`` in place: each leaf is copied into the
-    tensor that stands at its path, on that tensor's device, so a restore
-    holds no second copy of the state — the eager train step updates in
-    place for the same reason.  Every file is checked against its shape,
+    tensor that stands at its path, on that tensor's device (a DTensor's
+    shard into each rank's local tensor), so a restore holds no second copy
+    of the state — the eager train step updates in place for the same
+    reason.  Every file is checked against its shape,
     dtype and sha256 before any leaf is written, so a corrupt checkpoint
     leaves ``tree_like`` as it was.  Returns (tree_like, manifest)."""
     manifest = _load_manifest(ckpt_dir)
@@ -156,7 +184,7 @@ def load_checkpoint(ckpt_dir: str, tree_like: Any, *,
         for name, like in leaves:
             meta = files[name]
             with open(os.path.join(ckpt_dir, meta["file"]), "rb") as f:
-                like.copy_(_from_savable(np.load(f), meta["dtype"]))
+                _copy_into(like, _from_savable(np.load(f), meta["dtype"]))
     return tree_like, manifest
 
 

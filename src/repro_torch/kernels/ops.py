@@ -18,10 +18,24 @@ rmsnorm's, attention's and ssd's backward is the VJP of the plain version,
 recomputed from the inputs inside a ``torch.autograd.Function``
 (``repro/kernels/ops.py:42-45,69-75,114-118``); the reference has no
 backward kernel, so the port has none either.
+
+On DTensors (``torch.distributed.tensor``: the sharded train step) rmsnorm
+and attention have sharding strategies (:func:`_register_sharding`,
+registered the first time a wrapper sees a DTensor): the op runs on each
+rank's local shard, so the hand-written kernel still launches, on local
+rows and heads.  rmsnorm takes ``x`` sharded on any dim but the last and
+``w`` replicated.  attention takes the batch dim sharded freely and q's
+heads sharded with k/v's kv heads on one mesh dim, where that dim's size
+divides the kv head count (contiguous blocks then keep each query head's
+kv head on its rank under GQA); :func:`attention` first brings q, k and v
+to that layout.  rmsnorm's backward is the plain VJP on DTensors;
+attention's is the plain VJP of each rank's shard (``local_map``), which
+is its shard of the VJP: the blocks are independent.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -32,6 +46,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import vmul_reduce as _vr
+from repro_torch.sharding import is_dtensor
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +113,8 @@ class _RMSNorm(torch.autograd.Function):
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis. x: (..., d), w: (d,)."""
+    if is_dtensor(x):
+        _register_sharding()
     return _RMSNorm.apply(x, w, eps)
 
 
@@ -135,12 +152,30 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            grads = torch.autograd.grad(ref.attention(*qkv, **ctx.opts), qkv, g)
+        q, k, v = ctx.saved_tensors
+        if is_dtensor(q):
+            # each rank's shard holds whole (batch, kv-head group) blocks, so
+            # the plain VJP of its shard is its shard of the VJP; run it on
+            # the local tensors (on DTensors the plain version's reshapes of
+            # a sharded batch x heads dim cost DTensor a search per op)
+            from torch.distributed.tensor.experimental import local_map
+            place = q.placements
+            vjp = local_map(functools.partial(_attention_vjp, opts=ctx.opts),
+                            out_placements=(place,) * 3, in_placements=(place,) * 4,
+                            device_mesh=q.device_mesh, redistribute_inputs=True)
+            grads = vjp(q, k, v, g)
+        else:
+            grads = _attention_vjp(q, k, v, g, opts=ctx.opts)
         return (*(gr if need else None
                   for gr, need in zip(grads, ctx.needs_input_grad)),
                 None, None, None, None)
+
+
+def _attention_vjp(q, k, v, g, *, opts):
+    """The plain version's VJP at (q, k, v) applied to ``g``."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(ref.attention(*qkv, **opts), qkv, g)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -150,8 +185,72 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash attention with GQA + sliding window + softcap, in the
     reference's layout: q (B, Hq, S, D), k/v (B, Hkv, S, D)."""
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
+    if is_dtensor(q):
+        _register_sharding()
+        q, k, v = _attention_layout(q, k, v)
     return _Attention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal, window, softcap, scale)
+
+
+# ---------------------------------------------------------------------------
+# Sharding strategies for DTensor inputs (the sharded train step)
+# ---------------------------------------------------------------------------
+def _head_dims(placements) -> list[int]:
+    return [i for i, p in enumerate(placements) if p.is_shard(1)]
+
+
+def _attention_layout(q, k, v):
+    """q, k and v redistributed to the layout the attention op shards:
+    every mesh dim on which q shards the batch keeps it sharded; the first
+    one on which q shards its heads keeps them sharded (k's and v's kv
+    heads with them) where its size divides the kv head count; every other
+    mesh dim is replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, hkv = q.device_mesh, k.shape[1]
+    want, heads = [], False
+    for i, p in enumerate(q.placements):
+        if p.is_shard(0):
+            want.append(Shard(0))
+        elif p.is_shard(1) and not heads and hkv % mesh.size(i) == 0:
+            want.append(Shard(1))
+            heads = True
+        else:
+            want.append(Replicate())
+    want = tuple(want)
+    return tuple(t if tuple(t.placements) == want else t.redistribute(mesh, want)
+                 for t in (q, k, v))
+
+
+_SHARDING_REGISTERED: list[bool] = []
+
+
+def _register_sharding() -> None:
+    """Register the rmsnorm and attention ops' strategies with DTensor
+    (once).  Each strategy is a list of (output placements, input
+    placements) for one mesh dim, which DTensor expands over the mesh."""
+    if _SHARDING_REGISTERED:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.rmsnorm.default)
+    def _(x, w, eps):
+        out = [([Replicate()], [Replicate(), Replicate(), None])]
+        out += [([Shard(d)], [Shard(d), Replicate(), None]) for d in range(x.ndim - 1)]
+        return out
+
+    @register_sharding(torch.ops.repro_torch.attention.default)
+    def _(q, k, v, causal, window, softcap, scale):
+        rest = [None] * 4
+        out = [([Replicate()], [Replicate()] * 3 + rest),
+               ([Shard(0)], [Shard(0)] * 3 + rest)]
+        heads = _head_dims(q.placements)
+        if len(heads) == 1 and heads == _head_dims(k.placements) == _head_dims(v.placements) \
+                and k.shape[1] % q.mesh.size(heads[0]) == 0:
+            out.append(([Shard(1)], [Shard(1)] * 3 + rest))
+        return out
+
+    _SHARDING_REGISTERED.append(True)
 
 
 # ---------------------------------------------------------------------------

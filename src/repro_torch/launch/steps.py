@@ -16,18 +16,32 @@ asks for another.  The caches are the port's: one dict per layer
 each block's layers.  :func:`applicable` encodes the skip rule.  The
 ``make_*_step`` functions return plain functions of tensors: the train
 step is functional (``launch.train.make_step`` is the in-place form the
-launcher runs).  The
-shardings (the reference's ``batch_shardings`` and ``cell_shardings``,
-:104 on) wait for multi-device work (ROADMAP queue 1 item 4).
+launcher runs).
+
+The shardings (``repro/launch/steps.py:104-155``): :func:`batch_shardings`
+and :func:`cell_shardings` give each input and output of a cell's step its
+:class:`~repro_torch.sharding.NamedSharding` from the specs' logical axes.
+The reference's sharded step is its ``train_step`` under ``jax.jit`` with
+those shardings (GSPMD); the port's is the same :func:`make_train_step`
+run on DTensors (``torch.distributed.tensor``):
+:func:`shard_train_state` and :func:`shard_batch` distribute the state and
+the batch, and :func:`make_sharded_train_step` runs the step under the
+active mesh (the model's ``constrain_logical`` sites then place its
+activations) and puts the new state back on the input shardings, as the
+reference's ``out_shardings`` do.  It covers the dense family (layers
+``dense``, ``local``, ``global``); the other families are refused by name
+(ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import _npatch, batch_specs
 from repro_torch.device import resolve_device
@@ -120,3 +134,160 @@ def make_serve_step(cfg: ArchConfig):
     def serve_step(params, tokens, caches):
         return mdl.decode_step(params, cfg, tokens, caches)
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Shardings
+# ---------------------------------------------------------------------------
+def _spec_tree_shardings(mesh, rules, spec_tree):
+    """NamedShardings for a ParamSpec tree (shape-aware divisibility)."""
+    return pytree.tree_map(lambda s: shd.named_sharding(mesh, rules, s.axes, s.shape),
+                           spec_tree, is_leaf=pm.is_spec)
+
+
+def _sds_shardings(mesh, rules, tree, axes_fn):
+    return pytree.tree_map(
+        lambda s: shd.named_sharding(mesh, rules, axes_fn(s), tuple(s.shape)), tree)
+
+
+def batch_shardings(mesh, rules, batch_spec_tree):
+    """Every leaf of a batch (specs or tensors) sharded on its leading batch
+    dim: (B, S) tokens and labels, (B, P, F) patches, (B, S, F) frames."""
+    return _sds_shardings(mesh, rules, batch_spec_tree,
+                          lambda s: ("batch",) + (None,) * (len(s.shape) - 1))
+
+
+def cell_shardings(cfg: ArchConfig, shape: str, mesh,
+                   rules: shd.ShardingRules | None = None):
+    """(in_shardings, out_shardings) of a cell's step function, as the
+    reference's: ``(params, opt_state, batch)`` -> ``(params, opt_state,
+    None)`` for a train cell (the metrics replicated);
+    ``(params, tokens, caches, extras)`` -> ``(logits, caches)`` for a
+    prefill; ``(params, tokens, caches)`` -> ``(logits, caches)`` for a
+    decode.  The caches are the port's, one dict a layer
+    (:func:`~repro_torch.models.model.cache_param_spec`)."""
+    rules = rules or shd.DEFAULT_RULES
+    spec = pm.model_spec(cfg)
+    p_sh = _spec_tree_shardings(mesh, rules, spec)
+    info = SHAPES[shape]
+    specs = input_specs(cfg, shape, "meta")
+    if info["kind"] == "train":
+        opt_sh = _spec_tree_shardings(mesh, rules, opt_state_spec(spec))
+        b_sh = batch_shardings(mesh, rules, specs["batch"])
+        return (p_sh, opt_sh, b_sh), (p_sh, opt_sh, None)
+    cache_sh = _spec_tree_shardings(mesh, rules,
+                                    mdl.cache_param_spec(cfg, info["batch"], info["seq"]))
+    tok_sh = shd.named_sharding(mesh, rules, ("batch", None), tuple(specs["tokens"].shape))
+    logits_sh = shd.named_sharding(mesh, rules, ("batch", None),
+                                   (info["batch"], cfg.vocab_size))
+    if info["kind"] == "prefill":
+        extras = {k: shd.named_sharding(mesh, rules, ("batch",) + (None,) * (len(v.shape) - 1),
+                                        tuple(v.shape))
+                  for k, v in specs["extras"].items()}
+        return (p_sh, tok_sh, cache_sh, extras), (logits_sh, cache_sh)
+    return (p_sh, tok_sh, cache_sh), (logits_sh, cache_sh)
+
+
+# ---------------------------------------------------------------------------
+# The sharded train step (DTensor)
+# ---------------------------------------------------------------------------
+SHARDED_KINDS = ("dense", "local", "global")
+
+
+def check_sharded_family(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a config outside the dense family,
+    naming what its sharded step still needs: the sharded step never runs
+    a model unsharded in silence."""
+    kinds = set(pm.layer_kinds(cfg)) | set(pm.encoder_kinds(cfg))
+    needs = []
+    if kinds & {"moe", "mla_moe"}:
+        needs.append("MoE (expert parallelism inside a DTensor step)")
+    if any(k.startswith("mla") for k in kinds):
+        needs.append("MLA")
+    if kinds & {"mamba", "shared_attn"}:
+        needs.append("mamba/hybrid (a DTensor strategy for repro_torch::ssd)")
+    if cfg.is_encdec:
+        needs.append("the encoder-decoder")
+    if cfg.frontend == "vision":
+        needs.append("the vlm")
+    if needs or not kinds <= set(SHARDED_KINDS) or cfg.mtp_depth:
+        raise NotImplementedError(
+            f"{cfg.name}: the sharded train step covers the dense family (layers "
+            f"{list(SHARDED_KINDS)}); {', '.join(needs) or sorted(kinds)} is a later slice "
+            f"of ROADMAP queue 1 item 4 (multi-device)")
+
+
+def _distribute(tree, shardings):
+    """Each tensor of ``tree`` as a DTensor at its NamedSharding; a DTensor
+    already on the sharding's mesh is redistributed (only if it must be),
+    one on another mesh is gathered whole and distributed anew."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def place(t, sh):
+        want = sh.placements()
+        if isinstance(t, DTensor):
+            if t.device_mesh == sh.mesh:
+                return t if tuple(t.placements) == want else t.redistribute(sh.mesh, want)
+            t = t.full_tensor()
+        return distribute_tensor(t.detach(), sh.mesh, want)
+
+    return pytree.tree_map(place, tree, shardings)
+
+
+def shard_train_state(cfg: ArchConfig, params, opt_state, mesh,
+                      rules: shd.ShardingRules | None = None):
+    """``(params, opt_state)`` as DTensors on ``mesh``, placed by
+    :func:`cell_shardings` (the train cell's: each parameter by its logical
+    axes and shape, each moment as its parameter, the step replicated).
+    The tensors must lie on the mesh's device type; a state already on
+    another mesh is moved to this one."""
+    (p_sh, opt_sh, _), _ = cell_shardings(cfg, "train_4k", mesh, rules)
+    return _distribute(params, p_sh), _distribute(opt_state, opt_sh)
+
+
+def shard_batch(batch: dict, mesh, rules: shd.ShardingRules | None = None) -> dict:
+    """A batch as DTensors by :func:`batch_shardings` of its own shapes."""
+    return _distribute(batch, batch_shardings(mesh, rules or shd.DEFAULT_RULES, batch))
+
+
+@contextlib.contextmanager
+def on_mesh(mesh, rules: shd.ShardingRules | None = None):
+    """Run model code on DTensors: ``(mesh, rules)`` active, so the model
+    pins its activations (``sharding.constrain_logical``), and DTensor's
+    implicit replication on, so the plain tensors the model makes
+    (positions, masks) act as replicated.  The active mesh before is put
+    back after."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    before = shd.active()
+    shd.set_active(mesh, rules or shd.DEFAULT_RULES)
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        shd.set_active(*(before or (None,)))
+
+
+def make_sharded_train_step(cfg: ArchConfig, mesh, rules: shd.ShardingRules | None = None,
+                            *, lr: float = 3e-4):
+    """:func:`make_train_step` on a ``DeviceMesh``: ``(params, opt_state,
+    batch) -> (params, opt_state, metrics)`` on the DTensor state of
+    :func:`shard_train_state`.  A batch of plain tensors is distributed by
+    :func:`shard_batch`.  The step runs :func:`on_mesh`.  The new
+    parameters and moments come back on the input shardings; the metrics
+    are replicated DTensors.  Only the dense family
+    (:func:`check_sharded_family`)."""
+    check_sharded_family(cfg)
+    rules = rules or shd.DEFAULT_RULES
+    step = make_train_step(cfg, lr=lr)
+    (p_sh, opt_sh, _), _ = cell_shardings(cfg, "train_4k", mesh, rules)
+
+    def sharded_train_step(params, opt_state, batch):
+        with on_mesh(mesh, rules):
+            params, opt_state, metrics = step(params, opt_state,
+                                              shard_batch(batch, mesh, rules))
+        replicated = [shd.NamedSharding(mesh, shd.PartitionSpec())] * len(metrics)
+        metrics = dict(zip(metrics, _distribute(list(metrics.values()), replicated)))
+        return _distribute(params, p_sh), _distribute(opt_state, opt_sh), metrics
+
+    return sharded_train_step

@@ -27,9 +27,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.params import dense, norm_scale
+from repro_torch.models.params import ParamSpec, dense, norm_scale, zeros
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +109,17 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor, idx, *, axis: int):
 # ---------------------------------------------------------------------------
 # Attention (GQA family) over a KV cache
 # ---------------------------------------------------------------------------
+def attn_cache_spec(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    """A bf16 KV cache ``{"k", "v", "index"}`` as specs
+    (``repro/models/layers.py::attn_cache_spec``, :354): bf16 whatever the
+    parameter dtype."""
+    shape = (batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
+    axes = ("batch", "kv_heads", "seq", "head_dim")
+    return {"k": ParamSpec(shape, axes, "zeros", dtype=torch.bfloat16),
+            "v": ParamSpec(shape, axes, "zeros", dtype=torch.bfloat16),
+            "index": ParamSpec((), (), "zeros", dtype=torch.int32)}
+
+
 def _attention(q, k, v, *, window, softcap, scale, q_offset, kv_len, causal=True):
     """Masked attention (B,H,Sq,D)x(B,Hkv,Sk,D), scores in f32.
 
@@ -209,7 +221,11 @@ def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
         cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    # under an active mesh, shard the heads with the batch, so the kernel's
+    # S x S work splits over the model axis (repro/models/layers.py:294-298)
+    qt = shd.constrain_logical(q.transpose(1, 2), ("batch", "heads", None, None))
+    kt = shd.constrain_logical(k.transpose(1, 2), ("batch", "kv_heads", None, None))
+    vt = shd.constrain_logical(v.transpose(1, 2), ("batch", "kv_heads", None, None))
 
     if cache is None:
         # the flash_attention op at every length, causal or not, Sq = Sk or
@@ -252,25 +268,31 @@ def mla_spec(cfg: ArchConfig) -> dict:
     d, h, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
     nope, rope_d, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     return {
-        "wq_a": dense(d, cfg.q_lora_rank),
+        "wq_a": dense(d, cfg.q_lora_rank, "embed", None),
         "q_norm": norm_scale(cfg.q_lora_rank),
-        "wq_b": dense(cfg.q_lora_rank, h * (nope + rope_d)),
-        "wkv_a": dense(d, r + rope_d),
+        "wq_b": dense(cfg.q_lora_rank, h * (nope + rope_d), None, "heads"),
+        "wkv_a": dense(d, r + rope_d, "embed", None),
         "kv_norm": norm_scale(r),
-        "wkv_b": dense(r, h * (nope + vh)),
-        "wo": dense(h * vh, d),
+        "wkv_b": dense(r, h * (nope + vh), None, "heads"),
+        "wo": dense(h * vh, d, "heads", "embed"),
     }
 
 
+def mla_cache_spec(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    """The latent cache of an MLA layer as specs (``mla_cache_spec``,
+    :464): the normed latent ``c_kv`` (B, Smax, kv_lora_rank) and the roped
+    shared key ``k_rope`` (B, Smax, qk_rope_head_dim), bf16, and the write
+    index."""
+    return {"c_kv": ParamSpec((batch, max_len, cfg.kv_lora_rank), ("batch", "seq", "head_dim"),
+                              "zeros", dtype=torch.bfloat16),
+            "k_rope": ParamSpec((batch, max_len, cfg.qk_rope_head_dim), ("batch", "seq", None),
+                                "zeros", dtype=torch.bfloat16),
+            "index": ParamSpec((), (), "zeros", dtype=torch.int32)}
+
+
 def mla_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
-    """The latent cache of an MLA layer (``mla_cache_spec``, :464): the
-    normed latent ``c_kv`` (B, Smax, kv_lora_rank) and the roped shared key
-    ``k_rope`` (B, Smax, qk_rope_head_dim), bf16, and the write index."""
-    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=torch.bfloat16,
-                                device=device),
-            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
-                                  dtype=torch.bfloat16, device=device),
-            "index": torch.zeros((), dtype=torch.int32, device=device)}
+    """The zeroed latent cache of an MLA layer (:func:`mla_cache_spec`)."""
+    return zeros(mla_cache_spec(cfg, batch, max_len), device)
 
 
 def _heads_first(t: torch.Tensor) -> torch.Tensor:

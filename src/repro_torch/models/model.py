@@ -2,7 +2,8 @@
 decode, and the model step as an overlay graph.
 
 Port of ``repro/models/model.py`` (``cross_entropy`` :25, ``loss_fn`` :51,
-``init_cache`` :92 (and ``cache_spec``, ``repro/models/transformer.py:115``),
+``init_cache`` :92 (and ``layer_cache_spec`` and ``cache_spec``,
+``repro/models/transformer.py:97-123``),
 ``prefill`` :96, ``decode_step`` :150,
 ``prefill_chunk`` :164, ``_current_index`` :185, ``build_step_graph``
 :203, ``_fill_cross_caches`` :114) for decoder LMs of dense (full or
@@ -21,15 +22,16 @@ positions out of the cross-entropy).
 from __future__ import annotations
 
 import torch
-from torch.utils import _pytree as pytree
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import params as pm
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import cache_update, linear, mla_cache
+from repro_torch.models.layers import attn_cache_spec, cache_update, linear, mla_cache_spec
 from repro_torch.models.params import layer_kinds
-from repro_torch.models.ssm import ssm_cache
+from repro_torch.models.ssm import ssm_cache_spec
+from repro_torch.sharding import is_dtensor
 
 
 # ---------------------------------------------------------------------------
@@ -40,17 +42,25 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token CE in f32 + accuracy. logits: (B,S,V), labels: (B,S).
 
     The reference extracts the gold logit as ``sum(logits * one_hot)`` to
-    keep a model-sharded vocab axis local; on one device a gather picks the
-    same element (the one-hot sum only adds exact zeros to it), so both give
+    keep a model-sharded vocab axis local; so does the port on DTensor
+    logits (the sharded step).  On one device a gather picks the same
+    element (the one-hot sum only adds exact zeros to it), so both give
     the same value."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if is_dtensor(logits):
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.sum(logits * (labels.long()[..., None] == vocab), dim=-1)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     mask = torch.ones_like(nll) if mask is None else mask.float()
     denom = torch.clamp(torch.sum(mask), min=1.0)
     loss = torch.sum(nll * mask) / denom
-    acc = torch.sum((torch.argmax(logits, -1) == labels) * mask) / denom
+    # argmax over a sharded vocab has no working DTensor rule on every mesh:
+    # gather the vocab first (a no-op without an active mesh)
+    whole = shd.constrain_logical(logits, ("batch", None, None))
+    acc = torch.sum((torch.argmax(whole, -1) == labels) * mask) / denom
     return loss, acc
 
 
@@ -113,51 +123,53 @@ def _mtp_ce(params: dict, h: torch.Tensor, labels: torch.Tensor, cfg: ArchConfig
 # ---------------------------------------------------------------------------
 # Serving steps
 # ---------------------------------------------------------------------------
+def layer_cache_spec(cfg: ArchConfig, kind: str, batch: int, max_len: int) -> dict:
+    """One layer's cache as specs with logical axes
+    (``repro/models/transformer.py::layer_cache_spec``, :97-113): the conv
+    windows and SSD state of a mamba layer
+    (:func:`~repro_torch.models.ssm.ssm_cache_spec`), the latent cache of
+    an MLA layer (:func:`~repro_torch.models.layers.mla_cache_spec`), two
+    KV caches ``{"self", "cross"}`` of max_len for a ``dec`` layer (the
+    cross one's head dim carries no axis, as in the reference), and a bf16
+    KV cache (:func:`~repro_torch.models.layers.attn_cache_spec`) for
+    every other kind."""
+    if kind == "mamba":
+        return ssm_cache_spec(cfg, batch)
+    if kind.startswith("mla"):
+        return mla_cache_spec(cfg, batch, max_len)
+    if kind == "dec":
+        shape = (batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
+        axes = ("batch", "kv_heads", "seq", None)
+        cross = {"k": pm.ParamSpec(shape, axes, "zeros", dtype=torch.bfloat16),
+                 "v": pm.ParamSpec(shape, axes, "zeros", dtype=torch.bfloat16),
+                 "index": pm.ParamSpec((), (), "zeros", dtype=torch.int32)}
+        return {"self": attn_cache_spec(cfg, batch, max_len), "cross": cross}
+    return attn_cache_spec(cfg, batch, max_len)
+
+
+def cache_param_spec(cfg: ArchConfig, batch: int, max_len: int) -> list[dict]:
+    """The caches as specs, one dict a layer in execution order (every
+    ``shared_attn`` occurrence gets a cache of its own, though all of them
+    read one weight set: the reference's ``cache_spec``,
+    ``repro/models/transformer.py:115-123``, whose stacked tree holds the
+    same leaves per layer)."""
+    return [layer_cache_spec(cfg, kind, batch, max_len) for kind in layer_kinds(cfg)]
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: "str | torch.device | None" = None) -> list[dict]:
-    """Zeroed caches, one dict per layer: a bf16 KV cache
-    ``{"k", "v", "index"}`` for an attention layer (the reference's cache is
-    bf16 whatever the parameter dtype), the bf16 latent cache
-    ``{"c_kv", "k_rope", "index"}`` (:func:`~repro_torch.models.layers.
-    mla_cache`) for an MLA layer, the conv windows and SSD state
-    (:func:`~repro_torch.models.ssm.ssm_cache`) for a mamba layer, and two
-    KV caches ``{"self", "cross"}`` of max_len for a ``dec`` layer
-    (``repro/models/transformer.py:102-112``): the encoder's output must
-    fit ``max_len`` too.  Every
-    ``shared_attn`` occurrence gets a cache of its own, though all of them
-    read one weight set (the reference's ``cache_spec``,
-    ``repro/models/transformer.py:115-123``)."""
-    dev = resolve_device(device)
-    shape = (batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
-
-    def kv():
-        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                "index": torch.zeros((), dtype=torch.int32, device=dev)}
-
-    def one(kind):
-        if kind == "mamba":
-            return ssm_cache(cfg, batch, dev)
-        if kind.startswith("mla"):
-            return mla_cache(cfg, batch, max_len, dev)
-        if kind == "dec":
-            return {"self": kv(), "cross": kv()}
-        return kv()
-
-    return [one(kind) for kind in layer_kinds(cfg)]
+    """Zeroed caches of :func:`cache_param_spec` on ``device`` (default
+    ``cuda``): a bf16 KV cache whatever the parameter dtype, as the
+    reference's.  A ``dec`` layer's cross cache is max_len long: the
+    encoder's output must fit it too."""
+    return pm.zeros(cache_param_spec(cfg, batch, max_len), device)
 
 
 def cache_spec(cfg: ArchConfig, batch: int, max_len: int,
                device: "str | torch.device | None" = None) -> list[dict]:
     """:func:`init_cache`'s caches as :class:`~repro_torch.core.graph.
-    TensorSpec` on ``device`` (default ``cuda``), allocating nothing: they
-    are built on the meta device (the counterpart of
-    ``repro/models/transformer.py::cache_spec``, :115, whose stacked tree
-    holds the same leaves per layer)."""
-    from repro_torch.core.graph import TensorSpec
-    dev = resolve_device(device)
-    return pytree.tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype, dev),
-                           init_cache(cfg, batch, max_len, "meta"))
+    TensorSpec` on ``device`` (default ``cuda``), allocating nothing."""
+    return pm.abstract(cache_param_spec(cfg, batch, max_len), device)
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, caches: list, *,

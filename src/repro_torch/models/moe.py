@@ -65,17 +65,17 @@ from repro_torch.models.params import ParamSpec, dense
 def moe_spec(cfg: ArchConfig) -> dict:
     e, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
     spec = {
-        "router": dense(d, e),
-        "w_gate": ParamSpec((e, d, f)),
-        "w_up": ParamSpec((e, d, f)),
-        "w_down": ParamSpec((e, f, d)),
+        "router": dense(d, e, None, None),   # tiny; replicated for EP dispatch
+        "w_gate": ParamSpec((e, d, f), ("experts", "embed", None)),
+        "w_up": ParamSpec((e, d, f), ("experts", "embed", None)),
+        "w_down": ParamSpec((e, f, d), ("experts", None, "embed")),
     }
     if cfg.num_shared_experts:
         fs = cfg.moe_d_ff * cfg.num_shared_experts
         spec["shared"] = {
-            "w_gate": dense(d, fs),
-            "w_up": dense(d, fs),
-            "w_down": dense(fs, d),
+            "w_gate": dense(d, fs, "embed", "ffn"),
+            "w_up": dense(d, fs, "embed", "ffn"),
+            "w_down": dense(fs, d, "ffn", "embed"),
         }
     return spec
 

@@ -2,10 +2,14 @@
 the JAX package.
 
 A model is described by a *spec tree*: nested dicts (and a list of layers)
-whose leaves are :class:`ParamSpec` (shape + init + dtype).  Matrices are
-bf16 and norm scales f32, as in ``repro/models/params.py:32,52``.  The
-reference stacks each block's layers for ``lax.scan``; the port keeps one
-dict per layer in ``spec["layers"]`` and loops over them.  A layer's spec
+whose leaves are :class:`ParamSpec` (shape + logical axes + init +
+dtype).  Matrices are bf16 and norm scales f32, as in
+``repro/models/params.py:32,52``.  The reference stacks each block's
+layers for ``lax.scan``; the port keeps one dict per layer in
+``spec["layers"]`` and loops over them, so a leaf's logical axes
+(:func:`axes`, which ``sharding.tree_shardings`` and
+``launch/steps.cell_shardings`` read) are the reference's without the
+stacked leading ``None``.  A layer's spec
 depends on its kind: ``dense``, ``local``, ``global`` or ``shared_attn``
 (attention + MLP; gemma2's sliding-window and full-attention layers share
 the dense spec), ``moe`` (attention + the mixture-of-experts FFN of
@@ -65,21 +69,36 @@ SERVED_FRONTENDS = (None, "audio", "vision")
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]          # logical axis per dim (sharding.py)
     init: str = "normal"                  # normal | zeros | ones | ssm_a
     scale: float | None = None            # None -> 1/sqrt(fan_in)
     dtype: torch.dtype = torch.bfloat16
 
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
 
-def dense(d_in: int, d_out: int) -> ParamSpec:
-    return ParamSpec((d_in, d_out))
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def dense(d_in: int, d_out: int, in_axis: str | None, out_axis: str | None) -> ParamSpec:
+    return ParamSpec((d_in, d_out), (in_axis, out_axis))
 
 
 def embedding(vocab: int, d: int) -> ParamSpec:
-    return ParamSpec((vocab, d), "normal", 0.02)
+    return ParamSpec((vocab, d), ("vocab", "embed"), "normal", 0.02)
 
 
 def norm_scale(d: int) -> ParamSpec:
-    return ParamSpec((d,), "ones", None, torch.float32)
+    return ParamSpec((d,), (None,), "ones", None, torch.float32)
+
+
+def axes(spec_tree: Any) -> Any:
+    """The tree's logical axes, one tuple a leaf (``sharding.tree_shardings``
+    takes it)."""
+    return _map_spec(spec_tree, lambda s: s.axes)
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
@@ -147,8 +166,9 @@ def layer_spec(cfg: ArchConfig, kind: str) -> dict:
         from repro_torch.models.moe import moe_spec   # moe imports this module
         spec["ffn"] = moe_spec(cfg)
     else:
-        spec["ffn"] = {"w_gate": dense(d, f), "w_up": dense(d, f),
-                       "w_down": dense(f, d)}
+        spec["ffn"] = {"w_gate": dense(d, f, "embed", "ffn"),
+                       "w_up": dense(d, f, "embed", "ffn"),
+                       "w_down": dense(f, d, "ffn", "embed")}
     if cfg.post_norms:
         spec["post_ln1"] = norm_scale(d)
         spec["post_ln2"] = norm_scale(d)
@@ -157,17 +177,17 @@ def layer_spec(cfg: ArchConfig, kind: str) -> dict:
 
 def _attn_spec(cfg: ArchConfig) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    return {"wq": dense(d, cfg.num_heads * hd),
-            "wk": dense(d, cfg.num_kv_heads * hd),
-            "wv": dense(d, cfg.num_kv_heads * hd),
-            "wo": dense(cfg.num_heads * hd, d)}
+    return {"wq": dense(d, cfg.num_heads * hd, "embed", "heads"),
+            "wk": dense(d, cfg.num_kv_heads * hd, "embed", "kv_heads"),
+            "wv": dense(d, cfg.num_kv_heads * hd, "embed", "kv_heads"),
+            "wo": dense(cfg.num_heads * hd, d, "heads", "embed")}
 
 
 def model_spec(cfg: ArchConfig) -> dict:
     plan = layer_plan(cfg)
     spec: dict[str, Any] = {"embed": embedding(cfg.vocab_size, cfg.d_model)}
     if cfg.frontend:
-        spec["frontend_proj"] = dense(cfg.frontend_dim, cfg.d_model)
+        spec["frontend_proj"] = dense(cfg.frontend_dim, cfg.d_model, None, "embed")
     if cfg.is_encdec:
         spec["enc_layers"] = [layer_spec(cfg, kind) for kind in encoder_kinds(cfg)]
         spec["enc_norm"] = norm_scale(cfg.d_model)
@@ -177,9 +197,9 @@ def model_spec(cfg: ArchConfig) -> dict:
         spec["shared"] = shared
     spec["final_norm"] = norm_scale(cfg.d_model)
     if not cfg.tie_embeddings:
-        spec["lm_head"] = dense(cfg.d_model, cfg.vocab_size)
+        spec["lm_head"] = dense(cfg.d_model, cfg.vocab_size, "embed", "vocab")
     if cfg.mtp_depth:
-        spec["mtp"] = {"proj": dense(2 * cfg.d_model, cfg.d_model),
+        spec["mtp"] = {"proj": dense(2 * cfg.d_model, cfg.d_model, "embed", None),
                        "layer": layer_spec(cfg, "dense"),
                        "norm": norm_scale(cfg.d_model)}
     return spec
@@ -199,7 +219,14 @@ def abstract(spec: Any, device: "str | torch.device | None" = None) -> Any:
 def _map_spec(spec: Any, fn) -> Any:
     """``fn`` of every :class:`ParamSpec` leaf of a pytree (dicts, lists,
     ``OptState``), the tree's structure kept."""
-    return pytree.tree_map(fn, spec)
+    return pytree.tree_map(fn, spec, is_leaf=is_spec)
+
+
+def zeros(spec: Any, device: "str | torch.device | None" = None) -> Any:
+    """Zeros of each leaf's shape and dtype on ``device`` (default
+    ``cuda``): a decode cache from its specs."""
+    dev = resolve_device(device)
+    return _map_spec(spec, lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev))
 
 
 def init(cfg: ArchConfig, generator: torch.Generator,

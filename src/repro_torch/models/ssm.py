@@ -21,7 +21,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import linear
-from repro_torch.models.params import ParamSpec, dense, norm_scale
+from repro_torch.models.params import ParamSpec, dense, norm_scale, zeros
 
 
 def _dims(cfg: ArchConfig):
@@ -34,22 +34,22 @@ def ssm_spec(cfg: ArchConfig) -> dict:
     d_inner, nheads = _dims(cfg)
     n, w = cfg.ssm_state, cfg.ssm_conv_width
     return {
-        "w_z": dense(cfg.d_model, d_inner),
-        "w_x": dense(cfg.d_model, d_inner),
-        "w_b": dense(cfg.d_model, n),
-        "w_c": dense(cfg.d_model, n),
-        "w_dt": dense(cfg.d_model, nheads),
-        "conv_x": ParamSpec((w, d_inner), "normal", 0.5),
-        "conv_b": ParamSpec((w, n), "normal", 0.5),
-        "conv_c": ParamSpec((w, n), "normal", 0.5),
-        "conv_bias_x": ParamSpec((d_inner,), "zeros"),
-        "conv_bias_b": ParamSpec((n,), "zeros"),
-        "conv_bias_c": ParamSpec((n,), "zeros"),
-        "a_log": ParamSpec((nheads,), "ssm_a", dtype=torch.float32),
-        "d_skip": ParamSpec((nheads,), "ones", dtype=torch.float32),
-        "dt_bias": ParamSpec((nheads,), "zeros", dtype=torch.float32),
+        "w_z": dense(cfg.d_model, d_inner, "embed", "ssm_in"),
+        "w_x": dense(cfg.d_model, d_inner, "embed", "ssm_in"),
+        "w_b": dense(cfg.d_model, n, "embed", None),
+        "w_c": dense(cfg.d_model, n, "embed", None),
+        "w_dt": dense(cfg.d_model, nheads, "embed", None),
+        "conv_x": ParamSpec((w, d_inner), (None, "ssm_in"), "normal", 0.5),
+        "conv_b": ParamSpec((w, n), (None, None), "normal", 0.5),
+        "conv_c": ParamSpec((w, n), (None, None), "normal", 0.5),
+        "conv_bias_x": ParamSpec((d_inner,), ("ssm_in",), "zeros"),
+        "conv_bias_b": ParamSpec((n,), (None,), "zeros"),
+        "conv_bias_c": ParamSpec((n,), (None,), "zeros"),
+        "a_log": ParamSpec((nheads,), (None,), "ssm_a", dtype=torch.float32),
+        "d_skip": ParamSpec((nheads,), (None,), "ones", dtype=torch.float32),
+        "dt_bias": ParamSpec((nheads,), (None,), "zeros", dtype=torch.float32),
         "gate_norm": norm_scale(d_inner),
-        "out_proj": dense(d_inner, cfg.d_model),
+        "out_proj": dense(d_inner, cfg.d_model, "ssm_in", "embed"),
     }
 
 
@@ -147,20 +147,24 @@ def ssm_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     return out, new_cache
 
 
-def ssm_cache(cfg: ArchConfig, batch: int,
-              device: "str | torch.device | None" = None) -> dict:
-    """Zeroed decode state of one mamba layer: conv windows in bf16
-    whatever the parameter dtype, the SSD state in f32
-    (``repro/models/ssm.py:150-165``)."""
-    dev = resolve_device(device)
+def ssm_cache_spec(cfg: ArchConfig, batch: int) -> dict:
+    """The decode state of one mamba layer as specs with logical axes
+    (``repro/models/ssm.py:150-165``): conv windows in bf16 whatever the
+    parameter dtype, the SSD state in f32."""
     d_inner, nheads = _dims(cfg)
     w = cfg.ssm_conv_width
+    bf16 = torch.bfloat16
+    return {"conv": {"x": ParamSpec((batch, w - 1, d_inner), ("batch", None, "ssm_in"),
+                                    "zeros", dtype=bf16),
+                     "b": ParamSpec((batch, w - 1, cfg.ssm_state), ("batch", None, None),
+                                    "zeros", dtype=bf16),
+                     "c": ParamSpec((batch, w - 1, cfg.ssm_state), ("batch", None, None),
+                                    "zeros", dtype=bf16)},
+            "ssm": ParamSpec((batch, nheads, cfg.ssm_state, cfg.ssm_head_dim),
+                             ("batch", None, None, None), "zeros", dtype=torch.float32)}
 
-    def zeros(*shape, dtype=torch.bfloat16):
-        return torch.zeros(shape, dtype=dtype, device=dev)
 
-    return {"conv": {"x": zeros(batch, w - 1, d_inner),
-                     "b": zeros(batch, w - 1, cfg.ssm_state),
-                     "c": zeros(batch, w - 1, cfg.ssm_state)},
-            "ssm": zeros(batch, nheads, cfg.ssm_state, cfg.ssm_head_dim,
-                         dtype=torch.float32)}
+def ssm_cache(cfg: ArchConfig, batch: int,
+              device: "str | torch.device | None" = None) -> dict:
+    """Zeroed decode state of one mamba layer (:func:`ssm_cache_spec`)."""
+    return zeros(ssm_cache_spec(cfg, batch), resolve_device(device))

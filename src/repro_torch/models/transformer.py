@@ -28,6 +28,14 @@ without and with the policy ``dots_with_no_batch_dims_saveable``
 (``transformer.py:199-204``); ``"none"`` keeps everything.  The cache-free
 stack also sums the ``moe``/``mla_moe`` layers' load-balance losses, the
 training loss's aux term (:func:`forward_with_aux`); serving drops them.
+
+Under an active mesh (``sharding.set_active``: the sharded train step) the
+embeddings, the residual stream after every layer and the logits are
+pinned to their logical axes (``sharding.constrain_logical``, the
+reference's ``transformer.py:226, 237, 276``: there after each scanned
+group, here after each layer), and so is the residual between a layer's
+attention and its MLP, a pin the reference leaves to GSPMD's propagation
+(:func:`layer_fwd`); without a mesh each pin returns its input.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch
 from torch.fx.experimental.proxy_tensor import get_proxy_mode
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attn_fwd, linear, mla_fwd, mlp_fwd, rmsnorm_fwd
 from repro_torch.models.moe import moe_fwd
@@ -83,7 +92,11 @@ def layer_fwd(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig, *,
         self_c = cache["self"] if kind == "dec" and cache is not None else cache
         h, new_cache = attn_fwd(p["attn"], h, cfg, kind=kind, positions=positions,
                                 cache=self_c)
-    x = x + rs * _maybe_post(cfg, p, "post_ln1", h)
+    # DTensor places each op by its own cost, where GSPMD propagates over
+    # the whole step: pinned here too, the residual stays replicated over
+    # the model axis, and the MLP's products shard as the reference's do
+    x = shd.constrain_logical(x + rs * _maybe_post(cfg, p, "post_ln1", h),
+                              ("batch", None, None))
     if kind == "dec":
         hc = rmsnorm_fwd(p["ln_cross"], x, cfg.norm_eps)
         cross_c = cache["cross"] if cache is not None else None
@@ -105,7 +118,8 @@ def layer_fwd(p: dict, x: torch.Tensor, kind: str, cfg: ArchConfig, *,
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = params["embed"][tokens] * cfg.embed_scale
-    return h.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+    h = h.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+    return shd.constrain_logical(h, ("batch", None, None))
 
 
 def unembed(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -115,7 +129,7 @@ def unembed(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         logits = linear(h.float(), params["lm_head"].float())
     if cfg.final_softcap is not None:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
-    return logits
+    return shd.constrain_logical(logits, ("batch", None, "vocab"))
 
 
 def encode(params: dict, cfg: ArchConfig, enc_in: torch.Tensor) -> torch.Tensor:
@@ -156,6 +170,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     for (kind, where), c in zip(layer_plan(cfg), caches):
         h, nc, _ = layer_fwd(layer_params(params, where), h, kind, cfg,
                              positions=positions, cache=c, enc_out=enc_out)
+        h = shd.constrain_logical(h, ("batch", None, None))
         new_caches.append(nc)
     h = rmsnorm_fwd(params["final_norm"], h, cfg.norm_eps)
     return h, new_caches
@@ -230,6 +245,7 @@ def _cache_free_stack(layers, h: torch.Tensor, cfg: ArchConfig, positions: torch
                                 use_reentrant=False, preserve_rng_state=False, **extra)
         else:
             h, aux = _cache_free_layer(lp, h, kind, cfg, positions, enc_out)
+        h = shd.constrain_logical(h, ("batch", None, None))
         if aux is not None:
             total = aux if total is None else total + aux
     return h, total

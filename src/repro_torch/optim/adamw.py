@@ -33,6 +33,8 @@ from typing import Any
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.sharding import is_dtensor
+
 
 @dataclasses.dataclass
 class OptState:
@@ -62,14 +64,15 @@ def adamw_init(params: Any) -> OptState:
 def opt_state_spec(param_spec: Any) -> OptState:
     """The optimizer state of a :class:`~repro_torch.models.params.ParamSpec`
     tree as specs, allocating nothing (``repro/optim/adamw.py:42-48``): an
-    int32 step and f32 moments of the parameters' shapes, zero-initialized.
-    ``params.abstract`` turns it into the avals of :func:`adamw_init`'s
-    state."""
-    from repro_torch.models.params import ParamSpec
+    int32 step of no axes and f32 moments of the parameters' shapes and
+    logical axes (so a sharded step places each moment as its parameter),
+    zero-initialized.  ``params.abstract`` turns it into the avals of
+    :func:`adamw_init`'s state."""
+    from repro_torch.models.params import ParamSpec, is_spec
     as_f32 = lambda s: dataclasses.replace(s, init="zeros", dtype=torch.float32)  # noqa: E731
-    return OptState(step=ParamSpec((), "zeros", dtype=torch.int32),
-                    mu=pytree.tree_map(as_f32, param_spec),
-                    nu=pytree.tree_map(as_f32, param_spec))
+    return OptState(step=ParamSpec((), (), "zeros", dtype=torch.int32),
+                    mu=pytree.tree_map(as_f32, param_spec, is_leaf=is_spec),
+                    nu=pytree.tree_map(as_f32, param_spec, is_leaf=is_spec))
 
 
 def _slices(t: torch.Tensor) -> list[torch.Tensor]:
@@ -79,11 +82,41 @@ def _slices(t: torch.Tensor) -> list[torch.Tensor]:
     return [flat[lo:lo + SLICE_ELEMENTS] for lo in range(0, flat.numel(), SLICE_ELEMENTS)]
 
 
+def _square_sums(g: torch.Tensor) -> list:
+    """A leaf's f32 sums of squares, one a slice.  Of a DTensor, those of
+    each rank's local shard, each a ``Partial`` sum over the mesh dims that
+    shard it (a ``Partial`` leaf is reduced first): a replicated leaf is
+    summed in the single-device slices, so in the same roundings."""
+    if not is_dtensor(g):
+        return [torch.sum(torch.square(s.float())) for s in _slices(g)]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if any(p.is_partial() for p in g.placements):
+        g = g.redistribute(g.device_mesh, [Replicate() if p.is_partial() else p
+                                           for p in g.placements])
+    placements = [Partial() if p.is_shard() else Replicate() for p in g.placements]
+    return [DTensor.from_local(torch.sum(torch.square(s.float())), g.device_mesh, placements,
+                               run_check=False)
+            for s in _slices(g.to_local())]
+
+
 def global_norm(grads: Any) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares (leaf order), a
-    leaf of more than ``SLICE_ELEMENTS`` elements summed slice by slice."""
-    return torch.sqrt(sum(torch.sum(torch.square(s.float()))
-                          for g in pytree.tree_leaves(grads) for s in _slices(g)))
+    leaf of more than ``SLICE_ELEMENTS`` elements summed slice by slice.
+    Of DTensor leaves, a replicated scalar DTensor."""
+    return torch.sqrt(sum(s for g in pytree.tree_leaves(grads) for s in _square_sums(g)))
+
+
+def _placed_like(grads: Any, params: Any) -> Any:
+    """Each DTensor gradient redistributed to its parameter's placements
+    (a ``Partial`` gradient of a sharded parameter is reduce-scattered:
+    FSDP's gradient reduction); plain gradients are returned as they are."""
+    def place(g, p):
+        if not is_dtensor(g) or tuple(g.placements) == tuple(p.placements):
+            return g
+        return g.redistribute(p.device_mesh, p.placements)
+    flat_p, spec = pytree.tree_flatten(params)
+    return pytree.tree_unflatten([place(g, p) for g, p in zip(spec.flatten_up_to(grads), flat_p)],
+                                 spec)
 
 
 def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -148,8 +181,11 @@ def adamw_update(params: Any, grads: Any, state: OptState, *,
                  max_grad_norm: float = 1.0, decay: Any = None):
     """One AdamW step. Returns (new_params, new_state, metrics).
     ``decay``: a tree of bools like ``params`` naming the leaves to decay
-    (a model's is :func:`decay_mask`); None decays those with ndim >= 2."""
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    (a model's is :func:`decay_mask`); None decays those with ndim >= 2.
+    DTensor leaves (the sharded step): each gradient is first brought to
+    its parameter's placements, and the update runs on each rank's shard;
+    ``grad_norm`` is a replicated scalar."""
+    grads, gnorm = clip_by_global_norm(_placed_like(grads, params), max_grad_norm)
     step = state.step + 1
     b1c, b2c = _bias_corrections(step, b1, b2)
     flat_p, spec = pytree.tree_flatten(params)

@@ -8,15 +8,18 @@ The policies are real, the failure source is injected:
     committed checkpoint and replays from there — the data pipeline is a pure
     function of step, so replay is exact.
   * **failure detection**: a FailureInjector raises on chosen steps to
-    simulate device loss / preemption.
+    simulate device loss / preemption, ``repeat`` times each (a persistently
+    bad node), and sleeps on others (a slow one).
   * **straggler mitigation**: per-step wall-time EWMA; a step slower than
     ``straggler_factor``× the EWMA is logged and counted.
-
-The reference's elastic re-mesh hook and its slow-step and repeated-failure
-injection are left to the sharded train step (ROADMAP queue 1,
-"Multi-device"), the slice that trains across a mesh: the port's meshes
-(``launch/mesh.py``) run the overlay, expert-parallel MoE and gradient
-compression, but its train step still runs on one device.
+  * **elastic re-mesh**: after ``remesh_after_failures`` consecutive
+    failures the supervisor calls ``on_remesh(n)``, which may shrink the
+    mesh and re-lower the step on it, then continues from the checkpoint.
+    The port's hook may return a function that places a state on the new
+    mesh (``launch/steps.shard_train_state``): the supervisor applies it to
+    its state, and the whole-leaf checkpoint is then restored into that
+    placement.  A hook that returns None (the reference's) leaves the
+    state where it is.
 """
 
 from __future__ import annotations
@@ -34,15 +37,25 @@ class SimulatedFailure(RuntimeError):
 
 @dataclasses.dataclass
 class FailureInjector:
-    """Raises SimulatedFailure once on each of the given (1-based) step
-    indices; the retry of that step succeeds."""
+    """Raises SimulatedFailure on the given (1-based) step indices.
+
+    ``repeat`` controls how many times each listed step fails before the
+    retry succeeds (repeat > 1 simulates a persistently bad node — the case
+    elastic re-meshing exists for); a step of ``slow_at`` sleeps
+    ``slow_seconds`` first (a straggler).
+    """
 
     fail_at: tuple[int, ...] = ()
-    _fired: set = dataclasses.field(default_factory=set)
+    slow_at: tuple[int, ...] = ()
+    slow_seconds: float = 0.05
+    repeat: int = 1
+    _fired: dict = dataclasses.field(default_factory=dict)
 
     def check(self, step: int) -> None:
-        if step in self.fail_at and step not in self._fired:
-            self._fired.add(step)
+        if step in self.slow_at:
+            time.sleep(self.slow_seconds)
+        if step in self.fail_at and self._fired.get(step, 0) < self.repeat:
+            self._fired[step] = self._fired.get(step, 0) + 1
             raise SimulatedFailure(f"injected node failure at step {step}")
 
 
@@ -53,6 +66,7 @@ class TrainLoopConfig:
     keep_n: int = 3
     straggler_factor: float = 3.0
     max_restarts: int = 5
+    remesh_after_failures: int = 3
 
 
 @dataclasses.dataclass
@@ -65,22 +79,26 @@ class StepResult:
 
 class Supervisor:
     """Drives (state, batch) -> (state, metrics) step functions with
-    checkpoint-restart and a straggler watchdog."""
+    checkpoint-restart, a straggler watchdog and the elastic re-mesh hook."""
 
     def __init__(self, cfg: TrainLoopConfig, ckpt_dir: str,
-                 injector: FailureInjector | None = None):
+                 injector: FailureInjector | None = None,
+                 on_remesh: "Callable[[int], Callable[[Any], Any] | None] | None" = None):
         self.cfg = cfg
         self.manager = CheckpointManager(ckpt_dir, keep_n=cfg.keep_n)
         self.injector = injector or FailureInjector()
+        self.on_remesh = on_remesh
         self.history: list[StepResult] = []
         self.restarts = 0
         self.straggler_steps = 0
+        self.remeshes = 0
 
     def run(self, state: Any, step_fn: Callable[[Any, dict], tuple[Any, dict]],
             batch_fn: Callable[[int], dict], start_step: int = 0) -> Any:
         """Run to total_steps with recovery. Returns the final state."""
         step = start_step
         ewma = None
+        consecutive_failures = 0
 
         # resume if a checkpoint exists
         restored, manifest = self.manager.restore_latest(state)
@@ -102,6 +120,7 @@ class Supervisor:
                     self.straggler_steps += 1
                 ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
                 step += 1
+                consecutive_failures = 0
                 self.history.append(StepResult(step, metrics, dt, straggler))
 
                 if step % self.cfg.ckpt_every == 0 or \
@@ -109,8 +128,16 @@ class Supervisor:
                     self.manager.save(step, state)
             except SimulatedFailure:
                 self.restarts += 1
+                consecutive_failures += 1
                 if self.restarts > self.cfg.max_restarts:
                     raise
+                if consecutive_failures >= self.cfg.remesh_after_failures \
+                        and self.on_remesh is not None:
+                    self.remeshes += 1
+                    place = self.on_remesh(self.remeshes)
+                    if place is not None:
+                        state = place(state)
+                    consecutive_failures = 0
                 restored, manifest = self.manager.restore_latest(state)
                 if restored is not None:
                     state = restored

@@ -25,15 +25,30 @@ with the map the rules run at the production shape without its ranks.
 small tuple of one entry per dim (None, an axis name, or a tuple of axis
 names), trailing Nones dropped, as JAX's ``PartitionSpec``.
 :func:`axis_rank` gives a rank's flattened coordinate over some axes of a
-``DeviceMesh`` (which rows and experts are its own).  What a spec
-means for an eager tensor (``named_sharding``, ``tree_shardings``,
-``constrain``) belongs to the sharded train step, a later slice.
+``DeviceMesh`` (which rows and experts are its own).
+
+What a spec means for an eager tensor: :func:`named_sharding` returns the
+port's :class:`NamedSharding`, a ``(mesh, spec)`` pair whose
+:meth:`~NamedSharding.placements` are DTensor placements
+(``torch.distributed.tensor``): ``Shard(i)`` on every mesh dim that entry
+``i`` of the spec names, ``Replicate()`` on the others.  DTensor lays a
+dim sharded over several mesh dims out in the mesh's dim order, the first
+the outermost, which is JAX's order for a tuple entry only when the tuple
+follows the mesh's order: a spec whose tuple does not is refused.
+:func:`tree_shardings` maps a tree of logical axes (and shapes);
+:func:`constrain` and :func:`constrain_logical` redistribute a DTensor
+activation to its spec, the counterpart of ``with_sharding_constraint``
+(the reference's GSPMD step; the port's sharded step is the single-device
+step run on DTensors, ``launch/steps.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any
+
+from torch.utils import _pytree as pytree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,13 +169,93 @@ def logical_to_spec(mesh: Any, rules: ShardingRules,
     return PartitionSpec(*spec)
 
 
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (none can be unless DTensor's module is
+    loaded, so asking imports nothing)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def mesh_axes(mesh: Any) -> tuple[str, ...]:
+    """A mesh's axis names in its dim order."""
+    return tuple(mesh_shape(mesh))
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A :class:`PartitionSpec` on a mesh (a ``DeviceMesh`` or an ``{axis:
+    size}`` map), as JAX's ``NamedSharding``.  A tuple entry must name its
+    axes in the mesh's order (``ValueError`` otherwise)."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+    def __post_init__(self):
+        names = mesh_axes(self.mesh)
+        for entry in self.spec:
+            axes = axes_tuple(entry)
+            if any(a not in names for a in axes):
+                raise ValueError(f"spec {self.spec} names an axis that the mesh {names} lacks")
+            order = [names.index(a) for a in axes]
+            if order != sorted(order):
+                raise ValueError(
+                    f"spec {self.spec}: the tuple {entry} is not in the mesh's order {names}; "
+                    f"DTensor would lay its shards out in the mesh's order, not the tuple's")
+
+    def placements(self) -> tuple:
+        """DTensor placements, one per mesh dim: ``Shard(i)`` where the
+        spec's entry ``i`` names the dim, else ``Replicate()``."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = mesh_axes(self.mesh)
+        out: list = [Replicate()] * len(names)
+        for i, entry in enumerate(self.spec):
+            for a in axes_tuple(entry):
+                out[names.index(a)] = Shard(i)
+        return tuple(out)
+
+
+def named_sharding(mesh: Any, rules: ShardingRules,
+                   logical_axes: tuple[str | None, ...],
+                   shape: tuple[int, ...] | None = None) -> NamedSharding:
+    return NamedSharding(mesh, logical_to_spec(mesh, rules, logical_axes, shape))
+
+
+def _is_axes(v) -> bool:
+    return isinstance(v, tuple) and all(isinstance(e, (str, type(None))) for e in v)
+
+
+def tree_shardings(mesh: Any, rules: ShardingRules, tree_axes: Any,
+                   tree_shapes: Any = None) -> Any:
+    """A tree of logical-axes tuples (and optionally the same tree of
+    shapes) as :class:`NamedSharding` leaves."""
+    if tree_shapes is None:
+        return pytree.tree_map(lambda ax: named_sharding(mesh, rules, ax), tree_axes,
+                               is_leaf=_is_axes)
+    return pytree.tree_map(lambda ax, shp: named_sharding(mesh, rules, ax, tuple(shp)),
+                           tree_axes, tree_shapes, is_leaf=_is_axes)
+
+
+def constrain(x, mesh: Any, rules: ShardingRules, logical_axes: tuple[str | None, ...]):
+    """``x`` redistributed to the spec of its logical axes and shape (the
+    reference's ``with_sharding_constraint``).  A no-op without a mesh and
+    on a tensor that is not a DTensor (a plain tensor lives whole on its
+    rank: the expert-parallel path under an active mesh runs on those)."""
+    if mesh is None or not is_dtensor(x):
+        return x
+    if x.device_mesh != mesh:
+        raise ValueError("constrain: the DTensor lives on another mesh than the one given")
+    want = named_sharding(mesh, rules, logical_axes, tuple(x.shape)).placements()
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
 # --- the active mesh (model code has no mesh plumbed through) ---------------
 _ACTIVE: list[tuple[Any, ShardingRules]] = []
 
 
 def set_active(mesh: Any, rules: ShardingRules | None = None) -> None:
     """Install the mesh and rules that model code reads (``moe_fwd``'s
-    expert-parallel dispatch); None clears them."""
+    expert-parallel dispatch, :func:`constrain_logical`); None clears
+    them."""
     _ACTIVE.clear()
     if mesh is not None:
         _ACTIVE.append((mesh, rules or DEFAULT_RULES))
@@ -169,3 +264,12 @@ def set_active(mesh: Any, rules: ShardingRules | None = None) -> None:
 def active() -> "tuple[Any, ShardingRules] | None":
     """The installed ``(mesh, rules)``, or None."""
     return _ACTIVE[0] if _ACTIVE else None
+
+
+def constrain_logical(x, logical_axes: tuple[str | None, ...]):
+    """:func:`constrain` against the active mesh and rules; ``x`` unchanged
+    when none is installed."""
+    if not _ACTIVE:
+        return x
+    mesh, rules = _ACTIVE[0]
+    return constrain(x, mesh, rules, logical_axes)

@@ -3,8 +3,9 @@
 
 ``logical_to_spec`` is held to the reference's entry for entry on every
 parameter spec of every arch (the logical axes and shapes of the JAX
-package's ``model_spec``: the port's specs carry no axes yet), under the
-three rule sets, with and without shapes, on meshes of the production
+package's ``model_spec``; the port's own specs carry the same axes, which
+``tests/test_torch_sharded_train.py`` holds to these), under the three
+rule sets, with and without shapes, on meshes of the production
 shape ``{data: 16, model: 16}``, the multi-pod ``{pod: 2, data: 16,
 model: 16}`` and ``{data: 1, model: 1}``.  The JAX side's mesh is a
 ``jax.sharding.AbstractMesh``, the port's a plain ``{axis: size}`` map: no

@@ -313,3 +313,215 @@ def host_mesh_facts(rank: int, world: int) -> dict:
     except RuntimeError as exc:
         out["wrong_world"] = str(exc)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step (DTensor)
+# ---------------------------------------------------------------------------
+SHARDED_BATCH, SHARDED_SEQ, SHARDED_LR = 4, 16, 3e-4
+
+
+def sharded_cfg(arch: str, remat: str, wide: bool = False):
+    """An arch's smoke config in float32 under ``remat``; ``wide`` takes
+    d_model 128 (so every norm runs the rmsnorm op) and 2 kv heads of 32
+    under 4 query heads (GQA)."""
+    from repro_torch.configs import smoke_config
+
+    cfg = smoke_config(arch).scaled(dtype="float32", remat=remat)
+    return cfg.scaled(d_model=128, head_dim=32, num_kv_heads=2) if wide else cfg
+
+
+def _count_custom_ops(calls: dict):
+    """Wrap the rmsnorm and attention ops the autograd functions call with
+    a counter of (op, whether a DTensor came in) and, for DTensors, of (op,
+    the first input's placements); returns the restore function."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.sharding import is_dtensor
+
+    real = {name: getattr(kops, name) for name in ("_rmsnorm_op", "_attention_op")}
+
+    def counted(name):
+        def call(*args):
+            for key in ((name, any(is_dtensor(a) for a in args)),
+                        (name, tuple(map(str, getattr(args[0], "placements", ()))))):
+                calls[key] = calls.get(key, 0) + 1
+            return real[name](*args)
+        return call
+
+    for name in real:
+        setattr(kops, name, counted(name))
+    return lambda: [setattr(kops, name, fn) for name, fn in real.items()]
+
+
+def _placed(cfg, mesh, params, opt) -> bool:
+    """Every state leaf a DTensor on ``mesh`` at its cell placements."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.launch import steps
+    from repro_torch.sharding import is_dtensor
+
+    (p_sh, o_sh, _), _ = steps.cell_shardings(cfg, "train_4k", mesh)
+    ok = lambda t, s: is_dtensor(t) and t.device_mesh == mesh and \
+        tuple(t.placements) == s.placements()  # noqa: E731
+    return all(pytree.tree_leaves(pytree.tree_map(ok, (params, opt), (p_sh, o_sh))))
+
+
+def _whole_leaves(tree) -> list:
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.sharding import is_dtensor
+    return [t.full_tensor() if is_dtensor(t) else t for t in pytree.tree_leaves(tree)]
+
+
+def sharded_train_steps(rank: int, world: int, shape: tuple, axes: tuple, cases: list) -> dict:
+    """For each case ``(arch, remat, wide, tree)`` (``tree`` the JAX
+    package's parameter tree as numpy): the port's single-device
+    ``make_train_step`` and its gradients, then the same from
+    ``make_sharded_train_step`` on a mesh of ``shape`` over ``axes`` (the
+    gradients from ``_loss_and_grads`` under ``steps.on_mesh``); whether
+    the state is placed as the cell says before and after, and how often
+    the custom ops met DTensor and plain inputs.  Rank 0 returns the
+    tensors whole; the others only the flags."""
+    import torch
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import _loss_and_grads
+    from repro_torch.models import params as pm
+    from repro_torch.optim import adamw_init
+
+    mesh = make_mesh("cpu", shape, axes)
+    calls: dict = {}
+    restore = _count_custom_ops(calls)
+    out = {}
+    try:
+        for arch, remat, wide, tree in cases:
+            cfg = sharded_cfg(arch, remat, wide)
+            params = pm.from_jax_numpy(tree, cfg, "cpu", dtype=torch.float32)
+            batch = make_batch(cfg, SHARDED_BATCH, SHARDED_SEQ, step=0, seed=0, device="cpu")
+            calls.clear()
+            new, opt, m = steps.make_train_step(cfg, lr=SHARDED_LR)(params, adamw_init(params),
+                                                                    batch)
+            single_calls = dict(calls)
+            grads = _loss_and_grads(cfg, params, batch)[2]
+            sp, so = steps.shard_train_state(cfg, params, adamw_init(params), mesh)
+            before = _placed(cfg, mesh, sp, so)
+            calls.clear()
+            snew, sopt, sm = steps.make_sharded_train_step(cfg, mesh, lr=SHARDED_LR)(sp, so, batch)
+            sharded_calls = dict(calls)
+            with steps.on_mesh(mesh):
+                sgrads = _loss_and_grads(cfg, sp, steps.shard_batch(batch, mesh))[2]
+            case = {"placed": (before, _placed(cfg, mesh, snew, sopt)),
+                    "calls": (single_calls, sharded_calls),
+                    "metric_items": {k: v.item() for k, v in sm.items()}}
+            sharded = {"metrics": case["metric_items"], "grads": _whole_leaves(sgrads),
+                       "params": _whole_leaves(snew), "mu": _whole_leaves(sopt.mu),
+                       "nu": _whole_leaves(sopt.nu), "step": int(sopt.step.full_tensor())}
+            if rank == 0:       # every rank gathers (a collective); rank 0 reports
+                case["sharded"] = sharded
+                case["single"] = {"metrics": {k: v.item() for k, v in m.items()},
+                                  "grads": grads, "params": _whole_leaves(new),
+                                  "mu": _whole_leaves(opt.mu), "nu": _whole_leaves(opt.nu),
+                                  "step": int(opt.step)}
+            out[(arch, remat, wide)] = case
+    finally:
+        restore()
+    return out
+
+
+def constrained_placements(rank: int, world: int, cases: list) -> list:
+    """``sharding.constrain`` of DTensors on a ``(data 2, model 2)`` mesh
+    under the default rules: for each ``(shape, logical axes)`` the
+    placements it returns, and whether its values are the input's."""
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh("cpu", (2, 2), ("data", "model"))
+    out = []
+    for shape, axes in cases:
+        x = torch.arange(float(torch.tensor(shape).prod())).reshape(shape)
+        d = distribute_tensor(x, mesh, [Replicate(), Replicate()])
+        c = shd.constrain(d, mesh, shd.DEFAULT_RULES, axes)
+        shd.set_active(mesh)
+        try:
+            a = shd.constrain_logical(d, axes)
+        finally:
+            shd.set_active(None)
+        out.append((tuple(c.placements), tuple(a.placements),
+                    bool(torch.equal(c.full_tensor(), x))))
+    return out
+
+
+REMESH_STEPS, REMESH_FAIL_AT, REMESH_LR = 4, 3, 1e-3
+
+
+def remesh_run(rank: int, world: int, directory: str) -> dict:
+    """The port's ``Supervisor`` driving ``make_sharded_train_step`` of
+    phi3's float32 smoke config on ``(data 2, model 2)``: step 3 fails 3
+    times, the third failure calls ``on_remesh``, which re-lowers the step
+    on ``(data 4, model 1)`` and returns the function that places the
+    state there; the supervisor restores the step-2 checkpoint (each rank
+    its own directory, every leaf whole) into that placement and runs on.
+    Beside it an uninterrupted single-device run of the same steps, with
+    each step's gradients.  Rank 0 returns the tensors whole."""
+    import os
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import _loss_and_grads
+    from repro_torch.models import params as pm
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import FailureInjector, Supervisor, TrainLoopConfig
+
+    cfg = sharded_cfg("phi3-mini-3.8b", "full")
+    params = pytree.tree_map(lambda t: t.float(),
+                             pm.init(cfg, torch.Generator().manual_seed(0), "cpu"))
+
+    def batch_fn(step: int) -> dict:
+        return make_batch(cfg, SHARDED_BATCH, SHARDED_SEQ, step=step, seed=0, device="cpu")
+
+    first = make_mesh("cpu", (2, 2), ("data", "model"))
+    now = {"mesh": first, "step": steps.make_sharded_train_step(cfg, first, lr=REMESH_LR)}
+    remeshed = []
+
+    def on_remesh(n: int):
+        mesh = make_mesh("cpu", (4, 1), ("data", "model"))
+        now.update(mesh=mesh, step=steps.make_sharded_train_step(cfg, mesh, lr=REMESH_LR))
+        remeshed.append(n)
+        return lambda state: steps.shard_train_state(cfg, *state, mesh)
+
+    def step_fn(state, batch):
+        p, o, m = now["step"](*state, batch)
+        return (p, o), m
+
+    sup = Supervisor(TrainLoopConfig(total_steps=REMESH_STEPS, ckpt_every=1, max_restarts=10,
+                                     remesh_after_failures=3),
+                     os.path.join(directory, f"ckpt_rank{rank}"),
+                     injector=FailureInjector(fail_at=(REMESH_FAIL_AT,), repeat=3),
+                     on_remesh=on_remesh)
+    final = sup.run(steps.shard_train_state(cfg, params, adamw_init(params), first), step_fn,
+                    batch_fn)
+    out = {"remeshes": sup.remeshes, "restarts": sup.restarts, "calls": remeshed,
+           "history": [h.step for h in sup.history],
+           "losses": [h.metrics["loss"].item() for h in sup.history],
+           "on_last_mesh": _placed(cfg, now["mesh"], *final)}
+    whole = _whole_leaves(final[0])          # every rank gathers; rank 0 reports
+    if rank == 0:
+        single, grads, losses = (params, adamw_init(params)), [], []
+        plain = steps.make_train_step(cfg, lr=REMESH_LR)
+        for i in range(REMESH_STEPS):
+            grads.append(_loss_and_grads(cfg, single[0], batch_fn(i))[2])
+            p, o, m = plain(*single, batch_fn(i))
+            single = (p, o)
+            losses.append(m["loss"].item())
+        out.update(params=whole, single_params=_whole_leaves(single[0]), single_grads=grads,
+                   single_losses=losses)
+    return out
