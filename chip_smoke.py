@@ -53,7 +53,22 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
    parameter and moment bit-identical, 4 flash_attention launches a step
    (tensor-core kernel) and 9 rmsnorm launches in both; both step times
    beside the card's name and power limit; no CUDA graph captured, the
-   group destroyed after;
+   group destroyed after.  ``[serve-mesh]`` serves the same cut of phi3
+   through the sharded serve steps (``make_sharded_prefill_step``/
+   ``make_sharded_serve_step`` on the state of ``shard_serve_state``): a
+   batch-1 prefill of 4096 tokens into a cache of 5120, then 8 decodes,
+   on that mesh under ``DEFAULT_RULES`` and ``SERVE_RULES``, against the
+   single-device steps: every call's logits and every cache leaf
+   bit-identical, every leaf a DTensor at its cell placement, 5 rmsnorm
+   launches a call (warp kernel) and no flash_attention launch in every
+   path; then the chunked cached prefill against the plain one (stated
+   tolerance); prefill and decode ms and host ms beside the card's name
+   and power limit; the group destroyed after.  ``[dryrun]`` runs
+   ``python -m repro_torch.launch.dryrun`` on phi3's ``decode_32k`` cell
+   over a fake group of 256 ranks, with the default rules and with
+   ``--serve-rules`` (two processes at once): each line ``ok``, 256 chips,
+   ``model_flops_per_dev`` = 2 N_active 128 / 256; its terms and memory
+   printed;
 4. serves phi3-mini-3.8b at full width (random bf16 weights from a seed,
    32 layers) through ``Overlay(3, 3)`` and with ``overlay=None``: identical
    greedy token streams, and one rmsnorm launch per norm call;
@@ -306,7 +321,8 @@ Drives the port's main paths end to end and fails loudly if any phase fails:
 
 Launch counts come from the wrappers' counters, set to 0 just before each
 driven path (the paper workload, its calls on the mesh and local overlays
-in ``[mesh]``, the sharded and single-device steps of ``[train-mesh]``,
+in ``[mesh]``, the sharded and single-device steps of ``[train-mesh]`` and
+``[serve-mesh]`` (the chunked prefill too),
 the overlay-served runs, the relocation
 and specialization rounds, the fleet runs, the full-width training runs
 (the train launcher's too),
@@ -1165,6 +1181,194 @@ def phase_train_mesh() -> dict:
     _free()
     return {"launches": mesh_n, "single_launches": single_n, "ms": mesh_ms,
             "single_ms": single_ms, "host_ms": mesh_host, "single_host_ms": single_host}
+
+
+SERVE_MESH_LAYERS, SERVE_MESH_PROMPT = 2, 4096            # [serve-mesh]
+SERVE_MESH_MAX_LEN, SERVE_MESH_DECODES = 5120, 8          # 5 x 1024: the chunked gate
+# the chunked cached prefill against the plain one (bf16 weights, f32
+# scores; the plain one rounds its probabilities to bf16 before the value
+# product, the chunked one does not): |logits| difference over max |logits|
+SERVE_MESH_CHUNKED_TOL = 10 * 2**-8        # ten bf16 steps
+
+
+def _serve_calls(prefill, serve, params, caches, prompt, tokens, tag: str,
+                 check_fn=None) -> dict:
+    """A prefill of ``prompt``, then a decode of each of ``tokens``, with
+    the counters reset just before: each call's logits and caches, ms to a
+    synchronize and host ms to return, and the launches."""
+    out = {"logits": [], "caches": [], "ms": [], "host_ms": []}
+    reset_counters()                       # the driven path starts here
+    for i, tok in enumerate([prompt, *tokens]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = (prefill if i == 0 else serve)(params, tok, caches)
+        out["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if check_fn is not None:
+            check_fn(logits, caches)
+        out["logits"].append(logits)
+        out["caches"].append(caches)
+    out["launches"] = counts()
+    log(f"[serve-mesh] {tag}: prefill ms to a synchronize {out['ms'][0]:.2f}, decode ms "
+        f"{[round(t, 2) for t in out['ms'][1:]]}; host ms to return prefill "
+        f"{out['host_ms'][0]:.2f}, decode {[round(t, 2) for t in out['host_ms'][1:]]}; "
+        f"launches {out['launches']}")
+    return out
+
+
+def phase_serve_mesh(gen: torch.Generator) -> dict:
+    """[serve-mesh] The sharded serve steps (``launch/steps.py::
+    make_sharded_prefill_step``/``make_sharded_serve_step`` on the state of
+    ``shard_serve_state``) of phi3-mini-3.8b at full width cut to 2 of its
+    32 layers (seeded bf16 weights): a batch-1 prefill of 4096 tokens into
+    a cache of 5120 positions, then 8 decodes, on the ``(data 1, model
+    1)`` host mesh over an NCCL group of world 1, under ``DEFAULT_RULES``
+    and ``SERVE_RULES``, against ``make_prefill_step``/``make_serve_step``
+    on one device from the same weights and tokens.  The logits of every
+    call and every cache leaf after every call must be bit-identical, every
+    leaf a DTensor at its cell placement; per call 5 rmsnorm launches on
+    the warp kernel and no flash_attention launch, in every path.  Then the
+    chunked cached prefill (``set_attn_impl("chunked")``) against the plain
+    one, within :data:`SERVE_MESH_CHUNKED_TOL`.  The group is destroyed at
+    the end.  Returns each path's launches."""
+    from repro_torch.models import layers as layers_lib
+
+    cfg = cut_layers(get_config("phi3-mini-3.8b"), SERVE_MESH_LAYERS)
+    params = pm.init(cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    prompt = torch.randint(0, cfg.vocab_size, (1, SERVE_MESH_PROMPT), generator=gen,
+                           device=DEV, dtype=torch.int32)
+    tokens = list(torch.randint(0, cfg.vocab_size, (SERVE_MESH_DECODES, 1, 1), generator=gen,
+                                device=DEV, dtype=torch.int32))
+    fresh = lambda: mdl.init_cache(cfg, 1, SERVE_MESH_MAX_LEN, DEV)  # noqa: E731
+    prefill = steps_lib.make_prefill_step(cfg)
+    single_prefill = lambda p, t, c: prefill(p, t, c, {})  # noqa: E731
+    card = card_name_power()
+    single = _serve_calls(single_prefill, steps_lib.make_serve_step(cfg), params, fresh(),
+                          prompt, tokens, "single device")
+    calls = 1 + SERVE_MESH_DECODES
+    want = {"flash_attention": 0, "rmsnorm": calls * (2 * cfg.num_layers + 1)}
+    variants = {"flash_attention": "wgmma", "rmsnorm": "warp"}
+    check_launches("serve-mesh", single["launches"], want, variants)
+    out = {"single": single["launches"]}
+    store_dir = tempfile.mkdtemp(prefix="serve_mesh_store_")
+    mesh_lib.init_group("cuda", os.path.join(store_dir, "store"))
+    try:
+        mesh = mesh_lib.make_host_mesh("cuda")
+        for name, rules in (("default", shd.DEFAULT_RULES), ("serve", shd.SERVE_RULES)):
+            (_, _, c_sh, _), (l_sh, _) = steps_lib.serve_shardings(
+                cfg, "prefill", 1, SERVE_MESH_MAX_LEN, mesh, rules, SERVE_MESH_PROMPT)
+            wanted = [s.placements() for s in pytree.tree_leaves(c_sh)]
+
+            def placed(logits, caches, _wanted=wanted, _l=l_sh.placements(), _n=name):
+                leaves = [logits, *pytree.tree_leaves(caches)]
+                check(all(shd.is_dtensor(t) and t.device_mesh == mesh
+                          and tuple(t.placements) == w
+                          for t, w in zip(leaves, [_l, *_wanted])),
+                      f"[serve-mesh] {_n}: a leaf is not a DTensor at its cell placement")
+
+            sp, sc = steps_lib.shard_serve_state(cfg, params, fresh(), mesh, rules)
+            got = _serve_calls(steps_lib.make_sharded_prefill_step(cfg, mesh, rules),
+                               steps_lib.make_sharded_serve_step(cfg, mesh, rules), sp, sc,
+                               prompt, tokens, f"sharded (DTensor, {name} rules)", placed)
+            check_launches("serve-mesh", got["launches"], want, variants)
+            diffs = {"logits": max(_leaf_diffs(got["logits"], single["logits"])),
+                     "caches": max(_leaf_diffs(got["caches"], single["caches"]))}
+            log(f"[serve-mesh] {name} rules: largest difference sharded vs single device "
+                f"{diffs}; prefill ms sharded {got['ms'][0]:.2f} vs single "
+                f"{single['ms'][0]:.2f}, decode ms (mean of {SERVE_MESH_DECODES}) sharded "
+                f"{sum(got['ms'][1:]) / SERVE_MESH_DECODES:.2f} vs single "
+                f"{sum(single['ms'][1:]) / SERVE_MESH_DECODES:.2f}, host ms to return "
+                f"(decode mean) sharded {sum(got['host_ms'][1:]) / SERVE_MESH_DECODES:.2f} "
+                f"vs single {sum(single['host_ms'][1:]) / SERVE_MESH_DECODES:.2f} ({card})")
+            check(all(v == 0 for v in diffs.values()),
+                  f"[serve-mesh] {name}: the sharded steps are not bit-identical to the "
+                  f"single-device ones: {diffs}")
+            # the host time of building a step's shardings, which the sharded steps
+            # now do once for each cache shape, not on every call
+            build_ms = {}
+            for depth, c in ((cfg.num_layers, cfg), (32, get_config("phi3-mini-3.8b"))):
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    steps_lib.serve_shardings(c, "decode", 1, SERVE_MESH_MAX_LEN, mesh, rules, 1)
+                build_ms[depth] = (time.perf_counter() - t0) / 5 * 1e3
+            log(f"[serve-mesh] {name} rules: host ms to build the decode shardings "
+                f"(serve_shardings) "
+                f"{', '.join(f'{v:.3f} at {d} layers' for d, v in build_ms.items())} ({card})")
+            out[name] = got["launches"]
+            out[f"{name}_ms"], out[f"{name}_host_ms"] = got["ms"], got["host_ms"]
+            del got, sp, sc
+    finally:
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    check(not dist.is_initialized(), "[serve-mesh] the process group outlived the phase")
+    layers_lib.set_attn_impl("chunked")
+    try:
+        reset_counters()
+        chunked, _ = single_prefill(params, prompt, fresh())
+        out["chunked"] = counts()
+    finally:
+        layers_lib.set_attn_impl("flash")
+    check_launches("serve-mesh", out["chunked"],
+                   {"flash_attention": 0, "rmsnorm": 2 * cfg.num_layers + 1}, variants)
+    plain = single["logits"][0].float()
+    err = ((chunked.float() - plain).abs().max() / plain.abs().max()).item()
+    log(f"[serve-mesh] chunked cached prefill (key blocks of {layers_lib.CHUNK}) vs plain: "
+        f"max |difference| / max |logits| {err:.3e} (limit {SERVE_MESH_CHUNKED_TOL})")
+    check(err <= SERVE_MESH_CHUNKED_TOL, f"[serve-mesh] chunked prefill off by {err:.3e}")
+    out["ms"], out["host_ms"] = single["ms"], single["host_ms"]
+    del single, params
+    _free()
+    return out
+
+
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_CELL = ("phi3-mini-3.8b", "decode_32k")      # [dryrun]
+
+
+def phase_dryrun() -> dict:
+    """[dryrun] ``python -m repro_torch.launch.dryrun`` on phi3-mini-3.8b's
+    ``decode_32k`` cell (full width, 32 layers, batch 128 against caches
+    of 32768) over a fake group of 256 ranks (the ``(16, 16)`` production
+    mesh), with the default rules and with ``--serve-rules``, the two
+    processes at once: each must exit 0 with one ``ok`` line of 256 chips
+    whose ``model_flops_per_dev`` is ``2 * N_active * 128 / 256``.  Prints
+    each line's roofline terms and memory."""
+    arch, shape = DRYRUN_CELL
+    cfg = get_config(arch)
+    want_mf = 2.0 * cfg.active_param_count() * steps_lib.SHAPES[shape]["batch"] / 256
+    runs = {name: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                                    "--arch", arch, "--shape", shape, *flags],
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                   cwd=ROOT, env=_env())
+            for name, flags in (("default", []), ("serve-rules", ["--serve-rules"]))}
+    out = {}
+    for name, proc in runs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for p in runs.values():
+                p.kill()
+            raise
+        lines = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+        if proc.returncode != 0 or len(lines) != 1:
+            for line in (stdout + stderr).splitlines()[-30:]:
+                log(f"[dryrun] {name}: {line[:300]}")
+        check(proc.returncode == 0 and len(lines) == 1,
+              f"[dryrun] {name}: exit {proc.returncode}, {len(lines)} result lines")
+        r = lines[0]
+        log(f"[dryrun] {arch} {shape} {name}: status {r['status']}, mesh {r['mesh']}, run "
+            f"{r['lower_s']} s; per device flops {r['hlo_flops_per_dev']:.4g} (model "
+            f"{r['model_flops_per_dev']:.4g}), bytes {r['hlo_bytes_per_dev']:.4g}, "
+            f"collective bytes {r['collective_bytes_per_dev']:.4g} {r['collectives']}; terms "
+            f"{r['terms']}; memory {r['memory']}, fits_h100_80gb {r['fits_h100_80gb']}")
+        check(r["status"] == "ok" and r["chips"] == 256
+              and math.isclose(r["model_flops_per_dev"], want_mf, rel_tol=1e-12),
+              f"[dryrun] {name}: {r['status']}, {r['chips']} chips, model flops "
+              f"{r['model_flops_per_dev']} (want {want_mf})")
+        out[name] = r
+    return out
 
 
 def _mesh_overlay_rows(gen: torch.Generator, tiles, overlays: list) -> dict:
@@ -5364,6 +5568,8 @@ def main() -> int:
     async_fig3 = run_phase("[async-fig3]", phase_async_fig3, gen)
     mesh = run_phase("[mesh]", phase_mesh, gen)
     train_mesh = run_phase("[train-mesh]", phase_train_mesh)
+    serve_mesh = run_phase("[serve-mesh]", phase_serve_mesh, gen)
+    run_phase("[dryrun]", phase_dryrun)
     served = run_phase("[serve]", phase_serve, gen)
     trained = run_phase("[train]", phase_train)
     train_overlay = run_phase("[train-overlay]", phase_train_overlay)
@@ -5398,6 +5604,9 @@ def main() -> int:
     by_path = {"fig3": paper["launches"], "async_fig3": async_fig3, "mesh": mesh,
                "train_mesh": train_mesh["launches"],
                "train_mesh_single": train_mesh["single_launches"],
+               "serve_mesh_single": serve_mesh["single"], "serve_mesh": serve_mesh["default"],
+               "serve_mesh_serve_rules": serve_mesh["serve"],
+               "serve_mesh_chunked": serve_mesh["chunked"],
                "serve": served["launches"],
                "relocate": served["relocate"], "specialize": served["specialize"],
                "serve_loop": served["serve_loop"]["launches"],

@@ -28,7 +28,8 @@ rows and heads.  rmsnorm takes ``x`` sharded on any dim but the last and
 heads sharded with k/v's kv heads on one mesh dim, where that dim's size
 divides the kv head count (contiguous blocks then keep each query head's
 kv head on its rank under GQA); :func:`attention` first brings q, k and v
-to that layout.  rmsnorm's backward is the plain VJP on DTensors;
+to that layout (:func:`attention_layout`, which the plain attention modes
+of ``models/layers.py`` use too).  rmsnorm's backward is the plain VJP on DTensors;
 attention's is the plain VJP of each rank's shard (``local_map``), which
 is its shard of the VJP: the blocks are independent.
 """
@@ -187,7 +188,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
     if is_dtensor(q):
         _register_sharding()
-        q, k, v = _attention_layout(q, k, v)
+        q, k, v = attention_layout(q, k, v)
     return _Attention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal, window, softcap, scale)
 
@@ -199,7 +200,7 @@ def _head_dims(placements) -> list[int]:
     return [i for i, p in enumerate(placements) if p.is_shard(1)]
 
 
-def _attention_layout(q, k, v):
+def attention_layout(q, k, v):
     """q, k and v redistributed to the layout the attention op shards:
     every mesh dim on which q shards the batch keeps it sharded; the first
     one on which q shards its heads keeps them sharded (k's and v's kv

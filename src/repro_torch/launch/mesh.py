@@ -7,6 +7,15 @@ CPU (the tests).  Nothing here falls back: a mesh on ``"cuda"`` without
 CUDA or NCCL raises, and so does a launched world of the wrong size.
 Functions, not module-level constants, so importing this module touches
 no device and no process group.
+
+The dry run (``launch/dryrun.py``) builds the production meshes with no
+cards: :func:`init_fake_group` starts torch's ``fake`` backend
+(``torch.testing._internal.distributed.fake_pg``), whose collectives
+return at once and move nothing, with this process as rank 0, and
+``make_production_mesh(fake=True)`` lays the mesh over it on device type
+``"cpu"``.  The roofline constants are the H100 SXM5 80GB's data-sheet
+peaks, not measured (the reference's are v5e's, ``repro/launch/
+mesh.py:12-14``).
 """
 
 from __future__ import annotations
@@ -18,6 +27,13 @@ import os
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+# NVIDIA H100 SXM5 80GB data-sheet values (not measured), read by the
+# dry run's roofline terms
+PEAK_FLOPS_BF16 = 989e12        # dense bf16 tensor-core FLOP/s per card
+HBM_BW = 3.35e12                # HBM3 bytes/s per card
+LINK_BW = 450e9                 # NVLink bytes/s per card, each way
+HBM_BYTES = 80 * 2**30          # the card's memory, as the dry run's fit test reads it
 
 PRODUCTION_SHAPE = (16, 16)
 PRODUCTION_AXES = ("data", "model")
@@ -79,13 +95,41 @@ def make_mesh(device: "str | torch.device", shape: tuple[int, ...],
     return init_device_mesh(torch.device(device).type, tuple(shape), mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def init_fake_group(world_size: int) -> None:
+    """Start a default process group of ``world_size`` ranks over torch's
+    ``fake`` backend, this process rank 0.  Refuses (``RuntimeError``)
+    when a process group already exists: a fake group must never stand in
+    for a real one."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError(f"a process group ({dist.get_backend()}, world "
+                           f"{dist.get_world_size()}) already exists; a fake group needs none")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+
+
+def make_production_mesh(*, multi_pod: bool = False, fake: bool = False) -> DeviceMesh:
     """The production mesh on ``"cuda"``: ``(16, 16)`` over ``("data",
     "model")``, or ``(2, 16, 16)`` with ``"pod"``.  Raises, naming the
-    world it needs, when the launched world is another size."""
-    if multi_pod:
-        return make_mesh("cuda", MULTI_POD_SHAPE, MULTI_POD_AXES)
-    return make_mesh("cuda", PRODUCTION_SHAPE, PRODUCTION_AXES)
+    world it needs, when the launched world is another size.  With
+    ``fake`` the mesh lies on device type ``"cpu"`` over the fake group of
+    :func:`init_fake_group`, which must have the mesh's size."""
+    shape, axes = (MULTI_POD_SHAPE, MULTI_POD_AXES) if multi_pod else \
+        (PRODUCTION_SHAPE, PRODUCTION_AXES)
+    if fake:
+        return make_fake_mesh(shape, axes)
+    return make_mesh("cuda", shape, axes)
+
+
+def make_fake_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> DeviceMesh:
+    """A ``"cpu"`` mesh of ``shape`` over the fake group of
+    :func:`init_fake_group`, whose world must be the shape's product."""
+    if not dist.is_initialized() or dist.get_backend() != "fake":
+        raise RuntimeError("a fake mesh needs the fake group: start it with init_fake_group")
+    if dist.get_world_size() != math.prod(shape):
+        raise RuntimeError(f"a {shape} mesh needs a fake world of {math.prod(shape)} ranks; "
+                           f"this one has {dist.get_world_size()}")
+    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
 
 
 def make_host_mesh(device: "str | torch.device" = "cuda") -> DeviceMesh:

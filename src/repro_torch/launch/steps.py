@@ -28,9 +28,13 @@ run on DTensors (``torch.distributed.tensor``):
 the batch, and :func:`make_sharded_train_step` runs the step under the
 active mesh (the model's ``constrain_logical`` sites then place its
 activations) and puts the new state back on the input shardings, as the
-reference's ``out_shardings`` do.  It covers the dense family (layers
-``dense``, ``local``, ``global``); the other families are refused by name
-(ROADMAP queue 1 item 4).
+reference's ``out_shardings`` do.  The sharded serve steps
+(:func:`make_sharded_prefill_step`, :func:`make_sharded_serve_step`, on
+the state of :func:`shard_serve_state`) are the reference's prefill and
+decode under ``jax.jit`` with a cell's shardings, as its dry run lowers
+them (``repro/launch/dryrun.py:181-273``).  They cover the dense family
+(layers ``dense``, ``local``, ``global``); the other families are refused
+by name (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -85,14 +89,19 @@ def input_specs(cfg: ArchConfig, shape: str,
     caches = mdl.cache_spec(cfg, batch, seq, dev)
     if kind == "decode":
         return {"tokens": TensorSpec((batch, 1), torch.int32, dev), "caches": caches}
+    return {"tokens": TensorSpec((batch, seq), torch.int32, dev), "caches": caches,
+            "extras": _extras_specs(cfg, batch, seq, dev)}
+
+
+def _extras_specs(cfg: ArchConfig, batch: int, seq: int, device="meta") -> dict:
+    from repro_torch.core.graph import TensorSpec
     extras = {}
     if cfg.frontend == "vision":
         extras["patch_embeds"] = TensorSpec((batch, _npatch(seq), cfg.frontend_dim),
-                                            torch.bfloat16, dev)
+                                            torch.bfloat16, device)
     if cfg.is_encdec:
-        extras["enc_in"] = TensorSpec((batch, seq, cfg.frontend_dim), torch.bfloat16, dev)
-    return {"tokens": TensorSpec((batch, seq), torch.int32, dev), "caches": caches,
-            "extras": extras}
+        extras["enc_in"] = TensorSpec((batch, seq, cfg.frontend_dim), torch.bfloat16, device)
+    return extras
 
 
 def train_state_specs(cfg: ArchConfig,
@@ -167,23 +176,33 @@ def cell_shardings(cfg: ArchConfig, shape: str, mesh,
     decode.  The caches are the port's, one dict a layer
     (:func:`~repro_torch.models.model.cache_param_spec`)."""
     rules = rules or shd.DEFAULT_RULES
+    info = SHAPES[shape]
+    if info["kind"] != "train":
+        return serve_shardings(cfg, info["kind"], info["batch"], info["seq"], mesh, rules)
     spec = pm.model_spec(cfg)
     p_sh = _spec_tree_shardings(mesh, rules, spec)
-    info = SHAPES[shape]
-    specs = input_specs(cfg, shape, "meta")
-    if info["kind"] == "train":
-        opt_sh = _spec_tree_shardings(mesh, rules, opt_state_spec(spec))
-        b_sh = batch_shardings(mesh, rules, specs["batch"])
-        return (p_sh, opt_sh, b_sh), (p_sh, opt_sh, None)
-    cache_sh = _spec_tree_shardings(mesh, rules,
-                                    mdl.cache_param_spec(cfg, info["batch"], info["seq"]))
-    tok_sh = shd.named_sharding(mesh, rules, ("batch", None), tuple(specs["tokens"].shape))
-    logits_sh = shd.named_sharding(mesh, rules, ("batch", None),
-                                   (info["batch"], cfg.vocab_size))
-    if info["kind"] == "prefill":
+    opt_sh = _spec_tree_shardings(mesh, rules, opt_state_spec(spec))
+    b_sh = batch_shardings(mesh, rules, input_specs(cfg, shape, "meta")["batch"])
+    return (p_sh, opt_sh, b_sh), (p_sh, opt_sh, None)
+
+
+def serve_shardings(cfg: ArchConfig, kind: str, batch: int, max_len: int, mesh,
+                    rules: shd.ShardingRules | None = None, seq: int | None = None):
+    """:func:`cell_shardings` of a ``"prefill"`` or ``"decode"`` step at
+    any batch and cache length (``seq`` prompt tokens, ``max_len`` unless
+    given; a decode's one): a cell's are these at its own shape, and a
+    smaller state is placed by the same logical axes with its own
+    divisibility."""
+    rules = rules or shd.DEFAULT_RULES
+    p_sh = _spec_tree_shardings(mesh, rules, pm.model_spec(cfg))
+    cache_sh = _spec_tree_shardings(mesh, rules, mdl.cache_param_spec(cfg, batch, max_len))
+    toks = (batch, 1 if kind == "decode" else seq or max_len)
+    tok_sh = shd.named_sharding(mesh, rules, ("batch", None), toks)
+    logits_sh = shd.named_sharding(mesh, rules, ("batch", None), (batch, cfg.vocab_size))
+    if kind == "prefill":
         extras = {k: shd.named_sharding(mesh, rules, ("batch",) + (None,) * (len(v.shape) - 1),
                                         tuple(v.shape))
-                  for k, v in specs["extras"].items()}
+                  for k, v in _extras_specs(cfg, batch, toks[1]).items()}
         return (p_sh, tok_sh, cache_sh, extras), (logits_sh, cache_sh)
     return (p_sh, tok_sh, cache_sh), (logits_sh, cache_sh)
 
@@ -196,8 +215,8 @@ SHARDED_KINDS = ("dense", "local", "global")
 
 def check_sharded_family(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a config outside the dense family,
-    naming what its sharded step still needs: the sharded step never runs
-    a model unsharded in silence."""
+    naming what its sharded steps still need: no sharded step runs a model
+    unsharded in silence."""
     kinds = set(pm.layer_kinds(cfg)) | set(pm.encoder_kinds(cfg))
     needs = []
     if kinds & {"moe", "mla_moe"}:
@@ -212,9 +231,9 @@ def check_sharded_family(cfg: ArchConfig) -> None:
         needs.append("the vlm")
     if needs or not kinds <= set(SHARDED_KINDS) or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: the sharded train step covers the dense family (layers "
-            f"{list(SHARDED_KINDS)}); {', '.join(needs) or sorted(kinds)} is a later slice "
-            f"of ROADMAP queue 1 item 4 (multi-device)")
+            f"{cfg.name}: the sharded steps (train, prefill, decode) cover the dense family "
+            f"(layers {list(SHARDED_KINDS)}); {', '.join(needs) or sorted(kinds)} is a later "
+            f"slice of ROADMAP queue 1 item 4 (multi-device)")
 
 
 def _distribute(tree, shardings):
@@ -291,3 +310,67 @@ def make_sharded_train_step(cfg: ArchConfig, mesh, rules: shd.ShardingRules | No
         return _distribute(params, p_sh), _distribute(opt_state, opt_sh), metrics
 
     return sharded_train_step
+
+
+# ---------------------------------------------------------------------------
+# The sharded serve steps (DTensor)
+# ---------------------------------------------------------------------------
+def _cache_shape(caches) -> tuple[int, int]:
+    """(batch, max_len) of the caches (a KV cache's ``k`` is (B, Hkv, Smax, hd))."""
+    batch, _, max_len, _ = caches[0]["k"].shape
+    return batch, max_len
+
+
+def shard_serve_state(cfg: ArchConfig, params, caches, mesh,
+                      rules: shd.ShardingRules | None = None):
+    """``(params, caches)`` as DTensors on ``mesh`` at the placements of
+    :func:`serve_shardings` at the caches' own batch and length (a prefill
+    cell's and a decode cell's are the same): no FSDP under
+    ``SERVE_RULES`` or ``NO_FSDP_RULES``, each cache's ``seq`` dim over
+    ``model`` under ``SERVE_RULES`` where its kv heads do not take that
+    axis, the index a replicated int32 scalar."""
+    check_sharded_family(cfg)
+    (p_sh, _, c_sh), _ = serve_shardings(cfg, "decode", *_cache_shape(caches), mesh,
+                                         rules or shd.DEFAULT_RULES)
+    return _distribute(params, p_sh), _distribute(caches, c_sh)
+
+
+def _sharded_serve(cfg, kind, step, mesh, rules):
+    check_sharded_family(cfg)
+    rules = rules or shd.DEFAULT_RULES
+    memo = {}   # (batch, max_len, tokens) -> serve_shardings, computed once each
+
+    def run(params, tokens, caches, *extras):
+        key = (*_cache_shape(caches), tokens.shape[1])
+        if key not in memo:
+            memo[key] = serve_shardings(cfg, kind, *key[:2], mesh, rules, key[2])
+        (p_sh, tok_sh, c_sh, *_), (logits_sh, _) = memo[key]
+        params, caches = _distribute(params, p_sh), _distribute(caches, c_sh)
+        with on_mesh(mesh, rules):
+            logits, caches = step(params, _distribute(tokens, tok_sh), caches, *extras)
+        return _distribute(logits, logits_sh), _distribute(caches, c_sh)
+
+    return run
+
+
+def make_sharded_prefill_step(cfg: ArchConfig, mesh, rules: shd.ShardingRules | None = None):
+    """:func:`make_prefill_step` on a ``DeviceMesh``: ``(params, tokens,
+    caches, extras={}) -> (logits, caches)`` under :func:`on_mesh`, the
+    tokens placed as ``("batch", None)``, the parameters and caches as
+    :func:`shard_serve_state` places them (a DTensor already there is
+    taken as it is); the logits and every cache leaf come back at the
+    cell's out-shardings.  Only the dense family
+    (:func:`check_sharded_family`)."""
+    run = _sharded_serve(cfg, "prefill", make_prefill_step(cfg), mesh, rules)
+
+    def sharded_prefill_step(params, tokens, caches, extras=None):
+        return run(params, tokens, caches, extras or {})
+
+    return sharded_prefill_step
+
+
+def make_sharded_serve_step(cfg: ArchConfig, mesh, rules: shd.ShardingRules | None = None):
+    """:func:`make_serve_step` on a ``DeviceMesh``: ``(params, tokens,
+    caches) -> (logits, caches)``, placed as
+    :func:`make_sharded_prefill_step` places a prefill."""
+    return _sharded_serve(cfg, "decode", make_serve_step(cfg), mesh, rules)

@@ -18,19 +18,67 @@ cache-free forward, the encoder, a cache-free cross-attention) runs the
 flash_attention kernel through its custom op, causal or not, except MLA's, whose q/k width
 (nope + rope) differs from its v width: the reference's dispatcher sends
 that to plain code (``layers.py:241-247``), and so does the port.
+
+:func:`set_attn_impl` picks how attention is computed, as the reference's
+``ATTN_IMPL`` (``layers.py:29-43``): ``"flash"`` (the reference's
+``"pallas"``, the default), ``"plain"`` (``"xla"``: masked attention with
+the whole score matrix) or ``"chunked"`` (``"xla_chunked"``: an online
+softmax over key blocks of :data:`CHUNK` under a checkpoint, the flash
+schedule in plain PyTorch).  The dry run (``launch/dryrun.py``) sets
+``"plain"`` before it counts (the flash op has no flop formula), and
+``"chunked"`` under ``--attn chunked`` or ``--optimized``, as the
+reference's does.  ``"chunked"`` is more than the dry run's, though: the
+flash kernel covers only cache-free attention, so a cached prefill is
+plain code in every mode, and only ``"chunked"`` keeps it from holding the
+whole ``S x Smax`` score matrix of each head (at a 32k prompt into a 32k
+cache, 2 GiB of f32 scores a head).  The reference also computes rmsnorm in
+plain code outside ``"pallas"``, because its Pallas kernel cannot be
+partitioned; the port's rmsnorm op has a DTensor strategy, so it runs the
+kernel in every mode.
+
+On DTensors (``launch/steps.py``'s sharded steps) attention runs on each
+rank's own shard (:func:`_per_shard`, :func:`_sharded_cached_attention`):
+flattening a sharded batch x heads dim into one ``bmm`` dim would make
+DTensor search a plan for every op.  Where the KV cache's ``seq`` dim is
+sharded (``SERVE_RULES`` when the kv heads do not divide the model axis)
+each rank holds a slice of the keys: it writes the new entries that fall
+in its slice, and the softmax takes its row max and row sum over all the
+slices (two all-reduces) before the value products' partial sums are
+all-reduced.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding as shd
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.params import ParamSpec, dense, norm_scale, zeros
+
+
+# ---------------------------------------------------------------------------
+# Attention implementation
+# ---------------------------------------------------------------------------
+ATTN_IMPLS = ("flash", "plain", "chunked")
+ATTN_IMPL = "flash"
+CHUNK = 1024          # the chunked attention's key block (the reference's block)
+# the KV cache's logical axes, which its written leaves are pinned to
+CACHE_AXES = ("batch", "kv_heads", "seq", None)
+
+
+def set_attn_impl(impl: str) -> None:
+    """``"flash"``, ``"plain"`` or ``"chunked"`` (the reference's
+    ``set_attn_impl`` with ``"pallas"``, ``"xla"``, ``"xla_chunked"``)."""
+    global ATTN_IMPL
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attention implementation {impl!r} is none of {ATTN_IMPLS}")
+    ATTN_IMPL = impl
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +168,63 @@ def attn_cache_spec(cfg: ArchConfig, batch: int, max_len: int) -> dict:
             "index": ParamSpec((), (), "zeros", dtype=torch.int32)}
 
 
+def _key_positions(sk: int, dev, k_offset) -> torch.Tensor:
+    """The positions of ``sk`` keys from ``k_offset`` (no op added at 0, so
+    a traced step keeps its op nodes)."""
+    kpos = torch.arange(sk, device=dev)
+    return kpos + k_offset if k_offset else kpos
+
+
+def _masked_scores(q, k, *, window, softcap, scale, q_offset, kv_len, causal, k_offset=0):
+    """The scores (B, Hkv, group, Sq, Sk) in f32 of q (B, H, Sq, D) against
+    k (B, Hkv, Sk, D), softcapped, with every key a query may not see at
+    -1e30.  ``k_offset`` is the position of k's first key (a rank's slice
+    of a sequence-sharded cache)."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    group = hq // hkv
+    dev = q.device
+    qf = q.reshape(b, hkv, group, sq, d).float().reshape(b * hkv, group * sq, d)
+    kf = k.float().reshape(b * hkv, sk, d)
+    s = torch.bmm(qf, kf.transpose(1, 2)).reshape(b, hkv, group, sq, sk) * scale
+    # the reference pins the scores to the KV layout (layers.py:148); on a
+    # rank's shard this is a no-op
+    s = shd.constrain_logical(s, ("batch", "kv_heads", None, None, "seq"))
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    ragged = any(isinstance(t, torch.Tensor) and t.dim() >= 1
+                 for t in (q_offset, kv_len))
+    if ragged:
+        qo = torch.as_tensor(q_offset, device=dev).to(torch.int32).reshape(-1)
+        kl = torch.as_tensor(kv_len, device=dev).to(torch.int32).reshape(-1)
+        qpos = qo[:, None, None] + torch.arange(sq, device=dev)[None, :, None]
+        kpos = _key_positions(sk, dev, k_offset)[None, None, :]
+        mask = kpos < kl[:, None, None]
+        if causal:
+            mask = mask & (qpos >= kpos)
+        if window is not None:
+            mask = mask & ((qpos - kpos) < window)
+        return torch.where(mask[:, None, None], s, -1e30)
+    qpos = q_offset + torch.arange(sq, device=dev)[:, None]
+    kpos = _key_positions(sk, dev, k_offset)[None, :]
+    mask = kpos < kv_len
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window is not None:
+        mask = mask & ((qpos - kpos) < window)
+    return torch.where(mask[None, None, None], s, -1e30)
+
+
+def _value_product(p, v, hq):
+    """The probabilities (B, Hkv, group, Sq, Sk), rounded to the cache
+    dtype as the reference does, times v (B, Hkv, Sk, Dv), in f32:
+    (B, H, Sq, Dv)."""
+    b, hkv, group, sq, sk = p.shape
+    pf = p.to(v.dtype).float().reshape(b * hkv, group * sq, sk)
+    o = torch.bmm(pf, v.float().reshape(b * hkv, sk, v.shape[-1]))
+    return o.reshape(b, hq, sq, v.shape[-1])
+
+
 def _attention(q, k, v, *, window, softcap, scale, q_offset, kv_len, causal=True):
     """Masked attention (B,H,Sq,D)x(B,Hkv,Sk,D), scores in f32.
 
@@ -133,41 +238,241 @@ def _attention(q, k, v, *, window, softcap, scale, q_offset, kv_len, causal=True
     branch.  Mirrors ``repro/models/layers.py::_attention_xla``, including
     the rounding of the probabilities to the cache dtype before the value
     product."""
-    b, hq, sq, d = q.shape
-    _, hkv, sk, _ = k.shape
+    s = _masked_scores(q, k, window=window, softcap=softcap, scale=scale, q_offset=q_offset,
+                       kv_len=kv_len, causal=causal)
+    return _value_product(torch.softmax(s, dim=-1), v, q.shape[1]).to(q.dtype)
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``t`` reduced (``"sum"`` or ``"max"``) over ``group``, out of place,
+    through the functional collective (the op a dispatch mode sees)."""
+    out = torch.ops._c10d_functional.all_reduce(t, op, group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(out)
+
+
+def _split_attention(q, k, v, group, *, k_offset, window, softcap, scale, q_offset, kv_len):
+    """:func:`_attention` where k and v hold one slice of the keys (from
+    position ``k_offset``) and ``group`` the other slices: the row max and
+    the row sum are reduced over the group first, so every rank normalizes
+    and rounds the same probabilities as one device would; the partial
+    value products are summed over the group last (the only sum whose
+    order differs from one device's)."""
+    s = _masked_scores(q, k, window=window, softcap=softcap, scale=scale, q_offset=q_offset,
+                       kv_len=kv_len, causal=True, k_offset=k_offset)
+    m = _all_reduce(torch.amax(s, dim=-1, keepdim=True), "max", group)
+    e = torch.exp(s - m)
+    p = e / _all_reduce(torch.sum(e, dim=-1, keepdim=True), "sum", group)
+    return _all_reduce(_value_product(p, v, q.shape[1]), "sum", group).to(q.dtype)
+
+
+def _chunked_stats(q, k, v, *, causal, window, softcap, scale, block, q_offset, kv_len,
+                   k_offset=0):
+    """The online softmax over key blocks of ``block``
+    (``repro/models/layers.py::_attention_xla_chunked``, :187-231): the
+    running row max ``m``, row sum ``l`` (B, Hkv, group, Sq, 1) and
+    unnormalized output ``acc`` (B, Hkv, group, Sq, Dv), all f32; peak
+    score memory (B, H, Sq, block).  ``k_offset`` is the position of k's
+    first key."""
+    b, hq, sq, dqk = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
     group = hq // hkv
     dev = q.device
-    qf = q.reshape(b, hkv, group, sq, d).float().reshape(b * hkv, group * sq, d)
-    kf = k.float().reshape(b * hkv, sk, d)
-    s = torch.bmm(qf, kf.transpose(1, 2)).reshape(b, hkv, group, sq, sk) * scale
-    if softcap is not None:
-        s = torch.tanh(s / softcap) * softcap
-    ragged = any(isinstance(t, torch.Tensor) and t.dim() >= 1
-                 for t in (q_offset, kv_len))
-    if ragged:
-        qo = torch.as_tensor(q_offset, device=dev).to(torch.int32).reshape(-1)
-        kl = torch.as_tensor(kv_len, device=dev).to(torch.int32).reshape(-1)
-        qpos = qo[:, None, None] + torch.arange(sq, device=dev)[None, :, None]
-        kpos = torch.arange(sk, device=dev)[None, None, :]
-        mask = kpos < kl[:, None, None]
+    # the reference scales q in its own dtype, then casts
+    qg = (q.reshape(b, hkv, group, sq, dqk) * scale).float().reshape(b * hkv, group * sq, dqk)
+    qpos = q_offset + torch.arange(sq, device=dev)[:, None]
+    m = torch.full((b, hkv, group, sq, 1), -1e30, dtype=torch.float32, device=dev)
+    lsum = torch.zeros((b, hkv, group, sq, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, group, sq, dv), dtype=torch.float32, device=dev)
+    for lo in range(0, sk, block):
+        kb = k[:, :, lo:lo + block].float().reshape(b * hkv, block, dqk)
+        vb = v[:, :, lo:lo + block].float().reshape(b * hkv, block, dv)
+        s = torch.bmm(qg, kb.transpose(1, 2)).reshape(b, hkv, group, sq, block)
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        kpos = k_offset + lo + torch.arange(block, device=dev)[None, :]
+        mask = torch.ones((sq, block), dtype=torch.bool, device=dev)
         if causal:
             mask = mask & (qpos >= kpos)
         if window is not None:
             mask = mask & ((qpos - kpos) < window)
-        s = torch.where(mask[:, None, None], s, -1e30)
-    else:
-        qpos = q_offset + torch.arange(sq, device=dev)[:, None]
-        kpos = torch.arange(sk, device=dev)[None, :]
-        mask = kpos < kv_len
-        if causal:
-            mask = mask & (qpos >= kpos)
-        if window is not None:
-            mask = mask & ((qpos - kpos) < window)
+        if kv_len is not None:
+            mask = mask & (kpos < kv_len)
         s = torch.where(mask[None, None, None], s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    pf = p.to(v.dtype).float().reshape(b * hkv, group * sq, sk)
-    o = torch.bmm(pf, v.float().reshape(b * hkv, sk, v.shape[-1]))
-    return o.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
+        p = torch.where(mask[None, None, None], torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        lsum = lsum * alpha + torch.sum(p, dim=-1, keepdim=True)
+        pv = torch.bmm(p.reshape(b * hkv, group * sq, block), vb)
+        acc = acc * alpha + pv.reshape(b, hkv, group, sq, dv)
+        m = m_new
+    return m, lsum, acc
+
+
+def _chunked_out(lsum, acc, q):
+    b, hq, sq, _ = q.shape
+    o = acc / torch.where(lsum == 0.0, 1.0, lsum)
+    return o.reshape(b, hq, sq, acc.shape[-1]).to(q.dtype)
+
+
+def _attention_chunked(q, k, v, *, causal, window, softcap, scale, block=CHUNK, q_offset=0,
+                       kv_len=None):
+    """Online-softmax attention over key blocks of ``block`` (Sk a multiple
+    of it): the flash schedule in plain PyTorch, the counterpart of
+    ``_attention_xla_chunked``.  ``q_offset``/``kv_len`` position the
+    queries inside a longer cache (cached prefill)."""
+    _, lsum, acc = _chunked_stats(q, k, v, causal=causal, window=window, softcap=softcap,
+                                  scale=scale, block=block, q_offset=q_offset, kv_len=kv_len)
+    return _chunked_out(lsum, acc, q)
+
+
+def _split_chunked(q, k, v, group, *, k_offset, window, softcap, scale, q_offset, kv_len):
+    """:func:`_attention_chunked` over a slice of the keys (from
+    ``k_offset``): each rank's running statistics are rescaled to the
+    group's row max and summed over the group."""
+    sk = k.shape[2]
+    block = CHUNK if sk % CHUNK == 0 else sk
+    m, lsum, acc = _chunked_stats(q, k, v, causal=True, window=window, softcap=softcap,
+                                  scale=scale, block=block, q_offset=q_offset, kv_len=kv_len,
+                                  k_offset=k_offset)
+    alpha = torch.exp(m - _all_reduce(m, "max", group))
+    return _chunked_out(_all_reduce(lsum * alpha, "sum", group),
+                        _all_reduce(acc * alpha, "sum", group), q)
+
+
+def _checkpointed(fn, *args, **kwargs):
+    """``fn`` recomputed in the backward (``jax.checkpoint``)."""
+    return checkpoint(functools.partial(fn, **kwargs), *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient leaves contiguous.  A gradient leaving a
+    rank's shard in the layout ``bmm``'s backward gives it (k's is
+    transposed) meets DTensor's reshapes of the heads, which DTensor plans
+    as views from the global strides: with one kv head a rank, on the dry
+    run's fake tensors, that local layout cannot be viewed and the
+    backward fails."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _per_shard(fn, q, k, v):
+    """``fn(q, k, v)``; on DTensors, run on each rank's shard after
+    :func:`~repro_torch.kernels.ops.attention_layout` (whole batch x kv
+    head blocks a rank), whose placements the output keeps."""
+    if not shd.is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+
+    def local(*qkv):
+        return fn(*(_ContiguousGrad.apply(t) for t in qkv))
+
+    q, k, v = kops.attention_layout(q, k, v)
+    place = q.placements
+    return local_map(local, out_placements=(place,), in_placements=(place,) * 3,
+                     device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v)
+
+
+def multihead_attention(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
+    """Cache-free attention (train, cache-free forward), q (B, H, S, D), k/v
+    (B, Hkv, S, D), by :data:`ATTN_IMPL` (``repro/models/layers.py::
+    multihead_attention``, :234-255): the flash_attention op at any length
+    (its CUDA kernel masks ragged tiles itself, so the reference's gate to
+    plain code where S is not a multiple of 128 has nothing to route
+    around); the chunked attention under a checkpoint where the key length
+    is a multiple of :data:`CHUNK`; else the plain masked attention."""
+    scale = (q.shape[-1] ** -0.5) if scale is None else scale
+    opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if ATTN_IMPL == "flash":
+        return kops.attention(q, k, v, **opts)
+    s = k.shape[2]
+    if ATTN_IMPL == "chunked" and s % CHUNK == 0:
+        return _per_shard(functools.partial(_checkpointed, _attention_chunked, **opts), q, k, v)
+    return _per_shard(functools.partial(_attention, q_offset=0, kv_len=s, **opts), q, k, v)
+
+
+def _cached_attention(q, ck, cv, idx, *, chunked, window, softcap, scale):
+    """Causal attention of q (B, H, S, D), at positions ``idx ..
+    idx+S-1``, over the written cache: chunked (cached prefill under
+    ``"chunked"``) or plain."""
+    s = q.shape[2]
+    opts = dict(window=window, softcap=softcap, scale=scale, q_offset=idx, kv_len=idx + s)
+    if chunked:
+        return _checkpointed(_attention_chunked, q, ck, cv, causal=True, **opts)
+    return _attention(q, ck, cv, **opts)
+
+
+def _write_window(cache, new, start):
+    """``cache`` (B, H, L, D), one rank's slice of a sequence-sharded cache,
+    with ``new`` (B, H, S, D) written where its positions ``start ..
+    start+S-1`` (relative to the slice's first position; any of them may
+    fall outside it) land in the slice.  Each slot is a copy of a ``new``
+    entry or of the cache's own, as the single-device write."""
+    s = new.shape[2]
+    rel = torch.arange(cache.shape[2], device=cache.device) - start
+    inside = (rel >= 0) & (rel < s)
+    src = new.index_select(2, rel.clamp(0, s - 1)).to(cache.dtype)
+    return torch.where(inside[:, None], src, cache)
+
+
+def _sharded_cached_attention(qt, kt, vt, cache, idx, *, chunked, window, softcap, scale):
+    """The cached branch on DTensors, on each rank's shard: the new keys
+    and values are written into the rank's shard of the cache (only the
+    positions that fall in its slice, where ``seq`` is sharded), and
+    attention runs on its batch rows and kv heads (its queries' heads with
+    them), over its slice of the keys with the softmax statistics reduced
+    over the slices (:func:`_split_attention`, :func:`_split_chunked`).
+    Returns the output (heads sharded as the cache's kv heads, whole along
+    the sequence) and both caches at the cache's placements."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = cache["k"].device_mesh
+    place = tuple(cache["k"].placements)
+    whole = tuple(Replicate() if p.is_shard(2) else p for p in place)
+
+    def local(t, want):
+        t = t if tuple(t.placements) == want else t.redistribute(mesh, want)
+        return t.to_local()
+
+    q, k, v = (local(t, whole) for t in (qt, kt, vt))
+    ck, cv = cache["k"].to_local(), cache["v"].to_local()
+    start = local(idx, (Replicate(),) * mesh.ndim) if shd.is_dtensor(idx) else idx
+    opts = dict(window=window, softcap=softcap, scale=scale)
+    seq_dims = [i for i, p in enumerate(place) if p.is_shard(2)]
+    if not seq_dims:
+        ck, cv = cache_update(ck, k, start, axis=2), cache_update(cv, v, start, axis=2)
+        o = _cached_attention(q, ck, cv, start, chunked=chunked, **opts)
+    else:
+        (dim,) = seq_dims
+        off = mesh.get_local_rank(dim) * ck.shape[2]
+        ck, cv = _write_window(ck, k, start - off), _write_window(cv, v, start - off)
+        split = _split_chunked if chunked else _split_attention
+        o = split(q, ck, cv, mesh.get_group(dim), k_offset=off, q_offset=start,
+                  kv_len=start + q.shape[2], **opts)
+    wrap = lambda t, pl: DTensor.from_local(t, mesh, pl, run_check=False)  # noqa: E731
+    return wrap(o, whole), wrap(ck, place), wrap(cv, place)
+
+
+def _split_heads(t: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """(B, S, heads * hd) -> (B, S, heads, hd).  A DTensor whose last dim
+    is sharded into a count of shards that does not divide ``heads`` (the
+    weight's ``heads * hd`` columns divided, its heads not: 3 kv heads on 2
+    ranks) is first replicated on those mesh dims, which GSPMD does for
+    the reference."""
+    if shd.is_dtensor(t):
+        last = t.ndim - 1
+        dims = [i for i, p in enumerate(t.placements) if p.is_shard(last)]
+        if heads % math.prod(t.device_mesh.size(i) for i in dims):
+            from torch.distributed.tensor import Replicate
+            want = [Replicate() if i in dims else p for i, p in enumerate(t.placements)]
+            t = t.redistribute(t.device_mesh, want)
+    return t.reshape(*t.shape[:-1], heads, hd)
 
 
 def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
@@ -205,7 +510,7 @@ def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
         scale = cfg.query_pre_attn_scalar ** -0.5
     else:
         scale = hd ** -0.5
-    q = linear(x, p["wq"]).reshape(b, s, hq, hd)
+    q = _split_heads(linear(x, p["wq"]), hq, hd)
     if is_cross and cache is not None:
         # the cross cache was filled once from the encoder's output; its
         # index is the encoder's length, and slots past it are masked
@@ -215,8 +520,8 @@ def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
         o = o.transpose(1, 2).reshape(b, s, hq * hd)
         return linear(o, p["wo"]), cache
     src = x if x_kv is None else x_kv
-    k = linear(src, p["wk"]).reshape(b, src.shape[1], hkv, hd)
-    v = linear(src, p["wv"]).reshape(b, src.shape[1], hkv, hd)
+    k = _split_heads(linear(src, p["wk"]), hkv, hd)
+    v = _split_heads(linear(src, p["wv"]), hkv, hd)
     if not is_cross:                     # RoPE on self-attention only
         cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
@@ -228,12 +533,8 @@ def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
     vt = shd.constrain_logical(v.transpose(1, 2), ("batch", "kv_heads", None, None))
 
     if cache is None:
-        # the flash_attention op at every length, causal or not, Sq = Sk or
-        # not: the CUDA kernel masks ragged tiles itself, so the reference's
-        # gate to plain code where S is not a multiple of its 128 blocks
-        # (repro/models/layers.py:237-255) has nothing to route around here
-        o = kops.attention(qt, kt, vt, causal=causal, window=window,
-                           softcap=cfg.attn_softcap, scale=scale)
+        o = multihead_attention(qt, kt, vt, causal=causal, window=window,
+                                softcap=cfg.attn_softcap, scale=scale)
         o = o.transpose(1, 2).reshape(b, s, hq * hd)
         return linear(o, p["wo"]), None
 
@@ -246,13 +547,21 @@ def attn_fwd(p: dict, x: torch.Tensor, cfg: ArchConfig, *, kind: str,
             == pos_b[:, None]
         ck = torch.where(sel[:, None, :, None], kt.to(cache["k"].dtype), cache["k"])
         cv = torch.where(sel[:, None, :, None], vt.to(cache["v"].dtype), cache["v"])
+        ck, cv = shd.constrain_logical(ck, CACHE_AXES), shd.constrain_logical(cv, CACHE_AXES)
         o = _attention(qt, ck, cv, window=window, softcap=cfg.attn_softcap,
                        scale=scale, q_offset=pos_b, kv_len=pos_b + s)
     else:
-        ck = cache_update(cache["k"], kt, idx, axis=2)
-        cv = cache_update(cache["v"], vt, idx, axis=2)
-        o = _attention(qt, ck, cv, window=window, softcap=cfg.attn_softcap,
-                       scale=scale, q_offset=idx, kv_len=idx + s)
+        # cached prefill under "chunked": the flash schedule, not S x Smax
+        # scores (repro/models/layers.py:338-346)
+        chunked = s > 1 and ATTN_IMPL == "chunked" and cache["k"].shape[2] % CHUNK == 0
+        opts = dict(chunked=chunked, window=window, softcap=cfg.attn_softcap, scale=scale)
+        if shd.is_dtensor(cache["k"]):
+            o, ck, cv = _sharded_cached_attention(qt, kt, vt, cache, idx, **opts)
+        else:
+            ck = cache_update(cache["k"], kt, idx, axis=2)
+            cv = cache_update(cache["v"], vt, idx, axis=2)
+            o = _cached_attention(qt, ck, cv, idx, **opts)
+        ck, cv = shd.constrain_logical(ck, CACHE_AXES), shd.constrain_logical(cv, CACHE_AXES)
     o = o.transpose(1, 2).reshape(b, s, hq * hd)
     return linear(o, p["wo"]), {"k": ck, "v": cv, "index": idx + s}
 

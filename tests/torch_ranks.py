@@ -27,10 +27,15 @@ TIME_LIMIT_S = 180.0
 
 
 def _rank_main(fn, rank: int, world: int, directory: str, args: tuple) -> None:
+    import faulthandler
+
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_group
 
+    # a rank killed by a signal leaves its Python stack here
+    crash_log = open(os.path.join(directory, f"crash{rank}.txt"), "w")
+    faulthandler.enable(crash_log)
     torch.set_num_threads(1)
     try:
         init_group("cpu", os.path.join(directory, "store"), rank=rank, world_size=world,
@@ -67,6 +72,9 @@ def spawn(world: int, fn, directory, *args, time_limit: float = TIME_LIMIT_S) ->
         p.join()
     errors = {r: (directory / f"err{r}.txt").read_text()
               for r in range(world) if (directory / f"err{r}.txt").exists()}
+    errors.update({r: (directory / f"crash{r}.txt").read_text() for r in range(world)
+                   if (directory / f"crash{r}.txt").exists()
+                   and (directory / f"crash{r}.txt").stat().st_size and r not in errors})
     if hung or errors or any(p.exitcode for p in procs):
         first = errors[min(errors)] if errors else ""
         raise AssertionError(
@@ -525,3 +533,315 @@ def remesh_run(rank: int, world: int, directory: str) -> dict:
         out.update(params=whole, single_params=_whole_leaves(single[0]), single_grads=grads,
                    single_losses=losses)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded serve steps (DTensor)
+# ---------------------------------------------------------------------------
+SERVE_BATCH, SERVE_MAX_LEN, SERVE_PROMPT, SERVE_DECODES = 4, 16, 10, 3
+SERVE_RULE_SETS = ("default", "no_fsdp", "serve")
+# the odd case: 6 query heads over 3 kv heads (3 divides no model axis of 2,
+# so SERVE_RULES shards the cache's seq dim) and a window of 4 (the local
+# layers' mask inside each slice)
+ODD = dict(num_heads=6, num_kv_heads=3, sliding_window=4)
+
+
+def serve_cfg(arch: str, odd: bool = False):
+    """An arch's smoke config in float32 (the caches stay bf16); ``odd``
+    takes :data:`ODD`."""
+    from repro_torch.configs import smoke_config
+
+    cfg = smoke_config(arch).scaled(dtype="float32")
+    return cfg.scaled(**ODD) if odd else cfg
+
+
+def serve_tokens(vocab: int):
+    """The prompt (B, P) and the decode tokens (D, B, 1), int32, from one
+    numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, vocab, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+    nxt = rng.integers(0, vocab, (SERVE_DECODES, SERVE_BATCH, 1), dtype=np.int32)
+    return prompt, nxt
+
+
+def _serve_rules(name: str):
+    from repro_torch import sharding as shd
+    return {"default": shd.DEFAULT_RULES, "no_fsdp": shd.NO_FSDP_RULES,
+            "serve": shd.SERVE_RULES}[name]
+
+
+def _serve_calls(prefill, serve, params, caches, prompt, nxt, check=None) -> list:
+    """A prefill of ``prompt``, then a decode of each of ``nxt``: each
+    call's (logits, caches), ``check(caches)`` after each call."""
+    out = [prefill(params, prompt, caches)]
+    for tok in nxt:
+        out.append(serve(params, tok, out[-1][1]))
+    if check is not None:
+        for _, c in out:
+            check(c)
+    return out
+
+
+def _cache_placements(caches) -> list:
+    return [tuple(str(p) for p in leaf.placements) for leaf in _leaves(caches)]
+
+
+def _leaves(tree) -> list:
+    from torch.utils import _pytree as pytree
+    return pytree.tree_leaves(tree)
+
+
+def sharded_serve_steps(rank: int, world: int, shape: tuple, axes: tuple, cases: list) -> dict:
+    """For each case ``(arch, odd, tree)`` (``tree`` the JAX package's
+    parameter tree as numpy): the port's single-device prefill and
+    :data:`SERVE_DECODES` decodes, then the same through
+    ``make_sharded_prefill_step``/``make_sharded_serve_step`` on a mesh of
+    ``shape`` over ``axes`` under each rule set, from
+    ``shard_serve_state``.  After every call: whether every cache leaf and
+    the logits are DTensors at the cell's placements; and the kinds for
+    which the sharded steps built their shardings (``serve_shardings``).  Rank 0 returns the
+    logits and caches whole; every rank the placements it saw."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import params as pm
+    from repro_torch.sharding import is_dtensor
+
+    mesh = make_mesh("cpu", shape, axes)
+    out = {}
+    for arch, odd, tree in cases:
+        cfg = serve_cfg(arch, odd)
+        params = pm.from_jax_numpy(tree, cfg, "cpu", dtype=torch.float32)
+        prompt, nxt = serve_tokens(cfg.vocab_size)
+        prompt, nxt = torch.from_numpy(prompt), [torch.from_numpy(t) for t in nxt]
+        fresh = lambda: tmodel.init_cache(cfg, SERVE_BATCH, SERVE_MAX_LEN, "cpu")  # noqa: E731
+        prefill = steps.make_prefill_step(cfg)
+        single = _serve_calls(lambda p, t, c: prefill(p, t, c, {}), steps.make_serve_step(cfg),
+                              params, fresh(), prompt, nxt) if rank == 0 else None
+        for name in SERVE_RULE_SETS:
+            rules = _serve_rules(name)
+            (_, _, c_sh, _), (l_sh, _) = steps.serve_shardings(
+                cfg, "prefill", SERVE_BATCH, SERVE_MAX_LEN, mesh, rules, SERVE_PROMPT)
+            want = [s.placements() for s in _leaves(c_sh)]
+            placed = []
+
+            def check(caches, _want=want, _placed=placed):
+                _placed.append(all(is_dtensor(t) and t.device_mesh == mesh
+                                   and tuple(t.placements) == w
+                                   for t, w in zip(_leaves(caches), _want)))
+
+            sp, sc = steps.shard_serve_state(cfg, params, fresh(), mesh, rules)
+            check(sc)
+            built = []
+            real = steps.serve_shardings
+            steps.serve_shardings = lambda *a, **k: built.append(a[1]) or real(*a, **k)
+            try:
+                calls = _serve_calls(steps.make_sharded_prefill_step(cfg, mesh, rules),
+                                     steps.make_sharded_serve_step(cfg, mesh, rules),
+                                     sp, sc, prompt, nxt, check)
+            finally:
+                steps.serve_shardings = real
+            logits_placed = all(tuple(lg.placements) == l_sh.placements() for lg, _ in calls)
+            whole = [(lg.full_tensor(), [t.full_tensor() for t in _leaves(c)])
+                     for lg, c in calls]        # every rank gathers; rank 0 reports
+            case = {"placed": placed, "logits_placed": logits_placed, "built": built,
+                    "placements": _cache_placements(calls[-1][1])}
+            if rank == 0:
+                case["sharded"] = whole
+                case["single"] = [(lg, _leaves(c)) for lg, c in single]
+            out[(arch, odd, name)] = case
+    return out
+
+
+SPLIT_CASES = (   # (Sq, Smax, index before the write, window, softcap, chunked)
+    (1, 32, 20, None, None, False), (6, 32, 13, 5, 30.0, False),
+    (48, 2048, 1000, None, None, True), (48, 2048, 1000, 300, 30.0, True))
+
+
+def split_attention(rank: int, world: int, arrays: list) -> list:
+    """``layers._sharded_cached_attention`` on a ``(data 2, model 2)`` mesh
+    with the cache's ``seq`` dim over ``model`` (each rank holds half the
+    keys): for each of :data:`SPLIT_CASES` (``arrays`` its q, new k/v and
+    cache k/v as numpy, bf16 values in f32), the output and the written
+    caches whole, and the single-device write and attention on the same
+    tensors."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+
+    mesh = make_mesh("cpu", (2, 2), ("data", "model"))
+    out = []
+    for (sq, smax, idx, window, softcap, chunked), arr in zip(SPLIT_CASES, arrays):
+        q, k, v, ck, cv = (torch.from_numpy(a).bfloat16() for a in arr)
+        index = torch.tensor(idx, dtype=torch.int32)
+        opts = dict(window=window, softcap=softcap, scale=0.25)
+        dt = lambda t, pl: distribute_tensor(t, mesh, pl)  # noqa: E731
+        seq_pl, new_pl = (Shard(0), Shard(2)), (Shard(0), Replicate())
+        cache = {"k": dt(ck, seq_pl), "v": dt(cv, seq_pl)}
+        o, gk, gv = layers._sharded_cached_attention(
+            dt(q, new_pl), dt(k, new_pl), dt(v, new_pl), cache,
+            dt(index, (Replicate(), Replicate())), chunked=chunked, **opts)
+        wk, wv = (layers.cache_update(c, n, index, axis=2) for c, n in ((ck, k), (cv, v)))
+        want = layers._cached_attention(q, wk, wv, index, chunked=chunked, **opts)
+        out.append({"placements": tuple(str(p) for p in gk.placements),
+                    "got": (o.full_tensor(), gk.full_tensor(), gv.full_tensor()),
+                    "want": (want, wk, wv)})
+    return out
+
+
+def cache_free_grads(rank: int, world: int, arrays: tuple) -> dict:
+    """``multihead_attention`` under ``"plain"`` and ``"chunked"`` on a
+    ``(data 2, model 2)`` mesh, as the model reaches it: q, k and v split
+    into heads from (B, S, H * D) projections sharded over the batch and
+    ``model`` (2 kv heads: one a rank), then the squared output summed and
+    differentiated.  For each mode the output and the projections'
+    gradients whole, beside the same on one device (float32, ``arrays``
+    the three projections as numpy)."""
+    import torch
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+
+    mesh = make_mesh("cpu", (2, 2), ("data", "model"))
+    heads = (4, 2, 2)
+
+    def run(xs):
+        q, k, v = (layers._split_heads(x, h, 16).transpose(1, 2) for x, h in zip(xs, heads))
+        o = layers.multihead_attention(q, k, v, causal=True, window=300, scale=0.25)
+        o.float().square().sum().backward()
+        return o
+
+    out, before = {}, layers.ATTN_IMPL
+    try:
+        for mode in ("plain", "chunked"):
+            layers.set_attn_impl(mode)
+            plain = [torch.from_numpy(a).requires_grad_() for a in arrays]
+            dist = [distribute_tensor(torch.from_numpy(a), mesh, (Shard(0), Shard(2)))
+                    .requires_grad_() for a in arrays]
+            want, got = run(plain), run(dist)
+            out[mode] = {"got": (got.full_tensor(), *(x.grad.full_tensor() for x in dist)),
+                         "want": (want.detach(), *(x.grad for x in plain))}
+    finally:
+        layers.set_attn_impl(before)
+    return out
+
+
+def serve_ranks(rank: int, world: int, shape: tuple, axes: tuple, cases: list,
+                split_arrays: list | None = None, grad_arrays: tuple | None = None) -> dict:
+    """:func:`sharded_serve_steps`, then on 4 ranks :func:`split_attention`
+    and :func:`cache_free_grads` in the same processes."""
+    out = {"serve": sharded_serve_steps(rank, world, shape, axes, cases)}
+    if split_arrays is not None:
+        out["split"] = split_attention(rank, world, split_arrays)
+        out["grads"] = cache_free_grads(rank, world, grad_arrays)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the dry run on fake groups (one process, no ranks to spawn)
+# ---------------------------------------------------------------------------
+DRY_DENSE = ("phi3-mini-3.8b", "minicpm-2b", "gemma2-27b", "mistral-large-123b")
+
+
+def _single_device_flops(cfg, shape: str) -> int:
+    """``FlopCounterMode`` over the single-device step of a cell, on fake
+    tensors of the cell's shapes, with the dry run's attention and SSD."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils import _pytree as pytree
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun, steps
+
+    fake = FakeTensorMode()
+    make = lambda s: torch.empty(s.shape, dtype=s.dtype)  # noqa: E731
+    with fake:
+        specs = steps.input_specs(cfg, shape, "meta")
+        p_spec, o_spec = steps.train_state_specs(cfg, "meta")
+        kind = steps.SHAPES[shape]["kind"]
+        if kind == "train":
+            args = (p_spec, o_spec, specs["batch"])
+            step = steps.make_train_step(cfg)
+        elif kind == "prefill":
+            args = (p_spec, specs["tokens"], specs["caches"], specs["extras"])
+            step = steps.make_prefill_step(cfg)
+        else:
+            args = (p_spec, specs["tokens"], specs["caches"])
+            step = steps.make_serve_step(cfg)
+        args = tuple(pytree.tree_map(make, a) for a in args)
+    counter = FlopCounterMode(display=False)
+    with dryrun.lowering_modes(None), fake, counter:
+        step(*args)
+    return counter.get_total_flops()
+
+
+def dryrun_small(out_path: str) -> None:
+    """The dense family's smoke configs at every applicable cell on a fake
+    ``(data 2, model 2)`` mesh (each result line), then on a fake ``(1, 1)``
+    mesh each cell's counted FLOPs beside ``FlopCounterMode`` over the
+    single-device step, and its collectives; ``torch.save`` to
+    ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import init_fake_group, make_fake_mesh
+
+    out = {"cells": {}, "world1": {}}
+    for world, shape in ((4, (2, 2)), (1, (1, 1))):
+        init_fake_group(world)
+        try:
+            mesh = make_fake_mesh(shape, ("data", "model"))
+            if world > 1:       # one kv head a rank: the attention's backward per shard
+                cfg = smoke_config("gemma2-27b").scaled(num_kv_heads=2)
+                out["one_kv_head"] = dryrun.run_cell("gemma2-27b", "train_4k", cfg=cfg,
+                                                     mesh=mesh, verbose=False)
+            for arch in DRY_DENSE:
+                cfg = smoke_config(arch)
+                for cell in steps.SHAPES:
+                    r = dryrun.run_cell(arch, cell, cfg=cfg, mesh=mesh, verbose=False)
+                    if world > 1:
+                        out["cells"][(arch, cell)] = r
+                    elif r["status"] == "ok":
+                        out["world1"][(arch, cell)] = (r["hlo_flops_per_dev"],
+                                                       _single_device_flops(cfg, cell),
+                                                       r["collectives"])
+        finally:
+            dist.destroy_process_group()
+    torch.save(out, out_path)
+
+
+def dryrun_phi3(out_path: str) -> None:
+    """phi3-mini-3.8b at full width on the fake ``(16, 16)`` production
+    mesh: ``decode_32k`` (default rules) and ``train_4k`` (default and
+    no-FSDP rules), each result with the shapes of its collectives;
+    ``torch.save`` to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_fake_group, make_production_mesh
+
+    init_fake_group(256)
+    out = {}
+    try:
+        mesh = make_production_mesh(fake=True)
+        for cell, name, rules in (("decode_32k", "default", shd.DEFAULT_RULES),
+                                  ("train_4k", "default", shd.DEFAULT_RULES),
+                                  ("train_4k", "no_fsdp", shd.NO_FSDP_RULES)):
+            costs = dryrun.CostCounter()
+            r = dryrun.run_cell("phi3-mini-3.8b", cell, mesh=mesh, rules=rules, costs=costs,
+                                verbose=False)
+            out[(cell, name)] = (r, dict(costs.collective_shapes))
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, out_path)
